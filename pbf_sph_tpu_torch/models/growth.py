@@ -1,0 +1,42 @@
+"""Shared capacity-growth policy.
+
+Port of the cell-capacity and query-capacity branches of
+`pbf_sph_tpu/models/growth.py`.  One frame's outputs report the static
+capacities the step depends on; when one overflows, the frame is suspect and
+must be re-run under a larger spec.  Consumed by `TorchSolver.advance`
+(re-run the same frame) and by `bench.py` (restart warmup from a fresh state).
+
+The port's phase kernels walk exact cell ranges and have no strip buffer, so
+there is no strip-capacity branch: `strip_overflow` is always 0.  The surface
+branches come with the surface.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+
+def growth_changes(spec, out) -> Dict[str, Any]:
+    """Return the `dataclasses.replace(spec, **changes)` field changes needed
+    after a step produced outputs `out`; empty dict = all capacities held.
+
+    Reads the host values of the scalars in `out` (a sync on a device)."""
+    changes: Dict[str, Any] = {}
+
+    # cell occupancy -> cell_capacity.  1.5x headroom: occupancy keeps rising
+    # while the fluid compresses; growing to the observed max exactly would
+    # regrow every few frames.
+    occ = int(out["max_occupancy"])
+    if occ > spec.cell_capacity:
+        changes["cell_capacity"] = -(-int(occ * 1.5) // 16) * 16
+
+    # query-cell population -> scene.query_capacity (reference semantics are
+    # unbounded)
+    q_ovf = int(out.get("query_overflow", 0))
+    if q_ovf > 0:
+        sc = spec.scene
+        new_q = -(-(sc.query_capacity + q_ovf) // 128) * 128
+        changes["scene"] = dataclasses.replace(sc, query_capacity=new_q)
+
+    return changes

@@ -1,0 +1,82 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Marked `cuda`: without a CUDA device every test skips.  On a machine with
+one (and without jax, whose CPU setup `conftest.py` makes), run
+`python -m pytest tests/test_torch_cuda.py --noconftest -q`.
+
+Tolerances: diffuse sums and count exact (the plain version sums in the
+kernel's order); lambda atol 1e-6, rtol 1e-5; pStar after one delta phase
+atol 1e-5 in simulation units (the kernel contracts to FMAs and sums in
+another order).
+"""
+
+import pytest
+import torch
+
+from pbf_sph_tpu_torch.core.configs import dam_break
+from pbf_sph_tpu_torch.core.types import FLUID, Scene
+from pbf_sph_tpu_torch.models.torch_solver import (
+    TorchSolver,
+    advect_and_sort,
+    dyn_params_of,
+)
+from pbf_sph_tpu_torch.ops import phases as ph
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card_frame():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mc, cfg, xs = dam_break(32_000, solver_iter=3)
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    dyn = dyn_params_of(cfg, device="cuda")
+    return spec, dyn, advect_and_sort(spec, state, dyn, scn)
+
+
+def test_diffuse_kernel_matches_plain(card_frame):
+    spec, dyn, fr = card_frame
+    st = fr.state
+    nonobs = ph.nonobstacle(st.ptype, st.alive)
+    got = ph.diffuse_kernel(fr.index, st.colour, nonobs)
+    want = ph.diffuse_plain(fr.index, st.colour, nonobs)
+    assert torch.equal(got, want)
+    assert float(got[4].max()) > 1
+
+
+def test_lambda_kernel_matches_plain(card_frame):
+    spec, dyn, fr = card_frame
+    st = fr.state
+    got = ph.lambda_kernel(fr.index, spec.h, fr.pstar, st.mass)
+    want = ph.lambda_plain(fr.index, spec.h, fr.pstar, st.mass)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_delta_kernel_matches_plain(card_frame):
+    spec, dyn, fr = card_frame
+    st = fr.state
+    lam = ph.lambda_kernel(fr.index, spec.h, fr.pstar, st.mass)
+    lam = torch.where((st.ptype == FLUID) & st.alive, lam, 0.0)
+    scale = torch.full((), spec.scale, device="cuda")
+    moved = [
+        ph.clamp_to_bounds(fr.pstar, delta(fr.index, spec.h, fr.pstar, lam),
+                           st.ptype, st.alive, scale, dyn["min_bound"], dyn["max_bound"])
+        for delta in (ph.delta_kernel, ph.delta_plain)
+    ]
+    torch.testing.assert_close(moved[0], moved[1], atol=1e-5, rtol=0)
+
+
+def test_wrappers_count_kernel_launches(card_frame):
+    spec, dyn, fr = card_frame
+    st = fr.state
+    phases = ph.PbfPhases(spec.h)
+    colour = phases.diffuse(fr.index, st.colour, st.ptype, st.alive, dyn["dt"])
+    lam = phases.lambda_phase(fr.index, fr.pstar, st.mass, st.ptype, st.alive)
+    phases.delta_phase(fr.index, fr.pstar, lam, st.ptype, st.alive,
+                       torch.full((), spec.scale, device="cuda"),
+                       dyn["min_bound"], dyn["max_bound"])
+    torch.cuda.synchronize()
+    assert colour.is_cuda
+    assert phases.launches == {"diffuse": 1, "lambda": 1, "delta": 1}

@@ -1,0 +1,79 @@
+"""The port stands alone: no jax, no JAX package, no hidden device choice."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from pbf_sph_tpu_torch.core.configs import dam_break
+from pbf_sph_tpu_torch.core.types import Scene
+from pbf_sph_tpu_torch.models import make_solver
+from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, build_step
+from pbf_sph_tpu_torch.ops import phases as ph
+
+REPO = Path(__file__).resolve().parent.parent
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import pbf_sph_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pbf_sph_tpu_torch.__path__, "pbf_sph_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pbf_sph_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax():
+    res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 14  # every module of the package
+
+
+def test_cuda_solver_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSolver(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_solver("torch", device="cuda")
+
+
+def test_cpu_run_launches_no_kernel():
+    mc, cfg, xs = dam_break(2000, solver_iter=2)
+    solver = TorchSolver(h=cfg.h, device="cpu")
+    _, out = solver.advance(cfg, Scene(), xs)
+    assert len(out) == len(xs)
+    assert solver.phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0}
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """A launcher never falls back to the plain version."""
+    mc, cfg, xs = dam_break(2000, solver_iter=2)
+    solver = TorchSolver(h=cfg.h)
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    index = ph.CellIndex(spec.grid, torch.zeros(spec.capacity, dtype=torch.int32),
+                         torch.zeros(spec.grid.ncells + 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ph.lambda_kernel(index, spec.h, state.position, state.mass)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ph.delta_kernel(index, spec.h, state.position, state.mass)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ph.diffuse_kernel(index, state.colour, state.mass)
+
+
+def test_surface_is_refused():
+    mc, cfg, xs = dam_break(2000, solver_iter=2, surface=True)
+    solver = TorchSolver(h=cfg.h)
+    spec = solver.make_spec(cfg, Scene(), 2048)
+    assert spec.surface is not None
+    with pytest.raises(NotImplementedError, match="surface"):
+        build_step(spec, solver.phases)
+    with pytest.raises(NotImplementedError, match="surface"):
+        solver.advance(cfg, Scene(), xs)
+    assert build_step(dataclasses.replace(spec, surface=None), solver.phases)

@@ -8,23 +8,41 @@ with a non-zero exit and no result line:
 
 1. the card (`nvidia-smi` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from `pbf_sph_tpu_torch/csrc` (nvcc, at first use);
-3. each kernel against its plain PyTorch version on the card, on the
+3. each phase kernel against its plain PyTorch version on the card, on the
    sort-time state of dam_break(32_000, 3) and dam_break(1_000_000, 6):
    diffuse count exact and colour sums to atol 1e-6, lambda to atol 1e-6 /
    rtol 1e-5, pStar after one delta phase to atol 1e-5 (simulation units);
    with CUDA-event times of both;
+3b. the MC field kernel against its plain version on the card, on the
+   post-finalise state of mc128k (res 1.0) and bench20k (res 2.0): count
+   exact, S0 and S to rtol 1e-4 / atol 1e-3, the post-passed v, n and c as
+   `tests/test_pallas_mc.py` holds them, the skip node 0; with CUDA-event
+   times and node-candidate pairs per second;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
+4b. mc_extract on the card against mc_extract on the CPU on the mc128k
+   lattice of 3b: triangle count exact, vertices, normals and colours to atol
+   1e-4 (NaN where the CPU has NaN); then one advance of
+   simple_config_with_2_cubes(1500, 2, 500) with its surface on the card and
+   on the CPU: triangle counts within 1%;
 5. the main path: dam_break(1_000_000, solver_iter=6) through
    TorchSolver(device="cuda"): prepare, the growth warmup of the benchmark,
    then timed frames; particles conserved, grid extent held, no capacity
    overflow, positions finite and inside the bounds, and exactly 13 kernel
-   launches per frame (1 diffuse + 6 lambda + 6 delta).
+   launches per frame (1 diffuse + 6 lambda + 6 delta);
+6. the surface path: mc128k, dam_break(128_000, 3) with its marching-cubes
+   surface, through TorchSolver(device="cuda") in the same way: particles
+   conserved, extent held, no growth pending, no emit overflow,
+   0 < tri_count <= tri_capacity, the mesh's vertices finite and within
+   h*scale of the bounds, and exactly 8 kernel launches per frame
+   (1 mc_field + 1 diffuse + 3 lambda + 3 delta); with the stage times.
 
-Then one JSON line of kernels, the card line again, and as the last line
-`{"ok": true, "device": {...}}`.  Without a CUDA device, or outside a
-checkout of the repo, it fails before printing any result.
+Then one JSON line of kernels (launches from the main path that runs each:
+phase 5 for the phase kernels, phase 6 for the MC field), the card line
+again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
+device, or outside a checkout of the repo, it fails before printing any
+result.
 """
 
 from __future__ import annotations
@@ -40,7 +58,7 @@ import torch
 TIMED_FRAMES = 10
 WARMUP = 10
 
-# phase name -> (kernel source, TPU kernel it replaces)
+# kernel name -> (kernel source, TPU kernel it replaces)
 KERNELS = {
     "diffuse": ("pbf_sph_tpu_torch/csrc/pbf_phases.cu",
                 "pbf_sph_tpu/ops/pallas_pbf.py:578"),
@@ -48,7 +66,22 @@ KERNELS = {
                "pbf_sph_tpu/ops/pallas_pbf.py:391"),
     "delta": ("pbf_sph_tpu_torch/csrc/pbf_phases.cu",
               "pbf_sph_tpu/ops/pallas_pbf.py:491"),
+    "mc_field": ("pbf_sph_tpu_torch/csrc/mc_field.cu",
+                 "pbf_sph_tpu/ops/pallas_mc.py:185"),
 }
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): device
+# memory, and fp32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# fp32 operations per candidate pair in each phase kernel's inner loop, as
+# written in csrc/pbf_phases.cu (diffuse: its five sums; the integer cell
+# decode is not counted)
+FLOP_PER_PAIR = {"lambda": 26, "delta": 34, "diffuse": 5}
+# csrc/mc_field.cu: every candidate pays l and d2 and the two compares; one
+# within h*scale also pays the weight (sqrt, rsqrt) and the nine sums
+MC_FLOP_PER_CANDIDATE = 10
+MC_FLOP_PER_HIT = 14
 
 
 def fail(msg: str) -> None:
@@ -66,6 +99,18 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger of
+    the bytes over the memory rate and the operations over the fp32 rate."""
+    t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def device_ms(fn, reps: int) -> float:
@@ -162,23 +207,110 @@ def phase_kernels() -> dict:
         check(err_p <= 1e-5, f"pStar after one delta max abs err {err_p:.3e} <= 1e-5")
         check(bool(torch.isfinite(moved[0]).all()), "pStar after delta is finite")
 
+        index_bytes = nbytes(idx.key, idx.table)
         timings = {
             "diffuse": (lambda: ph.diffuse_kernel(idx, st.colour, nonobs),
-                        lambda: ph.diffuse_plain(idx, st.colour, nonobs), err_d),
+                        lambda: ph.diffuse_plain(idx, st.colour, nonobs), err_d,
+                        nbytes(st.colour, nonobs, sk)),
             "lambda": (lambda: ph.lambda_kernel(idx, h, fr.pstar, st.mass),
-                       lambda: ph.lambda_plain(idx, h, fr.pstar, st.mass), err_l),
+                       lambda: ph.lambda_plain(idx, h, fr.pstar, st.mass), err_l,
+                       nbytes(fr.pstar, st.mass, lam_k)),
             "delta": (lambda: ph.delta_kernel(idx, h, fr.pstar, lam),
-                      lambda: ph.delta_plain(idx, h, fr.pstar, lam), err_p),
+                      lambda: ph.delta_plain(idx, h, fr.pstar, lam), err_p,
+                      nbytes(fr.pstar, lam, fr.pstar)),
         }
-        for name, (kern, plain, err) in timings.items():
+        for name, (kern, plain, err, io_bytes) in timings.items():
             ms = device_ms(kern, reps[0])
             plain_ms = device_ms(plain, reps[1])
+            bound_ms, bound_by = bound(index_bytes + io_bytes, pairs * FLOP_PER_PAIR[name])
             print(f"  {name}: kernel {ms:.4f} ms ({pairs / ms / 1e6:.3f} Gpairs/s), "
-                  f"plain {plain_ms:.4f} ms (capacity {spec.capacity})")
-            report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"(capacity {spec.capacity})")
+            # no single PyTorch call computes a cell-list neighbour sum
+            report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del fr, st, idx
         torch.cuda.empty_cache()
     return report
+
+
+def finalised_state(workload: str):
+    """The sort-time frame and the finalised state of one frame of a surface
+    workload on the card: what the MC field reads."""
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import (
+        TorchSolver, dyn_params_of, solve_frame)
+
+    mc, cfg, xs = WORKLOADS[workload]()
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    dyn = dyn_params_of(cfg, solver.dtype, solver.device)
+    fr, st, _ = solve_frame(spec, solver.phases, state, dyn, scn)
+    return spec, dyn, fr, st
+
+
+def phase_mc_field():
+    """The MC field kernel against its plain version; returns the mc128k
+    numbers and the mc128k lattice (spec, dyn, frame, v, n, c)."""
+    print("== 3b. MC field kernel against its plain PyTorch version, on the card")
+    from pbf_sph_tpu_torch.ops import mc_field as mf
+    from pbf_sph_tpu_torch.ops import phases as ph
+
+    report = lattice = None
+    for workload in ("bench20k", "mc128k"):
+        spec, dyn, fr, st = finalised_state(workload)
+        mc = spec.surface
+        nonobs = ph.nonobstacle(st.ptype, st.alive)
+        args = (fr.index, mc, spec.h, spec.scale, st.position, st.colour, nonobs,
+                fr.min_extent)
+        raw_k = mf.mc_field_kernel(*args)
+        raw_p = mf.mc_field_plain(*args)
+        _, cell, skip = mf.lattice_nodes(mc, spec.grid.extent, st.position.device)
+        lo, hi, _ = mf.node_ranges(fr.index, cell, skip)
+        pairs, hits = int((hi - lo).sum()), int(raw_p[8].sum())
+        print(f"{workload}: res {mc.resolution}, lattice {mc.sample} "
+              f"({skip.numel()} nodes), grid {spec.grid.dims}, "
+              f"{int(fr.index.table[-1])} members, {pairs} node-candidate pairs, "
+              f"{hits} within h*scale")
+        check(torch.equal(raw_k[8], raw_p[8]),
+              f"count exact (max {int(raw_p[8].max())})")
+        err_s = float((raw_k[:4] - raw_p[:4]).abs().max())
+        check(torch.allclose(raw_k[:4], raw_p[:4], rtol=1e-4, atol=1e-3),
+              f"S0 and S max abs err {err_s:.3e} (rtol 1e-4, atol 1e-3)")
+        err_c = float((raw_k[4:8] - raw_p[4:8]).abs().max())
+        check(torch.allclose(raw_k[4:8], raw_p[4:8], rtol=1e-4, atol=1e-3),
+              f"colour sums max abs err {err_c:.3e} (rtol 1e-4, atol 1e-3)")
+
+        size = dyn["mc_particle_size"]
+        vk, nk, ck = mf.post_pass(raw_k, mc, spec.grid.extent, size)
+        vp, np_, cp = mf.post_pass(raw_p, mc, spec.grid.extent, size)
+        check(torch.allclose(vk, vp, rtol=1e-4, atol=1e-3), "v (rtol 1e-4, atol 1e-3)")
+        active = vp > 1e-3
+        for name, got, want in (("n", nk, np_), ("c", ck, cp)):
+            disagree = float((torch.isfinite(got) != torch.isfinite(want)).float().mean())
+            m = torch.isfinite(want) & active
+            check(disagree < 0.01 and torch.allclose(got[m], want[m], rtol=1e-3,
+                                                      atol=1e-3),
+                  f"{name}: NaN disagreement {disagree:.2e} < 1%, finite active nodes "
+                  f"rtol 1e-3, atol 1e-3")
+        check(int(skip.sum()) == 1 and float(vk[skip]) == 0
+              and bool((nk[:, skip] == 0).all()) and bool((ck[:, skip] == 0).all()),
+              "the skip node is 0")
+
+        ms = device_ms(lambda: mf.mc_field_kernel(*args), 20)
+        plain_ms = device_ms(lambda: mf.mc_field_plain(*args), 2)
+        bound_ms, bound_by = bound(
+            nbytes(st.position, st.colour, nonobs, fr.index.key, fr.index.table,
+                   fr.min_extent, raw_k),
+            pairs * MC_FLOP_PER_CANDIDATE + hits * MC_FLOP_PER_HIT)
+        print(f"  mc_field: kernel {ms:.4f} ms ({pairs / ms / 1e6:.3f} G node-candidate "
+              f"pairs/s), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+        # no single PyTorch call computes a cell-list neighbour sum
+        report = dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        lattice = (spec, dyn, fr, vk, nk, ck)
+    return report, lattice
 
 
 def phase_parity() -> None:
@@ -202,29 +334,64 @@ def phase_parity() -> None:
         check(err <= atol, f"{name} max abs err {err:.3e} <= {atol}")
 
 
-def phase_main_path() -> dict:
-    print("== 5. main path: dam_break(1_000_000, 6) through TorchSolver(device='cuda')")
-    from pbf_sph_tpu_torch.bench import time_frames, warm_up
-    from pbf_sph_tpu_torch.core.configs import dam_break
+def phase_extract(lattice) -> None:
+    print("== 4b. mc_extract and the surface frame, card against CPU")
+    from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
     from pbf_sph_tpu_torch.core.types import Scene
-    from pbf_sph_tpu_torch.models.growth import growth_changes
-    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+    from pbf_sph_tpu_torch.ops.mc import mc_extract
 
-    mc, cfg, xs = dam_break(1_000_000, solver_iter=6)
-    n = len(xs)
-    solver = TorchSolver(h=cfg.h, device="cuda")
-    solver.phases.reset_launches()
+    spec, dyn, fr, v, n, c = lattice
+    scale = torch.full((), spec.scale, device=v.device)
+    args = (v, n, c, fr.min_extent, spec.surface, spec.h, scale, dyn["mc_isolevel"])
+    card = mc_extract(*args)
+    cpu = mc_extract(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    t = int(cpu[3])
+    check(int(card[3]) == t > 0 and int(card[4]) == int(cpu[4]) == 0,
+          f"mc128k lattice: {t} triangles on both, no emit overflow")
+    for name, g, w in zip(("vertices", "normals", "colours"), card[:3], cpu[:3]):
+        g, w = g[:, :3 * t].cpu(), w[:, :3 * t]
+        err = float(torch.nan_to_num((g - w).abs(), nan=0.0).max())
+        check(torch.equal(torch.isnan(g), torch.isnan(w)) and err <= 1e-4,
+              f"{name} max abs err {err:.3e} <= 1e-4, NaN where the CPU has NaN")
+
+    mc, cfg, xs = simple_config_with_2_cubes(1500, 2, 500.0)
+    cfg = cfg.replace(surface=mc)
+    tris = []
+    for device in ("cuda", "cpu"):
+        res, _ = TorchSolver(h=cfg.h, device=device).advance(cfg, Scene(), xs)
+        tris.append(len(res.mesh) // 3)
+    check(tris[1] > 0 and abs(tris[0] - tris[1]) <= 0.01 * tris[1],
+          f"2-cube 1500 surface frame: {tris[0]} triangles on the card, {tris[1]} "
+          f"on the CPU (within 1%)")
+
+
+def run_path(solver, cfg, xs):
+    """prepare, the growth warmup and TIMED_FRAMES timed frames, with the
+    launch counts set to 0 just before and read just after.  Returns
+    (spec, state, dyn, scn, outs, frames run, launches, wall s, device ms)."""
+    from pbf_sph_tpu_torch.bench import time_frames, warm_up
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import dyn_params_of
+
+    solver.reset_launches()
     spec, state, scn = solver.prepare(cfg, Scene(), xs)
     dyn = dyn_params_of(cfg, solver.dtype, solver.device)
-    print(f"{n} particles, capacity {spec.capacity}, grid {spec.grid.dims} "
+    print(f"{len(xs)} particles, capacity {spec.capacity}, grid {spec.grid.dims} "
           f"({spec.grid.ncells} cells)")
     t0 = time.perf_counter()
     spec, state, warm = warm_up(solver, spec, state, dyn, scn, xs, WARMUP)
     torch.cuda.synchronize()
     print(f"warmup: {warm} frames in {time.perf_counter() - t0:.2f} s")
     state, outs, wall, dev_ms = time_frames(solver, spec, state, dyn, scn, TIMED_FRAMES)
-    launches = dict(solver.phases.launches)
-    frames = warm + TIMED_FRAMES
+    launches = dict(solver.launches)
+    return spec, state, dyn, scn, outs, warm + TIMED_FRAMES, launches, wall, dev_ms
+
+
+def check_frames(spec, state, cfg, outs, n: int, solver) -> dict:
+    """Checks shared by the main paths; returns the last frame's outputs with
+    the peak occupancy."""
+    from pbf_sph_tpu_torch.models.growth import growth_changes
 
     out = dict(outs[-1])
     out["max_occupancy"] = max(int(o["max_occupancy"]) for o in outs)
@@ -239,12 +406,69 @@ def phase_main_path() -> dict:
     check(bool(torch.isfinite(pos).all()) and bool(torch.isfinite(state.velocity).all()),
           "positions and velocities finite")
     check(bool(((pos >= lo) & (pos <= hi)).all()), "positions inside the bounds")
-    want = {"diffuse": frames, "lambda": 6 * frames, "delta": 6 * frames}
+    return out
+
+
+def phase_main_path() -> dict:
+    print("== 5. main path: dam_break(1_000_000, 6) through TorchSolver(device='cuda')")
+    from pbf_sph_tpu_torch.core.configs import dam_break
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    mc, cfg, xs = dam_break(1_000_000, solver_iter=6)
+    n = len(xs)
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, dyn, scn, outs, frames, launches, wall, dev_ms = run_path(solver, cfg, xs)
+    check_frames(spec, state, cfg, outs, n, solver)
+    want = {"diffuse": frames, "lambda": 6 * frames, "delta": 6 * frames, "mc_field": 0}
     check(launches == want, f"kernel launches {launches} == 13 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
     print(f"{card_line()}: {ms:.3f} ms/step (device events {dev_ms:.3f} ms/step), "
           f"{n * TIMED_FRAMES / wall:.4e} particle-steps/s over {TIMED_FRAMES} frames")
+    return launches
+
+
+def phase_surface_path() -> dict:
+    print("== 6. surface path: mc128k through TorchSolver(device='cuda')")
+    from pbf_sph_tpu_torch.bench import phase_breakdown
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    mc, cfg, xs = WORKLOADS["mc128k"]()
+    n = len(xs)
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, dyn, scn, outs, frames, launches, wall, dev_ms = run_path(solver, cfg, xs)
+    sur = spec.surface
+    print(f"surface: res {sur.resolution}, lattice {sur.sample}, tri_capacity "
+          f"{sur.tri_capacity}, cube_cap {sur.cube_cap}")
+    out = check_frames(spec, state, cfg, outs, n, solver)
+    check(all(int(o["mc_emit_overflow"]) == 0 and int(o["mc_strip_overflow"]) == 0
+              for o in outs), "no emit overflow every frame")
+    tris = [int(o["tri_count"]) for o in outs]
+    check(all(0 < t <= sur.tri_capacity for t in tris),
+          f"0 < tri_count <= {sur.tri_capacity} every frame ({min(tris)}..{max(tris)})")
+    t3 = 3 * int(out["tri_count"])
+    vs, ns = out["mesh_vs"][:, :t3], out["mesh_ns"][:, :t3]
+    reach = cfg.h * spec.scale
+    lo = torch.tensor(cfg.min_bound, device=solver.device)[:, None] - reach
+    hi = torch.tensor(cfg.max_bound, device=solver.device)[:, None] + reach
+    check(bool(torch.isfinite(vs).all()) and bool(((vs >= lo) & (vs <= hi)).all()),
+          f"{t3} vertices finite and within h*scale = {reach:.3f} of the bounds "
+          f"(min {vs.min(1).values.tolist()}, max {vs.max(1).values.tolist()})")
+    want = {"diffuse": frames, "lambda": 3 * frames, "delta": 3 * frames,
+            "mc_field": frames}
+    check(launches == want, f"kernel launches {launches} == 8 x {frames} frames")
+
+    ms = 1000 * wall / TIMED_FRAMES
+    nan_share = float(torch.isnan(ns).any(0).float().mean())
+    print(f"{card_line()}: {ms:.3f} ms/step (device events {dev_ms:.3f} ms/step), "
+          f"{n * TIMED_FRAMES / wall:.4e} particle-steps/s over {TIMED_FRAMES} frames; "
+          f"{int(out['tri_count'])} triangles, {nan_share:.4f} of the vertices with "
+          f"NaN normals")
+    _, stages = phase_breakdown(solver, spec, state, dyn, scn, 5)
+    print("device ms per frame by stage (CUDA events, 5 frames): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()))
+    check("mc field" in stages and "mc extract" in stages, "both MC stages timed")
     return launches
 
 
@@ -260,8 +484,13 @@ def main() -> int:
     phase_toolchain()
     phase_build()
     report = phase_kernels()
+    report["mc_field"], lattice = phase_mc_field()
     phase_parity()
+    phase_extract(lattice)
+    del lattice
+    torch.cuda.empty_cache()
     launches = phase_main_path()
+    launches["mc_field"] = phase_surface_path()["mc_field"]
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

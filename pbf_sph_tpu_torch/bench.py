@@ -5,7 +5,10 @@
 Metric: particle-steps/sec on the 1M-particle dam-break, 6 constraint
 iterations, solver-only, one card, as the root `bench.py` measures it for the
 JAX package.  vs_baseline is the ratio to the north-star target of 60
-steps/s at 1M particles (6.0e7 particle-steps/s).
+steps/s at 1M particles (6.0e7 particle-steps/s).  PBF_BENCH_WORKLOAD names
+another preset of `core/configs.py`; `mc128k` and `mc512k` add the
+marching-cubes surface, whose "mc field" and "mc extract" stages then appear
+in the stage table.
 
 Env overrides, as for the root `bench.py`: PBF_BENCH_COUNT, PBF_BENCH_FRAMES,
 PBF_BENCH_WARMUP, PBF_BENCH_ITERS, PBF_BENCH_WORKLOAD.  PBF_BENCH_IMPL is not
@@ -165,9 +168,11 @@ def main() -> int:
 
     n = len(xs)
     pps = n * frames / wall
+    workload = os.environ.get("PBF_BENCH_WORKLOAD", "") or "dam-break"
+    surface = ", surface" if cfg.surface is not None else ""
     print(json.dumps({
-        "metric": f"particle-steps/sec (dam-break {n} particles, "
-                  f"{cfg.iteration} iters, torch-cuda)",
+        "metric": f"particle-steps/sec ({workload} {n} particles, "
+                  f"{cfg.iteration} iters{surface}, torch-cuda)",
         "value": round(pps, 1),
         "unit": "particle-steps/s",
         "vs_baseline": round(pps / NORTH_STAR, 4),

@@ -208,7 +208,7 @@ class FluidState:
 
     @staticmethod
     def from_soa(soa: ParticleSoA, capacity: int, dtype=np.float32,
-                 device="cpu") -> "FluidState":
+                 device="cuda") -> "FluidState":
         n = len(soa)
         if n > capacity:
             raise ValueError(f"{n} particles exceed capacity {capacity}")

@@ -1,0 +1,146 @@
+// Marching-cubes lattice field (sm_90a).
+//
+// Replaces the Pallas TPU kernel make_mc_field_call
+// (pbf_sph_tpu/ops/pallas_mc.py:185): raw field sums per lattice node.  The
+// post-pass (v = size*S0, n = -S/|S|, c = Csum/cnt, the skip node at 0) stays
+// in the Python wrapper (pbf_sph_tpu_torch/ops/mc_field.py).
+//
+// Node i = (x*nyn + y)*nzn + z sits at world position
+//   aw = (min_extent + node*step)*scale,  step = h/res,
+// in grid cell c = trunc(node/res) (c may equal the extent).  Output (9, L)
+// fp32, rows [S0, Sx, Sy, Sz, Cr, Cg, Cb, Ca, cnt]:
+//   S0 = sum d2^(-infl/2),  S = sum l*d2^(-infl/2),  l = particle - node,
+// over the non-obstacle members whose sort-time cell is one of the 27 cells
+// around c and whose post-finalise position has 0 < d2 < (h*scale)^2.  The
+// far-corner node (c == extent on every axis) sums nothing.
+//
+// Design: one thread per node, in lattice order.  Particles are sorted by
+// linear cell id (z fastest), so the cells (c.x+dx, c.y+dy, c.z-1..c.z+1) are
+// one contiguous range of the sorted array, [table[base-1], table[base+2]),
+// base = lin(c.x+dx, c.y+dy, c.z).  A (dx, dy) column off the grid is skipped;
+// inside the range a candidate whose key lies across a z-wrap
+// (c.z + key - base outside [0, nz)) is skipped, so each of the 27 cells is
+// visited exactly once (the exact 27-neighbourhood).  Nodes in empty space
+// find nine empty ranges and write zeros.
+//
+// The node position and d2 are computed with explicit round-to-nearest
+// multiplies and adds (no FMA contraction), in the plain version's order, so
+// the distance mask -- and with it cnt -- is bit-identical to the plain
+// PyTorch version.
+//
+// What bounds it: only the nodes near the fluid have candidates; each of
+// those walks its 27 cells, reading a 16-byte position (w = the non-obstacle
+// flag) per candidate and a 16-byte colour per candidate within h*scale.
+// Neighbouring threads are neighbouring nodes along z, which share cells, so
+// the reads hit L1/L2; device memory sees about one read of the particle
+// arrays and one write of the (9, L) output, which bounds the work at a few
+// microseconds (by bytes).  On an H100 at mc128k (3.5M node-candidate pairs)
+// the kernel takes ~0.09 ms (chip_smoke.py): the few live threads walk their
+// candidates serially and the dependent loads are not hidden.  A warp or
+// several threads per node, shared-memory staging of a block's cells, or a
+// compact list of live nodes are left for later work.
+//
+// The launcher runs on the given stream, allocates nothing, never
+// synchronises, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void mc_field_kernel(const float4* __restrict__ pos,     // x, y, z, nonobs
+                                const float4* __restrict__ colour,  // r, g, b, a
+                                const int* __restrict__ key,
+                                const int* __restrict__ table,
+                                const float* __restrict__ min_extent,  // (3,)
+                                int nxn, int nyn, int nzn, int ex, int ey,
+                                int ez, float res, float step, float scale,
+                                float th2, float infl,
+                                float* __restrict__ out) {
+  const int n_nodes = nxn * nyn * nzn;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_nodes) return;
+  const int nyz = nyn * nzn;
+  const int x = i / nyz;
+  const int y = (i - x * nyz) / nzn;
+  const int z = i - x * nyz - y * nzn;
+  const int cx = (int)truncf(__fdiv_rn((float)x, res));
+  const int cy = (int)truncf(__fdiv_rn((float)y, res));
+  const int cz = (int)truncf(__fdiv_rn((float)z, res));
+
+  float s0 = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+  float cr = 0.f, cg = 0.f, cb = 0.f, ca = 0.f, cnt = 0.f;
+  if (!(cx == ex && cy == ey && cz == ez)) {
+    const float ax = __fmul_rn(__fadd_rn(min_extent[0], __fmul_rn((float)x, step)), scale);
+    const float ay = __fmul_rn(__fadd_rn(min_extent[1], __fmul_rn((float)y, step)), scale);
+    const float az = __fmul_rn(__fadd_rn(min_extent[2], __fmul_rn((float)z, step)), scale);
+    const int gny = ey + 1, gnz = ez + 1;
+    const int ncells = (ex + 1) * gny * gnz;
+    const bool half = infl == 0.5f;
+    const float k_log = -0.5f * infl;
+    for (int bx = cx - 1; bx <= cx + 1; ++bx) {
+      if (bx < 0 || bx > ex) continue;
+      for (int by = cy - 1; by <= cy + 1; ++by) {
+        if (by < 0 || by > ey) continue;
+        const int base = (bx * gny + by) * gnz + cz;
+        const int lo = table[max(base - 1, 0)];
+        const int hi = table[min(base + 2, ncells)];
+        for (int j = lo; j < hi; ++j) {
+          const int bz = cz + (key[j] - base);
+          if (bz < 0 || bz > ez) continue;  // a cell across the z-wrap
+          const float4 p = pos[j];
+          if (p.w < 0.5f) continue;  // obstacle
+          const float lx = __fsub_rn(p.x, ax);
+          const float ly = __fsub_rn(p.y, ay);
+          const float lz = __fsub_rn(p.z, az);
+          const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(lx, lx), __fmul_rn(ly, ly)),
+                                     __fmul_rn(lz, lz));
+          if (d2 < th2 && d2 > 0.f) {
+            const float w = half ? sqrtf(rsqrtf(d2)) : expf(k_log * logf(d2));
+            s0 += w;
+            sx += lx * w;
+            sy += ly * w;
+            sz += lz * w;
+            const float4 c = colour[j];
+            cr += c.x;
+            cg += c.y;
+            cb += c.z;
+            ca += c.w;
+            cnt += 1.f;
+          }
+        }
+      }
+    }
+  }
+  out[i] = s0;
+  out[n_nodes + i] = sx;
+  out[2 * n_nodes + i] = sy;
+  out[3 * n_nodes + i] = sz;
+  out[4 * n_nodes + i] = cr;
+  out[5 * n_nodes + i] = cg;
+  out[6 * n_nodes + i] = cb;
+  out[7 * n_nodes + i] = ca;
+  out[8 * n_nodes + i] = cnt;
+}
+
+}  // namespace
+
+extern "C" {
+
+int mc_field(const void* pos, const void* colour, const void* key,
+             const void* table, const void* min_extent, int nxn, int nyn,
+             int nzn, int ex, int ey, int ez, float res, float step,
+             float scale, float th2, float infl, void* out, void* stream) {
+  const int n_nodes = nxn * nyn * nzn;
+  if (n_nodes > 0) {
+    mc_field_kernel<<<(n_nodes + kThreads - 1) / kThreads, kThreads, 0,
+                      (cudaStream_t)stream>>>(
+        (const float4*)pos, (const float4*)colour, (const int*)key,
+        (const int*)table, (const float*)min_extent, nxn, nyn, nzn, ex, ey, ez,
+        res, step, scale, th2, infl, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

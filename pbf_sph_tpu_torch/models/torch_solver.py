@@ -4,13 +4,13 @@ Port of `pbf_sph_tpu/models/jax_solver.py` with the main path's Pallas
 kernels replaced by the hand-written CUDA kernels of `ops/phases.py`.  The
 frame is the same: sources, drains, advect, cell sort, dense cell table,
 centre-cell queries, colour diffusion, the iterated lambda/delta solve with
-its in-iteration bounds clamp, and finalise.  State has a fixed capacity and
-stays on `device`; `step_device` never reads a value back to the host.
+its in-iteration bounds clamp, finalise, and the marching-cubes surface.
+State has a fixed capacity and stays on `device`; `step_device` never reads a
+value back to the host.
 
-On a CUDA device the three neighbour phases launch their kernels; on the CPU
-they run their plain PyTorch versions.  The device is chosen by the caller
-alone.  The marching-cubes surface is not ported yet: a spec with a surface
-is refused.
+On a CUDA device the three neighbour phases and the MC field launch their
+kernels; on the CPU they run their plain PyTorch versions.  The device is
+"cuda" unless the caller asks for another; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from pbf_sph_tpu_torch.core.types import (
     FLUID,
     ColouredMesh,
     FluidState,
-    McParams,
     ParticleSoA,
     QueryResult,
     Result,
@@ -45,6 +44,8 @@ from pbf_sph_tpu_torch.ops.grid import (
     max_cell_occupancy,
     sort_key,
 )
+from pbf_sph_tpu_torch.ops.mc import McSpec, mc_extract
+from pbf_sph_tpu_torch.ops.mc_field import McField
 from pbf_sph_tpu_torch.ops.phases import CellIndex, PbfPhases
 
 # Capacities are rounded up to the JAX package's Pallas block (1024 rows), so
@@ -95,7 +96,7 @@ class StepSpec:
     iteration: int
     dtype: str
     scene: SceneSpec
-    surface: Optional[McParams] = None  # refused by build_step
+    surface: Optional[McSpec] = None
 
 
 def scene_spec_of(scene: Scene, config: SphParams, query_capacity: int = 128) -> SceneSpec:
@@ -113,7 +114,7 @@ def scene_spec_of(scene: Scene, config: SphParams, query_capacity: int = 128) ->
 
 
 def scene_arrays_of(scene: Scene, spec: SceneSpec, dtype=np.float32,
-                    device="cpu") -> Tensors:
+                    device="cuda") -> Tensors:
     f = dtype
 
     def arr(vals, shape, dt=f):
@@ -135,7 +136,7 @@ def scene_arrays_of(scene: Scene, spec: SceneSpec, dtype=np.float32,
     ), device)
 
 
-def dyn_params_of(config: SphParams, dtype=np.float32, device="cpu") -> Tensors:
+def dyn_params_of(config: SphParams, dtype=np.float32, device="cuda") -> Tensors:
     f = dtype
     surf = config.surface
     return arrays_to_device(dict(
@@ -357,70 +358,98 @@ def neighbour_phases(phases: PbfPhases, iteration: int, index: CellIndex,
     return colour, pstar
 
 
-def build_step(spec: StepSpec, phases: PbfPhases):
+def solve_frame(spec: StepSpec, phases: PbfPhases, state: FluidState,
+                dyn: Tensors, scn: Tensors, mark: Mark = None):
+    """Stages 1-10 of a frame: sources, drains, advect, sort, table, queries,
+    diffusion, the constraint solve and finalise.  Returns (frame, new_state,
+    outputs): the sort-time frame (its cell index feeds the MC field), the
+    finalised state in cell order, and the frame's output tensors."""
+    mark = mark or _no_mark
+    mark("begin")
+    dev = state.pid.device
+    scale = _scalar(spec.scale, state.mass)
+    dt = dyn["dt"]
+    min_bound, max_bound = dyn["min_bound"], dyn["max_bound"]
+
+    # 1-2. sources / drains
+    state, spawn_dropped = _apply_sources(state, scn, spec)
+    state = _apply_drains(state, scn, spec)
+    mark("sources+drains")
+
+    # 3-6. advect, sort, table
+    fr = advect_and_sort(spec, state, dyn, scn, mark)
+    state = fr.state
+    occupancy = max_cell_occupancy(fr.index.table)
+
+    # 7. queries (before diffusion, reference order `src/omp/ompsph.hpp:167`)
+    q_ids, q_counts, q_overflow = _queries(
+        scn, spec, state.pid, state.ptype, state.alive, fr.index.table,
+        fr.min_extent,
+    )
+    mark("occupancy+queries")
+
+    # 8-9. colour diffusion + constraint solve
+    colour, pstar = neighbour_phases(
+        phases, spec.iteration, fr.index,
+        state.colour, fr.pstar, state.mass, state.ptype, state.alive,
+        dt, scale, min_bound, max_bound, mark,
+    )
+
+    # 10. finalise
+    position, velocity = pbf.finalise(
+        state.position, state.velocity, pstar, state.ptype, state.alive, dt, scale
+    )
+    mark("finalise")
+
+    outputs: Dict[str, Any] = dict(
+        max_occupancy=occupancy,
+        alive_count=state.alive.sum().to(torch.int32),
+        spawn_dropped=spawn_dropped,
+        extent_ok=fr.extent_ok,
+        # the kernels walk exact cell ranges and have no strip buffer,
+        # so nothing can overflow one: always 0
+        strip_overflow=torch.zeros((), dtype=torch.int32, device=dev),
+        query_ids=q_ids,
+        query_counts=q_counts,
+        query_overflow=q_overflow,
+    )
+    new_state = FluidState(
+        pid=state.pid, ptype=state.ptype, mass=state.mass,
+        position=position, velocity=velocity, colour=colour, alive=state.alive,
+    )
+    return fr, new_state, outputs
+
+
+def surface_stage(spec: StepSpec, mc_field: McField, fr: SortedFrame,
+                  state: FluidState, dyn: Tensors, mark: Mark = None) -> Tensors:
+    """Stage 11, the marching-cubes surface of the finalised `state`: the
+    field gathers by the sort-time cells of `fr` and measures distances to
+    the post-finalise positions (`jax_solver.py:484-504`)."""
+    mark = mark or _no_mark
+    mc = spec.surface
+    lat_v, lat_n, lat_c = mc_field(
+        fr.index, mc, spec.scale, state.position, state.colour, state.ptype,
+        state.alive, fr.min_extent, dyn["mc_particle_size"])
+    mark("mc field")
+    vs, ns, cs, total, emit_ovf = mc_extract(
+        lat_v, lat_n, lat_c, fr.min_extent, mc, spec.h,
+        _scalar(spec.scale, lat_v), dyn["mc_isolevel"])
+    mark("mc extract")
+    return dict(mesh_vs=vs, mesh_ns=ns, mesh_cs=cs, tri_count=total,
+                mc_emit_overflow=emit_ovf,
+                # no strip buffer in the field kernel either: always 0
+                mc_strip_overflow=torch.zeros_like(total))
+
+
+def build_step(spec: StepSpec, phases: PbfPhases, mc_field: McField):
     """The full-frame step for a static spec:
     step(state, dyn, scn, mark=None) -> (new_state, outputs), all tensors
     on the state's device."""
-    if spec.surface is not None:
-        raise NotImplementedError(
-            "the marching-cubes surface is not ported to torch yet; "
-            "run with surface=None")
 
     def step(state: FluidState, dyn: Tensors, scn: Tensors, mark: Mark = None):
-        mark = mark or _no_mark
-        mark("begin")
-        dev = state.pid.device
-        scale = _scalar(spec.scale, state.mass)
-        dt = dyn["dt"]
-        min_bound, max_bound = dyn["min_bound"], dyn["max_bound"]
-
-        # 1-2. sources / drains
-        state, spawn_dropped = _apply_sources(state, scn, spec)
-        state = _apply_drains(state, scn, spec)
-        mark("sources+drains")
-
-        # 3-6. advect, sort, table
-        fr = advect_and_sort(spec, state, dyn, scn, mark)
-        state = fr.state
-        occupancy = max_cell_occupancy(fr.index.table)
-
-        # 7. queries (before diffusion, reference order `src/omp/ompsph.hpp:167`)
-        q_ids, q_counts, q_overflow = _queries(
-            scn, spec, state.pid, state.ptype, state.alive, fr.index.table,
-            fr.min_extent,
-        )
-        mark("occupancy+queries")
-
-        # 8-9. colour diffusion + constraint solve
-        colour, pstar = neighbour_phases(
-            phases, spec.iteration, fr.index,
-            state.colour, fr.pstar, state.mass, state.ptype, state.alive,
-            dt, scale, min_bound, max_bound, mark,
-        )
-
-        # 10. finalise
-        position, velocity = pbf.finalise(
-            state.position, state.velocity, pstar, state.ptype, state.alive, dt, scale
-        )
-        mark("finalise")
-
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        outputs: Dict[str, Any] = dict(
-            max_occupancy=occupancy,
-            alive_count=state.alive.sum().to(torch.int32),
-            spawn_dropped=spawn_dropped,
-            extent_ok=fr.extent_ok,
-            # the kernels walk exact cell ranges and have no strip buffer,
-            # so nothing can overflow one: always 0
-            strip_overflow=zero,
-            query_ids=q_ids,
-            query_counts=q_counts,
-            query_overflow=q_overflow,
-        )
-        new_state = FluidState(
-            pid=state.pid, ptype=state.ptype, mass=state.mass,
-            position=position, velocity=velocity, colour=colour, alive=state.alive,
-        )
+        fr, new_state, outputs = solve_frame(spec, phases, state, dyn, scn, mark)
+        if spec.surface is not None:
+            outputs.update(surface_stage(spec, mc_field, fr, new_state, dyn, mark))
         return new_state, outputs
 
     return step
@@ -432,14 +461,15 @@ def build_step(spec: StepSpec, phases: PbfPhases):
 
 
 class TorchSolver(Solver):
-    """The port's solver on an explicit `device` ("cpu" or "cuda[:n]")."""
+    """The port's solver on `device`: "cuda[:n]" unless the caller asks for
+    "cpu"."""
 
     def __init__(
         self,
         h: float = 0.1,
         cell_capacity: int = 48,
         query_capacity: int = 128,
-        device="cpu",
+        device="cuda",
     ):
         super().__init__(h)
         self.device = torch.device(device)
@@ -452,12 +482,22 @@ class TorchSolver(Solver):
         self.cell_capacity = int(cell_capacity)
         self.query_capacity = int(query_capacity)
         self.phases = PbfPhases(self.h)
+        self.mc_field = McField(self.h)
         self._steps: Dict[StepSpec, Any] = {}
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        """Kernel launches by kernel name since the last reset."""
+        return {**self.phases.launches, **self.mc_field.launches}
+
+    def reset_launches(self) -> None:
+        self.phases.reset_launches()
+        self.mc_field.reset_launches()
 
     def get_step(self, spec: StepSpec):
         fn = self._steps.get(spec)
         if fn is None:
-            fn = self._steps[spec] = build_step(spec, self.phases)
+            fn = self._steps[spec] = build_step(spec, self.phases, self.mc_field)
         return fn
 
     def _capacity_for(self, config: SphParams, scene: Scene, n: int) -> int:
@@ -495,8 +535,18 @@ class TorchSolver(Solver):
         scene: Scene,
         capacity: int,
         cell_capacity: Optional[int] = None,
+        tri_capacity: Optional[int] = None,
     ) -> StepSpec:
         grid = GridSpec.from_bounds(config.min_bound, config.max_bound, config.scale, self.h)
+        surface = None
+        if config.surface is not None:
+            # tri_capacity 0: ~1 triangle a cube (McSpec.from_extent)
+            surface = McSpec.from_extent(
+                grid.extent,
+                config.surface.resolution,
+                tri_capacity or 0,
+                influence_static=config.surface.particle_influence,
+            )
         return StepSpec(
             capacity=int(capacity),
             cell_capacity=int(cell_capacity or self.cell_capacity),
@@ -506,7 +556,7 @@ class TorchSolver(Solver):
             iteration=int(config.iteration),
             dtype=str(self.dtype),
             scene=scene_spec_of(scene, config, self.query_capacity),
-            surface=config.surface,
+            surface=surface,
         )
 
     # -- host-level API (reference `Solver::advance` parity) ------------------
@@ -539,6 +589,11 @@ class TorchSolver(Solver):
         return self._extract_result(out, scn, spec), new_state.to_soa()
 
     def _extract_result(self, out, scn, spec: StepSpec) -> Result:
+        mesh = ColouredMesh.empty(self.dtype)
+        if spec.surface is not None:
+            t3 = 3 * int(out["tri_count"])
+            mesh = ColouredMesh(*(out[k][:, :t3].T.cpu().numpy()
+                                  for k in ("mesh_vs", "mesh_ns", "mesh_cs")))
         queries = []
         ids_all = out["query_ids"].cpu().numpy()
         q_id = scn["q_id"].cpu().numpy()
@@ -552,4 +607,4 @@ class TorchSolver(Solver):
                     neighbours=ids[ids >= 0].astype(np.int32),
                 )
             )
-        return Result(mesh=ColouredMesh.empty(self.dtype), queries=queries)
+        return Result(mesh=mesh, queries=queries)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of `pbf_sph_tpu_torch/csrc`.
 
-At first use, `nvcc` compiles every `csrc/*.cu` into one shared library with
-a plain C interface for Hopper (`sm_90a`), into `pbf_sph_tpu_torch/_build/`.
+At first use, `nvcc` compiles every `csrc/*.cu` for Hopper (`sm_90a`), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, in `pbf_sph_tpu_torch/_build/`.
 The library's name carries a hash of the sources and flags, so a changed
 source builds anew and an unchanged one loads at once.  It is loaded with
 `ctypes`; each launcher takes its pointers and the stream as `c_void_p` and
@@ -27,16 +28,20 @@ BUILD_DIR = PKG_DIR / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# launcher name -> argtypes, as declared in csrc/pbf_phases.cu
+# launcher name -> argtypes, as declared in csrc/*.cu
 SIGNATURES = {
+    # csrc/pbf_phases.cu
     "pbf_lambda": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_delta": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_diffuse": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # csrc/mc_field.cu
+    "mc_field": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                 _P, _P],
 }
 
 
@@ -65,20 +70,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(SRC_DIR.glob("*.cu"))]
-    # build under a temporary name and rename, so a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    # build in a temporary directory and rename the library into place, so a
+    # concurrent process never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        compiles = []
+        for src in sorted(SRC_DIR.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, src.stem + ".o"),
+                   str(src)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = [proc.communicate()[0] for _, proc in compiles]  # wait for all
+        objects = []
+        for (cmd, proc), log in zip(compiles, logs):
+            _check_nvcc(cmd, proc.returncode, log)
+            objects.append(cmd[cmd.index("-o") + 1])
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        _check_nvcc(cmd, res.returncode, res.stdout + res.stderr)
+        os.replace(lib, out)
     return out
+
+
+def _check_nvcc(cmd, returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n{log}")
 
 
 @functools.cache

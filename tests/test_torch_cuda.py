@@ -7,7 +7,8 @@ one (and without jax, whose CPU setup `conftest.py` makes), run
 Tolerances: diffuse sums and count exact (the plain version sums in the
 kernel's order); lambda atol 1e-6, rtol 1e-5; pStar after one delta phase
 atol 1e-5 in simulation units (the kernel contracts to FMAs and sums in
-another order).
+another order); MC field count exact (the kernel rounds the distances as
+the plain version does), sums rtol 1e-4, atol 1e-3.
 """
 
 import pytest
@@ -19,7 +20,9 @@ from pbf_sph_tpu_torch.models.torch_solver import (
     TorchSolver,
     advect_and_sort,
     dyn_params_of,
+    solve_frame,
 )
+from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 
 pytestmark = pytest.mark.cuda
@@ -80,3 +83,39 @@ def test_wrappers_count_kernel_launches(card_frame):
     torch.cuda.synchronize()
     assert colour.is_cuda
     assert phases.launches == {"diffuse": 1, "lambda": 1, "delta": 1}
+
+
+@pytest.fixture(scope="module")
+def card_surface_frame():
+    """The sort-time index and the finalised state of one dam-break frame
+    with its surface (res 1.0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mc, cfg, xs = dam_break(32_000, solver_iter=3, surface=True)
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    dyn = dyn_params_of(cfg, device="cuda")
+    fr, st, _ = solve_frame(spec, solver.phases, state, dyn, scn)
+    return spec, dyn, fr, st
+
+
+def test_mc_field_kernel_matches_plain(card_surface_frame):
+    spec, dyn, fr, st = card_surface_frame
+    nonobs = ph.nonobstacle(st.ptype, st.alive)
+    args = (fr.index, spec.surface, spec.h, spec.scale, st.position, st.colour,
+            nonobs, fr.min_extent)
+    got = mf.mc_field_kernel(*args)
+    want = mf.mc_field_plain(*args)
+    assert torch.equal(got[8], want[8])
+    assert float(got[8].max()) > 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_mc_field_counts_kernel_launches(card_surface_frame):
+    spec, dyn, fr, st = card_surface_frame
+    field = mf.McField(spec.h)
+    v, n, c = field(fr.index, spec.surface, spec.scale, st.position, st.colour,
+                    st.ptype, st.alive, fr.min_extent, dyn["mc_particle_size"])
+    torch.cuda.synchronize()
+    assert v.is_cuda and n.shape == (3, v.shape[0]) and c.shape == (4, v.shape[0])
+    assert field.launches == {"mc_field": 1}

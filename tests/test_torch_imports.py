@@ -1,6 +1,5 @@
 """The port stands alone: no jax, no JAX package, no hidden device choice."""
 
-import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -11,7 +10,8 @@ import torch
 from pbf_sph_tpu_torch.core.configs import dam_break
 from pbf_sph_tpu_torch.core.types import Scene
 from pbf_sph_tpu_torch.models import make_solver
-from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, build_step
+from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
+from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 
 REPO = Path(__file__).resolve().parent.parent
@@ -44,6 +44,18 @@ def test_cuda_solver_raises_without_a_card(monkeypatch):
         make_solver("torch", device="cuda")
 
 
+def test_default_device_is_cuda(monkeypatch):
+    """Without a device the solver asks for CUDA, and without a card it
+    raises; it never picks the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSolver()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_solver("torch")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert TorchSolver().device == torch.device("cuda")
+
+
 def test_cpu_run_launches_no_kernel():
     mc, cfg, xs = dam_break(2000, solver_iter=2)
     solver = TorchSolver(h=cfg.h, device="cpu")
@@ -54,8 +66,8 @@ def test_cpu_run_launches_no_kernel():
 
 def test_kernel_launchers_refuse_cpu_tensors():
     """A launcher never falls back to the plain version."""
-    mc, cfg, xs = dam_break(2000, solver_iter=2)
-    solver = TorchSolver(h=cfg.h)
+    mc, cfg, xs = dam_break(2000, solver_iter=2, surface=True)
+    solver = TorchSolver(h=cfg.h, device="cpu")
     spec, state, scn = solver.prepare(cfg, Scene(), xs)
     index = ph.CellIndex(spec.grid, torch.zeros(spec.capacity, dtype=torch.int32),
                          torch.zeros(spec.grid.ncells + 1, dtype=torch.int32))
@@ -65,15 +77,20 @@ def test_kernel_launchers_refuse_cpu_tensors():
         ph.delta_kernel(index, spec.h, state.position, state.mass)
     with pytest.raises(ValueError, match="CUDA tensors"):
         ph.diffuse_kernel(index, state.colour, state.mass)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mf.mc_field_kernel(index, spec.surface, spec.h, spec.scale, state.position,
+                           state.colour, state.mass, torch.zeros(3))
 
 
-def test_surface_is_refused():
-    mc, cfg, xs = dam_break(2000, solver_iter=2, surface=True)
-    solver = TorchSolver(h=cfg.h)
-    spec = solver.make_spec(cfg, Scene(), 2048)
+def test_surface_steps_on_cpu_without_launches():
+    mc, cfg, xs = dam_break(4096, solver_iter=2, surface=True)
+    solver = TorchSolver(h=cfg.h, device="cpu")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
     assert spec.surface is not None
-    with pytest.raises(NotImplementedError, match="surface"):
-        build_step(spec, solver.phases)
-    with pytest.raises(NotImplementedError, match="surface"):
-        solver.advance(cfg, Scene(), xs)
-    assert build_step(dataclasses.replace(spec, surface=None), solver.phases)
+    _, out = solver.step_device(spec, state, dyn_params_of(cfg, device="cpu"), scn)
+    assert out["mesh_vs"].shape == (3, 3 * spec.surface.tri_capacity)
+    assert 0 < int(out["tri_count"]) <= spec.surface.tri_capacity
+    assert int(out["mc_emit_overflow"]) == int(out["mc_strip_overflow"]) == 0
+    res, _ = solver.advance(cfg, Scene(), xs)
+    assert len(res.mesh) > 0 and len(res.mesh) % 3 == 0
+    assert solver.launches == {"diffuse": 0, "lambda": 0, "delta": 0, "mc_field": 0}

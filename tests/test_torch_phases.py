@@ -38,10 +38,10 @@ CASES = {
 @pytest.fixture(scope="module", params=sorted(CASES))
 def frame(request):
     mc, cfg, xs = simple_config_with_2_cubes(*CASES[request.param])
-    solver = TorchSolver(h=cfg.h)
+    solver = TorchSolver(h=cfg.h, device="cpu")
     spec, state, scn = solver.prepare(cfg, Scene(), xs)
     assert spec.capacity == 1024
-    dyn = dyn_params_of(cfg)
+    dyn = dyn_params_of(cfg, device="cpu")
     fr = advect_and_sort(spec, state, dyn, scn)
 
     jspec = JaxSolver(h=cfg.h, use_pallas=True).make_spec(cfg, Scene(), spec.capacity)

@@ -53,7 +53,7 @@ def _to_port(soa):
 def test_advance_matches_jax(name):
     mc, cfg, xs = WORKLOADS[name]()
     _, want = JaxSolver(h=cfg.h).advance(cfg, jtypes.Scene(), xs)
-    _, got = TorchSolver(h=cfg.h).advance(cfg, ttypes.Scene(), _to_port(xs))
+    _, got = TorchSolver(h=cfg.h, device="cpu").advance(cfg, ttypes.Scene(), _to_port(xs))
     assert len(got) == len(xs)
     _close(got, want)
 
@@ -67,7 +67,7 @@ def test_three_chained_step_device_frames():
     jspec, jstate, jscn = js.prepare(cfg, jtypes.Scene(), xs)
     jdyn = jax_dyn(cfg, js.dtype)
 
-    ts = TorchSolver(h=cfg.h)
+    ts = TorchSolver(h=cfg.h, device="cpu")
     tspec = ts.make_spec(cfg, ttypes.Scene(), jspec.capacity)
     tstate = state_from_numpy(
         {k: np.asarray(getattr(jstate, k)) for k in
@@ -111,7 +111,7 @@ def test_scene_with_well_source_drain_query():
     mc, cfg, xs = jax_2cubes(700, 2, 500.0)
     jscene, tscene = _busy_scene(cfg, xs)
     jres, want = JaxSolver(h=cfg.h).advance(cfg, jscene, xs)
-    tres, got = TorchSolver(h=cfg.h).advance(cfg, tscene, _to_port(xs))
+    tres, got = TorchSolver(h=cfg.h, device="cpu").advance(cfg, tscene, _to_port(xs))
 
     # the drain removed particles and the source added 16 (all with pid 9000)
     assert len(got) == len(want)
@@ -138,7 +138,7 @@ GROWTH_OUTS = {
 def test_growth_changes_match_jax(case):
     mc, cfg, xs = jax_2cubes(700, 2, 500.0)
     jspec = JaxSolver(h=cfg.h).make_spec(cfg, jtypes.Scene(), 1024)
-    tspec = TorchSolver(h=cfg.h).make_spec(cfg, ttypes.Scene(), 1024)
+    tspec = TorchSolver(h=cfg.h, device="cpu").make_spec(cfg, ttypes.Scene(), 1024)
     out = dict(GROWTH_OUTS[case])
     want = jax_growth_changes(jspec, dict(out, strip_overflow=0))
     got = growth_changes(tspec, out)

@@ -18,6 +18,13 @@ with a non-zero exit and no result line:
    exact, S0 and S to rtol 1e-4 / atol 1e-3, the post-passed v, n and c as
    `tests/test_pallas_mc.py` holds them, the skip node 0; with CUDA-event
    times and node-candidate pairs per second;
+3c. each tiled kernel (`csrc/pbf_tiles.cu`, the Pallas sub/mxu variants)
+   through its `PbfPhases(h, sub, mxu)` wrapper against its tile plain
+   version, for every instantiated sub (8, 16, 32, 64) and both r2 routes,
+   on the same two states: lambda atol 1e-6 / rtol 1e-5, pStar after one
+   delta phase and the clamp atol 1e-5; with CUDA-event times, pairs per
+   second and the bound.  No solver path runs these kernels, so their
+   launches are counted over this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -39,7 +46,8 @@ with a non-zero exit and no result line:
    (1 mc_field + 1 diffuse + 3 lambda + 3 delta); with the stage times.
 
 Then one JSON line of kernels (launches from the main path that runs each:
-phase 5 for the phase kernels, phase 6 for the MC field), the card line
+phase 5 for the phase kernels, phase 6 for the MC field, 3c for the tiled
+kernels, whose line holds sub 64 with the tensor-core r2), the card line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
 result.
@@ -68,7 +76,14 @@ KERNELS = {
               "pbf_sph_tpu/ops/pallas_pbf.py:491"),
     "mc_field": ("pbf_sph_tpu_torch/csrc/mc_field.cu",
                  "pbf_sph_tpu/ops/pallas_mc.py:185"),
+    # make_lambda_call / make_delta_call with mxu=True (_centred_r2_mxu :351)
+    "lambda_tile": ("pbf_sph_tpu_torch/csrc/pbf_tiles.cu",
+                    "pbf_sph_tpu/ops/pallas_pbf.py:391"),
+    "delta_tile": ("pbf_sph_tpu_torch/csrc/pbf_tiles.cu",
+                   "pbf_sph_tpu/ops/pallas_pbf.py:491"),
 }
+# the variant whose numbers stand in the kernels line for the tiled kernels
+TILE_REPORTED = (64, True)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory, and fp32 outside the tensor cores.
@@ -78,6 +93,13 @@ FP32_FLOP_PER_S = 67e12
 # written in csrc/pbf_phases.cu (diffuse: its five sums; the integer cell
 # decode is not counted)
 FLOP_PER_PAIR = {"lambda": 26, "delta": 34, "diffuse": 5}
+# csrc/pbf_tiles.cu, counted over the same per-row candidate pairs as
+# lambda/delta (not the tile's larger union-window pairs): the per-pair route
+# does the same operations as pbf_phases.cu; the tensor-core route leaves the
+# r2 sum (3 multiplies, 2 adds) to the fp64 mma and adds |a|^2 to its result
+# (1 operation), so 26 - 5 + 1 and 34 - 5 + 1 stay outside the tensor cores
+FLOP_PER_PAIR_TILE = {("lambda", False): 26, ("lambda", True): 22,
+                      ("delta", False): 34, ("delta", True): 30}
 # csrc/mc_field.cu: every candidate pays l and d2 and the two compares; one
 # within h*scale also pays the weight (sqrt, rsqrt) and the nine sums
 MC_FLOP_PER_CANDIDATE = 10
@@ -113,9 +135,10 @@ def bound(bytes_moved: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, warm: bool = True) -> float:
     """Mean device time of fn() over `reps` calls, after one warm call."""
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -229,9 +252,79 @@ def phase_kernels() -> dict:
             # no single PyTorch call computes a cell-list neighbour sum
             report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        phase_tiles(spec, dyn, fr, pairs, reps, report)
         del fr, st, idx
         torch.cuda.empty_cache()
     return report
+
+
+def phase_tiles(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
+    """3c: every tiled variant through its wrapper (the launches counted for
+    the tiled kernels) against its tile plain version; `report` gets the
+    lambda_tile/delta_tile entries, the largest error over all variants and
+    the times of TILE_REPORTED, and "launches_tile" the wrappers' counts."""
+    print(f"== 3c. tiled kernels against their plain PyTorch versions, "
+          f"capacity {spec.capacity}")
+    from pbf_sph_tpu_torch.core.types import FLUID
+    from pbf_sph_tpu_torch.ops import phases as ph
+    from pbf_sph_tpu_torch.ops import tiles as tl
+
+    st, idx, h = fr.state, fr.index, spec.h
+    scale = torch.full((), spec.scale, device=st.mass.device)
+    fluid = (st.ptype == FLUID) & st.alive
+    bounds = (scale, dyn["min_bound"], dyn["max_bound"])
+    launches = report.setdefault("launches_tile", {"lambda_tile": 0, "delta_tile": 0})
+    for sub in tl.TILE_SUBS:
+        tiles = tl.plan_tiles(idx, sub)
+        tpairs = tl.tile_pairs(tiles, sub)
+        for mxu in (False, True):
+            phases = ph.PbfPhases(h, sub=sub, mxu=mxu)
+            lam_w = phases.lambda_phase(idx, fr.pstar, st.mass, st.ptype, st.alive)
+            moved_w = phases.delta_phase(idx, fr.pstar, lam_w, st.ptype, st.alive, *bounds)
+            torch.cuda.synchronize()
+            for name in launches:
+                launches[name] += phases.launches[name]
+            lam_p = tl.lambda_tile_plain(tiles, idx, h, fr.pstar, st.mass, sub, mxu)
+            lam_p = torch.where(fluid, lam_p, 0.0)
+            err_l = float((lam_w - lam_p).abs().max())
+            tag = f"sub {sub} mxu {int(mxu)}"
+            check(torch.allclose(lam_w, lam_p, atol=1e-6, rtol=1e-5),
+                  f"{tag}: lambda max abs err {err_l:.3e} (atol 1e-6, rtol 1e-5)")
+            dp_p = tl.delta_tile_plain(tiles, idx, h, fr.pstar, lam_w, sub, mxu)
+            moved_p = ph.clamp_to_bounds(fr.pstar, dp_p, st.ptype, st.alive, *bounds)
+            err_p = float((moved_w - moved_p).abs().max())
+            check(err_p <= 1e-5 and bool(torch.isfinite(moved_w).all()),
+                  f"{tag}: pStar after one delta max abs err {err_p:.3e} <= 1e-5, finite")
+
+            args = (tiles, idx, h, fr.pstar)
+            times = {
+                "lambda": (lambda: tl.lambda_tile_kernel(*args, st.mass, sub, mxu),
+                           lambda: tl.lambda_tile_plain(*args, st.mass, sub, mxu),
+                           err_l, nbytes(fr.pstar, st.mass, lam_w)),
+                "delta": (lambda: tl.delta_tile_kernel(*args, lam_w, sub, mxu),
+                          lambda: tl.delta_tile_plain(*args, lam_w, sub, mxu),
+                          err_p, nbytes(fr.pstar, lam_w, fr.pstar)),
+            }
+            for name, (kern, plain, err, io_bytes) in times.items():
+                ms = device_ms(kern, reps[0])
+                plain_ms = device_ms(plain, 1, warm=False)
+                bound_ms, bound_by = bound(nbytes(idx.key, tiles) + io_bytes,
+                                           pairs * FLOP_PER_PAIR_TILE[name, mxu])
+                print(f"  {name}_tile {tag}: kernel {ms:.4f} ms ({pairs / ms / 1e6:.3f} "
+                      f"G per-row pairs/s, {tpairs / ms / 1e6:.3f} G tile pairs/s; "
+                      f"{tpairs / pairs:.2f}x the per-row pairs), plain {plain_ms:.4f} ms, "
+                      f"bound {bound_ms:.4f} ms by {bound_by}")
+                key = f"{name}_tile"
+                entry = report.setdefault(key, dict(max_abs_err=0.0))
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                if (sub, mxu) == TILE_REPORTED:
+                    # no single PyTorch call computes a cell-list neighbour sum
+                    entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None)
+            del phases, lam_w, moved_w, lam_p, dp_p, moved_p
+        del tiles
+        torch.cuda.empty_cache()
+    print(f"  tiled wrapper launches so far: {launches}")
 
 
 def finalised_state(workload: str):
@@ -484,6 +577,9 @@ def main() -> int:
     phase_toolchain()
     phase_build()
     report = phase_kernels()
+    tile_launches = report.pop("launches_tile")
+    check(all(v > 0 for v in tile_launches.values()),
+          f"phase 3c launched every tiled kernel {tile_launches}")
     report["mc_field"], lattice = phase_mc_field()
     phase_parity()
     phase_extract(lattice)
@@ -491,6 +587,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = phase_main_path()
     launches["mc_field"] = phase_surface_path()["mc_field"]
+    launches.update(tile_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -39,6 +39,9 @@ SIGNATURES = {
     "pbf_lambda": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_delta": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_diffuse": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # csrc/pbf_tiles.cu
+    "pbf_lambda_tile": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    "pbf_delta_tile": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     # csrc/mc_field.cu
     "mc_field": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                  _P, _P],

@@ -13,6 +13,9 @@ phase has three parts here:
   Pallas wrappers apply in XLA: lambda's fluid mask, delta's bounds clamp,
   diffuse's mix and clamp.
 
+`PbfPhases(h, sub, mxu)` runs lambda and delta through the tiled kernels of
+`ops/tiles.py` instead (the Pallas `sub`/`mxu` variants).
+
 In place of the Pallas window plan (`wins`) every phase takes the frame's
 `CellIndex`: the sorted keys and the dense cell table.  A row walks the nine
 (dx, dy) ranges of its cell, `[table[clip(lin+off-1)], table[clip(lin+off+2)])`
@@ -318,11 +321,23 @@ def nonobstacle(ptype, alive, dtype=torch.float32):
 class PbfPhases:
     """The three phase wrappers of one solver, with a launch counter per
     kernel: `launches[name]` grows by one each time the wrapper launches its
-    CUDA kernel, and at no other time."""
+    CUDA kernel, and at no other time.
 
-    def __init__(self, h: float):
+    `sub` and `mxu` mirror `PallasPhases(..., sub, mxu)`: with the defaults
+    (`sub=None, mxu=False`) lambda and delta run the per-row kernels above;
+    any other setting runs the tiled kernels of `ops/tiles.py` (`sub` 64 when
+    only `mxu` is given), counted under "lambda_tile" and "delta_tile"."""
+
+    def __init__(self, h: float, sub=None, mxu: bool = False):
+        from pbf_sph_tpu_torch.ops import tiles
+
         self.h = float(h)
+        self.mxu = bool(mxu)
+        self.plan = None
         self.launches = {"diffuse": 0, "lambda": 0, "delta": 0}
+        if sub is not None or self.mxu:
+            self.plan = tiles.TilePlan(64 if sub is None else sub)
+            self.launches.update(lambda_tile=0, delta_tile=0)
 
     def reset_launches(self) -> None:
         for name in self.launches:
@@ -330,7 +345,17 @@ class PbfPhases:
 
     def lambda_phase(self, index: CellIndex, pstar, mass, ptype, alive):
         """lambda (C,), zero where not fluid and alive (`pallas_pbf.py:690-697`)."""
-        if pstar.device.type == "cpu":
+        cpu = pstar.device.type == "cpu"
+        if self.plan is not None:
+            from pbf_sph_tpu_torch.ops import tiles
+
+            args = (self.plan(index), index, self.h, pstar, mass, self.plan.sub, self.mxu)
+            if cpu:
+                lam = tiles.lambda_tile_plain(*args)
+            else:
+                lam = tiles.lambda_tile_kernel(*args)
+                self.launches["lambda_tile"] += 1
+        elif cpu:
             lam = lambda_plain(index, self.h, pstar, mass)
         else:
             lam = lambda_kernel(index, self.h, pstar, mass)
@@ -340,7 +365,17 @@ class PbfPhases:
     def delta_phase(self, index: CellIndex, pstar, lam, ptype, alive,
                     scale, min_bound, max_bound):
         """pstar after one position correction and the bounds clamp."""
-        if pstar.device.type == "cpu":
+        cpu = pstar.device.type == "cpu"
+        if self.plan is not None:
+            from pbf_sph_tpu_torch.ops import tiles
+
+            args = (self.plan(index), index, self.h, pstar, lam, self.plan.sub, self.mxu)
+            if cpu:
+                dp = tiles.delta_tile_plain(*args)
+            else:
+                dp = tiles.delta_tile_kernel(*args)
+                self.launches["delta_tile"] += 1
+        elif cpu:
             dp = delta_plain(index, self.h, pstar, lam)
         else:
             dp = delta_kernel(index, self.h, pstar, lam)

@@ -7,7 +7,8 @@ one (and without jax, whose CPU setup `conftest.py` makes), run
 Tolerances: diffuse sums and count exact (the plain version sums in the
 kernel's order); lambda atol 1e-6, rtol 1e-5; pStar after one delta phase
 atol 1e-5 in simulation units (the kernel contracts to FMAs and sums in
-another order); MC field count exact (the kernel rounds the distances as
+another order; the tile kernels' fp64 tensor-core r2 rounds as the plain
+version's fp64 r2 does); MC field count exact (the kernel rounds the distances as
 the plain version does), sums rtol 1e-4, atol 1e-3.
 """
 
@@ -24,6 +25,7 @@ from pbf_sph_tpu_torch.models.torch_solver import (
 )
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
+from pbf_sph_tpu_torch.ops import tiles as tl
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +85,41 @@ def test_wrappers_count_kernel_launches(card_frame):
     torch.cuda.synchronize()
     assert colour.is_cuda
     assert phases.launches == {"diffuse": 1, "lambda": 1, "delta": 1}
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("sub", tl.TILE_SUBS)
+def test_tile_kernels_match_plain(card_frame, sub, mxu):
+    spec, dyn, fr = card_frame
+    st, h = fr.state, spec.h
+    tiles = tl.plan_tiles(fr.index, sub)
+    lam_k = tl.lambda_tile_kernel(tiles, fr.index, h, fr.pstar, st.mass, sub, mxu)
+    lam_p = tl.lambda_tile_plain(tiles, fr.index, h, fr.pstar, st.mass, sub, mxu)
+    torch.testing.assert_close(lam_k, lam_p, atol=1e-6, rtol=1e-5)
+    lam = torch.where((st.ptype == FLUID) & st.alive, lam_k, 0.0)
+    scale = torch.full((), spec.scale, device="cuda")
+    moved = [
+        ph.clamp_to_bounds(fr.pstar, delta(tiles, fr.index, h, fr.pstar, lam, sub, mxu),
+                           st.ptype, st.alive, scale, dyn["min_bound"], dyn["max_bound"])
+        for delta in (tl.delta_tile_kernel, tl.delta_tile_plain)
+    ]
+    torch.testing.assert_close(moved[0], moved[1], atol=1e-5, rtol=0)
+
+
+def test_tile_wrappers_count_kernel_launches(card_frame):
+    spec, dyn, fr = card_frame
+    st = fr.state
+    phases = ph.PbfPhases(spec.h, sub=32, mxu=True)
+    lam = phases.lambda_phase(fr.index, fr.pstar, st.mass, st.ptype, st.alive)
+    phases.delta_phase(fr.index, fr.pstar, lam, st.ptype, st.alive,
+                       torch.full((), spec.scale, device="cuda"),
+                       dyn["min_bound"], dyn["max_bound"])
+    torch.cuda.synchronize()
+    assert phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0,
+                               "lambda_tile": 1, "delta_tile": 1}
+    with pytest.raises(ValueError, match="instantiates"):
+        tl.lambda_tile_kernel(tl.plan_tiles(fr.index, 128), fr.index, spec.h,
+                              fr.pstar, st.mass, 128)
 
 
 @pytest.fixture(scope="module")

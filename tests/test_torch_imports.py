@@ -13,6 +13,7 @@ from pbf_sph_tpu_torch.models import make_solver
 from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
+from pbf_sph_tpu_torch.ops import tiles as tl
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -33,7 +34,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 14  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 24  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):
@@ -80,6 +81,20 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         mf.mc_field_kernel(index, spec.surface, spec.h, spec.scale, state.position,
                            state.colour, state.mass, torch.zeros(3))
+
+
+def test_tile_launchers_refuse_cpu_tensors():
+    """The tiled launchers never fall back to their plain versions either."""
+    mc, cfg, xs = dam_break(2000, solver_iter=2)
+    solver = TorchSolver(h=cfg.h, device="cpu")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    index = ph.CellIndex(spec.grid, torch.zeros(spec.capacity, dtype=torch.int32),
+                         torch.zeros(spec.grid.ncells + 1, dtype=torch.int32))
+    tiles = tl.plan_tiles(index, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tl.lambda_tile_kernel(tiles, index, spec.h, state.position, state.mass, 32, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tl.delta_tile_kernel(tiles, index, spec.h, state.position, state.mass, 32, False)
 
 
 def test_surface_steps_on_cpu_without_launches():

@@ -25,6 +25,18 @@ with a non-zero exit and no result line:
    delta phase and the clamp atol 1e-5; with CUDA-event times, pairs per
    second and the bound.  No solver path runs these kernels, so their
    launches are counted over this phase;
+3d. the v2 compacted-candidate kernels (`csrc/pbf_phases2.cu`) on the same
+   two states: the chain once through its `PbfPhases2` wrappers, with the
+   plan grown until it has no overflow, then each kernel against its plain
+   version: the compaction of the pStar and lambda packs bit for bit on every
+   column below nchunkp*128, lambda2 atol 1e-6 / rtol 1e-5, pStar after
+   delta2 and the clamp atol 1e-5, diffuse2 count exact and sums atol 1e-6;
+   with CUDA-event times, slab pairs per second, the bound (for the dense
+   three, over the per-row pairs of the phase whose result they give), the
+   slab roofline and, for the compaction, the time of `index_select` over
+   the plan's column map.  No
+   solver path runs these kernels either: their launches are counted over
+   this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -47,7 +59,8 @@ with a non-zero exit and no result line:
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for the phase kernels, phase 6 for the MC field, 3c for the tiled
-kernels, whose line holds sub 64 with the tensor-core r2), the card line
+kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
+kernels, whose compaction numbers are the pStar pack's), the card line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
 result.
@@ -81,6 +94,11 @@ KERNELS = {
                     "pbf_sph_tpu/ops/pallas_pbf.py:391"),
     "delta_tile": ("pbf_sph_tpu_torch/csrc/pbf_tiles.cu",
                    "pbf_sph_tpu/ops/pallas_pbf.py:491"),
+    # the v2 compacted-candidate phases (the dense three on _dense_phase :422)
+    "compact": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:323"),
+    "lambda2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:474"),
+    "delta2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:547"),
+    "diffuse2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:612"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -104,6 +122,16 @@ FLOP_PER_PAIR_TILE = {("lambda", False): 26, ("lambda", True): 22,
 # within h*scale also pays the weight (sqrt, rsqrt) and the nine sums
 MC_FLOP_PER_CANDIDATE = 10
 MC_FLOP_PER_HIT = 14
+# csrc/pbf_phases2.cu: lambda2, delta2 and diffuse2 give the per-row
+# kernels' results, so their bound counts the same work: the per-row
+# candidate pairs times FLOP_PER_PAIR of the phase they compute, and the
+# bytes of the rows, the plan and the output.  The slab lanes beyond the
+# per-row pairs are what the design adds; the slab roofline, printed beside
+# the bound, reads the slab once and pays only the test that rejects a lane
+# on every slab pair (3 differences, r2 as 3 products and 2 adds, the
+# compare; diffuse2: the band test's 8 and the compare)
+V2_PHASE = {"lambda2": "lambda", "delta2": "delta", "diffuse2": "diffuse"}
+SLAB_TEST_FLOP = 9
 
 
 def fail(msg: str) -> None:
@@ -253,6 +281,7 @@ def phase_kernels() -> dict:
             report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         phase_tiles(spec, dyn, fr, pairs, reps, report)
+        phase_v2(spec, dyn, fr, pairs, reps, report)
         del fr, st, idx
         torch.cuda.empty_cache()
     return report
@@ -325,6 +354,136 @@ def phase_tiles(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
         del tiles
         torch.cuda.empty_cache()
     print(f"  tiled wrapper launches so far: {launches}")
+
+
+def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
+    """3d: the v2 chain (plan, compact pStar, lambda2, compact lambda, delta2,
+    diffuse2) once through the `PbfPhases2` wrappers (the launches counted
+    for its kernels), then each kernel against its plain version on the same
+    inputs; `report` gets the compact/lambda2/delta2/diffuse2 entries (the
+    largest error over both states, this state's times) and "launches_v2"
+    the wrappers' counts."""
+    print(f"== 3d. v2 compacted-candidate kernels against their plain PyTorch "
+          f"versions, capacity {spec.capacity}")
+    from pbf_sph_tpu_torch.ops import phases as ph
+    from pbf_sph_tpu_torch.ops.grid import decode_key
+    from pbf_sph_tpu_torch.tools import phases2 as p2
+    from pbf_sph_tpu_torch.tools.bench_phases import grown_plan
+
+    st, idx, h = fr.state, fr.index, spec.h
+    cells, member = decode_key(idx.key, spec.grid)
+    bounds = (torch.full((), spec.scale, device=st.mass.device), dyn["min_bound"],
+              dyn["max_bound"])
+    phases, wins, smax, wcap, _ = grown_plan(spec, idx)
+    nchunkp = wins["nchunkp"]
+    spairs = p2.slab_pairs(wins)
+    defined = (torch.arange(wcap, device=nchunkp.device)
+               < nchunkp[:, None] * p2.WCOL).reshape(-1)
+    ncols = int(defined.sum())
+    print(f"smax {smax}, wcap {wcap}: nchunkp mean {float(nchunkp.float().mean()):.2f}, "
+          f"max {int(nchunkp.max())}; {spairs} slab pairs ({spairs / pairs:.2f}x the "
+          f"per-row pairs)")
+
+    cands = phases.compact_pstar(wins, fr.pstar, member)
+    lam = phases.lambda_phase(wins, cands, fr.pstar, st.mass, member, st.ptype, st.alive)
+    lamc = phases.compact_lam(wins, lam)
+    phases.delta_phase(wins, cands, lamc, fr.pstar, lam, member, st.ptype, st.alive,
+                       *bounds)
+    phases.diffuse(wins, st.colour, cells, member, st.ptype, st.alive, dyn["dt"])
+    torch.cuda.synchronize()
+    launches = report.setdefault("launches_v2", dict.fromkeys(phases.launches, 0))
+    for name in launches:
+        launches[name] += phases.launches[name]
+
+    # the compaction, for the 4-field pStar pack and the 1-field lambda pack
+    packs = {"pStar": p2.pstar_pack(fr.pstar, member), "lambda": lam.reshape(1, -1)}
+    for name, packed in packs.items():
+        same = torch.equal(p2.compact_kernel(wins, packed)[:, defined],
+                           p2.compact_plain(wins, packed)[:, defined])
+        check(same, f"compact {name} ({packed.shape[0]} fields) bit for bit on the "
+                    f"{ncols} columns below nchunkp*128")
+
+    rows_l = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], st.mass], dim=1)
+    lam_k = p2.lambda2_kernel(nchunkp, rows_l, cands, h)
+    lam_p = p2.lambda2_plain(nchunkp, rows_l, cands, h)
+    err_l = float((lam_k - lam_p).abs().max())
+    check(torch.allclose(lam_k, lam_p, atol=1e-6, rtol=1e-5),
+          f"lambda2 max abs err {err_l:.3e} (atol 1e-6, rtol 1e-5)")
+
+    rows_d = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], lam], dim=1)
+    moved = [ph.clamp_to_bounds(fr.pstar, delta(nchunkp, rows_d, cands, lamc, h),
+                                st.ptype, st.alive & member, *bounds)
+             for delta in (p2.delta2_kernel, p2.delta2_plain)]
+    err_p = float((moved[0] - moved[1]).abs().max())
+    check(err_p <= 1e-5 and bool(torch.isfinite(moved[0]).all()),
+          f"pStar after delta2 and the clamp max abs err {err_p:.3e} <= 1e-5, finite")
+
+    dims = spec.grid.dims
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, dims)
+    cands_c = p2.compact_kernel(wins, st.colour)
+    cands_w = p2.compact_kernel(wins, wpack)
+    sk = p2.diffuse2_kernel(nchunkp, cl, cands_c, cands_w, dims)
+    sp = p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims)
+    err_d = float((sk[:4] - sp[:4]).abs().max())
+    check(torch.equal(sk[4], sp[4]), f"diffuse2 count exact (max {int(sk[4].max())})")
+    check(err_d <= 1e-6, f"diffuse2 colour sums max abs err {err_d:.3e} <= 1e-6")
+
+    # the one PyTorch call that computes the pStar slab: index_select over the
+    # plan's column map, with SENTINEL as one more column of the pack
+    packed = packs["pStar"]
+    n = packed.shape[1]
+    colmap = p2.source_columns(wins)[..., None] + torch.arange(p2.WCOL, device=cl.device)
+    used = torch.arange(wcap // p2.WCOL, device=cl.device) < wins["nchunk"][:, None]
+    colmap = torch.where(used[..., None], colmap, n).reshape(-1)
+    packed_ext = torch.cat([packed, torch.full_like(packed[:, :1], p2.SENTINEL)], dim=1)
+    check(torch.equal(torch.index_select(packed_ext, 1, colmap)[:, defined],
+                      p2.compact_kernel(wins, packed)[:, defined]),
+          "index_select over the column map gives the pStar slab")
+    plan_bytes = nbytes(wins["meta"], wins["nchunk"], nchunkp, wins["sstart"])
+    col_bytes = 4 * ncols  # one fp32 slab field over the defined columns
+    # name: kernel, plain, error, bound bytes, the dense kernel's own bytes
+    # (rows, nchunkp, the slab fields it reads, its output), library call
+    timings = {
+        "compact": (lambda: p2.compact_kernel(wins, packed),
+                    lambda: p2.compact_plain(wins, packed), 0.0,
+                    nbytes(packed) + plan_bytes + 4 * col_bytes, 0,
+                    lambda: torch.index_select(packed_ext, 1, colmap)),
+        "lambda2": (lambda: p2.lambda2_kernel(nchunkp, rows_l, cands, h),
+                    lambda: p2.lambda2_plain(nchunkp, rows_l, cands, h), err_l,
+                    nbytes(rows_l, lam_k) + plan_bytes,
+                    nbytes(rows_l, nchunkp, lam_k) + 3 * col_bytes, None),
+        "delta2": (lambda: p2.delta2_kernel(nchunkp, rows_d, cands, lamc, h),
+                   lambda: p2.delta2_plain(nchunkp, rows_d, cands, lamc, h), err_p,
+                   nbytes(rows_d, moved[0]) + plan_bytes,
+                   nbytes(rows_d, nchunkp, moved[0]) + 4 * col_bytes, None),
+        "diffuse2": (lambda: p2.diffuse2_kernel(nchunkp, cl, cands_c, cands_w, dims),
+                     lambda: p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims), err_d,
+                     nbytes(cl, st.colour, wpack, sk) + plan_bytes,
+                     nbytes(cl, nchunkp, sk) + 6 * col_bytes, None),
+    }
+    for name, (kern, plain, err, io_bytes, slab_bytes, library) in timings.items():
+        ms = device_ms(kern, reps[0])
+        plain_ms = device_ms(plain, 1)
+        library_ms = device_ms(library, reps[0]) if library is not None else None
+        if name == "compact":
+            bound_ms, bound_by = bound(io_bytes, 0)
+            rate = f"{io_bytes / ms / 1e6:.1f} GB/s of the bound's bytes"
+        else:
+            bound_ms, bound_by = bound(io_bytes, pairs * FLOP_PER_PAIR[V2_PHASE[name]])
+            slab_ms, slab_by = bound(slab_bytes, spairs * SLAB_TEST_FLOP)
+            rate = (f"{spairs / ms / 1e6:.3f} G slab pairs/s, {pairs / ms / 1e6:.3f} G "
+                    f"per-row pairs/s; slab roofline {slab_ms:.4f} ms by {slab_by}")
+        lib = f", index_select {library_ms:.4f} ms" if library_ms is not None else ""
+        print(f"  {name}: kernel {ms:.4f} ms ({rate}), plain {plain_ms:.4f} ms{lib}, "
+              f"bound {bound_ms:.4f} ms by {bound_by}")
+        entry = report.setdefault(name, dict(max_abs_err=0.0))
+        # no single PyTorch call computes a cell-list pair sum (lambda2, delta2,
+        # diffuse2)
+        entry.update(max_abs_err=max(entry["max_abs_err"], err), ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    del phases, wins, cands, lamc, cands_c, cands_w, packs, packed_ext, colmap
+    torch.cuda.empty_cache()
+    print(f"  v2 wrapper launches so far: {launches}")
 
 
 def finalised_state(workload: str):
@@ -580,6 +739,9 @@ def main() -> int:
     tile_launches = report.pop("launches_tile")
     check(all(v > 0 for v in tile_launches.values()),
           f"phase 3c launched every tiled kernel {tile_launches}")
+    v2_launches = report.pop("launches_v2")
+    check(all(v > 0 for v in v2_launches.values()),
+          f"phase 3d launched every v2 kernel {v2_launches}")
     report["mc_field"], lattice = phase_mc_field()
     phase_parity()
     phase_extract(lattice)
@@ -588,6 +750,7 @@ def main() -> int:
     launches = phase_main_path()
     launches["mc_field"] = phase_surface_path()["mc_field"]
     launches.update(tile_launches)
+    launches.update(v2_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -45,6 +45,11 @@ SIGNATURES = {
     # csrc/mc_field.cu
     "mc_field": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                  _P, _P],
+    # csrc/pbf_phases2.cu
+    "pbf_compact": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    "pbf_lambda2": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    "pbf_delta2": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    "pbf_diffuse2": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _P],
 }
 
 

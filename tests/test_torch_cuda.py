@@ -9,7 +9,10 @@ kernel's order); lambda atol 1e-6, rtol 1e-5; pStar after one delta phase
 atol 1e-5 in simulation units (the kernel contracts to FMAs and sums in
 another order; the tile kernels' fp64 tensor-core r2 rounds as the plain
 version's fp64 r2 does); MC field count exact (the kernel rounds the distances as
-the plain version does), sums rtol 1e-4, atol 1e-3.
+the plain version does), sums rtol 1e-4, atol 1e-3.  The v2 phases: slabs
+bit for bit on the columns the compaction writes, lambda2 and delta2 as
+lambda and delta, diffuse2 count exact and sums atol 1e-6 (the plain
+version sums column by column in the kernel's order).
 """
 
 import pytest
@@ -26,6 +29,8 @@ from pbf_sph_tpu_torch.models.torch_solver import (
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
+from pbf_sph_tpu_torch.ops.grid import decode_key
+from pbf_sph_tpu_torch.tools import phases2 as p2
 
 pytestmark = pytest.mark.cuda
 
@@ -120,6 +125,90 @@ def test_tile_wrappers_count_kernel_launches(card_frame):
     with pytest.raises(ValueError, match="instantiates"):
         tl.lambda_tile_kernel(tl.plan_tiles(fr.index, 128), fr.index, spec.h,
                               fr.pstar, st.mass, 128)
+
+
+@pytest.fixture(scope="module")
+def card_v2(card_frame):
+    """The v2 phases, plan and pStar slab at the card frame."""
+    spec, dyn, fr = card_frame
+    cells, member = decode_key(fr.index.key, spec.grid)
+    smax = p2.default_strip_capacity(spec.grid.dims, spec.capacity)
+    phases = p2.PbfPhases2(spec.capacity, spec.grid, spec.h, smax, p2.default_wcap())
+    wins, ovf = phases.plan_frame(fr.index.key, fr.index.table)
+    assert int(ovf["strip_overflow"]) == int(ovf["wcap_overflow"]) == 0
+    cands = phases.compact_pstar(wins, fr.pstar, member)
+    return phases, wins, cands, cells, member
+
+
+def _defined(wins, slab):
+    """The slab columns below nchunkp * 128, as (F, columns)."""
+    nsub = wins["nchunkp"].shape[0]
+    col = torch.arange(slab.shape[1] // nsub, device=slab.device)
+    return slab[:, (col < wins["nchunkp"][:, None] * p2.WCOL).reshape(-1)]
+
+
+def test_compact_kernel_matches_plain(card_frame, card_v2):
+    spec, dyn, fr = card_frame
+    phases, wins, cands, cells, member = card_v2
+    for packed in (fr.pstar, fr.state.mass.reshape(1, -1)):
+        got = p2.compact_kernel(wins, packed.contiguous())
+        want = p2.compact_plain(wins, packed.contiguous())
+        assert torch.equal(_defined(wins, got), _defined(wins, want))
+
+
+def test_lambda2_kernel_matches_plain(card_frame, card_v2):
+    spec, dyn, fr = card_frame
+    phases, wins, cands, cells, member = card_v2
+    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], fr.state.mass], dim=1)
+    got = p2.lambda2_kernel(wins["nchunkp"], rows, cands, spec.h)
+    want = p2.lambda2_plain(wins["nchunkp"], rows, cands, spec.h)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_delta2_kernel_matches_plain(card_frame, card_v2):
+    spec, dyn, fr = card_frame
+    phases, wins, cands, cells, member = card_v2
+    st = fr.state
+    lam = phases.lambda_phase(wins, cands, fr.pstar, st.mass, member, st.ptype, st.alive)
+    lamc = p2.compact_kernel(wins, lam.reshape(1, -1))
+    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], lam], dim=1)
+    scale = torch.full((), spec.scale, device="cuda")
+    moved = [
+        ph.clamp_to_bounds(fr.pstar, delta(wins["nchunkp"], rows, cands, lamc, spec.h),
+                           st.ptype, st.alive & member, scale, dyn["min_bound"],
+                           dyn["max_bound"])
+        for delta in (p2.delta2_kernel, p2.delta2_plain)
+    ]
+    torch.testing.assert_close(moved[0], moved[1], atol=1e-5, rtol=0)
+
+
+def test_diffuse2_kernel_matches_plain(card_frame, card_v2):
+    spec, dyn, fr = card_frame
+    phases, wins, cands, cells, member = card_v2
+    st = fr.state
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, spec.grid.dims)
+    cands_c = p2.compact_kernel(wins, st.colour)
+    cands_w = p2.compact_kernel(wins, wpack)
+    got = p2.diffuse2_kernel(wins["nchunkp"], cl, cands_c, cands_w, spec.grid.dims)
+    want = p2.diffuse2_plain(wins["nchunkp"], cl, cands_c, cands_w, spec.grid.dims)
+    assert torch.equal(got[4], want[4]) and float(got[4].max()) > 1
+    torch.testing.assert_close(got[:4], want[:4], atol=1e-6, rtol=0)
+
+
+def test_phases2_wrappers_count_kernel_launches(card_frame, card_v2):
+    spec, dyn, fr = card_frame
+    phases, wins, cands, cells, member = card_v2
+    st = fr.state
+    phases.reset_launches()
+    cands = phases.compact_pstar(wins, fr.pstar, member)
+    lam = phases.lambda_phase(wins, cands, fr.pstar, st.mass, member, st.ptype, st.alive)
+    lamc = phases.compact_lam(wins, lam)
+    phases.delta_phase(wins, cands, lamc, fr.pstar, lam, member, st.ptype, st.alive,
+                       torch.full((), spec.scale, device="cuda"), dyn["min_bound"],
+                       dyn["max_bound"])
+    phases.diffuse(wins, st.colour, cells, member, st.ptype, st.alive, dyn["dt"])
+    torch.cuda.synchronize()
+    assert phases.launches == {"compact": 4, "lambda2": 1, "delta2": 1, "diffuse2": 1}
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,8 @@ from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
+from pbf_sph_tpu_torch.tools import bench_phases
+from pbf_sph_tpu_torch.tools import phases2 as p2
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -21,6 +23,7 @@ IMPORT_ALL = """
 import importlib, pkgutil, sys
 import pbf_sph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pbf_sph_tpu_torch.__path__, "pbf_sph_tpu_torch.")]
+assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -34,7 +37,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 24  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 26  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):
@@ -95,6 +98,37 @@ def test_tile_launchers_refuse_cpu_tensors():
         tl.lambda_tile_kernel(tiles, index, spec.h, state.position, state.mass, 32, True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tl.delta_tile_kernel(tiles, index, spec.h, state.position, state.mass, 32, False)
+
+
+def test_phases2_launchers_refuse_cpu_tensors():
+    """The v2 launchers never fall back to their plain versions."""
+    mc, cfg, xs = dam_break(2000, solver_iter=2)
+    solver = TorchSolver(h=cfg.h, device="cpu")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    n = spec.capacity
+    key = torch.sort(torch.randint(0, spec.grid.ncells, (n,), dtype=torch.int32)).values
+    table = torch.searchsorted(key, torch.arange(spec.grid.ncells + 1, dtype=torch.int32),
+                               out_int32=True)
+    phases = p2.PbfPhases2(n, spec.grid, spec.h, n, 512)
+    wins, _ = phases.plan_frame(key, table)
+    slab = torch.zeros((4, n // p2.SUB * 512))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p2.compact_kernel(wins, state.position)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p2.lambda2_kernel(wins["nchunkp"], torch.zeros((n, 4)), slab, spec.h)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p2.delta2_kernel(wins["nchunkp"], torch.zeros((n, 4)), slab, slab[:1], spec.h)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p2.diffuse2_kernel(wins["nchunkp"], torch.zeros(n), slab, slab[:2], spec.grid.dims)
+    assert phases.launches == {"compact": 0, "lambda2": 0, "delta2": 0, "diffuse2": 0}
+
+
+def test_bench_phases_needs_a_card(monkeypatch):
+    """The v2/v1 bench tool measures on the card or fails; it never times
+    the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench_phases.main(["2000", "1"])
 
 
 def test_surface_steps_on_cpu_without_launches():

@@ -37,6 +37,16 @@ with a non-zero exit and no result line:
    the plan's column map.  No
    solver path runs these kernels either: their launches are counted over
    this phase;
+3e. the rate-anchor kernels (`csrc/anchor_rate.cu`, the kernels of
+   `tools/anchor_rate.py`): the SASS of each (cuobjdump: every issue
+   instantiation's loop holds nstreams*unroll instructions of its op, the
+   body loop one MUFU.RSQ and one LDS.128 a pair and the fp32 instructions a
+   pair of pbf_lambda's / pbf_delta's own loop, the row kernel pbf_lambda's
+   32-bit loads and pair loop), each against its plain version (every issue instantiation
+   and the λ/Δp bodies rtol 1e-5 / atol 1e-6, the row kernel atol 1e-9), then
+   one rate reading of each through the `Anchor` wrappers at the tool's
+   sizes (CUDA events, the marginal between two sizes, the SM clock
+   sampled); its launches are counted over this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -60,7 +70,9 @@ with a non-zero exit and no result line:
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for the phase kernels, phase 6 for the MC field, 3c for the tiled
 kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
-kernels, whose compaction numbers are the pStar pack's), the card line
+kernels, whose compaction numbers are the pStar pack's, 3e for the
+rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
+kernel at the larger of their two sizes), the card line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
 result.
@@ -99,6 +111,10 @@ KERNELS = {
     "lambda2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:474"),
     "delta2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:547"),
     "diffuse2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:612"),
+    # the rate anchor of tools/anchor_rate.py: build_issue, build_body, build_subfix
+    "anchor_issue": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:116"),
+    "anchor_body": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:204"),
+    "anchor_rowfix": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:288"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -132,6 +148,11 @@ MC_FLOP_PER_HIT = 14
 # compare; diffuse2: the band test's 8 and the compare)
 V2_PHASE = {"lambda2": "lambda", "delta2": "delta", "diffuse2": "diffuse"}
 SLAB_TEST_FLOP = 9
+# csrc/anchor_rate.cu: the issue kernels' operations are per round in
+# anchor_rate.FLOP_PER_ROUND (an FMA two); the bodies' are the phase kernels'
+# FLOP_PER_PAIR; a row of the row kernel does its epilogue (rho 2, the
+# gradient scale 3, norm2 5, ci 2, lambda 3)
+ROWFIX_FLOP = 15
 
 
 def fail(msg: str) -> None:
@@ -486,6 +507,77 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     print(f"  v2 wrapper launches so far: {launches}")
 
 
+def phase_anchor():
+    """3e: the rate-anchor kernels (csrc/anchor_rate.cu): the SASS of each
+    (cuobjdump), each against its plain version on the card (uncounted), then
+    one rate reading of each through `Anchor`'s wrappers at the tool's sizes
+    (the launches counted for these kernels).  Returns (report, launches)."""
+    print("== 3e. rate-anchor kernels (csrc/anchor_rate.cu) against their plain PyTorch "
+          "versions")
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import anchor_rate as ar
+
+    for name, r in ar.check_sass(cuda_build.library_path()).items():
+        check(r["ok"], f"SASS {name}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k != "ok"))
+    device = torch.device("cuda", torch.cuda.current_device())
+    errs = {"anchor_issue": 0.0, "anchor_body": 0.0, "anchor_rowfix": 0.0}
+    for label, (err, ok) in ar.card_parity(device).items():
+        tol = "atol 1e-9" if label.startswith("rowfix") else "rtol 1e-5, atol 1e-6"
+        check(ok, f"{label}: max abs err {err:.3e} ({tol})")
+        name = "anchor_" + label.split()[0]
+        errs[name] = max(errs[name], err)
+
+    anchor = ar.Anchor()
+    rates = ar.read_rates(anchor, ar.DAM1M_DIMS, 5, device)
+    torch.cuda.synchronize()
+    launches = dict(anchor.launches)
+    x, rows, strip, frows = ar.tool_inputs(device)
+    index = ar.rowfix_index(frows)
+    fma = rates["issue"]["fma 16x16"]
+    print(f"  SM clock beside the rate runs (nvidia-smi, MHz): {rates['clocks_sm_mhz']}")
+    for name, r in rates["issue"].items():
+        lat = f", {r['ns_per_op']:.3f} ns a dependent op" if "ns_per_op" in r else ""
+        print(f"  issue {name}: {r['rate'] / 1e12:.3f} T ops/s ({r['rate'] / fma['rate']:.3f} "
+              f"of fma){lat}")
+    for which, r in rates["body"].items():
+        print(f"  body {which}: {r['rate'] / 1e9:.1f} G pair-slots/s")
+    print(f"  rowfix: {rates['rowfix']['ns_per_row']:.5f} ns a row")
+
+    # the numbers of the kernels line: fma 16x16, the λ body, rowfix, each at
+    # the larger of its two sizes
+    n_fma, it_fma = fma["threads"], fma["iters"][1]
+    lam = rates["body"]["lambda"]
+    n_lam, it_lam = lam["threads"], lam["iters"][1]
+    nb = rates["rowfix"]["blocks"][1]
+    nunroll = ar.BODY_SHAPE["nunroll"]
+    table = {
+        "anchor_issue": (
+            fma["ms"][1], lambda: ar.issue_plain(x, "fma", 16, 16, it_fma),
+            bound(nbytes(x) + 4 * n_fma, n_fma * 256 * it_fma * ar.FLOP_PER_ROUND["fma"])),
+        "anchor_body": (
+            lam["ms"][1], lambda: ar.body_plain(rows, strip, "lambda", nunroll, it_lam),
+            bound(nbytes(rows, strip) + 4 * n_lam,
+                  n_lam * nunroll * ar.WCOL * it_lam * FLOP_PER_PAIR["lambda"])),
+        # the row kernel reads each row's key and float4 and only the table
+        # entries at the ends of its rows' ranges, and writes one λ a thread
+        "anchor_rowfix": (
+            rates["rowfix"]["ms"][1], lambda: ar.rowfix_plain(frows, index, nb),
+            bound(20 * ar.ROWS + 4 * ar.rowfix_table_entries(index) + 4 * nb * ar.ROWS,
+                  nb * ar.ROWS * ROWFIX_FLOP)),
+    }
+    report = {}
+    for name, (ms, plain, (bound_ms, bound_by)) in table.items():
+        plain_ms = device_ms(plain, 1, warm=False)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"by {bound_by}")
+        # no single PyTorch call computes these chains
+        report[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"  rate-anchor wrapper launches: {launches}")
+    return report, launches
+
+
 def finalised_state(workload: str):
     """The sort-time frame and the finalised state of one frame of a surface
     workload on the card: what the MC field reads."""
@@ -742,6 +834,10 @@ def main() -> int:
     v2_launches = report.pop("launches_v2")
     check(all(v > 0 for v in v2_launches.values()),
           f"phase 3d launched every v2 kernel {v2_launches}")
+    anchor_report, anchor_launches = phase_anchor()
+    check(all(v > 0 for v in anchor_launches.values()),
+          f"phase 3e launched every rate-anchor kernel {anchor_launches}")
+    report.update(anchor_report)
     report["mc_field"], lattice = phase_mc_field()
     phase_parity()
     phase_extract(lattice)
@@ -751,6 +847,7 @@ def main() -> int:
     launches["mc_field"] = phase_surface_path()["mc_field"]
     launches.update(tile_launches)
     launches.update(v2_launches)
+    launches.update(anchor_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

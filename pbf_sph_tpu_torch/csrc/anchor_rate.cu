@@ -1,0 +1,254 @@
+// Rate anchor of the λ/Δp pair math on Hopper (sm_90a): three micro-kernels.
+//
+// Replaces the three Pallas TPU kernels of tools/anchor_rate.py:
+//   anchor_issue  <- build_issue  (fp32 issue rate of one op, :116)
+//   anchor_body   <- build_body   (the λ or Δp pair chain alone, :204)
+//   anchor_rowfix <- build_subfix (a λ row whose every range is empty, :288)
+// Each computes what its Pallas kernel computes; the (8,128) vreg tiles, the
+// 128-lane chunks, the sentinel strip and the static unrolling that Mosaic
+// needs are not carried over.  pbf_sph_tpu_torch/tools/anchor_rate.py holds
+// the wrappers, the plain versions and the SASS check of every kernel here.
+//
+// What bounds them: by construction, instruction issue (anchor_issue: one
+// op on `nstreams` independent fp32 carries; anchor_body: the pair terms of
+// csrc/pbf_pair.cuh, which pbf_lambda and pbf_delta run, on candidates read
+// from shared memory by broadcast), and for anchor_rowfix the per-row fixed
+// work of pbf_lambda's own row code: the key, the row, 18 cell-table reads
+// and the λ store.  Each kernel is launched over
+// enough CTAs to fill every SM at its occupancy (anchor_fill_threads), each
+// thread computing one element of the JAX output again (thread t takes
+// element t mod 1024 of the tile, row t mod 64 of the body, row t mod nrows
+// of the rows), and writes its own output so that no work is dead.
+//
+// The compiler must not fold the loops the rates are read from: max(c, x)
+// is idempotent, so the max op is inline PTX; sub_mul uses the _rn
+// intrinsics so that c*x then -x is not contracted to one FFMA; the body
+// reads chunk (k + i*stride) mod nch with `stride` a run-time argument (0 in
+// every use), so its math cannot be hoisted out of the iteration loop.  The
+// wrapper checks the SASS of each instantiation (cuobjdump).
+//
+// Every launcher runs on the given stream, allocates nothing, never
+// synchronises, and returns cudaGetLastError() (cudaErrorInvalidValue for a
+// combination it has no instantiation for).
+
+#include <cuda_runtime.h>
+
+#include "pbf_pair.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 1024;  // elements of the JAX (8, 128) tile
+constexpr int kSub = 64;     // rows of the JAX body tile
+constexpr int kWcol = 128;   // candidates of one strip chunk
+
+enum Op { kFma = 0, kMul = 1, kMax = 2, kSubMul = 3, kRsqrt = 4 };
+
+template <int OP>
+__device__ __forceinline__ float issue_op(float c, float x, int u) {
+  if constexpr (OP == kFma) return fmaf(c, 1.000001f, x);
+  if constexpr (OP == kMul) return __fmul_rn(c, 1.000001f);
+  if constexpr (OP == kMax) {
+    float r;
+    asm volatile("max.f32 %0, %1, %2;" : "=f"(r) : "f"(c), "f"(x));
+    return r;
+  }
+  if constexpr (OP == kSubMul) return (u % 2) ? __fsub_rn(c, x) : __fmul_rn(c, x);
+  return rsqrtf(__fadd_rn(c, x));
+}
+
+// nstreams independent carries from x + s; each iteration applies `UN`
+// rounds of the op to every carry; the output is the sum of the carries.
+template <int OP, int NS, int UN>
+__global__ void __launch_bounds__(kThreads)
+    issue_kernel(const float* __restrict__ x_in, int niter, float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const float x = x_in[t % kTile];
+  float c[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) c[s] = x + (float)s;
+  for (int i = 0; i < niter; ++i) {
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) c[s] = issue_op<OP>(c[s], x, u);
+    }
+  }
+  float acc = c[0];
+#pragma unroll
+  for (int s = 1; s < NS; ++s) acc += c[s];
+  out[t] = acc;
+}
+
+using IssueFn = void (*)(const float*, int, float*);
+
+// The instantiations: the JAX tool's 16 streams x 16 rounds for every op,
+// and the serial chain (1 stream) for fma.
+IssueFn find_issue(int op, int nstreams, int unroll) {
+  if (nstreams == 16 && unroll == 16) {
+    switch (op) {
+      case kFma: return issue_kernel<kFma, 16, 16>;
+      case kMul: return issue_kernel<kMul, 16, 16>;
+      case kMax: return issue_kernel<kMax, 16, 16>;
+      case kSubMul: return issue_kernel<kSubMul, 16, 16>;
+      case kRsqrt: return issue_kernel<kRsqrt, 16, 16>;
+    }
+  }
+  if (nstreams == 1 && unroll == 16 && op == kFma) return issue_kernel<kFma, 1, 16>;
+  return nullptr;
+}
+
+// The production chunk body: row t mod 64 against `nunroll` chunks of the
+// strip an iteration, chunk (k + i*stride) mod nch, each pair by the
+// lambda_pair or delta_pair that csrc/pbf_phases.cu runs.  The strip is staged
+// once per CTA in shared memory as float4 (x, y, z, λ); every lane of a warp
+// reads the same candidate, a broadcast.  The output is the row's sum over
+// its pairs of the summed carries.
+template <bool LAMBDA>
+__global__ void __launch_bounds__(kThreads)
+    body_kernel(const float* __restrict__ rows, const float* __restrict__ strip,
+                int nch, int nunroll, int niter, int stride, float h, float hh,
+                float eps2, float skf, float xqf, float corr_k, float rho_recip,
+                float* __restrict__ out) {
+  extern __shared__ float4 cand[];
+  const int ncols = nch * kWcol;
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    cand[c] = make_float4(strip[c], strip[ncols + c], strip[2 * ncols + c],
+                          strip[3 * ncols + c]);
+  }
+  __syncthreads();
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = t % kSub;
+  const float ax = rows[r], ay = rows[kSub + r], az = rows[2 * kSub + r];
+  const float alam = rows[3 * kSub + r];
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int off = 0;
+  for (int i = 0; i < niter; ++i) {
+    int chunk = off;
+    for (int k = 0; k < nunroll; ++k) {
+      const float4* b0 = cand + chunk * kWcol;
+#pragma unroll 8
+      for (int j = 0; j < kWcol; ++j) {
+        if constexpr (LAMBDA) {
+          lambda_pair(ax, ay, az, b0[j], h, hh, eps2, s0, s1, s2, s3);
+        } else {
+          delta_pair(ax, ay, az, alam, b0[j], h, hh, eps2, skf, xqf, corr_k, rho_recip,
+                     s0, s1, s2);
+        }
+      }
+      chunk = chunk + 1 == nch ? 0 : chunk + 1;
+    }
+    off = (off + stride) % nch;
+  }
+  out[t] = LAMBDA ? ((s0 + s1) + s2) + s3 : (s0 + s1) + s2;
+}
+
+// pbf_lambda (csrc/pbf_phases.cu) for row t mod nrows (nrows a power of
+// two): the code that pbf_lambda runs, with lambda_member of
+// csrc/pbf_pair.cuh.
+// Driven with a table whose every range is empty, it measures the fixed cost
+// of a member row: the key, the row's float4, the 18 cell-table reads of the
+// nine (dx, dy) ranges, the epilogue, the store.
+__global__ void __launch_bounds__(kThreads)
+    rowfix_kernel(const float4* __restrict__ cand, const int* __restrict__ key,
+                  const int* __restrict__ table, int n, int nrows, int ny, int nz,
+                  int ncells, float h, float hh, float eps2, float p6f, float c_grad,
+                  float rho_recip, float cfm, float* __restrict__ lam) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int row = i & (nrows - 1);
+  const int lin = key[row];
+  if (lin >= ncells) {
+    lam[i] = lambda_nonmember(rho_recip, cfm);
+    return;
+  }
+  lam[i] = lambda_member(cand, table, row, lin, ny, nz, ncells, h, hh, eps2, p6f, c_grad,
+                         rho_recip, cfm);
+}
+
+// Threads that fill every SM at the kernel's occupancy, 0 if it has none.
+template <typename K>
+int fill_threads(K kernel, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return sms * per_sm * kThreads;
+}
+
+size_t body_smem(int nch) { return (size_t)nch * kWcol * sizeof(float4); }
+
+// Blocks of kThreads threads, or of one warp where nthreads is not a
+// multiple of kThreads (the serial chain runs one warp an SM); 0 where
+// nthreads is neither.
+int block_of(int nthreads) {
+  if (nthreads <= 0) return 0;
+  if (nthreads % kThreads == 0) return kThreads;
+  return nthreads % 32 == 0 ? 32 : 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// kernel: 0 issue (op, nstreams, unroll), 1 λ body, 2 Δp body (nch); the
+// card-filling thread count, or -1 for a combination with no instantiation.
+int anchor_fill_threads(int kernel, int op, int nstreams, int unroll, int nch) {
+  if (kernel == 0) {
+    IssueFn fn = find_issue(op, nstreams, unroll);
+    return fn ? fill_threads(fn, 0) : -1;
+  }
+  if (nch < 1) return -1;
+  if (kernel == 1) return fill_threads(body_kernel<true>, body_smem(nch));
+  if (kernel == 2) return fill_threads(body_kernel<false>, body_smem(nch));
+  return -1;
+}
+
+int anchor_issue(const void* x, int op, int nstreams, int unroll, int niter,
+                 int nthreads, void* out, void* stream) {
+  IssueFn fn = find_issue(op, nstreams, unroll);
+  const int block = block_of(nthreads);
+  if (fn == nullptr || block == 0 || niter < 0) return (int)cudaErrorInvalidValue;
+  fn<<<nthreads / block, block, 0, (cudaStream_t)stream>>>((const float*)x, niter,
+                                                          (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int anchor_body(const void* rows, const void* strip, int lambda, int nch, int nunroll,
+                int niter, int stride, float h, float hh, float eps2, float skf,
+                float xqf, float corr_k, float rho_recip, int nthreads, void* out,
+                void* stream) {
+  const int block = block_of(nthreads);
+  if (block == 0 || nch < 1 || nunroll < 0 || niter < 0 || stride < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = body_smem(nch);
+  auto kernel = lambda ? body_kernel<true> : body_kernel<false>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<nthreads / block, block, smem, (cudaStream_t)stream>>>(
+      (const float*)rows, (const float*)strip, nch, nunroll, niter, stride, h, hh,
+      eps2, skf, xqf, corr_k, rho_recip, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+int anchor_rowfix(const void* cand, const void* key, const void* table, int n,
+                  int nrows, int ny, int nz, int ncells, float h, float hh, float eps2,
+                  float p6f, float c_grad, float rho_recip, float cfm, void* lam,
+                  void* stream) {
+  if (nrows < 1 || (nrows & (nrows - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    rowfix_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float4*)cand, (const int*)key, (const int*)table, n, nrows, ny, nz,
+        ncells, h, hh, eps2, p6f, c_grad, rho_recip, cfm, (float*)lam);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

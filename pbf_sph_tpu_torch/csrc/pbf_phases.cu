@@ -32,18 +32,19 @@
 // bandwidth and instruction issue bound the kernel instead.  Shared-memory
 // staging, TMA and wgmma are left for later work.
 //
+// The λ and Δp pair terms and λ's row are in csrc/pbf_pair.cuh, which the
+// rate anchor (csrc/anchor_rate.cu) includes too.
+//
 // Every launcher runs on the given stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "pbf_pair.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ int clip_cell(int c, int ncells) {
-  return min(max(c, 0), ncells);
-}
 
 __global__ void lambda_kernel(const float4* __restrict__ cand,  // x, y, z, mass
                               const int* __restrict__ key,
@@ -55,42 +56,11 @@ __global__ void lambda_kernel(const float4* __restrict__ cand,  // x, y, z, mass
   if (i >= n) return;
   const int lin = key[i];
   if (lin >= ncells) {
-    // memberf = 0: rho = 0 and |grad|^2 = 0, so lambda = 1 / CFM
-    lam[i] = -(0.0f * rho_recip - 1.0f) / (0.0f + cfm);
+    lam[i] = lambda_nonmember(rho_recip, cfm);
     return;
   }
-  const float4 a = cand[i];
-  float p6s = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
-  const int nynz = ny * nz;
-  for (int ox = -1; ox <= 1; ++ox) {
-    for (int oy = -1; oy <= 1; ++oy) {
-      const int base = lin + ox * nynz + oy * nz;
-      const int lo = table[clip_cell(base - 1, ncells)];
-      const int hi = table[clip_cell(base + 2, ncells)];
-      for (int j = lo; j < hi; ++j) {
-        const float4 b = cand[j];
-        const float dx = a.x - b.x;
-        const float dy = a.y - b.y;
-        const float dz = a.z - b.z;
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        const float d2p = fmaxf(hh - r2, 0.f);
-        p6s += d2p * d2p * d2p;
-        const float r2c = fmaxf(r2, eps2);
-        const float u = rsqrtf(r2c);
-        const float tt = fmaxf(h - r2c * u, 0.f);
-        const float sg = tt * tt * u;
-        gx += dx * sg;
-        gy += dy * sg;
-        gz += dz * sg;
-      }
-    }
-  }
-  const float rho = a.w * (p6s * p6f);
-  const float norm2 =
-      (gx * c_grad) * (gx * c_grad) + (gy * c_grad) * (gy * c_grad) +
-      (gz * c_grad) * (gz * c_grad);
-  const float ci = rho * rho_recip - 1.0f;
-  lam[i] = -ci / (norm2 + cfm);
+  lam[i] = lambda_member(cand, table, i, lin, ny, nz, ncells, h, hh, eps2, p6f, c_grad,
+                         rho_recip, cfm);
 }
 
 __global__ void delta_kernel(const float4* __restrict__ cand,  // x, y, z, lambda
@@ -117,23 +87,8 @@ __global__ void delta_kernel(const float4* __restrict__ cand,  // x, y, z, lambd
       const int lo = table[clip_cell(base - 1, ncells)];
       const int hi = table[clip_cell(base + 2, ncells)];
       for (int j = lo; j < hi; ++j) {
-        const float4 b = cand[j];
-        const float dx = a.x - b.x;
-        const float dy = a.y - b.y;
-        const float dz = a.z - b.z;
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        const float d2p = fmaxf(hh - r2, 0.f);
-        const float xq = d2p * d2p * d2p * xqf;
-        const float x2 = xq * xq;
-        const float corr = corr_k * x2 * x2;
-        const float factor = (a.w + b.w + corr) * rho_recip;
-        const float r2c = fmaxf(r2, eps2);
-        const float u = rsqrtf(r2c);
-        const float tt = fmaxf(h - r2c * u, 0.f);
-        const float sg = (skf * (tt * tt) * u) * factor;
-        sx += dx * sg;
-        sy += dy * sg;
-        sz += dz * sg;
+        delta_pair(a.x, a.y, a.z, a.w, cand[j], h, hh, eps2, skf, xqf, corr_k,
+                   rho_recip, sx, sy, sz);
       }
     }
   }

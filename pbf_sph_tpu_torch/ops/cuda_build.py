@@ -3,9 +3,9 @@
 At first use, `nvcc` compiles every `csrc/*.cu` for Hopper (`sm_90a`), one
 process per source, all started together, and links the objects into one
 shared library with a plain C interface, in `pbf_sph_tpu_torch/_build/`.
-The library's name carries a hash of the sources and flags, so a changed
-source builds anew and an unchanged one loads at once.  It is loaded with
-`ctypes`; each launcher takes its pointers and the stream as `c_void_p` and
+The library's name carries a hash of the sources, the headers they share
+(`csrc/*.cuh`) and the flags, so a changed source builds anew and an
+unchanged one loads at once.  It is loaded with `ctypes`; each launcher takes its pointers and the stream as `c_void_p` and
 returns `cudaGetLastError()`, which `check` turns into an exception.
 
 Nothing here runs at import: the CPU-only test machines have no `nvcc`.
@@ -50,6 +50,11 @@ SIGNATURES = {
     "pbf_lambda2": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_delta2": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_diffuse2": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _P],
+    # csrc/anchor_rate.cu (anchor_fill_threads returns a thread count)
+    "anchor_fill_threads": [_I, _I, _I, _I, _I],
+    "anchor_issue": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "anchor_body": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
+    "anchor_rowfix": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
 }
 
 
@@ -64,7 +69,7 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(SRC_DIR.glob("*.cu"))
+    sources = sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())

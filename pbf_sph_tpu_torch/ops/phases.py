@@ -233,34 +233,44 @@ def _stream(device) -> int:
 def lambda_kernel(index: CellIndex, h: float, pstar, mass):
     """Raw lambda (C,) from `pbf_lambda` (replaces `make_lambda_call`)."""
     _check_cuda(index, pstar=pstar, mass=mass)
-    c = PairConstants.of(h)
-    lib = cuda_build.library()
     cand = torch.stack([pstar[0], pstar[1], pstar[2], mass], dim=1)  # (C, 4)
     lam = torch.empty_like(mass)
-    with torch.cuda.device(mass.device):
+    lambda_launch(index, h, cand, lam)
+    return lam
+
+
+def lambda_launch(index: CellIndex, h: float, cand, lam) -> None:
+    """`pbf_lambda` on a (C, 4) pack (x, y, z, mass) into `lam` (C,)."""
+    c = PairConstants.of(h)
+    lib = cuda_build.library()
+    with torch.cuda.device(cand.device):
         err = lib.pbf_lambda(
             cand.data_ptr(), index.key.data_ptr(), index.table.data_ptr(),
             *_grid_args(index), c.h, c.hh, c.eps2, c.p6f, c.c_grad,
-            c.rho_recip, c.cfm, lam.data_ptr(), _stream(mass.device))
+            c.rho_recip, c.cfm, lam.data_ptr(), _stream(cand.device))
     cuda_build.check("pbf_lambda", err)
-    return lam
 
 
 def delta_kernel(index: CellIndex, h: float, pstar, lam):
     """Raw position correction (3, C) from `pbf_delta` (replaces
     `make_delta_call`)."""
     _check_cuda(index, pstar=pstar, lam=lam)
-    c = PairConstants.of(h)
-    lib = cuda_build.library()
     cand = torch.stack([pstar[0], pstar[1], pstar[2], lam], dim=1)  # (C, 4)
     dp = torch.empty_like(pstar)
-    with torch.cuda.device(lam.device):
+    delta_launch(index, h, cand, dp)
+    return dp
+
+
+def delta_launch(index: CellIndex, h: float, cand, dp) -> None:
+    """`pbf_delta` on a (C, 4) pack (x, y, z, lambda) into `dp` (3, C)."""
+    c = PairConstants.of(h)
+    lib = cuda_build.library()
+    with torch.cuda.device(cand.device):
         err = lib.pbf_delta(
             cand.data_ptr(), index.key.data_ptr(), index.table.data_ptr(),
             *_grid_args(index), c.h, c.hh, c.eps2, c.skf, c.xqf, c.corr_k,
-            c.rho_recip, dp.data_ptr(), _stream(lam.device))
+            c.rho_recip, dp.data_ptr(), _stream(cand.device))
     cuda_build.check("pbf_delta", err)
-    return dp
 
 
 def diffuse_kernel(index: CellIndex, colour, nonobs):

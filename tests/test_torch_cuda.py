@@ -12,8 +12,12 @@ version's fp64 r2 does); MC field count exact (the kernel rounds the distances a
 the plain version does), sums rtol 1e-4, atol 1e-3.  The v2 phases: slabs
 bit for bit on the columns the compaction writes, lambda2 and delta2 as
 lambda and delta, diffuse2 count exact and sums atol 1e-6 (the plain
-version sums column by column in the kernel's order).
+version sums column by column in the kernel's order).  The rate anchor's
+kernels: issue tiles and body sums rtol 1e-5, atol 1e-6 (the kernel fuses
+multiply-adds), rowfix λ atol 1e-9.
 """
+
+import numpy as np
 
 import pytest
 import torch
@@ -30,6 +34,7 @@ from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.ops.grid import decode_key
+from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
 pytestmark = pytest.mark.cuda
@@ -245,3 +250,69 @@ def test_mc_field_counts_kernel_launches(card_surface_frame):
     torch.cuda.synchronize()
     assert v.is_cuda and n.shape == (3, v.shape[0]) and c.shape == (4, v.shape[0])
     assert field.launches == {"mc_field": 1}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _issue_x(card):
+    rng = np.random.default_rng(0)
+    return torch.from_numpy((1 + 1e-3 * rng.random(ar.TILE)).astype(np.float32)).to(card)
+
+
+@pytest.mark.parametrize("shape", ar.OP_SHAPES)
+def test_anchor_issue_kernel_matches_plain(card, shape):
+    op, nstreams, unroll = shape
+    x = _issue_x(card)
+    got = ar.issue_kernel(x, op, nstreams, unroll, 8)
+    want = ar.issue_plain(x, op, nstreams, unroll, 8)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_anchor_issue_uninstantiated_raises(card):
+    x = _issue_x(card)
+    with pytest.raises(ValueError, match="no issue kernel"):
+        ar.issue_kernel(x, "mul", 1, 16, 8)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ar.issue_kernel(x, "mul", 1, 16, 8, nthreads=1024)
+
+
+@pytest.mark.parametrize("which", ["lambda", "delta"])
+def test_anchor_body_kernel_matches_plain(card, which):
+    for nunroll, nch, niter, stride in ((2, 2, 3, 0), (5, 3, 4, 1), (8, 8, 4, 0)):
+        rows, strip = ar.random_body_inputs(nch, nch, card)
+        got = ar.body_kernel(rows, strip, which, nunroll, niter, stride)
+        want = ar.body_plain(rows, strip, which, nunroll, niter, stride)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_anchor_rowfix_kernel_matches_plain(card):
+    rows = torch.full((5, ar.ROWS), 0.05, device=card)
+    rows[4, ::3] = 0  # some non-member rows
+    index = ar.rowfix_index(rows)
+    for nblocks in (1, 8):
+        got = ar.rowfix_kernel(rows, index, nblocks)
+        torch.testing.assert_close(got, ar.rowfix_plain(rows, index, nblocks), rtol=0,
+                                   atol=1e-9)
+
+
+def test_anchor_wrappers_count_kernel_launches(card):
+    anchor = ar.Anchor()
+    x, rows, strip, frows = ar.tool_inputs(card)
+    anchor.issue(x, "rsqrt", 16, 16, 2)
+    anchor.body(rows, strip, "delta", 2, 2)
+    anchor.rowfix(frows, ar.rowfix_index(frows), 2)
+    torch.cuda.synchronize()
+    assert anchor.launches == dict.fromkeys(ar.KERNELS, 1)
+
+
+def test_anchor_sass_is_full(card):
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    cuda_build.library()
+    report = ar.check_sass(cuda_build.library_path())
+    assert {name for name, r in report.items() if not r["ok"]} == set(), report

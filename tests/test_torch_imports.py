@@ -14,6 +14,7 @@ from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
+from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_phases
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
@@ -23,12 +24,15 @@ IMPORT_ALL = """
 import importlib, pkgutil, sys
 import pbf_sph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pbf_sph_tpu_torch.__path__, "pbf_sph_tpu_torch.")]
-assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases"} <= set(names)
+assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases",
+        "pbf_sph_tpu_torch.tools.anchor_rate"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pbf_sph_tpu"))
 assert not bad, bad
+from pbf_sph_tpu_torch.ops import cuda_build
+assert cuda_build.library.cache_info().currsize == 0  # nothing built at import
 print(len(names))
 """
 
@@ -143,3 +147,25 @@ def test_surface_steps_on_cpu_without_launches():
     res, _ = solver.advance(cfg, Scene(), xs)
     assert len(res.mesh) > 0 and len(res.mesh) % 3 == 0
     assert solver.launches == {"diffuse": 0, "lambda": 0, "delta": 0, "mc_field": 0}
+
+
+def test_anchor_launchers_refuse_cpu_tensors():
+    """The rate anchor's launchers never fall back to their plain versions."""
+    rows = torch.full((5, ar.ROWS), 0.05)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ar.issue_kernel(torch.ones(ar.TILE), "fma", 16, 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ar.body_kernel(torch.ones((5, ar.SUB)), torch.ones((4, 2 * ar.WCOL)), "lambda", 2, 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ar.rowfix_kernel(rows, ar.rowfix_index(rows), 1)
+    anchor = ar.Anchor()
+    anchor.issue(torch.ones(ar.TILE), "max", 4, 4, 2)
+    assert anchor.launches == dict.fromkeys(ar.KERNELS, 0)
+
+
+def test_anchor_rate_needs_a_card(monkeypatch):
+    """The rate anchor measures on the card or fails; it never times the
+    plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ar.main(["1"])

@@ -47,6 +47,16 @@ with a non-zero exit and no result line:
    one rate reading of each through the `Anchor` wrappers at the tool's
    sizes (CUDA events, the marginal between two sizes, the SM clock
    sampled); its launches are counted over this phase;
+3f. the window micro-benchmark kernels (`csrc/micro_window.cu`, the kernels
+   of `tools/micro_window.py`): the SASS of each body at W 128 and W 1
+   (cuobjdump: one MUFU.RSQ a pair, pbf_lambda's fp32 instructions a pair
+   opcode by opcode, 12 bytes of candidate loads a pair split and 16 fused,
+   4 more for the flat list at W 1; the JAX tool's five bodies and prod and
+   guarded with fused loads), each body against its plain version at
+   both widths on the tool's inputs and random ones (rtol 5e-4, atol
+   1e-12), then one scenario-A reading of each through `MicroWindow` (CUDA
+   events, the marginal between nblocks 256 and 1024, the SM clock
+   sampled); its launches are counted over this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -72,7 +82,9 @@ phase 5 for the phase kernels, phase 6 for the MC field, 3c for the tiled
 kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
-kernel at the larger of their two sizes), the card line
+kernel at the larger of their two sizes, 3f for the window kernels, whose
+line holds scenario A at nblocks 1024, the flat kernel's split body), the
+card line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
 result.
@@ -115,6 +127,12 @@ KERNELS = {
     "anchor_issue": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:116"),
     "anchor_body": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:204"),
     "anchor_rowfix": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:288"),
+    # the window micro-benchmark of tools/micro_window.py: build_prod_structure,
+    # build_guarded, build_flat (split and fused), build_static_fused
+    "window_prod": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:176"),
+    "window_guarded": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:226"),
+    "window_flat": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:290"),
+    "window_static": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:324"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -578,6 +596,59 @@ def phase_anchor():
     return report, launches
 
 
+def phase_window():
+    """3f: the window micro-benchmark kernels (csrc/micro_window.cu): the SASS
+    of each body at both widths (cuobjdump), each against its plain version
+    on the card (uncounted), then one scenario-A reading of each through
+    `MicroWindow` (the launches counted for these kernels).  Returns
+    (report, launches)."""
+    print("== 3f. window micro-benchmark kernels (csrc/micro_window.cu) against their plain "
+          "PyTorch versions")
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import micro_window as mw
+
+    for name, r in mw.check_sass(cuda_build.library_path()).items():
+        check(r["ok"], f"SASS {name}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k != "ok"))
+    device = torch.device("cuda", torch.cuda.current_device())
+    errs = dict.fromkeys(mw.KERNELS, 0.0)
+    for label, (err, ok) in mw.card_parity(device).items():
+        check(ok, f"{label}: max abs err {err:.3e} (rtol {mw.RTOL}, atol {mw.ATOL})")
+        name = mw.KERNEL_OF[label.split()[0]]
+        errs[name] = max(errs[name], err)
+
+    win = mw.MicroWindow()
+    rates = mw.read_scenario_a(win, device, 5)
+    torch.cuda.synchronize()
+    launches = dict(win.launches)
+    print(f"  SM clock beside the readings (nvidia-smi, MHz): {rates['clocks_sm_mhz']}")
+    x = mw.tool_inputs(device)
+    nb = mw.TOOL_BLOCKS[1]
+    report = {}
+    for body in mw.BODIES:
+        r = rates[body]
+        cand = x.pack if body in mw.FUSED else x.strip
+        tables = {"window_prod": (x.wins,), "window_guarded": (x.wins,),
+                  "window_flat": (x.tbl,), "window_static": ()}[mw.KERNEL_OF[body]]
+        # each input read once (the table, the rows, the candidates), one λ
+        # a thread written; the operations of every pair slot the body computes
+        bound_ms, bound_by = bound(nbytes(*tables, x.rows, cand) + 4 * nb * mw.ROWS,
+                                   mw.body_pairs(body, x, nb) * FLOP_PER_PAIR["lambda"])
+        plain_ms = device_ms(lambda: mw.run_plain(body, x, nb), 1, warm=False)
+        print(f"  {body}: {r['ns_per_chunk']:.4f} ns a chunk ({r['chunks_per_sub']:g} a "
+              f"sub-block), {r['pair_slots_per_s'] / 1e9:.1f} G pair-slots/s; kernel "
+              f"{r['ms'][1]:.4f} ms at nblocks {nb}, plain {plain_ms:.4f} ms (one block), "
+              f"bound {bound_ms:.4f} ms by {bound_by}")
+        if body not in ("prod", "guarded", "flat", "static"):
+            continue  # the line holds the JAX tool's body of each kernel, flat's split one
+        # no single PyTorch call computes this chain
+        report[mw.KERNEL_OF[body]] = dict(
+            max_abs_err=errs[mw.KERNEL_OF[body]], ms=r["ms"][1], plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"  window wrapper launches: {launches}")
+    return report, launches
+
+
 def finalised_state(workload: str):
     """The sort-time frame and the finalised state of one frame of a surface
     workload on the card: what the MC field reads."""
@@ -838,6 +909,10 @@ def main() -> int:
     check(all(v > 0 for v in anchor_launches.values()),
           f"phase 3e launched every rate-anchor kernel {anchor_launches}")
     report.update(anchor_report)
+    window_report, window_launches = phase_window()
+    check(all(v > 0 for v in window_launches.values()),
+          f"phase 3f launched every window kernel {window_launches}")
+    report.update(window_report)
     report["mc_field"], lattice = phase_mc_field()
     phase_parity()
     phase_extract(lattice)
@@ -848,6 +923,7 @@ def main() -> int:
     launches.update(tile_launches)
     launches.update(v2_launches)
     launches.update(anchor_launches)
+    launches.update(window_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -1,0 +1,280 @@
+// Window micro-benchmark of the λ row on Hopper (sm_90a): four kernels that
+// run the same λ pair terms and epilogue and differ only in how a row finds
+// its candidates.
+//
+// Replaces the four Pallas TPU kernels of tools/micro_window.py:
+//   window_prod    <- build_prod_structure (:176): nine windows from a lo/hi
+//                     table, an unconditional first chunk a window (an empty
+//                     window reads the sentinel chunk at smax), then a loop;
+//                     split loads, or fused ones (a body the JAX tool lacks:
+//                     pbf_lambda's own loads)
+//   window_guarded <- build_guarded        (:226): the same without the
+//                     unconditional chunk, split or fused
+//   window_flat    <- build_flat           (:290): one loop over a
+//                     per-sub-block list [count, offsets...], split or fused
+//                     candidate loads
+//   window_static  <- build_static_fused   (:324): offsets computed, not
+//                     loaded, fused loads
+// Every kernel computes λ of 1024 rows (16 sub-blocks of 64) in the JAX
+// tool's form: each pair by lambda_pair of csrc/pbf_pair.cuh (the tool's
+// lam_math, and pbf_lambda's own pair terms), then the tool's epilogue, where
+// memberf scales rho and the gradient.  pbf_sph_tpu_torch/tools/micro_window.py
+// holds the wrappers, the plain versions, the tables and the SASS check.
+//
+// Generalised in one place: the chunk width W, 128 in the JAX tool.  Each
+// kernel is instantiated at W = 128 and at W = 1, where the prod kernel's
+// chunk loop is pbf_lambda's own `for j in [lo, hi)` and the flat list a
+// per-row candidate list.  The static kernel reads nwin windows of nper
+// chunks at ((s*7 + t) % 40) * nper * W; the JAX tool's scenario is nwin 10,
+// nper 1.  Its trip counts are arguments: the census scenario takes them
+// from the data at run time.
+//
+// What bounds them: instruction issue, by construction.  Every thread reads
+// the candidates of its sub-block, which two warps share, so a load is a
+// broadcast from L1; the strip (a (4, ncols) SoA for split loads, an
+// (ncols, 4) float4 pack for fused ones) is ~135 KB and stays in L1/L2.  The
+// JAX fori over nblocks is not a loop here: its body is loop-invariant and
+// nvcc would hoist it.  Thread i computes row i mod 1024 and writes out[i],
+// so nblocks x 1024 threads replicate the rows and no work is dead.
+//
+// Sums: at W > 1 a chunk's pairs go to a partial sum, which is added to the
+// row's total, as the Pallas (64, W) carry keeps a sum a lane; at W = 1 each
+// pair goes to the total, so the pair loop holds pbf_lambda's fp32
+// instructions a pair, opcode by opcode (the wrapper checks the SASS).
+//
+// Every launcher runs on the given stream, allocates nothing, never
+// synchronises, and returns cudaGetLastError() (cudaErrorInvalidValue for a
+// width it has no instantiation for).  Table offsets must lie in
+// [0, ncols - W]; the kernels do not clip them (prod and guarded clip the
+// window chunks to smax, as the tool does).
+
+#include <cuda_runtime.h>
+
+#include "pbf_pair.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 1024;    // rows of one block: 16 sub-blocks of 64
+constexpr int kSubShift = 6;   // 64 rows a sub-block
+constexpr int kWindows = 9;    // the nine (dx, dy) windows of a sub-block
+constexpr int kWinStride = 18; // [t*18 + 2s + {lo, hi}]
+constexpr int kSpan = 40;      // the static offsets' period, in windows
+
+struct Row {
+  int r, t;
+  float ax, ay, az;
+};
+
+__device__ __forceinline__ Row row_of(const float* __restrict__ rows, int i) {
+  Row w;
+  w.r = i & (kRows - 1);
+  w.t = w.r >> kSubShift;
+  w.ax = rows[w.r];
+  w.ay = rows[kRows + w.r];
+  w.az = rows[2 * kRows + w.r];
+  return w;
+}
+
+// Candidate k: one float4 load from the pack (fused), or three 32-bit loads
+// from the SoA strip (split).
+template <bool FUSED>
+__device__ __forceinline__ float4 candidate(const float* __restrict__ strip,
+                                            const float4* __restrict__ pack, int ncols, int k) {
+  if constexpr (FUSED) {
+    return pack[k];
+  } else {
+    return make_float4(strip[k], strip[ncols + k], strip[2 * ncols + k], 0.f);
+  }
+}
+
+// The candidates of one chunk, columns [o, o + W), against the row.
+template <int W, bool FUSED>
+__device__ __forceinline__ void chunk(const float* __restrict__ strip,
+                                      const float4* __restrict__ pack, int ncols, int o,
+                                      const Row& w, float h, float hh, float eps2,
+                                      float& p6s, float& gx, float& gy, float& gz) {
+  if constexpr (W == 1) {
+    lambda_pair(w.ax, w.ay, w.az, candidate<FUSED>(strip, pack, ncols, o), h, hh, eps2, p6s,
+                gx, gy, gz);
+  } else {
+    float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < W; ++j) {
+      lambda_pair(w.ax, w.ay, w.az, candidate<FUSED>(strip, pack, ncols, o + j), h, hh, eps2,
+                  c0, c1, c2, c3);
+    }
+    p6s += c0;
+    gx += c1;
+    gy += c2;
+    gz += c3;
+  }
+}
+
+// The tool's epilogue (tools/micro_window.py:96-109): memberf scales rho and
+// the gradient.
+__device__ __forceinline__ float epilogue(const float* __restrict__ rows, int r, float p6s,
+                                          float gx, float gy, float gz, float p6f,
+                                          float c_grad, float rho_recip, float cfm) {
+  const float mass = rows[3 * kRows + r];
+  const float memberf = rows[4 * kRows + r];
+  const float rho = mass * (p6s * p6f) * memberf;
+  const float c = c_grad * memberf;
+  const float ux = gx * c, uy = gy * c, uz = gz * c;
+  const float norm2 = ux * ux + uy * uy + uz * uz;
+  const float ci = rho * rho_recip - 1.0f;
+  return -ci / (norm2 + cfm);
+}
+
+// window_prod (GUARDED false) and window_guarded (true), with the JAX
+// tool's split loads or with fused ones, as pbf_lambda loads its candidates.
+template <int W, bool GUARDED, bool FUSED>
+__global__ void __launch_bounds__(kThreads)
+    window_kernel(const int* __restrict__ wins, const float* __restrict__ rows,
+                  const float* __restrict__ strip, const float4* __restrict__ pack, int ncols,
+                  int smax, int n, float h, float hh, float eps2, float p6f, float c_grad,
+                  float rho_recip, float cfm, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Row w = row_of(rows, i);
+  const int* __restrict__ tw = wins + w.t * kWinStride;
+  float p6s = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < kWindows; ++s) {
+    const int lo = tw[2 * s];
+    const int hi = tw[2 * s + 1];
+    const int c0 = lo / W;
+    const int nchunk = hi > lo ? (hi - c0 * W + W - 1) / W : 0;
+    int wi = 0;
+    if constexpr (!GUARDED) {
+      chunk<W, FUSED>(strip, pack, ncols, min(c0 * W, smax), w, h, hh, eps2, p6s, gx, gy, gz);
+      wi = 1;
+    }
+    for (; wi < nchunk; ++wi) {
+      chunk<W, FUSED>(strip, pack, ncols, min((c0 + wi) * W, smax), w, h, hh, eps2, p6s, gx,
+                      gy, gz);
+    }
+  }
+  out[i] = epilogue(rows, w.r, p6s, gx, gy, gz, p6f, c_grad, rho_recip, cfm);
+}
+
+// window_flat: tbl[t*stride] = count, then the chunk offsets.
+template <int W, bool FUSED>
+__global__ void __launch_bounds__(kThreads)
+    flat_kernel(const int* __restrict__ tbl, int stride, const float* __restrict__ rows,
+                const float* __restrict__ strip, const float4* __restrict__ pack, int ncols,
+                int n, float h, float hh, float eps2, float p6f, float c_grad,
+                float rho_recip, float cfm, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Row w = row_of(rows, i);
+  const int* __restrict__ tt = tbl + w.t * stride;
+  const int cnt = tt[0];
+  float p6s = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
+  for (int c = 0; c < cnt; ++c) {
+    chunk<W, FUSED>(strip, pack, ncols, tt[1 + c], w, h, hh, eps2, p6s, gx, gy, gz);
+  }
+  out[i] = epilogue(rows, w.r, p6s, gx, gy, gz, p6f, c_grad, rho_recip, cfm);
+}
+
+// window_static: nwin windows of nper chunks at computed offsets.
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+    static_kernel(const float* __restrict__ rows, const float4* __restrict__ pack, int nwin,
+                  int nper, int n, float h, float hh, float eps2, float p6f, float c_grad,
+                  float rho_recip, float cfm, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Row w = row_of(rows, i);
+  float p6s = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
+#pragma unroll 1
+  for (int s = 0; s < nwin; ++s) {
+    const int base = ((s * 7 + w.t) % kSpan) * nper * W;
+    for (int c = 0; c < nper; ++c) {
+      chunk<W, true>(nullptr, pack, 0, base + c * W, w, h, hh, eps2, p6s, gx, gy, gz);
+    }
+  }
+  out[i] = epilogue(rows, w.r, p6s, gx, gy, gz, p6f, c_grad, rho_recip, cfm);
+}
+
+int blocks_of(int n) { return (n + kThreads - 1) / kThreads; }
+
+template <bool GUARDED>
+int launch_window(const void* wins, const void* rows, const void* cand, int ncols, int smax,
+                  int width, int fused, int n, float h, float hh, float eps2, float p6f,
+                  float c_grad, float rho_recip, float cfm, void* out, void* stream) {
+  using Fn = void (*)(const int*, const float*, const float*, const float4*, int, int, int,
+                      float, float, float, float, float, float, float, float*);
+  Fn kernel = nullptr;
+  if (width == 128) {
+    kernel = fused ? window_kernel<128, GUARDED, true> : window_kernel<128, GUARDED, false>;
+  }
+  if (width == 1) {
+    kernel = fused ? window_kernel<1, GUARDED, true> : window_kernel<1, GUARDED, false>;
+  }
+  if (kernel == nullptr || n < 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    kernel<<<blocks_of(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)wins, (const float*)rows, fused ? nullptr : (const float*)cand,
+        fused ? (const float4*)cand : nullptr, ncols, smax, n, h, hh, eps2, p6f, c_grad,
+        rho_recip, cfm, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// cand is the (4, ncols) strip for split loads, the (ncols, 4) pack for
+// fused ones, in every launcher that takes `fused`.
+int window_prod(const void* wins, const void* rows, const void* cand, int ncols, int smax,
+                int width, int fused, int n, float h, float hh, float eps2, float p6f,
+                float c_grad, float rho_recip, float cfm, void* out, void* stream) {
+  return launch_window<false>(wins, rows, cand, ncols, smax, width, fused, n, h, hh, eps2, p6f,
+                              c_grad, rho_recip, cfm, out, stream);
+}
+
+int window_guarded(const void* wins, const void* rows, const void* cand, int ncols, int smax,
+                   int width, int fused, int n, float h, float hh, float eps2, float p6f,
+                   float c_grad, float rho_recip, float cfm, void* out, void* stream) {
+  return launch_window<true>(wins, rows, cand, ncols, smax, width, fused, n, h, hh, eps2, p6f,
+                             c_grad, rho_recip, cfm, out, stream);
+}
+
+int window_flat(const void* tbl, int stride, const void* rows, const void* cand, int ncols,
+                int width, int fused, int n, float h, float hh, float eps2, float p6f,
+                float c_grad, float rho_recip, float cfm, void* out, void* stream) {
+  using Fn = void (*)(const int*, int, const float*, const float*, const float4*, int, int,
+                      float, float, float, float, float, float, float, float*);
+  Fn kernel = nullptr;
+  if (width == 128) kernel = fused ? flat_kernel<128, true> : flat_kernel<128, false>;
+  if (width == 1) kernel = fused ? flat_kernel<1, true> : flat_kernel<1, false>;
+  if (kernel == nullptr || n < 0 || stride < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    kernel<<<blocks_of(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const int*)tbl, stride, (const float*)rows, fused ? nullptr : (const float*)cand,
+        fused ? (const float4*)cand : nullptr, ncols, n, h, hh, eps2, p6f, c_grad, rho_recip,
+        cfm, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int window_static(const void* rows, const void* pack, int nwin, int nper, int width, int n,
+                  float h, float hh, float eps2, float p6f, float c_grad, float rho_recip,
+                  float cfm, void* out, void* stream) {
+  using Fn = void (*)(const float*, const float4*, int, int, int, float, float, float, float,
+                      float, float, float, float*);
+  Fn kernel = nullptr;
+  if (width == 128) kernel = static_kernel<128>;
+  if (width == 1) kernel = static_kernel<1>;
+  if (kernel == nullptr || n < 0 || nwin < 0 || nper < 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    kernel<<<blocks_of(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)rows, (const float4*)pack, nwin, nper, n, h, hh, eps2, p6f, c_grad,
+        rho_recip, cfm, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

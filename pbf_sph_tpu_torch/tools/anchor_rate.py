@@ -587,6 +587,12 @@ class ClockSampler:
         out, _ = self.proc.communicate(timeout=30)
         self.mhz = [int(v) for v in out.split() if v.isdigit()]
 
+    def summary(self) -> Optional[dict]:
+        """min, median, max and count of the readings; None without any."""
+        mhz = self.mhz
+        return (dict(min=min(mhz), median=statistics.median(mhz), max=max(mhz),
+                     samples=len(mhz)) if mhz else None)
+
 
 def marginal(run, sizes: Tuple[int, int], reps: int) -> Tuple[float, float, float]:
     """(seconds, t_lo ms, t_hi ms): the device time that the larger size adds
@@ -604,14 +610,27 @@ def marginal(run, sizes: Tuple[int, int], reps: int) -> Tuple[float, float, floa
     return (t_hi - t_lo) * 1e-3, t_lo, t_hi
 
 
+def body_rate(anchor: Anchor, which: str, reps: int, device) -> dict:
+    """The λ or Δp body ceiling through `anchor` at the JAX tool's inputs
+    and BODY_SHAPE, the card filled: dict(threads, iters, ms, rate in
+    pair-slots/s)."""
+    _, rows, strip, _ = tool_inputs(device)
+    nunroll, nch = BODY_SHAPE["nunroll"], BODY_SHAPE["nch"]
+    n = fill_threads(device, which, nch=nch)
+    dt, t_lo, t_hi = marginal(
+        lambda it: anchor.body(rows, strip, which, nunroll, it, 0, n), BODY_ITERS, reps)
+    pairs = (BODY_ITERS[1] - BODY_ITERS[0]) * n * nunroll * WCOL
+    return dict(threads=n, iters=list(BODY_ITERS), ms=[t_lo, t_hi], rate=pairs / dt)
+
+
 def read_rates(anchor: Anchor, dims, reps: int, device) -> dict:
     """Every rate of the tool, through `anchor`'s wrappers (counted), at the
     JAX tool's inputs, with the SM clock sampled beside: the issue rates
     (ops/s; the serial fma chain on one warp per SM, its ns per dependent
     op: a latency), the body ceilings (pair-slots/s) and the row fixed cost (ns/row)."""
-    x, rows, strip, frows = tool_inputs(device)
+    x, _, _, frows = tool_inputs(device)
     index = rowfix_index(frows, dims)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms =torch.cuda.get_device_properties(device).multi_processor_count
     res = {"issue": {}, "body": {}}
     with ClockSampler(device) as clock:
         for op, ns, un in OP_SHAPES:
@@ -626,21 +645,13 @@ def read_rates(anchor: Anchor, dims, reps: int, device) -> dict:
             if serial:
                 entry["ns_per_op"] = dt * 1e9 / steps
             res["issue"][f"{op} {ns}x{un}"] = entry
-        nunroll, nch = BODY_SHAPE["nunroll"], BODY_SHAPE["nch"]
         for which in ("lambda", "delta"):
-            n = fill_threads(device, which, nch=nch)
-            dt, t_lo, t_hi = marginal(
-                lambda it: anchor.body(rows, strip, which, nunroll, it, 0, n), BODY_ITERS, reps)
-            pairs = (BODY_ITERS[1] - BODY_ITERS[0]) * n * nunroll * WCOL
-            res["body"][which] = dict(threads=n, iters=list(BODY_ITERS), ms=[t_lo, t_hi],
-                                      rate=pairs / dt)
+            res["body"][which] = body_rate(anchor, which, reps, device)
         dt, t_lo, t_hi = marginal(lambda nb: anchor.rowfix(frows, index, nb),
                                   ROWFIX_BLOCKS, reps)
         res["rowfix"] = dict(blocks=list(ROWFIX_BLOCKS), ms=[t_lo, t_hi],
                              ns_per_row=dt * 1e9 / ((ROWFIX_BLOCKS[1] - ROWFIX_BLOCKS[0]) * ROWS))
-    mhz = clock.mhz
-    res["clocks_sm_mhz"] = (dict(min=min(mhz), median=statistics.median(mhz), max=max(mhz),
-                                 samples=len(mhz)) if mhz else None)
+    res["clocks_sm_mhz"] = clock.summary()
     return res
 
 

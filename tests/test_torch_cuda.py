@@ -14,7 +14,9 @@ bit for bit on the columns the compaction writes, lambda2 and delta2 as
 lambda and delta, diffuse2 count exact and sums atol 1e-6 (the plain
 version sums column by column in the kernel's order).  The rate anchor's
 kernels: issue tiles and body sums rtol 1e-5, atol 1e-6 (the kernel fuses
-multiply-adds), rowfix λ atol 1e-9.
+multiply-adds), rowfix λ atol 1e-9.  The window micro-benchmark's kernels:
+λ rtol 5e-4, atol 1e-12 (λ is ~1e-7 and prod's ci of 0.077 amplifies the
+sums' rounding ~14x; the kernel sums a chunk's pairs in its own order).
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.ops.grid import decode_key
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
+from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
 pytestmark = pytest.mark.cuda
@@ -315,4 +318,35 @@ def test_anchor_sass_is_full(card):
 
     cuda_build.library()
     report = ar.check_sass(cuda_build.library_path())
+    assert {name for name, r in report.items() if not r["ok"]} == set(), report
+
+
+@pytest.mark.parametrize("width", mw.WIDTHS)
+@pytest.mark.parametrize("body", mw.BODIES)
+def test_window_kernels_match_plain(card, body, width):
+    cases = [mw.random_inputs(1, width, card),
+             mw.tool_inputs(card) if width == mw.WCOL
+             else mw.census_inputs(*mw.PARITY_CENSUS, device=card)]
+    for x in cases:
+        got = mw.run_kernel(body, x, 3)
+        torch.testing.assert_close(got, mw.run_plain(body, x), rtol=mw.RTOL, atol=mw.ATOL)
+
+
+def test_window_wrappers_count_kernel_launches(card):
+    win = mw.MicroWindow()
+    x = mw.tool_inputs(card)
+    for body in mw.BODIES:
+        win.run(body, x, 1)
+    torch.cuda.synchronize()
+    assert win.launches == {"window_prod": 2, "window_guarded": 2, "window_flat": 2,
+                            "window_static": 1}
+    with pytest.raises(ValueError, match="instantiates"):
+        mw.prod_kernel(x.wins, x.rows, x.strip, 1, width=64)
+
+
+def test_window_sass_is_full(card):
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    cuda_build.library()
+    report = mw.check_sass(cuda_build.library_path())
     assert {name for name, r in report.items() if not r["ok"]} == set(), report

@@ -16,6 +16,7 @@ from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_phases
+from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
 REPO = Path(__file__).resolve().parent.parent
@@ -25,7 +26,8 @@ import importlib, pkgutil, sys
 import pbf_sph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pbf_sph_tpu_torch.__path__, "pbf_sph_tpu_torch.")]
 assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases",
-        "pbf_sph_tpu_torch.tools.anchor_rate"} <= set(names)
+        "pbf_sph_tpu_torch.tools.anchor_rate",
+        "pbf_sph_tpu_torch.tools.micro_window"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -41,7 +43,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 26  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 28  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):
@@ -169,3 +171,24 @@ def test_anchor_rate_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         ar.main(["1"])
+
+
+def test_window_launchers_refuse_cpu_tensors():
+    """The window micro-benchmark's launchers never fall back to their plain
+    versions."""
+    for width in mw.WIDTHS:
+        x = mw.random_inputs(0, width)
+        for body in mw.BODIES:
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                mw.run_kernel(body, x, 1)
+    win = mw.MicroWindow()
+    win.run("flat_fused", mw.tool_inputs(), 1)
+    assert win.launches == dict.fromkeys(mw.KERNELS, 0)
+
+
+def test_micro_window_needs_a_card(monkeypatch):
+    """The window micro-benchmark measures on the card or fails; it never
+    times the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        mw.main(["1"])

@@ -57,6 +57,17 @@ with a non-zero exit and no result line:
    1e-12), then one scenario-A reading of each through `MicroWindow` (CUDA
    events, the marginal between nblocks 256 and 1024, the SM clock
    sampled); its launches are counted over this phase;
+3g. the MC-field bisection kernels (`mc_field_noop`, `mc_field_rows`,
+   `mc_field_loops` of `csrc/mc_field.cu`, the variants of
+   `tools/micro_mc_field.py`): the SASS (cuobjdump: noop and rows without a
+   loop, loops one 16-byte load and one FFMA a candidate and no MUFU,
+   mc_field's candidate loops the opcodes of the kernel before the
+   bisection bodies), each against its plain version on 3b's two finalised
+   states (noop zero, rows bit for bit, loops rtol 1e-5 with atol 1e-6 x
+   max|value|), then one kernel-ladder reading at mc128k through
+   `McFieldBisect` (noop -> rows -> loops -> full, CUDA events over
+   back-to-back launches and over a CUDA graph of captured launches, the SM
+   clock sampled); its launches are counted over this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -83,8 +94,10 @@ kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
 kernel at the larger of their two sizes, 3f for the window kernels, whose
-line holds scenario A at nblocks 1024, the flat kernel's split body), the
-card line
+line holds scenario A at nblocks 1024, the flat kernel's split body, 3g for
+the MC-field bisection kernels, whose ms is the CUDA-graph reading at
+mc128k, as is noop's library_ms, torch.zeros of the (9, L) output), the card
+line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
 result.
@@ -133,6 +146,11 @@ KERNELS = {
     "window_guarded": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:226"),
     "window_flat": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:290"),
     "window_static": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:324"),
+    # the MC-field bisection of tools/micro_mc_field.py: make_variant's noop,
+    # rows and loops bodies
+    "mc_field_noop": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
+    "mc_field_rows": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
+    "mc_field_loops": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -667,14 +685,17 @@ def finalised_state(workload: str):
 
 def phase_mc_field():
     """The MC field kernel against its plain version; returns the mc128k
-    numbers and the mc128k lattice (spec, dyn, frame, v, n, c)."""
+    numbers, the mc128k lattice (spec, dyn, frame, v, n, c) and each
+    workload's (spec, frame, finalised state)."""
     print("== 3b. MC field kernel against its plain PyTorch version, on the card")
     from pbf_sph_tpu_torch.ops import mc_field as mf
     from pbf_sph_tpu_torch.ops import phases as ph
 
     report = lattice = None
+    states = {}
     for workload in ("bench20k", "mc128k"):
         spec, dyn, fr, st = finalised_state(workload)
+        states[workload] = (spec, fr, st)
         mc = spec.surface
         nonobs = ph.nonobstacle(st.ptype, st.alive)
         args = (fr.index, mc, spec.h, spec.scale, st.position, st.colour, nonobs,
@@ -725,7 +746,59 @@ def phase_mc_field():
         report = dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         lattice = (spec, dyn, fr, vk, nk, ck)
-    return report, lattice
+    return report, lattice, states
+
+
+def phase_mc_bisect(states):
+    """3g: the MC-field bisection kernels (csrc/mc_field.cu): the SASS
+    (cuobjdump), each against its plain version on 3b's states (uncounted),
+    then one kernel-ladder reading at mc128k through `McFieldBisect` (the
+    launches counted for these kernels).  Returns (report, launches)."""
+    print("== 3g. MC-field bisection kernels (csrc/mc_field.cu) against their plain PyTorch "
+          "versions")
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
+
+    for name, r in mcb.check_sass(cuda_build.library_path()).items():
+        check(r["ok"], f"SASS {name}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k not in ("ok", "opcodes", "parent")))
+    errs = dict.fromkeys(mcb.KERNELS, 0.0)
+    for workload, (spec, fr, st) in states.items():
+        for label, (err, ok) in mcb.card_parity(spec, fr, st, workload).items():
+            check(ok, f"{label}: max abs err {err:.3e} (noop zero, rows bit for bit, loops "
+                      f"rtol {mcb.RTOL} with atol {mcb.ATOL_SCALE} x max|value|)")
+            name = mcb.KERNEL_OF[label.split()[0]]
+            errs[name] = max(errs[name], err)
+
+    spec, fr, st = states["mc128k"]
+    bisect = mcb.McFieldBisect(spec.h)
+    ladder = mcb.kernel_ladder(bisect, spec, fr, st, 10)
+    torch.cuda.synchronize()
+    launches = dict(bisect.launches)
+    print(f"  SM clock beside the ladder (nvidia-smi, MHz): {ladder['clocks_sm_mhz']}")
+    args = mcb.field_args(spec, fr, st)
+    nodes = int(np.prod(spec.surface.sample))
+    report = {}
+    for r in ladder["steps"]:
+        print(f"  {r['step']}: {r['events_ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms in "
+              f"a graph (step {r['step_graph_ms']:+.4f}: {r['adds']}), host "
+              f"{r['host_us']:.2f} us a launch, bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+        if r["step"] == "full":
+            continue
+        plain = mcb.PLAIN[r["step"]]
+        plain_ms = device_ms(lambda: plain(*args), 1)
+        # torch.zeros computes what noop writes, read as the kernel is (a CUDA
+        # graph); no PyTorch call computes the others
+        library_ms = (mcb.graph_ms(lambda: torch.zeros((9, nodes), device=st.position.device))
+                      if r["step"] == "noop" else None)
+        name = mcb.KERNEL_OF[r["step"]]
+        report[name] = dict(max_abs_err=errs[name], ms=r["graph_ms"], plain_ms=plain_ms,
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=library_ms)
+        lib = f", torch.zeros {library_ms:.4f} ms" if library_ms is not None else ""
+        print(f"  {name}: plain {plain_ms:.4f} ms{lib}")
+    print(f"  bisection wrapper launches: {launches}")
+    return report, launches
 
 
 def phase_parity() -> None:
@@ -913,7 +986,12 @@ def main() -> int:
     check(all(v > 0 for v in window_launches.values()),
           f"phase 3f launched every window kernel {window_launches}")
     report.update(window_report)
-    report["mc_field"], lattice = phase_mc_field()
+    report["mc_field"], lattice, states = phase_mc_field()
+    bisect_report, bisect_launches = phase_mc_bisect(states)
+    check(all(v > 0 for v in bisect_launches.values()),
+          f"phase 3g launched every MC-field bisection kernel {bisect_launches}")
+    report.update(bisect_report)
+    del states
     phase_parity()
     phase_extract(lattice)
     del lattice
@@ -924,6 +1002,7 @@ def main() -> int:
     launches.update(v2_launches)
     launches.update(anchor_launches)
     launches.update(window_launches)
+    launches.update(bisect_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -40,7 +40,29 @@
 // several threads per node, shared-memory staging of a block's cells, or a
 // compact list of live nodes are left for later work.
 //
-// The launcher runs on the given stream, allocates nothing, never
+// The bisection bodies.  The kernel is a template on its body; the
+// production launcher mc_field instantiates kFull.  The three reduced bodies
+// replace the variants of tools/micro_mc_field.py's make_variant (:83, the
+// Pallas call of pallas_pbf.py:301), each the JAX body's reduction applied to
+// this kernel's traversal (not to the TPU's cell-sorted sub-blocks):
+//   mc_field_noop  <- "noop":  launch and the (9, L) output, all zeros;
+//   mc_field_rows  <- "rows":  + the node decode, its cell and world position;
+//                     every row holds ((ax + ay) + az) + meta, meta = the
+//                     cell's linear id, -1 for the skip node;
+//   mc_field_loops <- "loops": + the nine-column walk, one 16-byte load of
+//                     pos[j] a candidate and acc += p.x * ax; no key read, no
+//                     z-wrap or obstacle test, no distance mask, no weight or
+//                     colour; row 0 holds acc, rows 1-8 zeros.  ptxas narrows
+//                     a 16-byte load of which only .x is used (inline PTX
+//                     too), so y, z and w are xor-ed into a sink a candidate
+//                     (integer ops, no fp32) and written to row 1 through a
+//                     mask that is 0 for every th2 >= 0.
+// pbf_sph_tpu_torch/tools/micro_mc_field.py holds their wrappers, plain
+// versions and the SASS check (kFull's candidate loops keep the opcodes of the
+// kernel before the template).  Each is bound by its bytes: the (9, L) output,
+// and for loops the (C, 4) positions and the cell table.
+//
+// Every launcher runs on the given stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -49,6 +71,9 @@ namespace {
 
 constexpr int kThreads = 128;
 
+enum McBody { kNoop = 0, kRows = 1, kLoops = 2, kFull = 3 };
+
+template <int kBody>
 __global__ void mc_field_kernel(const float4* __restrict__ pos,     // x, y, z, nonobs
                                 const float4* __restrict__ colour,  // r, g, b, a
                                 const int* __restrict__ key,
@@ -61,6 +86,10 @@ __global__ void mc_field_kernel(const float4* __restrict__ pos,     // x, y, z, 
   const int n_nodes = nxn * nyn * nzn;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_nodes) return;
+  if (kBody == kNoop) {
+    for (int r = 0; r < 9; ++r) out[r * n_nodes + i] = 0.f;
+    return;
+  }
   const int nyz = nyn * nzn;
   const int x = i / nyz;
   const int y = (i - x * nyz) / nzn;
@@ -68,10 +97,21 @@ __global__ void mc_field_kernel(const float4* __restrict__ pos,     // x, y, z, 
   const int cx = (int)truncf(__fdiv_rn((float)x, res));
   const int cy = (int)truncf(__fdiv_rn((float)y, res));
   const int cz = (int)truncf(__fdiv_rn((float)z, res));
+  const bool skip = cx == ex && cy == ey && cz == ez;
+  if (kBody == kRows) {
+    const float ax = __fmul_rn(__fadd_rn(min_extent[0], __fmul_rn((float)x, step)), scale);
+    const float ay = __fmul_rn(__fadd_rn(min_extent[1], __fmul_rn((float)y, step)), scale);
+    const float az = __fmul_rn(__fadd_rn(min_extent[2], __fmul_rn((float)z, step)), scale);
+    const float meta = skip ? -1.f : (float)((cx * (ey + 1) + cy) * (ez + 1) + cz);
+    const float v = __fadd_rn(__fadd_rn(__fadd_rn(ax, ay), az), meta);
+    for (int r = 0; r < 9; ++r) out[r * n_nodes + i] = v;
+    return;
+  }
 
   float s0 = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
   float cr = 0.f, cg = 0.f, cb = 0.f, ca = 0.f, cnt = 0.f;
-  if (!(cx == ex && cy == ey && cz == ez)) {
+  unsigned sink = 0u;  // loops: keeps each candidate's load 16 bytes wide
+  if (!skip) {
     const float ax = __fmul_rn(__fadd_rn(min_extent[0], __fmul_rn((float)x, step)), scale);
     const float ay = __fmul_rn(__fadd_rn(min_extent[1], __fmul_rn((float)y, step)), scale);
     const float az = __fmul_rn(__fadd_rn(min_extent[2], __fmul_rn((float)z, step)), scale);
@@ -87,6 +127,12 @@ __global__ void mc_field_kernel(const float4* __restrict__ pos,     // x, y, z, 
         const int lo = table[max(base - 1, 0)];
         const int hi = table[min(base + 2, ncells)];
         for (int j = lo; j < hi; ++j) {
+          if (kBody == kLoops) {
+            const float4 p = pos[j];
+            s0 += p.x * ax;
+            sink ^= __float_as_uint(p.y) ^ __float_as_uint(p.z) ^ __float_as_uint(p.w);
+            continue;
+          }
           const int bz = cz + (key[j] - base);
           if (bz < 0 || bz > ez) continue;  // a cell across the z-wrap
           const float4 p = pos[j];
@@ -113,6 +159,7 @@ __global__ void mc_field_kernel(const float4* __restrict__ pos,     // x, y, z, 
       }
     }
   }
+  if (kBody == kLoops) sx = __uint_as_float(sink & (th2 < 0.f ? ~0u : 0u));
   out[i] = s0;
   out[n_nodes + i] = sx;
   out[2 * n_nodes + i] = sy;
@@ -124,23 +171,38 @@ __global__ void mc_field_kernel(const float4* __restrict__ pos,     // x, y, z, 
   out[8 * n_nodes + i] = cnt;
 }
 
-}  // namespace
-
-extern "C" {
-
-int mc_field(const void* pos, const void* colour, const void* key,
-             const void* table, const void* min_extent, int nxn, int nyn,
-             int nzn, int ex, int ey, int ez, float res, float step,
-             float scale, float th2, float infl, void* out, void* stream) {
+template <int kBody>
+int launch(const void* pos, const void* colour, const void* key,
+           const void* table, const void* min_extent, int nxn, int nyn,
+           int nzn, int ex, int ey, int ez, float res, float step,
+           float scale, float th2, float infl, void* out, void* stream) {
   const int n_nodes = nxn * nyn * nzn;
   if (n_nodes > 0) {
-    mc_field_kernel<<<(n_nodes + kThreads - 1) / kThreads, kThreads, 0,
-                      (cudaStream_t)stream>>>(
+    mc_field_kernel<kBody><<<(n_nodes + kThreads - 1) / kThreads, kThreads, 0,
+                             (cudaStream_t)stream>>>(
         (const float4*)pos, (const float4*)colour, (const int*)key,
         (const int*)table, (const float*)min_extent, nxn, nyn, nzn, ex, ey, ez,
         res, step, scale, th2, infl, (float*)out);
   }
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+#define MC_FIELD_LAUNCHER(name, body)                                          \
+  int name(const void* pos, const void* colour, const void* key,               \
+           const void* table, const void* min_extent, int nxn, int nyn,        \
+           int nzn, int ex, int ey, int ez, float res, float step,             \
+           float scale, float th2, float infl, void* out, void* stream) {      \
+    return launch<body>(pos, colour, key, table, min_extent, nxn, nyn, nzn,    \
+                        ex, ey, ez, res, step, scale, th2, infl, out, stream); \
+  }
+
+extern "C" {
+
+MC_FIELD_LAUNCHER(mc_field, kFull)
+MC_FIELD_LAUNCHER(mc_field_noop, kNoop)
+MC_FIELD_LAUNCHER(mc_field_rows, kRows)
+MC_FIELD_LAUNCHER(mc_field_loops, kLoops)
 
 }  // extern "C"

@@ -42,9 +42,10 @@ SIGNATURES = {
     # csrc/pbf_tiles.cu
     "pbf_lambda_tile": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_delta_tile": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
-    # csrc/mc_field.cu
-    "mc_field": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                 _P, _P],
+    # csrc/mc_field.cu: the production body and the three bisection bodies
+    **dict.fromkeys(
+        ("mc_field", "mc_field_noop", "mc_field_rows", "mc_field_loops"),
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P]),
     # csrc/pbf_phases2.cu
     "pbf_compact": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     "pbf_lambda2": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],

@@ -161,28 +161,41 @@ def mc_field_plain(index: CellIndex, mc: McSpec, h: float, scale: float,
 
 
 def mc_field_kernel(index: CellIndex, mc: McSpec, h: float, scale: float,
-                    position, colour, nonobs, min_extent):
-    """Raw field sums (9, L) from `mc_field` (replaces `make_mc_field_call`)."""
+                    position, colour, nonobs, min_extent, name: str = "mc_field"):
+    """Raw field sums (9, L) from `mc_field` (replaces `make_mc_field_call`),
+    or from the launcher `name` of `csrc/mc_field.cu` of the same signature."""
     _check_cuda(index, position=position, colour=colour, nonobs=nonobs)
     if (min_extent.device != position.device or min_extent.dtype != torch.float32
             or tuple(min_extent.shape) != (3,)):
         raise ValueError(f"min_extent: want a (3,) float32 tensor on {position.device}")
+    pos4, col4 = mc_field_packs(position, colour, nonobs)
+    out = torch.empty((9, int(np.prod(mc.sample))), dtype=torch.float32,
+                      device=position.device)
+    mc_field_launch(name, index, mc, h, scale, pos4, col4, min_extent.contiguous(), out)
+    return out
+
+
+def mc_field_packs(position, colour, nonobs):
+    """The kernel's (C, 4) candidate packs: (x, y, z, nonobs) and the colour."""
+    return torch.cat([position, nonobs[None]]).t().contiguous(), colour.t().contiguous()
+
+
+def mc_field_launch(name: str, index: CellIndex, mc: McSpec, h: float, scale: float,
+                    pos4, col4, min_extent, out) -> None:
+    """The launcher `name` of `csrc/mc_field.cu` on prebuilt packs into `out`
+    (9, L); `mc_field_kernel` checks what it is given."""
+    if pos4.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {pos4.device}")
     step, th2 = _constants(mc, h, scale)
     ex, ey, ez = index.grid.extent
     lib = cuda_build.library()
-    pos4 = torch.cat([position, nonobs[None]]).t().contiguous()  # (C, 4)
-    col4 = colour.t().contiguous()  # (C, 4)
-    mine = min_extent.contiguous()
-    out = torch.empty((9, int(np.prod(mc.sample))), dtype=torch.float32,
-                      device=position.device)
-    with torch.cuda.device(position.device):
-        err = lib.mc_field(
+    with torch.cuda.device(pos4.device):
+        err = getattr(lib, name)(
             pos4.data_ptr(), col4.data_ptr(), index.key.data_ptr(),
-            index.table.data_ptr(), mine.data_ptr(), *mc.sample, ex, ey, ez,
+            index.table.data_ptr(), min_extent.data_ptr(), *mc.sample, ex, ey, ez,
             float(mc.resolution), step, float(scale), th2,
-            float(mc.influence_static), out.data_ptr(), _stream(position.device))
-    cuda_build.check("mc_field", err)
-    return out
+            float(mc.influence_static), out.data_ptr(), _stream(pos4.device))
+    cuda_build.check(name, err)
 
 
 def post_pass(raw, mc: McSpec, extent, particle_size):

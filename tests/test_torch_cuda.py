@@ -17,6 +17,9 @@ kernels: issue tiles and body sums rtol 1e-5, atol 1e-6 (the kernel fuses
 multiply-adds), rowfix λ atol 1e-9.  The window micro-benchmark's kernels:
 λ rtol 5e-4, atol 1e-12 (λ is ~1e-7 and prod's ci of 0.077 amplifies the
 sums' rounding ~14x; the kernel sums a chunk's pairs in its own order).
+The MC-field bisection's kernels: noop zero, rows bit for bit (the same
+rounded ops), loops rtol 1e-5 with atol 1e-6 x max|value| (fp32 sums of
+~1e7 in the kernel's order against a float64 sum).
 """
 
 import numpy as np
@@ -37,6 +40,7 @@ from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.ops.grid import decode_key
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
+from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
 from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
@@ -349,4 +353,41 @@ def test_window_sass_is_full(card):
 
     cuda_build.library()
     report = mw.check_sass(cuda_build.library_path())
+    assert {name for name, r in report.items() if not r["ok"]} == set(), report
+
+
+@pytest.mark.parametrize("body", mcb.BODIES)
+def test_mc_bisect_kernels_match_plain(card_surface_frame, body):
+    spec, dyn, fr, st = card_surface_frame
+    res = mcb.card_parity(spec, fr, st, "dam32k")
+    err, ok = res[f"{body} dam32k"]
+    assert ok, (body, err)
+
+
+def test_mc_bisect_wrappers_count_kernel_launches(card_surface_frame):
+    spec, dyn, fr, st = card_surface_frame
+    args = mcb.field_args(spec, fr, st)
+    bisect = mcb.McFieldBisect(spec.h)
+    for body in mcb.BODIES:
+        bisect(body, *args[:2], *args[3:])
+    ladder = mcb.kernel_ladder(bisect, spec, fr, st, 2)
+    torch.cuda.synchronize()
+    assert [s["step"] for s in ladder["steps"]] == ["noop", "rows", "loops", "full"]
+    assert all(v > mcb.GRAPH_LAUNCHES for v in bisect.launches.values())
+
+
+def test_mc_bisect_pieces_equal_mc_field(card_surface_frame):
+    spec, dyn, fr, st = card_surface_frame
+    args = (fr.index, spec.surface, spec.scale, st.position, st.colour, st.ptype, st.alive,
+            fr.min_extent, dyn["mc_particle_size"])
+    for got, want in zip(mcb.field_by_pieces(spec.h, *args), mf.McField(spec.h)(*args)):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+def test_mc_bisect_sass(card):
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    cuda_build.library()
+    report = mcb.check_sass(cuda_build.library_path())
     assert {name for name, r in report.items() if not r["ok"]} == set(), report

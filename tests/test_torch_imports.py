@@ -16,6 +16,7 @@ from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_phases
+from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
 from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
@@ -27,7 +28,8 @@ import pbf_sph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pbf_sph_tpu_torch.__path__, "pbf_sph_tpu_torch.")]
 assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases",
         "pbf_sph_tpu_torch.tools.anchor_rate",
-        "pbf_sph_tpu_torch.tools.micro_window"} <= set(names)
+        "pbf_sph_tpu_torch.tools.micro_window",
+        "pbf_sph_tpu_torch.tools.micro_mc_field"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -192,3 +194,32 @@ def test_micro_window_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         mw.main(["1"])
+
+
+def test_mc_bisect_launchers_refuse_cpu_tensors():
+    """The MC-field bisection's launchers never fall back to their plain
+    versions; its wrappers take them for CPU tensors and launch nothing."""
+    mc, cfg, xs = dam_break(2000, solver_iter=2, surface=True)
+    solver = TorchSolver(h=cfg.h, device="cpu")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    index = ph.CellIndex(spec.grid, torch.zeros(spec.capacity, dtype=torch.int32),
+                         torch.zeros(spec.grid.ncells + 1, dtype=torch.int32))
+    args = (index, spec.surface, spec.h, spec.scale, state.position, state.colour,
+            state.mass, torch.zeros(3))
+    for body in mcb.BODIES:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            mcb.LAUNCHERS[body](*args)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mf.mc_field_launch("mc_field_loops", *args[:4], state.position.t().contiguous(),
+                           state.colour.t().contiguous(), args[-1], torch.empty(0))
+    bisect = mcb.McFieldBisect(spec.h)
+    assert not bisect("noop", *args[:2], *args[3:]).any()
+    assert bisect.launches == dict.fromkeys(mcb.KERNELS, 0)
+
+
+def test_micro_mc_field_needs_a_card(monkeypatch):
+    """The MC-field bisection measures on the card or fails; it never times
+    the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        mcb.main(["mc128k", "1"])

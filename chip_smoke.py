@@ -68,6 +68,19 @@ with a non-zero exit and no result line:
    `McFieldBisect` (noop -> rows -> loops -> full, CUDA events over
    back-to-back launches and over a CUDA graph of captured launches, the SM
    clock sampled); its launches are counted over this phase;
+3h. the pair-chunk and loop probes (`csrc/micro_chunk.cu`, the kernels of
+   `tools/micro_chunk.py`; `csrc/micro_loop.cu`, the bodies that
+   `tools/micro_loop.py` runs): the SASS (cuobjdump: each pair body's trip
+   loop `interleave` pairs and the fp32 instructions a pair-slot of
+   interleave 1, no branch in the new body and only the two slow-path
+   guards in the old; each loop one trip of its ops: a) one FFMA and the
+   loop's own instructions, b)-d) k FFMAs, e) eight of its op), each kernel
+   against its plain version at fewer trips on the tools' inputs and seeded
+   ones (chunk sums rtol 1e-5 / atol 1e-9, the fma ceiling rtol 1e-6, the
+   loop bodies exact but rsqrt rtol 1e-6), then one reading of each kernel
+   with the card filled through `MicroChunk` / `MicroLoop` (CUDA events, the
+   marginal between two trip counts, the SM clock sampled); its launches are
+   counted over this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -96,7 +109,13 @@ rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
 kernel at the larger of their two sizes, 3f for the window kernels, whose
 line holds scenario A at nblocks 1024, the flat kernel's split body, 3g for
 the MC-field bisection kernels, whose ms is the CUDA-graph reading at
-mc128k, as is noop's library_ms, torch.zeros of the (9, L) output), the card
+mc128k, as is noop's library_ms, torch.zeros of the (9, L) output, 3h for
+the probes, whose line holds the larger size with the card filled: the old
+and new bodies at interleave 1, the fma ceiling at 8 streams, the loop
+bodies b) 16 streams, c) the chain of 16 and e) rsqrt, each bound by its
+fp32 and MUFU instructions over the SMs x 128 lanes of issue or its MUFU
+ops over the SMs x 16 of the MUFU pipe, whichever is longer, at the sampled
+SM clock), the card
 line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
@@ -151,6 +170,15 @@ KERNELS = {
     "mc_field_noop": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
     "mc_field_rows": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
     "mc_field_loops": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
+    # the pair-chunk micro-benchmark of tools/micro_chunk.py: make_bench's
+    # two bodies and fma_ceiling; the loop probes that tools/micro_loop.py's
+    # run launches
+    "chunk_old": ("pbf_sph_tpu_torch/csrc/micro_chunk.cu", "tools/micro_chunk.py:115"),
+    "chunk_new": ("pbf_sph_tpu_torch/csrc/micro_chunk.cu", "tools/micro_chunk.py:115"),
+    "chunk_fma": ("pbf_sph_tpu_torch/csrc/micro_chunk.cu", "tools/micro_chunk.py:142"),
+    "loop_fma": ("pbf_sph_tpu_torch/csrc/micro_loop.cu", "tools/micro_loop.py:34"),
+    "loop_chain": ("pbf_sph_tpu_torch/csrc/micro_loop.cu", "tools/micro_loop.py:34"),
+    "loop_op": ("pbf_sph_tpu_torch/csrc/micro_loop.cu", "tools/micro_loop.py:34"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -801,6 +829,99 @@ def phase_mc_bisect(states):
     return report, launches
 
 
+def phase_micro():
+    """3h: the pair-chunk and loop probes (csrc/micro_chunk.cu,
+    csrc/micro_loop.cu): the SASS of every instantiation (cuobjdump), each
+    kernel against its plain version on the card at fewer trips on the
+    tools' inputs and seeded ones (uncounted), then one reading of each
+    kernel with the card filled through `MicroChunk` / `MicroLoop` (the
+    launches counted for these kernels).  Returns (report, launches)."""
+    print("== 3h. pair-chunk and loop probes (csrc/micro_chunk.cu, csrc/micro_loop.cu) against "
+          "their plain PyTorch versions")
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import anchor_rate as ar
+    from pbf_sph_tpu_torch.tools import micro_chunk as mch
+    from pbf_sph_tpu_torch.tools import micro_loop as ml
+
+    funcs = ar.sass_functions(cuda_build.library_path())
+    sass_c, sass_l = mch.check_funcs(funcs), ml.check_funcs(funcs)
+    for name, r in {**sass_c, **sass_l}.items():
+        check(r["ok"], f"SASS {name}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k not in ("ok", "opcodes", "fp32")))
+    device = torch.device("cuda", torch.cuda.current_device())
+    names = mch.KERNELS + ml.KERNELS
+    errs = dict.fromkeys(names, 0.0)
+    for label, (err, ok) in mch.card_parity(device).items():
+        check(ok, f"{label}: max abs err {err:.3e} (chunk sums rtol {mch.RTOL}, atol "
+                  f"{mch.ATOL}; fma rtol 1e-6)")
+        name = "chunk_fma" if label.startswith("fma") else f"chunk_{label.split()[0]}"
+        errs[name] = max(errs[name], err)
+    for label, (err, ok) in ml.card_parity(device).items():
+        check(ok, f"{label}: max abs err {err:.3e} (exact; rsqrt rtol {ml.RTOL_RSQRT})")
+        name = ml.BODIES[label.split()[0]].kernel
+        errs[name] = max(errs[name], err)
+
+    chunk, loop = mch.MicroChunk(), ml.MicroLoop()
+    inputs, xs = mch.tool_inputs(device), ml.tool_inputs(device)
+    fill = {"chunk_old": mch.fill_blocks(device, "bench", "old", 1),
+            "chunk_new": mch.fill_blocks(device, "bench", "new", 1),
+            "chunk_fma": mch.fill_blocks(device, "fma", interleave=8)}
+    # the loop body that stands in the kernels line for each loop kernel
+    line_body = {"loop_fma": "b16", "loop_chain": "c16", "loop_op": "e_rsqrt"}
+    for name, label in line_body.items():
+        fill[name] = ml.fill_blocks(device, name, ml.BODIES[label].variant)
+    with ar.ClockSampler(device) as clock:
+        readings = {
+            "chunk_old": mch.read_chunk(chunk, "old", 1, fill["chunk_old"], inputs, 5),
+            "chunk_new": mch.read_chunk(chunk, "new", 1, fill["chunk_new"], inputs, 5),
+            "chunk_fma": mch.read_fma(chunk, 8, fill["chunk_fma"], inputs, 5),
+            **{name: ml.read_body(loop, label, fill[name], xs, 5)
+               for name, label in line_body.items()},
+        }
+    torch.cuda.synchronize()
+    launches = {**chunk.launches, **loop.launches}
+    mhz = mch.sm_clock_mhz(clock.summary(), device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"  SM clock beside the readings (nvidia-smi, MHz): {clock.summary()}")
+    s, rows, x = inputs
+    # name: (plain version at the reading's larger size, fp32 and MUFU
+    # instruction lanes of that launch, its bytes)
+    work = {}
+    for body in mch.BODIES:
+        name, nb = f"chunk_{body}", fill[f"chunk_{body}"]
+        slots = mch.CHUNKS * nb * mch.CTA
+        r = sass_c[f"{body} x1"]
+        work[name] = (lambda body=body: mch.chunk_plain(s, rows, body, 1, mch.CHUNKS),
+                      slots * r["fp32_per_pair"], slots * r["mufu_per_pair"],
+                      nbytes(s, rows) + 4 * nb * mch.CTA)
+    nb = fill["chunk_fma"]
+    work["chunk_fma"] = (lambda: mch.fma_plain(x, 8, mch.FMA_ITERS),
+                         mch.FMA_ITERS * 8 * nb * mch.CTA, 0.0, nbytes(x) + 4 * nb * mch.CTA)
+    for name, label in line_body.items():
+        b, nb = ml.BODIES[label], fill[name]
+        fp32, mufu = ml.fp32_mufu_per_trip(sass_l, label)
+        threads = nb * ml.CTA
+        work[name] = (lambda label=label, b=b: ml.run_plain(label, xs[b.tile], b.trips),
+                      b.trips * fp32 * threads, b.trips * mufu * threads,
+                      nbytes(xs[b.tile]) + 4 * threads)
+    report = {}
+    for name, (plain, fp32_lanes, mufu_lanes, io_bytes) in work.items():
+        r = readings[name]
+        plain_ms = device_ms(plain, 1, warm=False)
+        bound_ms, bound_by = mch.issue_bound_ms(fp32_lanes, mufu_lanes, io_bytes, mhz, sms)
+        rate = (f"{r['pair_slots_per_s'] / 1e9:.1f} G pair-slots/s" if "pair_slots_per_s" in r
+                else f"{r['ffma_per_s'] / 1e12:.3f} T FFMA/s" if "ffma_per_s" in r
+                else f"{r['ns_per_op']:.4f} ns an op, {r['lane_ops_per_s'] / 1e12:.3f} T "
+                     f"lane-ops/s")
+        print(f"  {name}: kernel {r['ms'][1]:.4f} ms at {r['nblocks']} CTAs ({rate}), plain "
+              f"{plain_ms:.4f} ms (one copy), bound {bound_ms:.4f} ms by {bound_by}")
+        # no single PyTorch call computes these chains
+        report[name] = dict(max_abs_err=errs[name], ms=r["ms"][1], plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"  probe wrapper launches: {launches}")
+    return report, launches
+
+
 def phase_parity() -> None:
     print("== 4. TorchSolver on the card against TorchSolver on the CPU")
     from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -991,6 +1112,10 @@ def main() -> int:
     check(all(v > 0 for v in bisect_launches.values()),
           f"phase 3g launched every MC-field bisection kernel {bisect_launches}")
     report.update(bisect_report)
+    micro_report, micro_launches = phase_micro()
+    check(all(v > 0 for v in micro_launches.values()),
+          f"phase 3h launched every pair-chunk and loop kernel {micro_launches}")
+    report.update(micro_report)
     del states
     phase_parity()
     phase_extract(lattice)
@@ -1003,6 +1128,7 @@ def main() -> int:
     launches.update(anchor_launches)
     launches.update(window_launches)
     launches.update(bisect_launches)
+    launches.update(micro_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

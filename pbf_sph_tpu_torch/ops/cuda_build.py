@@ -61,6 +61,13 @@ SIGNATURES = {
     "window_guarded": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "window_flat": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "window_static": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    # csrc/micro_chunk.cu (micro_chunk_fill returns a CTA count)
+    "micro_chunk_fill": [_I, _I, _I],
+    "chunk_bench": [_P, _P, _I, _I, _F, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P],
+    "chunk_fma": [_P, _I, _I, _I, _P, _P],
+    # csrc/micro_loop.cu (micro_loop_fill returns a CTA count)
+    "micro_loop_fill": [_I, _I],
+    **dict.fromkeys(("loop_fma", "loop_chain", "loop_op"), [_P, _I, _I, _I, _I, _P, _P]),
 }
 
 

@@ -406,22 +406,33 @@ def _opcode_key(op: str) -> str:
 def innermost_loops(sass: Sass) -> List[collections.Counter]:
     """Opcode counts of each innermost loop: the span of a backward branch
     that holds no other such span."""
+    return [collections.Counter(_opcode_key(op) for a, op, _ in sass[0] if lo <= a <= hi)
+            for lo, hi in innermost_spans(sass)]
+
+
+def innermost_spans(sass: Sass) -> List[Tuple[int, int]]:
+    """(first, last) address of each innermost loop: the span of a backward
+    branch that holds no other such span; the last is the branch's own."""
     insts, labels = sass
     spans = []
     for addr, op, inst in insts:
         if not op.startswith("BRA"):
             continue
-        m = re.search(r"\(\s*(\.L_x_\d+)\s*\)", inst)
-        target = labels.get(m.group(1)) if m else None
-        if m is None:
-            h = re.search(r"0x([0-9a-f]+)", inst)
-            target = int(h.group(1), 16) if h else None
+        target = branch_target(inst, labels)
         if target is not None and target <= addr:
             spans.append((target, addr))
-    inner = [s for s in spans
-             if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
-    return [collections.Counter(_opcode_key(op) for a, op, _ in insts if lo <= a <= hi)
-            for lo, hi in inner]
+    return [s for s in spans
+            if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+
+
+def branch_target(inst: str, labels: Dict[str, int]) -> Optional[int]:
+    """The address a branch instruction jumps to: its label, or the address
+    it prints; None if it names neither."""
+    m = re.search(r"\(\s*(\.L_x_\d+)\s*\)", inst)
+    if m is not None:
+        return labels.get(m.group(1))
+    h = re.search(r"0x([0-9a-f]+)", inst)
+    return int(h.group(1), 16) if h else None
 
 
 def _one(funcs: Dict[str, Sass], pattern: str) -> Sass:

@@ -19,7 +19,12 @@ multiply-adds), rowfix λ atol 1e-9.  The window micro-benchmark's kernels:
 sums' rounding ~14x; the kernel sums a chunk's pairs in its own order).
 The MC-field bisection's kernels: noop zero, rows bit for bit (the same
 rounded ops), loops rtol 1e-5 with atol 1e-6 x max|value| (fp32 sums of
-~1e7 in the kernel's order against a float64 sum).
+~1e7 in the kernel's order against a float64 sum).  The pair-chunk
+micro-benchmark's kernels: chunk sums rtol 1e-5, atol 1e-9 (non-negative
+fp32 terms, the kernel's fused order against torch's), the fma ceiling
+rtol 1e-6 (both fuse each multiply-add).  The loop probes' kernels: exact
+(the same fused FMAs, adds, multiplies and selects), e) rsqrt rtol 1e-6
+(the card's rsqrtf against torch's on a contracting iteration).
 """
 
 import numpy as np
@@ -40,6 +45,8 @@ from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.ops.grid import decode_key
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
+from pbf_sph_tpu_torch.tools import micro_chunk as mch
+from pbf_sph_tpu_torch.tools import micro_loop as ml
 from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
 from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
@@ -391,3 +398,60 @@ def test_mc_bisect_sass(card):
     cuda_build.library()
     report = mcb.check_sass(cuda_build.library_path())
     assert {name for name, r in report.items() if not r["ok"]} == set(), report
+
+
+@pytest.mark.parametrize("interleave", mch.INTERLEAVES)
+@pytest.mark.parametrize("body", mch.BODIES)
+def test_chunk_kernels_match_plain(card, body, interleave):
+    s, rows, _ = mch.tool_inputs(card)
+    for s_, rows_ in ((s, rows), mch.random_inputs(1, card)):
+        got = mch.chunk_kernel(s_, rows_, body, interleave, mch.PARITY_CHUNKS, 24)
+        want = mch.chunk_plain(s_, rows_, body, interleave, mch.PARITY_CHUNKS)
+        torch.testing.assert_close(got, want, rtol=mch.RTOL, atol=mch.ATOL)
+
+
+@pytest.mark.parametrize("streams", mch.STREAMS)
+def test_chunk_fma_kernel_matches_plain(card, streams):
+    x = torch.ones(mch.TILE, device=card)
+    got = mch.fma_kernel(x, streams, mch.PARITY_ITERS, 16)
+    torch.testing.assert_close(got, mch.fma_plain(x, streams, mch.PARITY_ITERS), rtol=1e-6,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("label", list(ml.BODIES))
+def test_loop_kernels_match_plain(card, label):
+    body = ml.BODIES[label]
+    n = body.trips // ml.PARITY_DIV
+    for xs in (ml.tool_inputs(card), ml.random_inputs(1, card)):
+        x = xs[body.tile]
+        got = ml.run_kernel(label, x, n, 3 * x.numel() // ml.CTA)
+        rtol = ml.RTOL_RSQRT if label == "e_rsqrt" else 0.0
+        torch.testing.assert_close(got, ml.run_plain(label, x, n), rtol=rtol, atol=0.0)
+
+
+def test_micro_wrappers_count_kernel_launches(card):
+    chunk, loop = mch.MicroChunk(), ml.MicroLoop()
+    s, rows, x = mch.tool_inputs(card)
+    for body in mch.BODIES:
+        chunk.chunk(s, rows, body, 1, 8)
+    chunk.fma(x, 8, 4)
+    xs = ml.tool_inputs(card)
+    for label, body in ml.BODIES.items():
+        loop.run(label, xs[body.tile], 2)
+    torch.cuda.synchronize()
+    assert chunk.launches == dict.fromkeys(mch.KERNELS, 1)
+    assert loop.launches == {"loop_fma": 9, "loop_chain": 2, "loop_op": 5}
+    with pytest.raises(ValueError, match="instantiates"):
+        mch.chunk_kernel(s, rows, "new", 3, 6)
+    with pytest.raises(ValueError, match="instantiates"):
+        ml.fma_kernel(xs[ml.TILE8], 3, 2)
+
+
+def test_micro_chunk_and_loop_sass_are_full(card):
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    cuda_build.library()
+    for tool in (mch, ml):
+        report = tool.check_sass(cuda_build.library_path())
+        assert tool is ml or set(report) >= {"old x4", "new x4", "fma 8", "pbf_lambda"}
+        assert mch.short(report) == [], report

@@ -16,6 +16,8 @@ from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_phases
+from pbf_sph_tpu_torch.tools import micro_chunk as mch
+from pbf_sph_tpu_torch.tools import micro_loop as ml
 from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
 from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
@@ -29,7 +31,9 @@ names = [m.name for m in pkgutil.walk_packages(pbf_sph_tpu_torch.__path__, "pbf_
 assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases",
         "pbf_sph_tpu_torch.tools.anchor_rate",
         "pbf_sph_tpu_torch.tools.micro_window",
-        "pbf_sph_tpu_torch.tools.micro_mc_field"} <= set(names)
+        "pbf_sph_tpu_torch.tools.micro_mc_field",
+        "pbf_sph_tpu_torch.tools.micro_chunk",
+        "pbf_sph_tpu_torch.tools.micro_loop"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -45,7 +49,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 28  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 30  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):
@@ -223,3 +227,48 @@ def test_micro_mc_field_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         mcb.main(["mc128k", "1"])
+
+
+def test_chunk_launchers_refuse_cpu_tensors():
+    """The pair-chunk micro-benchmark's launchers never fall back to their
+    plain versions; its wrappers take them for CPU tensors and launch
+    nothing."""
+    s, rows, x = mch.tool_inputs()
+    for body in mch.BODIES:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            mch.chunk_kernel(s, rows, body, 2, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mch.fma_kernel(x, 4, 8)
+    wrappers = mch.MicroChunk()
+    assert not wrappers.chunk(s, rows, "old", 4, 8).any()
+    wrappers.fma(x, 2, 3)
+    assert wrappers.launches == dict.fromkeys(mch.KERNELS, 0)
+
+
+def test_micro_chunk_needs_a_card(monkeypatch):
+    """The pair-chunk micro-benchmark measures on the card or fails; it
+    never times the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        mch.main(["1"])
+
+
+def test_loop_launchers_refuse_cpu_tensors():
+    """The loop probes' launchers never fall back to their plain versions;
+    the wrapper takes them for CPU tensors and launches nothing."""
+    xs = ml.tool_inputs()
+    for label, body in ml.BODIES.items():
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ml.run_kernel(label, xs[body.tile], 2)
+    wrappers = ml.MicroLoop()
+    for label, body in ml.BODIES.items():
+        assert wrappers.run(label, xs[body.tile], 2).shape == body.tile
+    assert wrappers.launches == dict.fromkeys(ml.KERNELS, 0)
+
+
+def test_micro_loop_needs_a_card(monkeypatch):
+    """The loop probes measure on the card or fail; they never time the
+    plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ml.main(["1"])

@@ -81,6 +81,21 @@ with a non-zero exit and no result line:
    with the card filled through `MicroChunk` / `MicroLoop` (CUDA events, the
    marginal between two trip counts, the SM clock sampled); its launches are
    counted over this phase;
+3i. the dense-λ micro-benchmark (`csrc/micro_dense.cu`, the kernels of
+   `tools/micro_dense.py`): the SASS (cuobjdump: `pbf_lambda`'s fp32
+   instructions a pair, opcode by opcode, and one MUFU.RSQ a pair-slot in
+   a, b, c, e, f, h, i, j and k, each loop its pairs a trip, b)'s bound an
+   immediate, l)'s sqrt and divide with their slow-path guards, d)/g) 8/32
+   DMMAs a chunk a warp, k)'s bulk copy and barrier wait), each of the
+   twelve bodies against its plain version over 2 copies on the tool's
+   inputs and on seeded ones with fewer chunks (rtol 1e-5, atol 1e-5 x
+   max|value|), d) and g) also inside the range a float64 evaluation of
+   the TPU tool's r2 takes under the rounding of its fp32 operands and
+   sums (`mxu_f64`), then one
+   reading of each kernel through `MicroDense` at the JAX call's size (64
+   copies, CUDA events, the marginal over 16 and 64 copies, the SM clock
+   sampled), its bound from the work the function needs (PAIR_WORK); its
+   launches are counted over this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -115,7 +130,9 @@ and new bodies at interleave 1, the fma ceiling at 8 streams, the loop
 bodies b) 16 streams, c) the chain of 16 and e) rsqrt, each bound by its
 fp32 and MUFU instructions over the SMs x 128 lanes of issue or its MUFU
 ops over the SMs x 16 of the MUFU pipe, whichever is longer, at the sampled
-SM clock), the card
+SM clock), 3i for the dense-λ kernels, whose line holds a), d), g) and k)
+at 64 copies, bound as 3h's, d)/g) also by their DMMA flops over the FP64
+tensor-core peak), the card
 line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
@@ -179,6 +196,12 @@ KERNELS = {
     "loop_fma": ("pbf_sph_tpu_torch/csrc/micro_loop.cu", "tools/micro_loop.py:34"),
     "loop_chain": ("pbf_sph_tpu_torch/csrc/micro_loop.cu", "tools/micro_loop.py:34"),
     "loop_op": ("pbf_sph_tpu_torch/csrc/micro_loop.cu", "tools/micro_loop.py:34"),
+    # the dense-λ micro-benchmark of tools/micro_dense.py: run's nine FPU
+    # bodies, k_mxu, k_wmxu and k_scr
+    "dense_loop": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:56"),
+    "dense_mxu": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:219"),
+    "dense_wmxu": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:326"),
+    "dense_scr": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:445"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -922,6 +945,62 @@ def phase_micro():
     return report, launches
 
 
+def phase_dense():
+    """3i: the dense-λ micro-benchmark kernels (csrc/micro_dense.cu): the SASS
+    of every body (cuobjdump), each body against its plain version on the
+    card on the tool's inputs and seeded ones, d)/g) also against float64
+    (uncounted), then one reading
+    of each kernel through `MicroDense` at the JAX call's size (the launches
+    counted for these kernels).  Returns (report, launches)."""
+    print("== 3i. dense-λ micro-benchmark kernels (csrc/micro_dense.cu) against their plain "
+          "PyTorch versions")
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import anchor_rate as ar
+    from pbf_sph_tpu_torch.tools import micro_chunk as mch
+    from pbf_sph_tpu_torch.tools import micro_dense as md
+
+    sass = md.check_sass(cuda_build.library_path())
+    for label, r in sass.items():
+        check(r["ok"], f"SASS {label}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k not in ("ok", "opcodes")))
+    device = torch.device("cuda", torch.cuda.current_device())
+    errs = dict.fromkeys(md.KERNELS, 0.0)
+    for label, (err, ok) in md.card_parity(device).items():
+        check(ok, f"{label}: max abs err {err:.3e} (rtol {md.RTOL}, atol {md.ATOL_SHARE} x "
+                  f"max|value|)")
+        name = md.BODIES[label.split()[0]].kernel
+        errs[name] = max(errs[name], err)
+    for label, (err, ok) in md.card_float64(device).items():
+        check(ok, f"{label}: {err:.3e} from float64, inside the range its fp32 operands and "
+                  f"sums allow")
+
+    dense = md.MicroDense()
+    x = md.tool_inputs(device=device)
+    # the body that stands in the kernels line for each kernel
+    line_body = {"dense_loop": "a", "dense_mxu": "d", "dense_wmxu": "g", "dense_scr": "k"}
+    with ar.ClockSampler(device) as clock:
+        readings = {name: md.read_body(dense, label, x, "jax", 5)
+                    for name, label in line_body.items()}
+    torch.cuda.synchronize()
+    launches = dict(dense.launches)
+    mhz = mch.sm_clock_mhz(clock.summary(), device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"  SM clock beside the readings (nvidia-smi, MHz): {clock.summary()}")
+    report = {}
+    for name, label in line_body.items():
+        r = readings[name]
+        plain_ms = device_ms(lambda label=label: md.run_plain(label, x), 1, warm=False)
+        bound_ms, bound_by = md.bound_ms(md.work(label, x, md.REP), mhz, sms)
+        print(f"  {name} ({label}): kernel {r['ms'][1]:.4f} ms at {r['ctas']} CTAs "
+              f"({r['pairs_per_s'] / 1e9:.1f} G pairs/s, {r['ns_per_chunk']:.3f} ns a chunk), "
+              f"plain {plain_ms:.4f} ms (one copy), bound {bound_ms:.4f} ms by {bound_by}")
+        # no single PyTorch call computes these sums
+        report[name] = dict(max_abs_err=errs[name], ms=r["ms"][1], plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"  dense wrapper launches: {launches}")
+    return report, launches
+
+
 def phase_parity() -> None:
     print("== 4. TorchSolver on the card against TorchSolver on the CPU")
     from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -1116,6 +1195,10 @@ def main() -> int:
     check(all(v > 0 for v in micro_launches.values()),
           f"phase 3h launched every pair-chunk and loop kernel {micro_launches}")
     report.update(micro_report)
+    dense_report, dense_launches = phase_dense()
+    check(all(v > 0 for v in dense_launches.values()),
+          f"phase 3i launched every dense-λ kernel {dense_launches}")
+    report.update(dense_report)
     del states
     phase_parity()
     phase_extract(lattice)
@@ -1129,6 +1212,7 @@ def main() -> int:
     launches.update(window_launches)
     launches.update(bisect_launches)
     launches.update(micro_launches)
+    launches.update(dense_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

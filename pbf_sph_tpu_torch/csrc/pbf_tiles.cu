@@ -47,24 +47,14 @@
 
 #include <cuda_runtime.h>
 
+#include "dmma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChunk = 64;  // candidate columns staged per pass
 constexpr float kFar = 1e9f;
-
-// d = a . b for one 8 x 8 x 4 block: a = A[g][t], b = B[t][g],
-// (d0, d1) = D[g][2t], D[g][2t + 1].
-__device__ __forceinline__ void dmma_m8n8k4(double a, double b, double& d0,
-                                            double& d1) {
-  const double zero = 0.0;
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
-      "{%4, %5};\n"
-      : "=d"(d0), "=d"(d1)
-      : "d"(a), "d"(b), "d"(zero), "d"(zero));
-}
 
 // The pair math of pbf_phases.cu's lambda_kernel; w of a row is its mass.
 struct LambdaPair {

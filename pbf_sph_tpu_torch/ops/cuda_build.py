@@ -68,6 +68,10 @@ SIGNATURES = {
     # csrc/micro_loop.cu (micro_loop_fill returns a CTA count)
     "micro_loop_fill": [_I, _I],
     **dict.fromkeys(("loop_fma", "loop_chain", "loop_op"), [_P, _I, _I, _I, _I, _P, _P]),
+    # csrc/micro_dense.cu
+    "dense_loop": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
+    "dense_mxu": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
+    "dense_scr": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
 }
 
 

@@ -24,7 +24,11 @@ micro-benchmark's kernels: chunk sums rtol 1e-5, atol 1e-9 (non-negative
 fp32 terms, the kernel's fused order against torch's), the fma ceiling
 rtol 1e-6 (both fuse each multiply-add).  The loop probes' kernels: exact
 (the same fused FMAs, adds, multiplies and selects), e) rsqrt rtol 1e-6
-(the card's rsqrtf against torch's on a contracting iteration).
+(the card's rsqrtf against torch's on a contracting iteration).  The
+dense-λ micro-benchmark's kernels: rtol 1e-5, atol 1e-5 x max|value| (sums
+of mixed-sign terms in the kernel's order, a lane's columns and then a
+warp-shuffle tree, against Pallas's per-column carries; d)/g)'s fp64
+reduce against torch's float64 product).
 """
 
 import numpy as np
@@ -46,6 +50,7 @@ from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.ops.grid import decode_key
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import micro_chunk as mch
+from pbf_sph_tpu_torch.tools import micro_dense as md
 from pbf_sph_tpu_torch.tools import micro_loop as ml
 from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
 from pbf_sph_tpu_torch.tools import micro_window as mw
@@ -455,3 +460,47 @@ def test_micro_chunk_and_loop_sass_are_full(card):
         report = tool.check_sass(cuda_build.library_path())
         assert tool is ml or set(report) >= {"old x4", "new x4", "fma 8", "pbf_lambda"}
         assert mch.short(report) == [], report
+
+
+@pytest.mark.parametrize("label", list(md.BODIES))
+def test_dense_kernels_match_plain(card, label):
+    for x in (md.tool_inputs(device=card), md.random_inputs(2, device=card)):
+        got = md.run_kernel(label, x, 3)
+        want = md.run_plain(label, x)
+        torch.testing.assert_close(got, want.expand_as(got), rtol=md.RTOL,
+                                   atol=md.ATOL_SHARE * float(want.abs().max()))
+    got = md.run_kernel(label, x, 1, 3)   # three passes on the same carries
+    want = md.run_plain(label, x, 1, 3)
+    torch.testing.assert_close(got, want, rtol=md.RTOL,
+                               atol=md.ATOL_SHARE * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("label", md.MXU)
+def test_dense_mxu_within_float64(card, label):
+    """d)/g) on the card inside the range a float64 evaluation of the TPU
+    tool's function takes under the rounding of its fp32 operands and sums,
+    which shares none of the kernel's rounding choices."""
+    for x in (md.tool_inputs(device=card), md.random_inputs(2, device=card)):
+        assert md.within_f64(md.run_kernel(label, x, 2), md.mxu_f64(label, x))[1]
+
+
+def test_dense_wrappers_count_kernel_launches(card):
+    dense = md.MicroDense()
+    x = md.tool_inputs(device=card)
+    for label in md.BODIES:
+        dense.run(label, x)
+    torch.cuda.synchronize()
+    assert dense.launches == {"dense_loop": 9, "dense_mxu": 1, "dense_wmxu": 1, "dense_scr": 1}
+    with pytest.raises(ValueError, match="instantiates wcap"):
+        md.run_kernel("a", md.tool_inputs(2, 4, device=card))
+    with pytest.raises(ValueError, match="odd"):
+        md.run_kernel("i", md.tool_inputs(3, device=card))
+
+
+def test_micro_dense_sass_is_full(card):
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    cuda_build.library()
+    report = md.check_sass(cuda_build.library_path())
+    assert set(report) == set(md.BODIES)
+    assert md.short(report) == [], report

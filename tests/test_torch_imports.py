@@ -17,6 +17,7 @@ from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_phases
 from pbf_sph_tpu_torch.tools import micro_chunk as mch
+from pbf_sph_tpu_torch.tools import micro_dense as md
 from pbf_sph_tpu_torch.tools import micro_loop as ml
 from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
 from pbf_sph_tpu_torch.tools import micro_window as mw
@@ -33,7 +34,8 @@ assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases
         "pbf_sph_tpu_torch.tools.micro_window",
         "pbf_sph_tpu_torch.tools.micro_mc_field",
         "pbf_sph_tpu_torch.tools.micro_chunk",
-        "pbf_sph_tpu_torch.tools.micro_loop"} <= set(names)
+        "pbf_sph_tpu_torch.tools.micro_loop",
+        "pbf_sph_tpu_torch.tools.micro_dense"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -49,7 +51,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 30  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 32  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):
@@ -272,3 +274,26 @@ def test_micro_loop_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         ml.main(["1"])
+
+
+def test_dense_launchers_refuse_cpu_tensors():
+    """The dense-λ micro-benchmark's launchers never fall back to their
+    plain versions; the wrapper takes them for CPU tensors and launches
+    nothing."""
+    x = md.tool_inputs()
+    for label in md.BODIES:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            md.run_kernel(label, x)
+    wrappers = md.MicroDense()
+    small = md.tool_inputs(2, 4)
+    for label in md.BODIES:
+        assert wrappers.run(label, small, 2).shape == (2, 2, md.SUB, 4)
+    assert wrappers.launches == dict.fromkeys(md.KERNELS, 0)
+
+
+def test_micro_dense_needs_a_card(monkeypatch):
+    """The dense-λ micro-benchmark measures on the card or fails; it never
+    times the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        md.main(["1"])

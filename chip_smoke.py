@@ -96,6 +96,20 @@ with a non-zero exit and no result line:
    copies, CUDA events, the marginal over 16 and 64 copies, the SM clock
    sampled), its bound from the work the function needs (PAIR_WORK); its
    launches are counted over this phase;
+3j. the compaction building blocks (`csrc/micro_roll.cu`, the kernels of
+   `tools/micro_roll.py` and the roll, unaligned-slice and unaligned-copy
+   probes of `tools/micro_vpu.py`): the SASS (cuobjdump: a)/b) 32 SHFL a
+   trip, 4 a roll, vpu_rot 32; each part body's loop its parts' float4
+   stores, shuffle 16 SHFL a part, direct 16 32-bit loads; f) 16 pairs a
+   pass with `pbf_lambda`'s fp32 instructions a pair beside its reduction;
+   vpu_unal 32-bit loads, vpu_dma 4 cp.async copies and a barrier wait; no local
+   memory), each kernel against its plain version on the tools' inputs and
+   seeded ones (bit for bit, NaN in place, for a)-e) and the probes, at
+   every seeded shift and offset; f) rtol 1e-5, atol 1e-5 x max|value|),
+   then one reading of each kernel through `MicroRoll` (CUDA events, the
+   marginal between two trip or pass counts, the probes in a CUDA graph of
+   100 launches, the SM clock sampled); its launches are counted over this
+   phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -132,7 +146,12 @@ fp32 and MUFU instructions over the SMs x 128 lanes of issue or its MUFU
 ops over the SMs x 16 of the MUFU pipe, whichever is longer, at the sampled
 SM clock), 3i for the dense-λ kernels, whose line holds a), d), g) and k)
 at 64 copies, bound as 3h's, d)/g) also by their DMMA flops over the FP64
-tensor-core peak), the card
+tensor-core peak), 3j for the compaction building blocks, whose line
+holds a) with the card filled, d)'s shuffle and direct bodies at the JAX
+call's 512 copies and f) with the card filled, each at the larger of its
+two sizes, bound by its SHFLs, its 32-bit loads and stores, or its fp32 and
+MUFU issue, and the probes' CUDA-graph readings, bound by their bytes,
+beside torch.roll and x[:, o:o+128].contiguous()), the card
 line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
@@ -202,6 +221,16 @@ KERNELS = {
     "dense_mxu": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:219"),
     "dense_wmxu": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:326"),
     "dense_scr": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:445"),
+    # the compaction building blocks: tools/micro_roll.py's run (k_dyn and
+    # k_sta; k_static, k_fori and k_nested in two bodies; k_lam), and
+    # tools/micro_vpu.py's rot_kernel, unal_kernel and dma_kernel
+    "roll_lanes": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
+    "roll_part_shuffle": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
+    "roll_part_direct": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
+    "roll_lam": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
+    "vpu_rot": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:121"),
+    "vpu_unal": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:142"),
+    "vpu_dma": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:169"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -1001,6 +1030,96 @@ def phase_dense():
     return report, launches
 
 
+def phase_roll():
+    """3j: the compaction building blocks (csrc/micro_roll.cu): the SASS of
+    every kernel (cuobjdump), each against its plain version on the card on
+    the tools' inputs and seeded ones (uncounted), then one reading of each
+    kernel through `MicroRoll` (the launches counted for these kernels).
+    Returns (report, launches)."""
+    print("== 3j. compaction building blocks (csrc/micro_roll.cu) against their plain "
+          "PyTorch versions")
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import anchor_rate as ar
+    from pbf_sph_tpu_torch.tools import micro_chunk as mch
+    from pbf_sph_tpu_torch.tools import micro_roll as mr
+
+    for name, r in mr.check_sass(cuda_build.library_path()).items():
+        check(r["ok"], f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in r.items()
+                                                     if k != "ok"))
+    device = torch.device("cuda", torch.cuda.current_device())
+    errs = dict.fromkeys(mr.KERNELS, 0.0)
+    for label, (err, ok) in mr.card_parity(device).items():
+        tol = ("rtol 1e-5, atol 1e-5 x max|value|" if label.startswith("f ")
+               else "bit for bit, NaN in place")
+        check(ok, f"{label}: max abs err {err:.3e} ({tol})")
+        head = label.split()
+        name = ("roll_lanes" if head[0] in mr.LANES else "roll_lam" if head[0] == "f"
+                else f"roll_part_{head[1]}" if head[0] in mr.PARTS else head[0])
+        errs[name] = max(errs[name], err)
+
+    roll = mr.MicroRoll()
+    xl, xp, xf, xv = (mr.lanes_inputs(device), mr.part_inputs(device), mr.lam_inputs(device),
+                      mr.vpu_inputs(device))
+    fill_a, fill_f = mr.fill_copies(device, "lanes", "a"), mr.fill_copies(device, "lam")
+    o = xv.offset
+    with ar.ClockSampler(device) as clock:
+        readings = {
+            "roll_lanes": mr.read_lanes(roll, "a", xl, fill_a, 5),
+            "roll_part_shuffle": mr.read_part(roll, "d", "shuffle", xp, mr.REP, 5),
+            "roll_part_direct": mr.read_part(roll, "d", "direct", xp, mr.REP, 5),
+            "roll_lam": mr.read_lam(roll, xf, fill_f, 5),
+            "vpu_rot": mr.read_launch(lambda: roll.rot(xv.tile, xv.shift)),
+            "vpu_unal": mr.read_launch(lambda: roll.unal(xv.wide, o)),
+            "vpu_dma": mr.read_launch(lambda: roll.dma(xv.wide, o)),
+        }
+    torch.cuda.synchronize()
+    launches = dict(roll.launches)
+    mhz = mch.sm_clock_mhz(clock.summary(), device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"  SM clock beside the readings (nvidia-smi, MHz): {clock.summary()}")
+    passes = mr.PASSES[1]
+    # name: (plain version at the reading's larger size, the work, the
+    # library call that computes the same, or None)
+    table = {
+        "roll_lanes": (lambda: mr.lanes_plain("a", xl, mr.N, fill_a),
+                       mr.lanes_work("a", xl, mr.N, fill_a), None),
+        "roll_part_shuffle": (lambda: mr.part_plain("d", xp, mr.REP, passes),
+                              mr.part_work("d", xp, mr.REP, passes), None),
+        "roll_part_direct": (lambda: mr.part_plain("d", xp, mr.REP, passes),
+                             mr.part_work("d", xp, mr.REP, passes), None),
+        "roll_lam": (lambda: mr.lam_plain(xf, fill_f, mr.REP),
+                     mr.lam_work(xf, fill_f, mr.REP), None),
+        "vpu_rot": (lambda: mr.rot_plain(xv.tile, xv.shift), mr.rot_work(xv.tile, xv.shift),
+                    lambda: torch.roll(xv.tile, mr.TOOL_SHIFT, 1)),
+        "vpu_unal": (lambda: mr.slice_plain(xv.wide, o), mr.slice_work(),
+                     lambda: xv.wide[:, o:o + mr.W].contiguous()),
+        "vpu_dma": (lambda: mr.slice_plain(xv.wide, o), mr.slice_work(),
+                    lambda: xv.wide[:, o:o + mr.W].contiguous()),
+    }
+    report = {}
+    for name, (plain, work, library) in table.items():
+        r = readings[name]
+        plain_ms = device_ms(plain, 1, warm=False)
+        bound_ms, bound_by = mr.bound_ms(work, mhz, sms)
+        if name in mr.VPU:
+            ms, library_ms = r["graph_ms"], mr.read_launch(library)["graph_ms"]
+            what = (f"{r['graph_ms']:.5f} ms in a graph, {r['events_ms']:.5f} back to back; "
+                    f"library {library_ms:.5f} ms in a graph")
+        else:
+            ms, library_ms = r["ms"][1], None
+            rate = (f"{r['rolls_per_s'] / 1e9:.2f} G rolls/s" if "rolls_per_s" in r
+                    else f"{r['parts_per_s'] / 1e9:.2f} G parts/s" if "parts_per_s" in r
+                    else f"{r['pairs_per_s'] / 1e9:.1f} G pairs/s")
+            what = f"{ms:.4f} ms at {r['copies']} copies ({rate})"
+        print(f"  {name}: kernel {what}, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by "
+              f"{bound_by}")
+        # no single PyTorch call computes a)'s rolls, the part bodies or f)
+        report[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    print(f"  roll wrapper launches: {launches}")
+    return report, launches
+
+
 def phase_parity() -> None:
     print("== 4. TorchSolver on the card against TorchSolver on the CPU")
     from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -1199,6 +1318,10 @@ def main() -> int:
     check(all(v > 0 for v in dense_launches.values()),
           f"phase 3i launched every dense-λ kernel {dense_launches}")
     report.update(dense_report)
+    roll_report, roll_launches = phase_roll()
+    check(all(v > 0 for v in roll_launches.values()),
+          f"phase 3j launched every compaction building-block kernel {roll_launches}")
+    report.update(roll_report)
     del states
     phase_parity()
     phase_extract(lattice)
@@ -1213,6 +1336,7 @@ def main() -> int:
     launches.update(bisect_launches)
     launches.update(micro_launches)
     launches.update(dense_launches)
+    launches.update(roll_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

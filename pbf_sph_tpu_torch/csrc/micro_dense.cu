@@ -53,6 +53,7 @@
 #include <stdint.h>
 
 #include "dmma.cuh"
+#include "mbarrier.cuh"
 #include "pbf_pair.cuh"
 
 namespace {
@@ -225,34 +226,14 @@ __global__ void __launch_bounds__(kThreads)
 // k): c)'s body on candidates staged by TMA bulk copies
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
 __device__ __forceinline__ void bulk_stage(float* dst, const float* cands, int ncols, int t,
                                            uint64_t* bar) {
   constexpr uint32_t kBytes = kWcap * sizeof(float);  // 10 KB a field
   const uint32_t b = smem_u32(bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
+  if (threadIdx.x == 0) mbar_init(b, 1);
   __syncthreads();
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-                 "r"(3 * kBytes) : "memory");
+    mbar_expect_tx(b, 3 * kBytes);
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
       asm volatile(
@@ -262,11 +243,7 @@ __device__ __forceinline__ void bulk_stage(float* dst, const float* cands, int n
           : "memory");
     }
   }
-  // every thread waits for phase 0; a copy that never lands traps (a launch
-  // error) after ~1M tries rather than hanging the card
-  for (int i = 0; !mbar_try_wait(b, 0u); ++i) {
-    if (i > (1 << 20)) __trap();
-  }
+  mbar_wait_or_trap(b, 0u);  // every thread, for phase 0
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -605,16 +605,37 @@ class ClockSampler:
                      samples=len(mhz)) if mhz else None)
 
 
+# cycles of the spin kernel that holds the device while the host enqueues a
+# reading's calls: ~25 ms at 1980 MHz, above the enqueue time of any reading
+HOLD_CYCLES = 50_000_000
+
+
+def held_ms(fn, reps: int) -> float:
+    """Mean device ms of fn() over `reps` back-to-back calls, after one warm
+    call.  A spin kernel holds the device while the host enqueues the calls,
+    so where a wrapper's host work outruns its kernel, the reading is still
+    the device's: CUDA events alone would time the host's enqueue."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def marginal(run, sizes: Tuple[int, int], reps: int) -> Tuple[float, float, float]:
     """(seconds, t_lo ms, t_hi ms): the device time that the larger size adds
-    to the smaller, over which launch cost and ramp cancel.  Raises unless
-    the time grows with the size: every pair of sizes here is 4x apart, and
-    the larger takes at least 2x the time."""
-    from pbf_sph_tpu_torch.tools.bench_kernel_variants import device_ms
-
+    to the smaller, over which launch cost and ramp cancel (`held_ms`).
+    Raises unless the time grows with the size: every pair of sizes here is
+    4x apart, and the larger takes at least 2x the time."""
     lo, hi = sizes
-    t_lo = device_ms(lambda: run(lo), reps)
-    t_hi = device_ms(lambda: run(hi), reps)
+    t_lo = held_ms(lambda: run(lo), reps)
+    t_hi = held_ms(lambda: run(hi), reps)
     if not t_hi >= 2 * t_lo:
         raise RuntimeError(f"the time does not scale with the size: {t_lo:.4f} ms at "
                            f"{lo}, {t_hi:.4f} ms at {hi}")

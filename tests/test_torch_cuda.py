@@ -28,7 +28,11 @@ rtol 1e-6 (both fuse each multiply-add).  The loop probes' kernels: exact
 dense-λ micro-benchmark's kernels: rtol 1e-5, atol 1e-5 x max|value| (sums
 of mixed-sign terms in the kernel's order, a lane's columns and then a
 warp-shuffle tree, against Pallas's per-column carries; d)/g)'s fp64
-reduce against torch's float64 product).
+reduce against torch's float64 product).  The compaction building blocks:
+rolls, part bodies and slices bit for bit with NaN in place (shuffles,
+selects and copies of the same values; the part output NaN-filled on both
+sides), the 4-chunk λ rtol 1e-5, atol 1e-5 x max|value| (as the dense-λ
+kernels).
 """
 
 import numpy as np
@@ -53,6 +57,7 @@ from pbf_sph_tpu_torch.tools import micro_chunk as mch
 from pbf_sph_tpu_torch.tools import micro_dense as md
 from pbf_sph_tpu_torch.tools import micro_loop as ml
 from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
+from pbf_sph_tpu_torch.tools import micro_roll as mr
 from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
@@ -504,3 +509,77 @@ def test_micro_dense_sass_is_full(card):
     report = md.check_sass(cuda_build.library_path())
     assert set(report) == set(md.BODIES)
     assert md.short(report) == [], report
+
+
+@pytest.mark.parametrize("label", mr.LANES)
+def test_roll_lanes_kernel_matches_plain(card, label):
+    zeros = mr.LanesInputs(torch.full((mr.ROWS, mr.W), -0.0, device=card),
+                           mr.lanes_inputs(card).shifts)
+    for x in (mr.lanes_inputs(card), mr.random_lanes_inputs(3, card), zeros):
+        for ntrips in (0, 1, 1000):
+            got = mr.lanes_kernel(label, x, ntrips, 11)
+            assert mr.bit_equal(got, mr.lanes_plain(label, x, ntrips))[1], (label, ntrips)
+
+
+@pytest.mark.parametrize("body", mr.PART_BODIES)
+@pytest.mark.parametrize("label", mr.PARTS)
+def test_roll_part_kernel_matches_plain(card, label, body):
+    for x in (mr.part_inputs(card), mr.random_part_inputs(3, card)):
+        got = mr.part_kernel(label, body, x, 3, 2)
+        assert mr.bit_equal(got, mr.part_plain(label, x))[1]
+        assert torch.isnan(got).any() and not torch.isnan(got).all()
+
+
+def test_roll_lam_kernel_matches_plain(card):
+    for x in (mr.lam_inputs(card), mr.random_lam_inputs(3, card)):
+        for npass in (0, 1, 7):
+            got = mr.lam_kernel(x, 3, npass)
+            want = mr.lam_plain(x, 1, npass)
+            torch.testing.assert_close(got, want.expand_as(got), rtol=mr.RTOL,
+                                       atol=mr.ATOL_SHARE * float(want.abs().max()))
+
+
+def test_vpu_kernels_match_plain(card):
+    for s in mr.SEEDED_SHIFTS + mr.WRAPPED_SHIFTS + (2**31 - 1, -2**31):
+        x = mr.random_vpu_inputs(4, s, 0, card)
+        assert mr.bit_equal(mr.rot_kernel(x.tile, x.shift), mr.rot_plain(x.tile, x.shift))[1]
+    for o in mr.SEEDED_OFFSETS:
+        x = mr.random_vpu_inputs(5, 0, o, card)
+        want = mr.slice_plain(x.wide, o)
+        for kernel in (mr.unal_kernel, mr.dma_kernel):
+            assert mr.bit_equal(kernel(x.wide, o), want)[1], (kernel, o)
+
+
+def test_roll_wrappers_count_kernel_launches(card):
+    roll = mr.MicroRoll()
+    xl, xp, xf, xv = (mr.lanes_inputs(card), mr.part_inputs(card), mr.lam_inputs(card),
+                      mr.vpu_inputs(card))
+    for label in mr.LANES:
+        roll.lanes(label, xl, 10)
+    for label in mr.PARTS:
+        for body in mr.PART_BODIES:
+            roll.part(label, body, xp)
+    roll.lam(xf, 1, 2)
+    roll.rot(xv.tile, xv.shift)
+    roll.unal(xv.wide, xv.offset)
+    roll.dma(xv.wide, xv.offset)
+    torch.cuda.synchronize()
+    assert roll.launches == {"roll_lanes": 2, "roll_part_shuffle": 3, "roll_part_direct": 3,
+                             "roll_lam": 1, "vpu_rot": 1, "vpu_unal": 1, "vpu_dma": 1}
+    for o in (-1, 385):
+        with pytest.raises(ValueError, match="offset"):
+            roll.dma(xv.wide, o)
+    meta = xp.meta.clone()
+    meta[4, 0] = mr.SM
+    with pytest.raises(ValueError, match="part 4: s0"):
+        roll.part("c", "shuffle", mr.PartInputs(xp.strips, meta))
+    assert roll.launches["vpu_dma"] == 1 and roll.launches["roll_part_shuffle"] == 3
+
+
+def test_micro_roll_sass_is_full(card):
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    cuda_build.library()
+    report = mr.check_sass(cuda_build.library_path())
+    assert len(report) == 2 + 1 + 6 + 1 + 2
+    assert mr.short(report) == [], report

@@ -110,6 +110,19 @@ with a non-zero exit and no result line:
    marginal between two trip or pass counts, the probes in a CUDA graph of
    100 launches, the SM clock sampled); its launches are counted over this
    phase;
+3k. the op streams, dots and reshape (`csrc/micro_vpu.cu`, the rest of
+   `tools/micro_vpu.py`: bench_streams, dot_kernel, dot2_kernel, tr_kernel):
+   the SASS (cuobjdump: each stream's trip loop one op a carry, sqrt and div
+   with one slow-path guard a carry on their fast path; each dot's trip loop
+   its products, scale multiplies, one add an output and its shared-memory
+   reads; tr one FFMA a trip, restage with its store, barrier and load
+   inside the trip; no local memory), each kernel against its plain version
+   at 256 trips on the tool's inputs and seeded ones, every CTA of the
+   streams' card-filling grid and of two copies of the dots and tr (bit for
+   bit, but rsqrt rtol 1e-6), then one reading of each through `MicroVpu`
+   (CUDA events, the marginal between 2048 and 8192 trips, the SM clock
+   sampled) and the library call of the dots (`torch.matmul`) and of tr
+   (`torch.mv`) in a CUDA graph; its launches are counted over this phase;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -151,8 +164,15 @@ holds a) with the card filled, d)'s shuffle and direct bodies at the JAX
 call's 512 copies and f) with the card filled, each at the larger of its
 two sizes, bound by its SHFLs, its 32-bit loads and stores, or its fp32 and
 MUFU issue, and the probes' CUDA-graph readings, bound by their bytes,
-beside torch.roll and x[:, o:o+128].contiguous()), the card
-line
+beside torch.roll and x[:, o:o+128].contiguous()), 3k for the op
+streams, dots and reshape, whose line holds fma at 8 streams with the card
+filled, bound by its FFMAs over the issue rate, and the dots and both tr
+bodies at one copy, the dots bound by 2MNK + MK + MN flops a trip over the
+fp32 peak beside torch.matmul of the stacked scaled operands and its sum in
+a CUDA graph, tr by its FFMAs over the issue rate beside torch.mv of x[0,
+0:64] broadcast over the trips with the scales in a CUDA graph, and the
+kernel's chain of 8192 dependent FFMAs at the anchor's serial latency
+printed beside), the card line
 again, and as the last line `{"ok": true, "device": {...}}`.  Without a CUDA
 device, or outside a checkout of the repo, it fails before printing any
 result.
@@ -231,6 +251,13 @@ KERNELS = {
     "vpu_rot": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:121"),
     "vpu_unal": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:142"),
     "vpu_dma": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:169"),
+    # the rest of tools/micro_vpu.py: bench_streams, dot_kernel, dot2_kernel
+    # and tr_kernel (in two bodies)
+    "vpu_streams": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:91"),
+    "vpu_dot": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:196"),
+    "vpu_dot2": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:219"),
+    "vpu_tr_direct": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:240"),
+    "vpu_tr_restage": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:240"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -1120,6 +1147,93 @@ def phase_roll():
     return report, launches
 
 
+def phase_vpu():
+    """3k: the op streams, dots and reshape (csrc/micro_vpu.cu): the SASS of
+    every kernel (cuobjdump), each against its plain version on the card on
+    the tool's inputs and seeded ones (uncounted), then one reading of each
+    kernel through `MicroVpu` (the launches counted for these kernels).
+    Returns (report, launches)."""
+    print("== 3k. op streams, dots and reshape (csrc/micro_vpu.cu) against their plain PyTorch "
+          "versions")
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import anchor_rate as ar
+    from pbf_sph_tpu_torch.tools import micro_chunk as mch
+    from pbf_sph_tpu_torch.tools import micro_vpu as mv
+    from pbf_sph_tpu_torch.tools.micro_mc_field import graph_ms
+
+    sass = mv.check_sass(cuda_build.library_path())
+    for name, r in sass.items():
+        check(r["ok"], f"SASS {name}: " + ", ".join(f"{k} {v}" for k, v in r.items()
+                                                     if k not in ("ok", "opcodes")))
+    device = torch.device("cuda", torch.cuda.current_device())
+    errs = dict.fromkeys(mv.KERNELS, 0.0)
+    for label, (err, ok) in mv.card_parity(device).items():
+        head = label.split()
+        name = (f"vpu_tr_{head[1]}" if head[0] == "tr" else f"vpu_{head[0]}"
+                if head[0] in mv.DOTS else "vpu_streams")
+        tol = "rtol 1e-6" if head[0] == "rsqrt" else "bit for bit"
+        check(ok, f"{label}: max abs err {err:.3e} ({tol})")
+        errs[name] = max(errs[name], err)
+
+    vpu = mv.MicroVpu()
+    x = mv.tool_inputs(device)
+    n = mv.TRIPS[1]
+    fill = mv.fill_blocks(device, "streams", "fma", 8)
+    with ar.ClockSampler(device) as clock:
+        readings = {
+            "vpu_streams": mv.read_streams(vpu, x.x, "fma", 8, fill, 5),
+            "vpu_dot": mv.read_dot(vpu, "dot", x, 1, 5),
+            "vpu_dot2": mv.read_dot(vpu, "dot2", x, 1, 5),
+            **{f"vpu_tr_{body}": mv.read_tr(vpu, body, x, 1, 5) for body in mv.TR_BODIES},
+        }
+        serial = mch.anchor_fma(ar.Anchor(), device, 5, serial=True)["ns_per_op"]
+    torch.cuda.synchronize()
+    launches = dict(vpu.launches)
+    mhz = mch.sm_clock_mhz(clock.summary(), device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"  SM clock beside the readings (nvidia-smi, MHz): {clock.summary()}; serial FFMA "
+          f"{serial:.4f} ns")
+    # name: (plain version at the reading's larger size, the work, the
+    # library call that computes the same, or None)
+    table = {
+        "vpu_streams": (lambda: mv.streams_plain(x.x, "fma", 8, n),
+                        mv.streams_work(x.x, "fma", 8, n, fill, sass), None),
+        "vpu_dot": (lambda: mv.dot_plain(x.a, x.b, n), mv.dot_work("dot", n, 1),
+                    mv.library_call("dot", x, n)),
+        "vpu_dot2": (lambda: mv.dot2_plain(x.a2, x.b2, n), mv.dot_work("dot2", n, 1),
+                     mv.library_call("dot2", x, n)),
+        **{f"vpu_tr_{body}": (lambda body=body: mv.tr_plain(x.t, body, n), mv.tr_work(n, 1),
+                              mv.library_call("tr", x, n)) for body in mv.TR_BODIES},
+    }
+    report = {}
+    for name, (plain, work, library) in table.items():
+        r = readings[name]
+        ms = r["ms"][1]
+        plain_ms = device_ms(plain, 1, warm=False)
+        bound_ms, bound_by, what = mv.bound_ms(work, mhz, sms)
+        if "chain" in work:
+            what += f"; the kernel's chain {mv.chain_ms(work, serial):.6f} ms"
+        library_ms = None
+        if library is not None:
+            got = library()
+            err = float((got - plain()[0]).abs().max())
+            library_ms = graph_ms(library, launches=10)
+            lib = f", library {library_ms:.4f} ms in a graph (max abs err {err:.3e} to plain)"
+        else:
+            lib = ""
+        unit = (f"{r['lane_ops_per_s'] / 1e12:.3f} T lane-ops/s at {r['nblocks']} CTAs"
+                if "lane_ops_per_s" in r else f"{r['ns_per_dot']:.1f} ns a dot, one copy"
+                if "ns_per_dot" in r else f"{r['ns_per_reshape']:.3f} ns a reshape, one copy")
+        print(f"  {name}: kernel {ms:.4f} ms at {n} trips ({unit}), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms by {bound_by} ({what}){lib}")
+        # the streams iterate one op on each carry: no single PyTorch call
+        # computes that chain
+        report[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    print(f"  vpu wrapper launches: {launches}")
+    return report, launches
+
+
 def phase_parity() -> None:
     print("== 4. TorchSolver on the card against TorchSolver on the CPU")
     from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -1322,6 +1436,10 @@ def main() -> int:
     check(all(v > 0 for v in roll_launches.values()),
           f"phase 3j launched every compaction building-block kernel {roll_launches}")
     report.update(roll_report)
+    vpu_report, vpu_launches = phase_vpu()
+    check(all(v > 0 for v in vpu_launches.values()),
+          f"phase 3k launched every micro_vpu kernel {vpu_launches}")
+    report.update(vpu_report)
     del states
     phase_parity()
     phase_extract(lattice)
@@ -1337,6 +1455,7 @@ def main() -> int:
     launches.update(micro_launches)
     launches.update(dense_launches)
     launches.update(roll_launches)
+    launches.update(vpu_launches)
 
     kernels = [
         dict(name=name, route="cuda", source=src, replaces=rep,

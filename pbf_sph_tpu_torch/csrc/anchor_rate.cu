@@ -33,6 +33,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_copies.cuh"
 #include "pbf_pair.cuh"
 
 namespace {
@@ -169,14 +170,7 @@ __global__ void __launch_bounds__(kThreads)
 // Threads that fill every SM at the kernel's occupancy, 0 if it has none.
 template <typename K>
 int fill_threads(K kernel, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
-          cudaSuccess) {
-    return 0;
-  }
-  return sms * per_sm * kThreads;
+  return fill_ctas(kernel, kThreads, smem) * kThreads;
 }
 
 size_t body_smem(int nch) { return (size_t)nch * kWcol * sizeof(float4); }

@@ -44,6 +44,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_copies.cuh"
 #include "micro_fma.cuh"
 
 namespace {
@@ -113,7 +114,7 @@ __global__ void __launch_bounds__(kThreads)
     strip[col] = make_float4(s[col], s[kCols + col], s[2 * kCols + col], s[3 * kCols + col]);
   }
   __syncthreads();
-  const int e = (blockIdx.x % kCopyBlocks) * kThreads + threadIdx.x;
+  const int e = copy_element<kThreads>(kCopyBlocks);
   const int a = e / kWcol;
   const int j = e % kWcol;
   const float ax = rows[a], ay = rows[kSub + a], az = rows[2 * kSub + a];
@@ -144,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int S>
 __global__ void __launch_bounds__(kThreads)
     chunk_fma_kernel(const float* __restrict__ x, int niter, float* __restrict__ out) {
-  const int e = (blockIdx.x % kCopyBlocks) * kThreads + threadIdx.x;
+  const int e = copy_element<kThreads>(kCopyBlocks);
   out[blockIdx.x * kThreads + threadIdx.x] = fma_carries<S>(x[e], niter);
 }
 
@@ -184,19 +185,6 @@ cudaError_t allow_strip(BenchFn fn) {
                               (int)kStripBytes);
 }
 
-// CTAs that fill every SM at the kernel's occupancy, 0 if it has none.
-template <typename K>
-int fill_blocks(K kernel, size_t smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
-          cudaSuccess) {
-    return 0;
-  }
-  return sms * per_sm;
-}
-
 }  // namespace
 
 extern "C" {
@@ -208,11 +196,11 @@ int micro_chunk_fill(int kernel, int body, int interleave) {
   if (kernel == 0) {
     BenchFn fn = find_bench(body, interleave);
     if (fn == nullptr || allow_strip(fn) != cudaSuccess) return -1;
-    return fill_blocks(fn, kStripBytes);
+    return fill_ctas(fn, kThreads, kStripBytes);
   }
   if (kernel == 1) {
     FmaFn fn = find_fma(interleave);
-    return fn ? fill_blocks(fn, 0) : -1;
+    return fn ? fill_ctas(fn, kThreads) : -1;
   }
   return -1;
 }

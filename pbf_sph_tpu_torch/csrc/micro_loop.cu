@@ -8,7 +8,8 @@
 //   loop_chain <- c) a serial chain of K FMAs a trip on one carry
 //   loop_op    <- e) 8 carries of one op a trip: rsqrt(c + x),
 //                 where(c > x, c, x) + 1e-7, c*1.000001, c + x,
-//                 where(|c - x| <= 1, c + x, x)
+//                 where(|c - x| <= 1, c + x, x) (op_carries and op_round
+//                 of csrc/micro_fma.cuh, shared with vpu_streams)
 // pbf_sph_tpu_torch/tools/micro_loop.py holds the wrappers, the plain
 // versions and the SASS check of every kernel here.
 //
@@ -33,6 +34,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_copies.cuh"
 #include "micro_fma.cuh"
 
 namespace {
@@ -40,19 +42,8 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kOpCarries = 8;  // e)'s carries
 
-enum LoopOp { kRsqrt = 0, kWhere = 1, kMul = 2, kAdd = 3, kSubAbsCmp = 4 };
-
-template <int OP>
-__device__ __forceinline__ float loop_op_round(float c, float x) {
-  if constexpr (OP == kRsqrt) return rsqrtf(c + x);
-  if constexpr (OP == kWhere) return (c > x ? c : x) + 1e-7f;
-  if constexpr (OP == kMul) return c * kFmaScale;
-  if constexpr (OP == kAdd) return c + x;
-  return fabsf(c - x) <= 1.0f ? c + x : x;
-}
-
 __device__ __forceinline__ int element(int nelem) {
-  return (blockIdx.x % (nelem / kThreads)) * kThreads + threadIdx.x;
+  return copy_element<kThreads>(nelem / kThreads);
 }
 
 template <int K>
@@ -78,19 +69,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int OP>
 __global__ void __launch_bounds__(kThreads)
     loop_op_kernel(const float* __restrict__ x, int nelem, int niter, float* __restrict__ out) {
-  const float xv = x[element(nelem)];
-  float c[kOpCarries];
-#pragma unroll
-  for (int s = 0; s < kOpCarries; ++s) c[s] = xv + (float)s;
-#pragma unroll 1
-  for (int i = 0; i < niter; ++i) {
-#pragma unroll
-    for (int s = 0; s < kOpCarries; ++s) c[s] = loop_op_round<OP>(c[s], xv);
-  }
-  float acc = c[0];
-#pragma unroll
-  for (int s = 1; s < kOpCarries; ++s) acc += c[s];
-  out[blockIdx.x * kThreads + threadIdx.x] = acc;
+  out[blockIdx.x * kThreads + threadIdx.x] =
+      op_carries<OP, kOpCarries>(x[element(nelem)], niter);
 }
 
 using LoopFn = void (*)(const float*, int, int, float*);
@@ -117,8 +97,8 @@ LoopFn find_chain(int k) {
 
 LoopFn find_op(int op) {
   switch (op) {
-    case kRsqrt: return loop_op_kernel<kRsqrt>;
-    case kWhere: return loop_op_kernel<kWhere>;
+    case kRsqrtAdd: return loop_op_kernel<kRsqrtAdd>;
+    case kWhereAdd: return loop_op_kernel<kWhereAdd>;
     case kMul: return loop_op_kernel<kMul>;
     case kAdd: return loop_op_kernel<kAdd>;
     case kSubAbsCmp: return loop_op_kernel<kSubAbsCmp>;
@@ -154,14 +134,7 @@ extern "C" {
 // at `variant`, or -1 for a combination with no instantiation.
 int micro_loop_fill(int kernel, int variant) {
   LoopFn fn = find_loop(kernel, variant);
-  if (fn == nullptr) return -1;
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0) != cudaSuccess) {
-    return 0;
-  }
-  return sms * per_sm;
+  return fn == nullptr ? -1 : fill_ctas(fn, kThreads);
 }
 
 // x holds nelem (1024 or 8192) floats; out nblocks * 1024; nblocks >=

@@ -79,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid_copies.cuh"
 #include "mbarrier.cuh"
 #include "pbf_pair.cuh"
 
@@ -421,18 +422,6 @@ bool bad_part(int body, int loop) {
   return body < kShuffle || body > kDirect || loop < kStatic || loop > kNested;
 }
 
-template <typename K>
-int fill(K kernel, int threads, int copies_a_block) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) !=
-          cudaSuccess) {
-    return 0;
-  }
-  return per_sm * sms * copies_a_block;
-}
-
 }  // namespace
 
 extern "C" {
@@ -442,12 +431,12 @@ extern "C" {
 // roll_lam; -1 for a kernel it has no instantiation of.
 int micro_roll_fill(int kernel, int variant) {
   if (kernel == 0 && find_lanes(variant) != nullptr) {
-    return fill(find_lanes(variant), kLaneThreads, kLaneThreads / 32);
+    return fill_ctas(find_lanes(variant), kLaneThreads) * (kLaneThreads / 32);
   }
   if (kernel == 1 && variant >= 0 && !bad_part(variant / 3, variant % 3)) {
-    return fill(find_part(variant / 3, variant % 3), 32, 1);
+    return fill_ctas(find_part(variant / 3, variant % 3), 32);
   }
-  if (kernel == 2) return fill(roll_lam_kernel, kLamThreads, 1);
+  if (kernel == 2) return fill_ctas(roll_lam_kernel, kLamThreads);
   return -1;
 }
 

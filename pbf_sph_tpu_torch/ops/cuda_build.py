@@ -79,6 +79,11 @@ SIGNATURES = {
     "roll_lam": [_P, _P, _I, _I, _I, _F, _F, _F, _P, _P],
     "vpu_rot": [_P, _P, _P, _P],
     **dict.fromkeys(("vpu_unal", "vpu_dma"), [_P, _I, _P, _P]),
+    # csrc/micro_vpu.cu (micro_vpu_fill returns a CTA count)
+    "micro_vpu_fill": [_I, _I, _I],
+    "vpu_streams": [_P, _I, _I, _I, _I, _I, _P, _P],
+    **dict.fromkeys(("vpu_dot", "vpu_dot2"), [_P, _P, _I, _I, _P, _P]),
+    "vpu_tr": [_P, _I, _I, _I, _P, _P],
 }
 
 

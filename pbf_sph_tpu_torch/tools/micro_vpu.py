@@ -1,0 +1,787 @@
+"""Op streams, fp32 dots and a lane->sublane reshape on the card, as the TPU
+tool asks them.
+
+    python -m pbf_sph_tpu_torch.tools.micro_vpu [reps]
+
+Port of `tools/micro_vpu.py`.  Its `main` (`:102-247`) asks seven questions;
+the four kernels of `csrc/micro_vpu.cu` answer sections 1, 5, 6 and 7, and
+`micro_roll.MicroRoll`'s rot, unal and dma (`csrc/micro_roll.cu`) answer
+sections 3, 4 and 4b:
+
+* `vpu_streams` (`bench_streams`, row 7.12): `nstreams` carries from x + s
+  on an (R, 128) tile, NITER trips of one op on every carry (fma c*1.000001
+  + x, mul c*1.000001, cmp_where where(c > x, c*1.000001, x), rsqrt(c),
+  sqrt(c) + x, x / c), summed in order; one thread an element, CTAs of 1024
+  threads, `nblocks` of them (one copy of the tile, or the card filled);
+* `vpu_dot` (`dot_kernel`, row 7.16): acc(64, 8) += (a s_i) (64, 128) ·
+  b (8, 128)ᵀ, NITER trips, a CTA of 64 a copy, a thread a row's 8 outputs;
+* `vpu_dot2` (`dot2_kernel`, row 7.17): acc(64, 128) += (a s_i) (64, 8) @
+  b (8, 128), a CTA of 512 a copy, a thread 8 columns of 2 rows;
+* `vpu_tr` (`tr_kernel`, row 7.18): acc(64, 1) += x[0, 0:64] s_i, a CTA of
+  64 a copy, in two bodies, `direct` and `restage` (the row through shared
+  memory each trip).
+
+s_i = 1 + 1e-9 i, each op rounded in float32, as JAX's weak typing takes
+it.  Each kernel has a plain PyTorch version of the same signature;
+`MicroVpu` holds the wrappers, which take the plain version for a CPU tensor
+and the kernel for a CUDA one, and count launches.  The dots run as fp32
+FFMA chains (each trip: a s_i rounded, k summed in order by fused
+multiply-adds, then one add to acc), the model the interpreted `dot2_kernel`
+matches bit for bit; both plain dots are that model (`ffma_dot`), and the
+card's kernels match it bit for bit.  XLA's CPU `dot_kernel` blocks its
+K = 128 sum, so it meets the model bit for bit only where the rounding of
+the partial sums agrees (the tool's all-ones inputs), and within `dot_atol`
+elsewhere.
+
+The tool prints the card line; checks the SASS (cuobjdump: each stream's
+trip loop holds one op a carry, sqrt and div counted on their fast path with
+their slow-path guards; each dot's trip loop its products and scale
+multiplies and one add an output; tr one FFMA a trip, restage with its
+store, barrier and load inside the trip); holds each kernel against its
+plain version on the tool's inputs and on seeded ones, every CTA of every
+copy; then reads every
+kernel as the marginal between NITER and 4 NITER trips (`anchor_rate.
+marginal`), at the tool's size (one copy) and with the card filled, beside
+the anchor's serial FFMA latency, while `nvidia-smi` samples the SM clock,
+and answers sections 3-4b through `MicroRoll`.  The last line is one JSON
+object.  Without a CUDA device the tool fails.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pbf_sph_tpu_torch.ops import cuda_build
+from pbf_sph_tpu_torch.ops import phases as ph
+from pbf_sph_tpu_torch.tools import anchor_rate as ar
+from pbf_sph_tpu_torch.tools import micro_chunk as mch
+from pbf_sph_tpu_torch.tools import micro_roll as mr
+
+# the TPU tool's constants (`:22-24`) and inputs (`:90`, `:194-195`, `:217-218`, `:239`)
+R, C, NITER = 512, 128, 2048
+X_TOOL = 1.0000001
+FMA_SCALE = mch.FMA_SCALE
+SCALE_STEP = 1e-9
+OPS = ("fma", "mul", "cmp_where", "rsqrt", "sqrt", "div")
+STREAMS = (1, 2, 4, 8)
+# csrc/micro_fma.cuh's CarryOp of each op
+OP_ID = {"fma": 5, "mul": 2, "cmp_where": 6, "rsqrt": 7, "sqrt": 8, "div": 9}
+CTA = 1024
+DOT = dict(a=(64, 128), b=(8, 128), out=(64, 8), k=128)
+DOT2 = dict(a=(64, 8), b=(8, 128), out=(64, 128), k=8)
+DOTS = {"dot": DOT, "dot2": DOT2}
+TR_IN, TR_ROWS = (8, 128), 64
+TR_BODIES = ("direct", "restage")
+TR_ID = {"direct": 0, "restage": 1}
+KERNELS = ("vpu_streams", "vpu_dot", "vpu_dot2", "vpu_tr_direct", "vpu_tr_restage")
+FILL_ID = {"streams": 0, "dot": 1, "dot2": 2, "tr": 3}   # micro_vpu_fill's kernel
+
+# the readings: the marginal between NITER and 4 NITER trips; parity on the
+# card at NITER / 8 (where s_i takes three values), the streams over the
+# card-filling grid the readings run and the dots and tr over 2 copies
+TRIPS = (NITER, 4 * NITER)
+PARITY_TRIPS = NITER // 8
+PARITY_COPIES = 2
+# tolerances: rsqrt's (card_parity), and dot's atol against XLA's blocked
+# CPU sum (`dot_atol`), a unit of |a|·|b|ᵀ a trip
+RTOL_RSQRT = 1e-6
+DOT_ATOL = 2e-6
+# the fp32 peak of one H100 SXM outside the tensor cores (data sheet; an FMA
+# counts two), and its device memory rate
+FP32_FLOP_PER_S = 67e12
+HBM_BYTES_PER_S = mch.HBM_BYTES_PER_S
+
+
+class Inputs(NamedTuple):
+    x: torch.Tensor     # (rows, 128): the streams' tile
+    a: torch.Tensor     # (64, 128): dot's a
+    b: torch.Tensor     # (8, 128): dot's b
+    a2: torch.Tensor    # (64, 8): dot2's a
+    b2: torch.Tensor    # (8, 128): dot2's b
+    t: torch.Tensor     # (8, 128): tr's x
+
+
+# ---------------------------------------------------------------------------
+# Inputs and plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def tool_inputs(device="cpu", rows: int = R) -> Inputs:
+    """The JAX tool's inputs: x = ones * 1.0000001 on (rows, 128), every dot
+    operand and tr's x ones."""
+    def ones(shape):
+        return torch.ones(shape, device=device)
+
+    return Inputs(torch.full((rows, C), X_TOOL, device=device), ones(DOT["a"]), ones(DOT["b"]),
+                  ones(DOT2["a"]), ones(DOT2["b"]), ones(TR_IN))
+
+
+def random_inputs(seed: int, device="cpu", rows: int = R) -> Inputs:
+    """From `seed`: x in [0.5, 2) (every op's chain stays finite), the dot
+    operands in [-1, 1), tr's x in [-4, 4)."""
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    return Inputs(f32(rng.uniform(0.5, 2.0, (rows, C))), f32(rng.uniform(-1, 1, DOT["a"])),
+                  f32(rng.uniform(-1, 1, DOT["b"])), f32(rng.uniform(-1, 1, DOT2["a"])),
+                  f32(rng.uniform(-1, 1, DOT2["b"])), f32(rng.uniform(-4, 4, TR_IN)))
+
+
+def scales(niter: int, device="cpu"):
+    """(niter,) float32 s_i = 1 + 1e-9 i, the product and the sum each
+    rounded to float32 (`:187`, `:212`, `:236`)."""
+    i = torch.arange(niter, dtype=torch.float32, device=device)
+    return i * torch.tensor(SCALE_STEP, dtype=torch.float32, device=device) + 1.0
+
+
+def _check_streams(x, op: str, nstreams: int, niter: int) -> None:
+    if op not in OPS:
+        raise ValueError(f"op {op!r} is not one of {OPS}")
+    if nstreams not in STREAMS:
+        raise ValueError(f"nstreams {nstreams}: csrc/micro_vpu.cu instantiates {STREAMS}")
+    if x.dim() != 2 or x.shape[1] != C or x.shape[0] % 8 or not x.shape[0] \
+            or x.dtype != torch.float32:
+        raise ValueError(f"x: want float32 (8k, {C}), got {x.dtype} {tuple(x.shape)}")
+    if niter < 0:
+        raise ValueError(f"niter {niter} < 0")
+
+
+def _round(op: str, c, x, scale):
+    if op == "fma":
+        return torch.addcmul(x, c, scale)   # fused, as XLA and the FFMA round it once
+    if op == "mul":
+        return c * FMA_SCALE
+    if op == "cmp_where":
+        return torch.where(c > x, c * FMA_SCALE, x)
+    if op == "rsqrt":
+        return torch.rsqrt(c)
+    # sqrt and divide in float64, rounded once to float32: correctly rounded
+    # (as XLA's and the kernel's IEEE ops) on either device; torch's own CPU
+    # float32 sqrt is not
+    if op == "sqrt":
+        return torch.sqrt(c.double()).float() + x
+    return (x.double() / c.double()).float()
+
+
+def _copy_blocks(x, nblocks: Optional[int]) -> int:
+    """The CTAs of the grid: one copy of x (rows / 8) by default, never
+    fewer."""
+    nb = x.numel() // CTA if nblocks is None else nblocks
+    if nb < x.numel() // CTA:
+        raise ValueError(f"nblocks {nb} < {x.numel() // CTA}: the output needs them")
+    return nb
+
+
+def streams_plain(x, op: str, nstreams: int, niter: int = NITER,
+                  nblocks: Optional[int] = None):
+    """(nblocks * 8, 128) of `bench_streams(nstreams, op)` (`:62-88`):
+    carries from x + s, niter trips of op on each, acc = c0 + c1 + ... in
+    order; CTA b's (8, 128) rows are those of x's tile b mod (rows / 8), as
+    the kernel's grid computes them (one copy of x by default)."""
+    _check_streams(x, op, nstreams, niter)
+    nb = _copy_blocks(x, nblocks)
+    c = x + torch.arange(nstreams, dtype=x.dtype, device=x.device).reshape(-1, 1, 1)
+    scale = torch.tensor(FMA_SCALE, dtype=x.dtype, device=x.device)
+    for _ in range(niter):
+        c = _round(op, c, x, scale)
+    acc = c[0]
+    for s in range(1, nstreams):
+        acc = acc + c[s]
+    return acc[torch.arange(nb * CTA // C, device=x.device) % x.shape[0]]
+
+
+def _check_dot(which: str, a, b, niter: int, ncopies: int) -> None:
+    shapes = DOTS[which]
+    if tuple(a.shape) != shapes["a"] or tuple(b.shape) != shapes["b"] \
+            or a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"{which}: want float32 a {shapes['a']} and b {shapes['b']}, got "
+                         f"{a.dtype} {tuple(a.shape)} and {b.dtype} {tuple(b.shape)}")
+    if niter < 0 or ncopies < 1:
+        raise ValueError(f"niter {niter} must be >= 0 and ncopies {ncopies} >= 1")
+
+
+def ffma_dot(a, bkn, niter: int):
+    """(M, N) Σ_i d_i over niter trips, in trip order from 0: d_i = Σ_k
+    fma(as_k, b_k, d) in k order from 0 (`torch.addcmul`, fused), as = a s_i
+    rounded to float32 first, each d_i then added to acc by a separate
+    add.  a (M, K), bkn (K, N); every trip's d at once, one addcmul a k."""
+    sa = a[None] * scales(niter, a.device)[:, None, None]
+    d = torch.zeros((niter, a.shape[0], bkn.shape[1]), dtype=torch.float32, device=a.device)
+    for k in range(bkn.shape[0]):
+        d = torch.addcmul(d, sa[:, :, k:k + 1], bkn[k])
+    acc = torch.zeros(d.shape[1:], dtype=torch.float32, device=a.device)
+    for di in d:
+        acc = acc + di
+    return acc
+
+
+def dot_plain(a, b, niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 8) of `dot_kernel` (`:184-192`): `ffma_dot` of a and
+    bᵀ, the K = 128 sum in k order (XLA's CPU dot blocks it: see
+    `dot_atol`)."""
+    _check_dot("dot", a, b, niter, ncopies)
+    return ffma_dot(a, b.T, niter).expand(ncopies, -1, -1)
+
+
+def dot2_plain(a, b, niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 128) of `dot2_kernel` (`:210-215`): `ffma_dot` of a
+    and b, the model the interpreted kernel matches bit for bit."""
+    _check_dot("dot2", a, b, niter, ncopies)
+    return ffma_dot(a, b, niter).expand(ncopies, -1, -1)
+
+
+def _check_tr(x, body: str, niter: int, ncopies: int) -> None:
+    if body not in TR_BODIES:
+        raise ValueError(f"tr body {body!r} is not one of {TR_BODIES}")
+    if tuple(x.shape) != TR_IN or x.dtype != torch.float32:
+        raise ValueError(f"tr: want float32 {TR_IN}, got {x.dtype} {tuple(x.shape)}")
+    if niter < 0 or ncopies < 1:
+        raise ValueError(f"niter {niter} must be >= 0 and ncopies {ncopies} >= 1")
+
+
+def tr_plain(x, body: str = "direct", niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 1) of `tr_kernel` (`:233-237`): acc = fma(v, s_i, acc),
+    v = x[0, 0:64] as a column (`torch.addcmul`, fused as XLA fuses it);
+    both bodies compute the same."""
+    _check_tr(x, body, niter, ncopies)
+    v = x[0, :TR_ROWS].reshape(TR_ROWS, 1)
+    acc = torch.zeros((TR_ROWS, 1), dtype=torch.float32, device=x.device)
+    for s in scales(niter, x.device):
+        acc = torch.addcmul(acc, v, s)
+    return acc.expand(ncopies, -1, -1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel launchers
+# ---------------------------------------------------------------------------
+
+
+def _launch(name: str, dev, *args) -> None:
+    lib = cuda_build.library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*args, ph._stream(dev))
+    cuda_build.check(name, err)
+
+
+def fill_blocks(device, kernel: str, op: str = "fma", nstreams: int = 1,
+                body: str = "direct") -> int:
+    """CTAs (copies) that fill every SM at the kernel's occupancy: kernel
+    "streams" (op, nstreams), "dot", "dot2" or "tr" (body)."""
+    a, b = {"streams": (OP_ID.get(op, -1), nstreams), "tr": (TR_ID.get(body, -1), 0)}.get(
+        kernel, (0, 0))
+    with torch.cuda.device(device):
+        n = cuda_build.library().micro_vpu_fill(FILL_ID[kernel], a, b)
+    if n <= 0:
+        raise ValueError(f"csrc/micro_vpu.cu has no {kernel} kernel at {op}, {nstreams}, {body}")
+    return n
+
+
+def streams_kernel(x, op: str, nstreams: int, niter: int = NITER,
+                   nblocks: Optional[int] = None):
+    """(nblocks * 8, 128) from `vpu_streams` over nblocks CTAs (default: one
+    copy of x, rows / 8 CTAs): every CTA's output."""
+    _check_streams(x, op, nstreams, niter)
+    dev = ar._check_card(x=(x, torch.float32, tuple(x.shape)))
+    nb = _copy_blocks(x, nblocks)
+    out = torch.empty((nb * CTA // C, C), dtype=torch.float32, device=dev)
+    _launch("vpu_streams", dev, x.data_ptr(), x.numel(), OP_ID[op], nstreams, niter, nb,
+            out.data_ptr())
+    return out
+
+
+def _dot_kernel(which: str, a, b, niter: int, ncopies: int):
+    _check_dot(which, a, b, niter, ncopies)
+    shapes = DOTS[which]
+    dev = ar._check_card(a=(a, torch.float32, shapes["a"]), b=(b, torch.float32, shapes["b"]))
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{which}: the kernel's float4 loads need 16-byte aligned a and b")
+    out = torch.empty((ncopies, *shapes["out"]), dtype=torch.float32, device=dev)
+    _launch(f"vpu_{which}", dev, a.data_ptr(), b.data_ptr(), niter, ncopies, out.data_ptr())
+    return out
+
+
+def dot_kernel(a, b, niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 8) from `vpu_dot`."""
+    return _dot_kernel("dot", a, b, niter, ncopies)
+
+
+def dot2_kernel(a, b, niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 128) from `vpu_dot2`."""
+    return _dot_kernel("dot2", a, b, niter, ncopies)
+
+
+def tr_kernel(x, body: str = "direct", niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 1) from `vpu_tr` in `body`."""
+    _check_tr(x, body, niter, ncopies)
+    dev = ar._check_card(x=(x, torch.float32, TR_IN))
+    out = torch.empty((ncopies, TR_ROWS, 1), dtype=torch.float32, device=dev)
+    _launch("vpu_tr", dev, x.data_ptr(), TR_ID[body], niter, ncopies, out.data_ptr())
+    return out
+
+
+class MicroVpu:
+    """The wrappers of the kernels, with a launch counter per kernel name
+    (`KERNELS`): it starts at 0 and grows by one each time a method launches
+    a CUDA kernel, and at no other time.  A CPU tensor takes the plain
+    version, where nblocks and ncopies only shape the output."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(KERNELS, 0)
+
+    def _run(self, name: str, cpu: bool, plain, kernel):
+        if cpu:
+            return plain()
+        out = kernel()
+        self.launches[name] += 1
+        return out
+
+    def streams(self, x, op: str, nstreams: int, niter: int = NITER,
+                nblocks: Optional[int] = None):
+        return self._run("vpu_streams", x.device.type == "cpu",
+                         lambda: streams_plain(x, op, nstreams, niter, nblocks),
+                         lambda: streams_kernel(x, op, nstreams, niter, nblocks))
+
+    def dot(self, a, b, niter: int = NITER, ncopies: int = 1):
+        return self._run("vpu_dot", a.device.type == "cpu",
+                         lambda: dot_plain(a, b, niter, ncopies),
+                         lambda: dot_kernel(a, b, niter, ncopies))
+
+    def dot2(self, a, b, niter: int = NITER, ncopies: int = 1):
+        return self._run("vpu_dot2", a.device.type == "cpu",
+                         lambda: dot2_plain(a, b, niter, ncopies),
+                         lambda: dot2_kernel(a, b, niter, ncopies))
+
+    def tr(self, x, body: str = "direct", niter: int = NITER, ncopies: int = 1):
+        if body not in TR_BODIES:
+            raise ValueError(f"tr body {body!r} is not one of {TR_BODIES}")
+        return self._run(f"vpu_tr_{body}", x.device.type == "cpu",
+                         lambda: tr_plain(x, body, niter, ncopies),
+                         lambda: tr_kernel(x, body, niter, ncopies))
+
+
+# ---------------------------------------------------------------------------
+# The SASS of the built kernels
+# ---------------------------------------------------------------------------
+
+# each op's opcode that marks its trip loop, one a carry a trip
+OP_MAIN = {"fma": "FFMA", "mul": "FMUL", "cmp_where": "FSEL", "rsqrt": "MUFU.RSQ",
+           "sqrt": "MUFU.RSQ", "div": "MUFU.RCP"}
+# the opcodes each op must hold exactly once a carry a trip, and whether its
+# fp32 instructions are only those (fma, mul and cmp_where: nothing else)
+OP_WANT = {"fma": ("FFMA",), "mul": ("FMUL",), "cmp_where": ("FSETP", "FMUL", "FSEL"),
+           "rsqrt": ("MUFU.RSQ",), "sqrt": ("MUFU.RSQ",), "div": ("MUFU.RCP",)}
+ONLY_WANT = ("fma", "mul", "cmp_where")
+# forward branches a carry a trip: the IEEE sqrt's and divide's slow-path guard
+OP_GUARDS = {"fma": 0, "mul": 0, "cmp_where": 0, "rsqrt": 0, "sqrt": 1, "div": 1}
+# a dot thread's outputs, the rows of a it scales and its shared-memory
+# float4 reads a trip (dot: one row's 8 outputs, reading b; dot2: 8 columns
+# of 2 rows, reading their a)
+DOT_THREAD = {"dot": dict(outputs=8, rows=1, lds128=256),
+              "dot2": dict(outputs=16, rows=2, lds128=4)}
+
+
+def pattern(name: str) -> str:
+    """The mangled-name piece of a kernel: "<op> <nstreams>", "dot", "dot2"
+    or "tr <body>"."""
+    if name in DOTS:
+        return {"dot": "14vpu_dot_kernel", "dot2": "15vpu_dot2_kernel"}[name]
+    head, tail = name.split()
+    if head == "tr":
+        return f"13vpu_tr_kernelILi{TR_ID[tail]}E"
+    return f"18vpu_streams_kernelILi{OP_ID[head]}ELi{tail}E"
+
+
+def local_memory(sass: ar.Sass) -> int:
+    """The kernel's local-memory loads and stores: spills."""
+    return sum(1 for _, op, _ in sass[0] if op.startswith(("LDL", "STL")))
+
+
+def _best_loop(sass: ar.Sass, key: str):
+    """(counts, guards, loops with key) of the innermost loop whose fast path
+    holds the most `key`: a kernel's trip loop."""
+    found = []
+    for span in ar.innermost_spans(sass):
+        path, guards = mch.fast_path(sass, span)
+        c = mch._counts(path)
+        if c[key]:
+            found.append((c, guards, len(path)))
+    if not found:
+        return None, 0, 0, 0
+    c, guards, insts = max(found, key=lambda f: f[0][key])
+    return c, guards, insts, len(found)
+
+
+def stream_loop(sass: ar.Sass, op: str, ns: int) -> dict:
+    """One stream instantiation's trip loop: ok if it is the one loop with
+    its op, holding each opcode of OP_WANT once a carry, OP_GUARDS forward
+    branches a carry and (fma, mul, cmp_where) no other fp32 instruction;
+    a carry-trip's fp32 and MUFU instructions on the fast path."""
+    c, guards, insts, nloops = _best_loop(sass, OP_MAIN[op])
+    if c is None:
+        return dict(ok=False)
+    fp32 = mch._fp32(c)
+    ok = (nloops == 1 and all(c[k] == ns for k in OP_WANT[op]) and guards == ns * OP_GUARDS[op]
+          and (op not in ONLY_WANT or fp32 == ns * len(OP_WANT[op])) and not local_memory(sass))
+    return dict(ok=ok, fp32_per_carry=fp32 / ns, mufu_per_carry=mch._mufu(c) / ns,
+                insts_per_carry=insts / ns, guards_per_carry=guards / ns,
+                opcodes={k: v / ns for k, v in sorted(c.items())})
+
+
+def dot_loop(sass: ar.Sass, which: str) -> dict:
+    """A dot's trip loop, the loop with its FFMAs: a thread's outputs x K
+    products, K - 1 or K of each fused (FFMA: fma(a, b, 0) may be an FMUL),
+    K scale multiplies (FMUL) a row it scales and the trip scale's one, one
+    FADD an output and the scale's one, its shared-memory operand read every
+    trip (DOT_THREAD) and no local memory in the kernel."""
+    t, k = DOT_THREAD[which], DOTS[which]["k"]
+    n = t["outputs"]
+    c, guards, insts, nloops = _best_loop(sass, "FFMA")
+    if c is None:
+        return dict(ok=False)
+    lds = c["LDS.128"]
+    ok = (nloops == 1 and n * (k - 1) <= c["FFMA"] <= n * k
+          and c["FFMA"] + c["FMUL"] == (n + t["rows"]) * k + 1 and c["FADD"] == n + 1
+          and guards == 0 and lds == t["lds128"] and not local_memory(sass))
+    return dict(ok=ok, ffma=c["FFMA"], fmul=c["FMUL"], fadd=c["FADD"], lds128=lds,
+                local=local_memory(sass), insts=insts)
+
+
+def tr_loop(sass: ar.Sass, body: str) -> dict:
+    """tr's trip loop: one FFMA, the scale's FMUL and FADD; restage also its
+    store, barrier and load inside the trip, direct no shared memory."""
+    c, guards, insts, nloops = _best_loop(sass, "FFMA")
+    if c is None:
+        return dict(ok=False)
+    sts, bar = c["STS"], c["BAR"]
+    lds = sum(v for key, v in c.items() if key.startswith("LDS"))
+    staged = sts >= 1 and bar >= 1 and lds >= 1 if body == "restage" else sts + bar + lds == 0
+    ok = (nloops == 1 and c["FFMA"] == 1 and c["FMUL"] == 1 and c["FADD"] == 1 and guards == 0
+          and staged and not local_memory(sass))
+    return dict(ok=ok, sts=sts, bar=bar, lds=lds, insts=insts)
+
+
+def check_sass(lib_path) -> Dict[str, dict]:
+    """`check_funcs` of the built library."""
+    return check_funcs(ar.sass_functions(lib_path))
+
+
+def check_funcs(funcs) -> Dict[str, dict]:
+    """name -> dict(ok, counts) of every kernel of csrc/micro_vpu.cu: the
+    24 stream instantiations (`stream_loop`), the two dots (`dot_loop`) and
+    the two tr bodies (`tr_loop`)."""
+    report = {}
+    for op in OPS:
+        for ns in STREAMS:
+            name = f"{op} {ns}"
+            report[name] = stream_loop(ar._one(funcs, pattern(name)), op, ns)
+    for which in DOTS:
+        report[which] = dot_loop(ar._one(funcs, pattern(which)), which)
+    for body in TR_BODIES:
+        report[f"tr {body}"] = tr_loop(ar._one(funcs, pattern(f"tr {body}")), body)
+    return report
+
+
+def short(report: Dict[str, dict]) -> list:
+    return [name for name, r in report.items() if not r["ok"]]
+
+
+# ---------------------------------------------------------------------------
+# Parity
+# ---------------------------------------------------------------------------
+
+
+def dot_atol(a, b, niter: int):
+    """(64, 8) elementwise atol of dot_plain against the interpreted
+    `dot_kernel`: 2e-6 x (|a|·|b|ᵀ) x niter.  XLA's CPU dot blocks its K
+    sum and the plain version sums k in order; each trip's d of either lies
+    within K u Σ|a_k b_k| of the exact product, under 9e-7 x |a|·|b|ᵀ in the
+    interpreter's runs.  The card's vpu_dot sums in the plain version's
+    order and is held to it bit for bit."""
+    return DOT_ATOL * (a.abs().double() @ b.abs().double().T).float() * niter
+
+
+def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
+    """Each kernel against its plain version on the card at PARITY_TRIPS
+    trips, its launches not counted; "label case" -> (max abs err, ok), on
+    the tool's inputs and on `random_inputs`.  Every CTA of the streams'
+    card-filling grid (the readings' grid, a partial copy at its end) and
+    every one of PARITY_COPIES copies of the dots and tr is held.  Bit for
+    bit (the same fused multiply-adds, multiplies, selects and IEEE sqrt and
+    divide, each rounded once, and the dots' ordered FFMA sums) but rsqrt,
+    rtol 1e-6 (the card's MUFU.RSQ against torch's rsqrt; the chain
+    contracts to 1, so the difference does not grow)."""
+    res = {}
+    n = PARITY_TRIPS
+    for case, x in (("tool", tool_inputs(device)), ("random", random_inputs(seed, device))):
+        for op in OPS:
+            for ns in STREAMS:
+                nb = fill_blocks(device, "streams", op, ns)
+                got = streams_kernel(x.x, op, ns, n, nb)
+                want = streams_plain(x.x, op, ns, n, nb)
+                if op == "rsqrt":
+                    res[f"{op} {ns} {case}"] = (float((got - want).abs().max()), torch.allclose(
+                        got, want, rtol=RTOL_RSQRT, atol=0.0))
+                else:
+                    res[f"{op} {ns} {case}"] = mr.bit_equal(got, want)
+        res[f"dot {case}"] = mr.bit_equal(dot_kernel(x.a, x.b, n, PARITY_COPIES),
+                                       dot_plain(x.a, x.b, n))
+        res[f"dot2 {case}"] = mr.bit_equal(dot2_kernel(x.a2, x.b2, n, PARITY_COPIES),
+                                        dot2_plain(x.a2, x.b2, n))
+        for body in TR_BODIES:
+            res[f"tr {body} {case}"] = mr.bit_equal(tr_kernel(x.t, body, n, PARITY_COPIES),
+                                                 tr_plain(x.t, body, n))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The work, the bound and the readings
+# ---------------------------------------------------------------------------
+
+
+def streams_work(x, op: str, nstreams: int, niter: int, nblocks: int,
+                 sass: Optional[Dict[str, dict]] = None) -> dict:
+    """What `bench_streams` needs over nblocks CTAs: one op a carry a trip
+    (fma, mul: one fp32 instruction; cmp_where two, its where and its
+    multiply; rsqrt one MUFU op; sqrt and div their IEEE fast path's fp32
+    and MUFU instructions, from `sass`); x read once, the CTAs' output
+    written once."""
+    carry_trips = nblocks * CTA * nstreams * niter
+    if op in ("sqrt", "div"):
+        if sass is None:
+            raise ValueError(f"{op}: its fast path's instructions come from the SASS")
+        r = sass[f"{op} {nstreams}"]
+        fp32, mufu = r["fp32_per_carry"], r["mufu_per_carry"]
+    else:
+        fp32, mufu = {"fma": (1, 0), "mul": (1, 0), "cmp_where": (2, 0), "rsqrt": (0, 1)}[op]
+    return dict(fp32=carry_trips * fp32, mufu=carry_trips * mufu,
+                bytes=mr.nbytes(x) + nblocks * CTA * 4)
+
+
+def dot_work(which: str, niter: int, ncopies: int) -> dict:
+    """What a dot needs: 2 M N K flops, the M K scale multiplies and the
+    M N accumulate adds a trip a copy (and the scale's two a trip); a and b
+    read once, the copies written once."""
+    (m, k), n = DOTS[which]["a"], DOTS[which]["out"][1]
+    flops = ncopies * niter * (2 * m * n * k + m * k + m * n + 2)
+    return dict(flops=flops, bytes=4 * (m * k + k * n + ncopies * m * n))
+
+
+def tr_work(niter: int, ncopies: int) -> dict:
+    """What tr needs: one FFMA an element a trip and the scale's two
+    instructions a trip; x's 64 floats read once, the copies written once.
+    `chain`: the kernel's niter dependent FFMAs a thread (`chain_ms`)."""
+    return dict(fp32=ncopies * niter * (TR_ROWS + 2), mufu=0, chain=niter,
+                bytes=4 * (TR_ROWS + ncopies * TR_ROWS))
+
+
+def bound_ms(w: dict, mhz: float, sms: int) -> Tuple[float, str, str]:
+    """(ms, by, what): the least time, the longer of the bytes over 3.35
+    TB/s and the operations (flops over the 67 TFLOP/s fp32 peak; or fp32
+    and MUFU instructions over the issue rate and the MUFU pipe,
+    `micro_chunk.issue_bound_ms`).  by is "bytes" or "operations"; what
+    says "bytes", "flops" or "issue"."""
+    t_bytes = w["bytes"] / HBM_BYTES_PER_S
+    if "flops" in w:
+        t_ops, what = w["flops"] / FP32_FLOP_PER_S, "flops"
+    else:
+        t_ops = mch.issue_bound_ms(w["fp32"], w["mufu"], 0, mhz, sms)[0] * 1e-3
+        what = "issue"
+    if t_bytes > t_ops:
+        return 1e3 * t_bytes, "bytes", "bytes"
+    return 1e3 * t_ops, "operations", what
+
+
+def chain_ms(w: dict, serial_ns: float) -> float:
+    """The floor of tr's kernel as written: its chain of dependent FFMAs at
+    `serial_ns` each (the rate anchor's serial latency).  It is how the
+    kernel accumulates, not the function's bound: `library_call`'s
+    `torch.mv` sums the same products in another order, under it."""
+    return w["chain"] * serial_ns * 1e-6
+
+
+def library_call(which: str, x: Inputs, niter: int):
+    """The one PyTorch call that computes a kernel's function, the yardstick
+    of `library_ms` (the port never calls it), with its operands made here:
+    a dot's `torch.matmul` of the niter stacked scaled operands, summed over
+    the trips; tr's `torch.mv` of x[0, 0:64] broadcast over the trips with
+    the niter scales (Σ_i v s_i).  Each does the same products in its own
+    order, in fp32: TF32 is off inside the call and restored after it."""
+    s = scales(niter, x.t.device)
+    if which == "tr":
+        v = x.t[0, :TR_ROWS, None].expand(TR_ROWS, niter)
+        fn = lambda: torch.mv(v, s).view(TR_ROWS, 1)   # noqa: E731
+    else:
+        a, b = (x.a, x.b.T) if which == "dot" else (x.a2, x.b2)
+        sa = a[None] * s[:, None, None]
+        fn = lambda: torch.matmul(sa, b).sum(0)   # noqa: E731
+
+    def call():
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    return call
+
+
+def read_streams(mv: MicroVpu, x, op: str, ns: int, nblocks: int, reps: int) -> dict:
+    """One stream reading through `mv`: the marginal over TRIPS at nblocks
+    CTAs; the tool's G (8,128)-slots/s a copy (`:98`) and lane ops/s of the
+    grid."""
+    dt, t_lo, t_hi = ar.marginal(lambda n: mv.streams(x, op, ns, n, nblocks), TRIPS, reps)
+    trips = TRIPS[1] - TRIPS[0]
+    copies = nblocks * CTA / x.numel()
+    return dict(nblocks=nblocks, trips=list(TRIPS), ms=[t_lo, t_hi],
+                gslots_per_s=trips * ns * (x.shape[0] // 8) / dt / 1e9,
+                lane_ops_per_s=trips * ns * nblocks * CTA / dt, copies=copies)
+
+
+def read_dot(mv: MicroVpu, which: str, x: Inputs, ncopies: int, reps: int) -> dict:
+    """A dot through `mv`: the marginal over TRIPS at ncopies; ns a dot of
+    one copy (the tool's unit, `:204`, `:227`) and of the card, flops/s."""
+    a, b = (x.a, x.b) if which == "dot" else (x.a2, x.b2)
+    run = mv.dot if which == "dot" else mv.dot2
+    dt, t_lo, t_hi = ar.marginal(lambda n: run(a, b, n, ncopies), TRIPS, reps)
+    trips = TRIPS[1] - TRIPS[0]
+    return dict(copies=ncopies, trips=list(TRIPS), ms=[t_lo, t_hi], ns_per_dot=dt * 1e9 / trips,
+                ns_per_card_dot=dt * 1e9 / (trips * ncopies),
+                flops_per_s=dot_work(which, trips, ncopies)["flops"] / dt)
+
+
+def read_tr(mv: MicroVpu, body: str, x: Inputs, ncopies: int, reps: int) -> dict:
+    """A tr body through `mv`: the marginal over TRIPS at ncopies; ns a
+    reshape (a trip) of one copy (the tool's unit, `:247`)."""
+    dt, t_lo, t_hi = ar.marginal(lambda n: mv.tr(x.t, body, n, ncopies), TRIPS, reps)
+    trips = TRIPS[1] - TRIPS[0]
+    return dict(copies=ncopies, trips=list(TRIPS), ms=[t_lo, t_hi],
+                ns_per_reshape=dt * 1e9 / trips)
+
+
+def read_all(mv: MicroVpu, device, reps: int) -> dict:
+    """Every kernel through `mv` (counted) at the tool's inputs, one copy
+    (the tool's size) and the card filled, beside the anchor's serial FFMA
+    latency, with the SM clock sampled."""
+    x = tool_inputs(device)
+    res = {"streams": {}, "dots": {}, "tr": {}}
+    with ar.ClockSampler(device) as clock:
+        for op in OPS:
+            for ns in STREAMS:
+                geo = {"tool": R * C // CTA, "fill": fill_blocks(device, "streams", op, ns)}
+                res["streams"][f"{op} {ns}"] = {
+                    g: read_streams(mv, x.x, op, ns, nb, reps) for g, nb in geo.items()}
+        for which in DOTS:
+            res["dots"][which] = {g: read_dot(mv, which, x, n, reps)
+                                  for g, n in (("tool", 1), ("fill", fill_blocks(device, which)))}
+        for body in TR_BODIES:
+            res["tr"][body] = {g: read_tr(mv, body, x, n, reps)
+                               for g, n in (("tool", 1),
+                                            ("fill", fill_blocks(device, "tr", body=body)))}
+        res["anchor_serial"] = mch.anchor_fma(ar.Anchor(), device, reps, serial=True)
+    res["clocks_sm_mhz"] = clock.summary()
+    return res
+
+
+def roll_probes(device) -> Tuple[dict, dict]:
+    """Sections 3, 4 and 4b of the tool (`:113-180`) through
+    `micro_roll.MicroRoll` (`csrc/micro_roll.cu`): its verdict on each, and the
+    wrapper's launches."""
+    roll = mr.MicroRoll()
+    xv = mr.vpu_inputs(device)
+    tile = np.arange(mr.ROWS * mr.W, dtype=np.float32).reshape(mr.ROWS, mr.W)
+    wide = np.arange(mr.ROWS * mr.VPU_COLS, dtype=np.float32).reshape(mr.ROWS, mr.VPU_COLS)
+    want_rot = np.roll(tile, mr.TOOL_SHIFT, 1)
+    want_slice = wide[:, mr.TOOL_OFFSET:mr.TOOL_OFFSET + mr.W]
+    verdicts = {
+        "pltpu.roll dynamic shift": np.array_equal(roll.rot(xv.tile, xv.shift).cpu().numpy(),
+                                                   want_rot),
+        "unaligned load": np.array_equal(roll.unal(xv.wide, xv.offset).cpu().numpy(),
+                                         want_slice),
+        "unaligned DMA": np.array_equal(roll.dma(xv.wide, xv.offset).cpu().numpy(), want_slice),
+    }
+    return verdicts, dict(roll.launches)
+
+
+def main(argv=None) -> int:
+    from pbf_sph_tpu_torch.tools.bench_kernel_variants import card_line
+
+    argv = sys.argv[1:] if argv is None else argv
+    reps = int(argv[0]) if argv else 5
+    if not torch.cuda.is_available():
+        raise SystemExit("micro_vpu: needs a CUDA device")
+    card = card_line()
+    print(card)
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    print("== SASS of csrc/micro_vpu.cu (cuobjdump)")
+    cuda_build.library()
+    sass = check_sass(cuda_build.library_path())
+    for name, r in sass.items():
+        print(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in r.items()))
+    if short(sass):
+        raise SystemExit(f"micro_vpu: the SASS of {short(sass)} is off: the compiler folded, "
+                         f"unrolled or contracted what is measured, so no rate is printed")
+    parity = card_parity(device)
+    print("== each kernel against its plain version: " + ", ".join(
+        f"{k} {e:.3e}" for k, (e, _) in parity.items()))
+    wrong = [k for k, (_, ok) in parity.items() if not ok]
+    if wrong:
+        raise SystemExit(f"micro_vpu: {wrong} disagree with their plain versions")
+
+    mv = MicroVpu()
+    res = read_all(mv, device, reps)
+    mhz = mch.sm_clock_mhz(res["clocks_sm_mhz"], device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    serial = res["anchor_serial"]["ns_per_op"]
+    x = tool_inputs(device)
+    print(f"== SM clock beside the readings (nvidia-smi, MHz): {res['clocks_sm_mhz']}; the "
+          f"anchor's serial FFMA {serial:.4f} ns")
+    print(f"== 1/2. issue rate (G (8,128)-slots/s of one copy; R={R}, marginal over trips "
+          f"{TRIPS}; tool = {R * C // CTA} CTAs, fill = the card at occupancy)")
+    for name, geo in res["streams"].items():
+        op, ns = name.split()
+        full = geo["fill"]
+        bms, _, what = bound_ms(streams_work(x.x, op, int(ns), TRIPS[1], full["nblocks"], sass),
+                                mhz, sms)
+        print(f"  {op:10s} streams={ns}: tool {geo['tool']['gslots_per_s']:8.1f} Gslots/s "
+              f"({geo['tool']['lane_ops_per_s'] / 1e12:.3f} T lane-ops/s); fill "
+              f"{full['lane_ops_per_s'] / 1e12:.3f} T lane-ops/s at {full['nblocks']} CTAs, "
+              f"kernel {full['ms'][1]:.4f} ms, bound {bms:.4f} ms by {what}")
+    verdicts, roll_launches = roll_probes(device)
+    for what, ok in verdicts.items():
+        print(f"== 3/4/4b. {what}: OK, correct={ok} (micro_roll.MicroRoll)")
+    for which, geo in res["dots"].items():
+        s = DOTS[which]
+        full = geo["fill"]
+        bms, _, what = bound_ms(dot_work(which, TRIPS[1], full["copies"]), mhz, sms)
+        label = "(64,128)x(8,128)^T" if which == "dot" else "(64,8)x(8,128)"
+        print(f"== {5 if which == 'dot' else 6}. fp32 FFMA dot {label} -> {s['out']}: tool "
+              f"{geo['tool']['ns_per_dot']:.1f} ns/dot; fill ({full['copies']} copies) "
+              f"{full['ns_per_card_dot']:.3f} ns/dot, {full['flops_per_s'] / 1e12:.2f} TFLOP/s, "
+              f"kernel {full['ms'][1]:.4f} ms, bound {bms:.4f} ms by {what}")
+    for body, geo in res["tr"].items():
+        full = geo["fill"]
+        work = tr_work(TRIPS[1], full["copies"])
+        bms, _, what = bound_ms(work, mhz, sms)
+        print(f"== 7. lane->sublane reshape, {body}: tool {geo['tool']['ns_per_reshape']:.3f} "
+              f"ns/reshape ({geo['tool']['ns_per_reshape'] / serial:.2f}x the serial FFMA); fill "
+              f"({full['copies']} copies) {full['ns_per_reshape']:.3f} ns, kernel "
+              f"{full['ms'][1]:.4f} ms, bound {bms:.4f} ms by {what}, its chain "
+              f"{chain_ms(work, serial):.4f} ms")
+    print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "reps": reps,
+                      "sass": sass, "parity": {k: e for k, (e, _) in parity.items()},
+                      "readings": res, "roll_probes": verdicts,
+                      "launches": {**mv.launches, **roll_launches}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -32,7 +32,10 @@ reduce against torch's float64 product).  The compaction building blocks:
 rolls, part bodies and slices bit for bit with NaN in place (shuffles,
 selects and copies of the same values; the part output NaN-filled on both
 sides), the 4-chunk λ rtol 1e-5, atol 1e-5 x max|value| (as the dense-λ
-kernels).
+kernels).  The op streams, dots and reshape: bit for bit (the same fused
+multiply-adds, multiplies, selects, IEEE sqrt and divide and ordered FFMA
+sums) in every CTA of the grid, but rsqrt rtol 1e-6 (MUFU.RSQ against
+torch's rsqrt on a contracting chain).
 """
 
 import numpy as np
@@ -58,6 +61,7 @@ from pbf_sph_tpu_torch.tools import micro_dense as md
 from pbf_sph_tpu_torch.tools import micro_loop as ml
 from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
 from pbf_sph_tpu_torch.tools import micro_roll as mr
+from pbf_sph_tpu_torch.tools import micro_vpu as mv
 from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
@@ -583,3 +587,58 @@ def test_micro_roll_sass_is_full(card):
     report = mr.check_sass(cuda_build.library_path())
     assert len(report) == 2 + 1 + 6 + 1 + 2
     assert mr.short(report) == [], report
+
+
+@pytest.mark.parametrize("op", mv.OPS)
+def test_vpu_streams_kernel_matches_plain(card, op):
+    """Every CTA of a grid of two and a half copies: the wrap of its element
+    index included."""
+    for x in (mv.tool_inputs(card, rows=16), mv.random_inputs(3, card, rows=16)):
+        for ns in mv.STREAMS:
+            got = mv.streams_kernel(x.x, op, ns, 300, 5)
+            want = mv.streams_plain(x.x, op, ns, 300, 5)
+            assert got.shape == want.shape == (5 * 8, 128)
+            if op == "rsqrt":
+                torch.testing.assert_close(got, want, rtol=mv.RTOL_RSQRT, atol=0)
+            else:
+                assert mr.bit_equal(got, want)[1], (op, ns)
+
+
+def test_vpu_dots_and_tr_match_plain(card):
+    for x in (mv.tool_inputs(card), mv.random_inputs(3, card)):
+        for niter in (0, 1, 300):
+            assert mr.bit_equal(mv.dot_kernel(x.a, x.b, niter, 3),
+                                mv.dot_plain(x.a, x.b, niter))[1], niter
+            assert mr.bit_equal(mv.dot2_kernel(x.a2, x.b2, niter, 3),
+                                mv.dot2_plain(x.a2, x.b2, niter))[1]
+            for body in mv.TR_BODIES:
+                assert mr.bit_equal(mv.tr_kernel(x.t, body, niter, 3),
+                                    mv.tr_plain(x.t, body, niter))[1], (body, niter)
+
+
+def test_vpu_wrappers_count_kernel_launches(card):
+    vpu = mv.MicroVpu()
+    x = mv.tool_inputs(card, rows=8)
+    for op in mv.OPS:
+        vpu.streams(x.x, op, 2, 10)
+    vpu.dot(x.a, x.b, 10)
+    vpu.dot2(x.a2, x.b2, 10, 2)
+    for body in mv.TR_BODIES:
+        vpu.tr(x.t, body, 10)
+    torch.cuda.synchronize()
+    assert vpu.launches == {"vpu_streams": 6, "vpu_dot": 1, "vpu_dot2": 1, "vpu_tr_direct": 1,
+                            "vpu_tr_restage": 1}
+    with pytest.raises(ValueError, match="instantiates"):
+        vpu.streams(x.x, "fma", 3, 10)
+    with pytest.raises(ValueError, match="aligned"):
+        vpu.dot(x.a, torch.ones(8 * 128 + 1, device=card)[1:].view(8, 128), 10)
+    assert vpu.launches["vpu_streams"] == 6 and vpu.launches["vpu_dot"] == 1
+
+
+def test_micro_vpu_sass_is_full(card):
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    cuda_build.library()
+    report = mv.check_sass(cuda_build.library_path())
+    assert len(report) == 24 + 2 + 2
+    assert mv.short(report) == [], report

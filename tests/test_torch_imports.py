@@ -20,6 +20,7 @@ from pbf_sph_tpu_torch.tools import micro_chunk as mch
 from pbf_sph_tpu_torch.tools import micro_dense as md
 from pbf_sph_tpu_torch.tools import micro_loop as ml
 from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
+from pbf_sph_tpu_torch.tools import micro_vpu as mv
 from pbf_sph_tpu_torch.tools import micro_window as mw
 from pbf_sph_tpu_torch.tools import phases2 as p2
 
@@ -35,7 +36,9 @@ assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases
         "pbf_sph_tpu_torch.tools.micro_mc_field",
         "pbf_sph_tpu_torch.tools.micro_chunk",
         "pbf_sph_tpu_torch.tools.micro_loop",
-        "pbf_sph_tpu_torch.tools.micro_dense"} <= set(names)
+        "pbf_sph_tpu_torch.tools.micro_dense",
+        "pbf_sph_tpu_torch.tools.micro_roll",
+        "pbf_sph_tpu_torch.tools.micro_vpu"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -297,3 +300,29 @@ def test_micro_dense_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         md.main(["1"])
+
+
+def test_vpu_launchers_refuse_cpu_tensors():
+    """The op-stream, dot and reshape launchers never fall back to their
+    plain versions; the wrapper takes them for CPU tensors and launches
+    nothing."""
+    x = mv.tool_inputs(rows=8)
+    for launch in (lambda: mv.streams_kernel(x.x, "fma", 1, 2),
+                   lambda: mv.dot_kernel(x.a, x.b, 2), lambda: mv.dot2_kernel(x.a2, x.b2, 2),
+                   lambda: mv.tr_kernel(x.t, "direct", 2), lambda: mv.tr_kernel(x.t, "restage", 2)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch()
+    wrappers = mv.MicroVpu()
+    assert wrappers.streams(x.x, "div", 2, 2).shape == (8, 128)
+    assert wrappers.dot(x.a, x.b, 2, 3).shape == (3, 64, 8)
+    assert wrappers.dot2(x.a2, x.b2, 2).shape == (1, 64, 128)
+    assert wrappers.tr(x.t, "restage", 2).shape == (1, 64, 1)
+    assert wrappers.launches == dict.fromkeys(mv.KERNELS, 0)
+
+
+def test_micro_vpu_needs_a_card(monkeypatch):
+    """The op-stream, dot and reshape tool measures on the card or fails; it
+    never times the plain versions on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        mv.main(["1"])

@@ -8,11 +8,14 @@ with a non-zero exit and no result line:
 
 1. the card (`nvidia-smi` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from `pbf_sph_tpu_torch/csrc` (nvcc, at first use);
-3. each phase kernel against its plain PyTorch version on the card, on the
-   sort-time state of dam_break(32_000, 3) and dam_break(1_000_000, 6):
-   diffuse count exact and colour sums to atol 1e-6, lambda to atol 1e-6 /
-   rtol 1e-5, pStar after one delta phase to atol 1e-5 (simulation units);
-   with CUDA-event times of both;
+3. each phase kernel of `csrc/pbf_phases.cu` against its plain PyTorch
+   version on the card, on the sort-time state of dam_break(32_000, 3) and
+   dam_break(1_000_000, 6): diffuse count exact and colour sums to atol
+   1e-6, lambda to atol 1e-6 / rtol 1e-5, pStar after one delta phase to
+   atol 1e-5 (simulation units); with CUDA-event times of both.  The
+   per-row lambda and delta are off the main path (which runs
+   `csrc/pbf_cells.cu`): one round through their `PbfPhases` wrappers on
+   each state counts their launches;
 3b. the MC field kernel against its plain version on the card, on the
    post-finalise state of mc128k (res 1.0) and bench20k (res 2.0): count
    exact, S0 and S to rtol 1e-4 / atol 1e-3, the post-passed v, n and c as
@@ -123,6 +126,23 @@ with a non-zero exit and no result line:
    (CUDA events, the marginal between 2048 and 8192 trips, the SM clock
    sampled) and the library call of the dots (`torch.matmul`) and of tr
    (`torch.mv`) in a CUDA graph; its launches are counted over this phase;
+3l. the main path's λ/Δp kernels (`csrc/pbf_cells.cu`, `pbf_lambda_cells` and
+   `pbf_delta_cells` on their (C, 4) packs, the direct walk) and their
+   staged walk (`csrc/cells_staged.cu`, `tools/cells_staged.py`), off the
+   main path: the SASS (cuobjdump: each pair loop the per-row
+   kernel's fp32 instructions a pair without rsqrtf's denormal guard, λ 18
+   and Δp 26, one MUFU.RSQ and one float4 read a pair, LDG.128 direct and
+   LDS.128 staged, none of the other kind in the loop, no local memory),
+   each against its plain version on the sort-time states of
+   dam_break(32_000, 3) and dam_break(1_000_000, 6) and an over-compressed
+   2-cube state whose unions exceed the stage of shared memory (λ atol 1e-6
+   / rtol 1e-5, pStar after one delta and the clamp atol 1e-5, B's xyz A's
+   and A's mass kept), the largest difference from the per-row kernels with
+   the wrappers' mask and clamp printed, one round of the staged walk
+   through `cells_staged.StagedCells` on each state (its launches are
+   counted here), then at the 1M state the device time of each
+   (`anchor_rate.held_ms`) beside its plain version's, its bound and the
+   anchored ms;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -135,16 +155,22 @@ with a non-zero exit and no result line:
    TorchSolver(device="cuda"): prepare, the growth warmup of the benchmark,
    then timed frames; particles conserved, grid extent held, no capacity
    overflow, positions finite and inside the bounds, and exactly 13 kernel
-   launches per frame (1 diffuse + 6 lambda + 6 delta);
+   launches per frame (1 diffuse + 6 lambda_cells + 6 delta_cells); with the
+   stage times;
 6. the surface path: mc128k, dam_break(128_000, 3) with its marching-cubes
    surface, through TorchSolver(device="cuda") in the same way: particles
    conserved, extent held, no growth pending, no emit overflow,
    0 < tri_count <= tri_capacity, the mesh's vertices finite and within
    h*scale of the bounds, and exactly 8 kernel launches per frame
-   (1 mc_field + 1 diffuse + 3 lambda + 3 delta); with the stage times.
+   (1 mc_field + 1 diffuse + 3 lambda_cells + 3 delta_cells); with the stage
+   times.
 
 Then one JSON line of kernels (launches from the main path that runs each:
-phase 5 for the phase kernels, phase 6 for the MC field, 3c for the tiled
+phase 5 for diffuse and λ/Δp (`lambda_cells`, `delta_cells`: the direct
+walk) and for the per-row λ/Δp, which it no longer runs (0; phase 3's
+round of them stands beside as `phase_launches`), 3l for the staged walk,
+whose line holds the held_ms times at the 1M state as the direct walk's does,
+phase 6 for the MC field, 3c for the tiled
 kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
@@ -201,6 +227,18 @@ KERNELS = {
               "pbf_sph_tpu/ops/pallas_pbf.py:491"),
     "mc_field": ("pbf_sph_tpu_torch/csrc/mc_field.cu",
                  "pbf_sph_tpu/ops/pallas_mc.py:185"),
+    # the main path's λ and Δp: make_lambda_call and
+    # make_delta_call with the wrappers' mask and clamp (the direct walk)
+    "lambda_cells": ("pbf_sph_tpu_torch/csrc/pbf_cells.cu",
+                     "pbf_sph_tpu/ops/pallas_pbf.py:391"),
+    "delta_cells": ("pbf_sph_tpu_torch/csrc/pbf_cells.cu",
+                    "pbf_sph_tpu/ops/pallas_pbf.py:491"),
+    # the same kernels' staged walk (candidates in shared memory), off the
+    # main path (tools/cells_staged.py)
+    "lambda_cells_staged": ("pbf_sph_tpu_torch/csrc/cells_staged.cu",
+                            "pbf_sph_tpu/ops/pallas_pbf.py:391"),
+    "delta_cells_staged": ("pbf_sph_tpu_torch/csrc/cells_staged.cu",
+                           "pbf_sph_tpu/ops/pallas_pbf.py:491"),
     # make_lambda_call / make_delta_call with mxu=True (_centred_r2_mxu :351)
     "lambda_tile": ("pbf_sph_tpu_torch/csrc/pbf_tiles.cu",
                     "pbf_sph_tpu/ops/pallas_pbf.py:391"),
@@ -261,6 +299,10 @@ KERNELS = {
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
+# 3l's states: sort-time dam breaks (count, iterations) and an over-compressed
+# 2-cube scene (count, iterations, scaling) whose unions exceed the stage
+CELL_STATES = {"dam32k": (32_000, 3), "dam1m": (1_000_000, 6), "over-compressed": None}
+OVER_COMPRESSED = (20_000, 2, 1200.0)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory, and fp32 outside the tensor cores.
@@ -387,11 +429,20 @@ def phase_kernels() -> dict:
     from pbf_sph_tpu_torch.core.types import FLUID
     from pbf_sph_tpu_torch.ops import phases as ph
 
-    report = {}
+    report = {"launches_rows": {"lambda": 0, "delta": 0}}
     for count, iters in ((32_000, 3), (1_000_000, 6)):
         spec, dyn, fr = sort_time_state(count, iters)
         st, idx, h = fr.state, fr.index, spec.h
         scale = torch.full((), spec.scale, device=st.mass.device)
+        # the per-row λ and Δp are off the main path: one round through
+        # their wrappers is what counts their launches
+        rows = ph.PbfPhases(h)
+        rows.delta_phase(idx, fr.pstar, rows.lambda_phase(idx, fr.pstar, st.mass, st.ptype,
+                                                          st.alive),
+                         st.ptype, st.alive, scale, dyn["min_bound"], dyn["max_bound"])
+        torch.cuda.synchronize()
+        for name in report["launches_rows"]:
+            report["launches_rows"][name] += rows.launches[name]
         lo, hi = ph.neighbour_ranges(idx)
         pairs = int((hi - lo).sum())
         print(f"dam_break({count}, {iters}): capacity {spec.capacity}, grid "
@@ -1234,6 +1285,107 @@ def phase_vpu():
     return report, launches
 
 
+def phase_cells():
+    """3l: the main path's λ/Δp kernels (csrc/pbf_cells.cu) and their staged
+    walk (csrc/cells_staged.cu): the SASS (cuobjdump), each kernel against
+    its plain version and beside the per-row kernels with the wrappers' mask
+    and clamp on CELL_STATES, one round of the staged walk through
+    `cells_staged.StagedCells` on each state (its launches are counted
+    here; the direct walk's are the main path's, phases 5 and 6), then at
+    the 1M state the device ms of each
+    (held_ms) beside its plain version's, its bound and the anchored ms.
+    Returns (report, staged launches)."""
+    print("== 3l. main-path λ/Δp kernels (csrc/pbf_cells.cu) and their staged walk "
+          "(csrc/cells_staged.cu) against their plain PyTorch versions")
+    from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import (
+        TorchSolver, advect_and_sort, dyn_params_of)
+    from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import anchor_rate as ar
+    from pbf_sph_tpu_torch.tools import bench_cells as bc
+    from pbf_sph_tpu_torch.tools import cells_staged as cs
+
+    for name, r in bc.check_sass(cuda_build.library_path()).items():
+        check(r["ok"], f"SASS {name}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items() if k != "ok"))
+    walks = {"": False, "_staged": True}
+    errs = {f"{w}_cells{s}": 0.0 for w in ("lambda", "delta") for s in walks}
+    launches = {"lambda_cells_staged": 0, "delta_cells_staged": 0}
+    report = {}
+    for label in CELL_STATES:
+        if label == "over-compressed":
+            mc, cfg, xs = simple_config_with_2_cubes(*OVER_COMPRESSED)
+            solver = TorchSolver(h=cfg.h, device="cuda")
+            spec, state, scn = solver.prepare(cfg, Scene(), xs)
+            dyn = dyn_params_of(cfg, solver.dtype, solver.device)
+            fr = advect_and_sort(spec, state, dyn, scn)
+        else:
+            spec, dyn, fr = sort_time_state(*CELL_STATES[label])
+        f = bc.Frame(spec, dyn, fr)
+        stats = cs.plan_stats(f.runs)
+        print(f"{label}: capacity {spec.capacity}, grid {spec.grid.dims}, {f.pairs} pairs; "
+              f"staged runs {stats}")
+        if label == "over-compressed":
+            check(stats["over_cap"] > 0, f"{label}: {stats['over_cap']} CTAs staged in pieces")
+        for suffix, staged in walks.items():
+            par = bc.parity(f, staged)
+            tag = f"{label}, {'staged' if staged else 'direct'} walk"
+            check(par["lambda_ok"], f"{tag}: lambda max abs err {par['lambda_err']:.3e} "
+                                    f"(atol 1e-6, rtol 1e-5)")
+            check(par["pstar_err"] <= 1e-5 and par["finite"],
+                  f"{tag}: pStar after delta max abs err {par['pstar_err']:.3e} <= 1e-5, "
+                  f"finite")
+            check(par["packs_kept"], f"{tag}: B's xyz is A's, A's mass kept")
+            print(f"  beside the per-row kernels with the wrappers' mask and clamp: λ max diff "
+                  f"{par['lambda_rows_diff']:.3e} (bit for bit {par['lambda_rows_bits']}), "
+                  f"pStar max diff {par['pstar_rows_diff']:.3e} (bit for bit "
+                  f"{par['pstar_rows_bits']})")
+            errs[f"lambda_cells{suffix}"] = max(errs[f"lambda_cells{suffix}"], par["lambda_err"])
+            errs[f"delta_cells{suffix}"] = max(errs[f"delta_cells{suffix}"], par["pstar_err"])
+        wrappers = cs.StagedCells(spec.h)
+        pack_b, pack_a = torch.empty_like(f.pack_a), f.pack_a.clone()
+        wrappers.lambda_cells(f.index, f.pack_a, f.fluid, pack_b)
+        wrappers.delta_cells(f.index, pack_b, f.fluid, *f.bounds, pack_a)
+        torch.cuda.synchronize()
+        for name in launches:
+            launches[name] += wrappers.launches[name]
+        del pack_b, pack_a
+        if label != "dam1m":
+            del f, fr
+            torch.cuda.empty_cache()
+            continue
+        bounds = bc.cells_bounds(f)
+        for suffix, staged in walks.items():
+            b = f.lambda_cells(staged=staged)
+            b_out, a_out = torch.empty_like(b), f.pack_a.clone()
+            times = {
+                "lambda": (lambda: f.lambda_cells(b_out, staged),
+                           lambda: bc.WALKS[staged][2](f.index, f.h, f.pack_a, f.fluid, b_out)),
+                "delta": (lambda: f.delta_cells(b, a_out, staged),
+                          lambda: bc.WALKS[staged][3](f.index, f.h, b, f.fluid, *f.bounds,
+                                                      a_out)),
+            }
+            for which, (kern, plain) in times.items():
+                name = f"{which}_cells{suffix}"
+                ms = ar.held_ms(kern, 20)
+                plain_ms = device_ms(plain, 1, warm=False)
+                bound_ms, bound_by = bounds[which]
+                print(f"  {name}: kernel {ms:.4f} ms ({f.pairs / ms / 1e6:.3f} Gpairs/s), "
+                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+                      f"anchored {f.pairs / bc.BODY_CEILING[which] * 1e3:.4f} ms")
+                # no single PyTorch call computes a cell-list neighbour sum
+                report[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=None)
+            del b, b_out, a_out
+        del f, fr
+        torch.cuda.empty_cache()
+    for name, err in errs.items():
+        report[name]["max_abs_err"] = err
+    print(f"  staged-walk wrapper launches: {launches}")
+    return report, launches
+
+
 def phase_parity() -> None:
     print("== 4. TorchSolver on the card against TorchSolver on the CPU")
     from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -1332,6 +1484,7 @@ def check_frames(spec, state, cfg, outs, n: int, solver) -> dict:
 
 def phase_main_path() -> dict:
     print("== 5. main path: dam_break(1_000_000, 6) through TorchSolver(device='cuda')")
+    from pbf_sph_tpu_torch.bench import phase_breakdown
     from pbf_sph_tpu_torch.core.configs import dam_break
     from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
 
@@ -1340,12 +1493,16 @@ def phase_main_path() -> dict:
     solver = TorchSolver(h=cfg.h, device="cuda")
     spec, state, dyn, scn, outs, frames, launches, wall, dev_ms = run_path(solver, cfg, xs)
     check_frames(spec, state, cfg, outs, n, solver)
-    want = {"diffuse": frames, "lambda": 6 * frames, "delta": 6 * frames, "mc_field": 0}
+    want = {"diffuse": frames, "lambda": 0, "delta": 0, "lambda_cells": 6 * frames,
+            "delta_cells": 6 * frames, "mc_field": 0}
     check(launches == want, f"kernel launches {launches} == 13 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
     print(f"{card_line()}: {ms:.3f} ms/step (device events {dev_ms:.3f} ms/step), "
           f"{n * TIMED_FRAMES / wall:.4e} particle-steps/s over {TIMED_FRAMES} frames")
+    _, stages = phase_breakdown(solver, spec, state, dyn, scn, 5)
+    print("device ms per frame by stage (CUDA events, 5 frames): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()))
     return launches
 
 
@@ -1376,8 +1533,8 @@ def phase_surface_path() -> dict:
     check(bool(torch.isfinite(vs).all()) and bool(((vs >= lo) & (vs <= hi)).all()),
           f"{t3} vertices finite and within h*scale = {reach:.3f} of the bounds "
           f"(min {vs.min(1).values.tolist()}, max {vs.max(1).values.tolist()})")
-    want = {"diffuse": frames, "lambda": 3 * frames, "delta": 3 * frames,
-            "mc_field": frames}
+    want = {"diffuse": frames, "lambda": 0, "delta": 0, "lambda_cells": 3 * frames,
+            "delta_cells": 3 * frames, "mc_field": frames}
     check(launches == want, f"kernel launches {launches} == 8 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
@@ -1405,6 +1562,9 @@ def main() -> int:
     phase_toolchain()
     phase_build()
     report = phase_kernels()
+    row_launches = report.pop("launches_rows")
+    check(all(v > 0 for v in row_launches.values()),
+          f"phase 3 launched the per-row λ and Δp kernels {row_launches}")
     tile_launches = report.pop("launches_tile")
     check(all(v > 0 for v in tile_launches.values()),
           f"phase 3c launched every tiled kernel {tile_launches}")
@@ -1440,6 +1600,10 @@ def main() -> int:
     check(all(v > 0 for v in vpu_launches.values()),
           f"phase 3k launched every micro_vpu kernel {vpu_launches}")
     report.update(vpu_report)
+    cells_report, staged_launches = phase_cells()
+    check(all(v > 0 for v in staged_launches.values()),
+          f"phase 3l launched the staged-walk kernels {staged_launches}")
+    report.update(cells_report)
     del states
     phase_parity()
     phase_extract(lattice)
@@ -1447,6 +1611,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = phase_main_path()
     launches["mc_field"] = phase_surface_path()["mc_field"]
+    launches.update(staged_launches)
     launches.update(tile_launches)
     launches.update(v2_launches)
     launches.update(anchor_launches)
@@ -1462,6 +1627,9 @@ def main() -> int:
              launches=launches[name], **report[name])
         for name, (src, rep) in KERNELS.items()
     ]
+    for k in kernels:
+        if k["name"] in row_launches:
+            k["phase_launches"] = row_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -136,7 +136,7 @@ def profile_frames(solver, spec, state, dyn, scn, frames: int):
     events = prof.key_averages()
     busy_us = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA)
-    table = events.table(sort_by="self_device_time_total", row_limit=15)
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
     return state, busy_us / wall_us, table
 
 

@@ -349,12 +349,8 @@ def neighbour_phases(phases: PbfPhases, iteration: int, index: CellIndex,
     mark = mark or _no_mark
     colour = phases.diffuse(index, colour, ptype, alive, dt)
     mark("diffuse")
-    for _ in range(iteration):
-        lam = phases.lambda_phase(index, pstar, mass, ptype, alive)
-        mark("lambda")
-        pstar = phases.delta_phase(index, pstar, lam, ptype, alive,
-                                   scale, min_bound, max_bound)
-        mark("delta")
+    pstar = phases.solve(index, pstar, mass, ptype, alive, iteration,
+                         scale, min_bound, max_bound, mark)
     return colour, pstar
 
 

@@ -13,8 +13,11 @@ phase has three parts here:
   Pallas wrappers apply in XLA: lambda's fluid mask, delta's bounds clamp,
   diffuse's mix and clamp.
 
-`PbfPhases(h, sub, mxu)` runs lambda and delta through the tiled kernels of
-`ops/tiles.py` instead (the Pallas `sub`/`mxu` variants).
+`PbfPhases.solve`, the solver's iterated λ/Δp, runs them through the
+kernels of `ops/cells.py`, which take the mask and the clamp in; the per-row
+kernels here stay as the anchors' subject.  `PbfPhases(h, sub, mxu)` runs
+lambda and delta through the tiled kernels of `ops/tiles.py` instead (the
+Pallas `sub`/`mxu` variants).
 
 In place of the Pallas window plan (`wins`) every phase takes the frame's
 `CellIndex`: the sorted keys and the dense cell table.  A row walks the nine
@@ -297,7 +300,11 @@ def diffuse_kernel(index: CellIndex, colour, nonobs):
 def clamp_to_bounds(pstar, dp, ptype, alive, scale, min_bound, max_bound):
     """pstar + dp clamped to the bounds in world units, for fluid rows only
     (`pallas_pbf.py:706-713`)."""
-    fluid = (ptype == FLUID) & alive
+    return clamp_fluid(pstar, dp, (ptype == FLUID) & alive, scale, min_bound, max_bound)
+
+
+def clamp_fluid(pstar, dp, fluid, scale, min_bound, max_bound):
+    """`clamp_to_bounds` with the fluid mask given."""
     rows = []
     for a in range(3):
         moved = torch.clamp((pstar[a] + dp[a]) * scale, min_bound[a], max_bound[a]) / scale
@@ -334,9 +341,12 @@ class PbfPhases:
     CUDA kernel, and at no other time.
 
     `sub` and `mxu` mirror `PallasPhases(..., sub, mxu)`: with the defaults
-    (`sub=None, mxu=False`) lambda and delta run the per-row kernels above;
-    any other setting runs the tiled kernels of `ops/tiles.py` (`sub` 64 when
-    only `mxu` is given), counted under "lambda_tile" and "delta_tile"."""
+    (`sub=None, mxu=False`) `solve` runs the iterated solve through the
+    kernels of `ops/cells.py` ("lambda_cells", "delta_cells"), and
+    `lambda_phase`/`delta_phase` run the per-row kernels above; any other
+    setting runs both through the tiled kernels of `ops/tiles.py` (`sub` 64
+    when only `mxu` is given), counted under "lambda_tile" and
+    "delta_tile"."""
 
     def __init__(self, h: float, sub=None, mxu: bool = False):
         from pbf_sph_tpu_torch.ops import tiles
@@ -348,6 +358,8 @@ class PbfPhases:
         if sub is not None or self.mxu:
             self.plan = tiles.TilePlan(64 if sub is None else sub)
             self.launches.update(lambda_tile=0, delta_tile=0)
+        else:
+            self.launches.update(lambda_cells=0, delta_cells=0)
 
     def reset_launches(self) -> None:
         for name in self.launches:
@@ -391,6 +403,46 @@ class PbfPhases:
             dp = delta_kernel(index, self.h, pstar, lam)
             self.launches["delta"] += 1
         return clamp_to_bounds(pstar, dp, ptype, alive, scale, min_bound, max_bound)
+
+    def solve(self, index: CellIndex, pstar, mass, ptype, alive, iteration: int,
+              scale, min_bound, max_bound, mark=None):
+        """pstar (3, C) after `iteration` rounds of lambda, then delta and the
+        bounds clamp (`jax_solver.py:328-339`); `mark(name)` after each
+        stage.  With the defaults the rounds run on two (C, 4) packs made
+        once ("packs") through the kernels of `ops/cells.py`, with nothing
+        between the launches; the tiled variants take the rounds phase by
+        phase."""
+        mark = mark or (lambda name: None)
+        if self.plan is not None:
+            for _ in range(iteration):
+                lam = self.lambda_phase(index, pstar, mass, ptype, alive)
+                mark("lambda")
+                pstar = self.delta_phase(index, pstar, lam, ptype, alive,
+                                         scale, min_bound, max_bound)
+                mark("delta")
+            return pstar
+        from pbf_sph_tpu_torch.ops import cells
+
+        fluid = (ptype == FLUID) & alive
+        pack_a = torch.stack([pstar[0], pstar[1], pstar[2], mass], dim=1)  # (C, 4)
+        pack_b = torch.empty_like(pack_a)
+        bounds = (scale, min_bound, max_bound)
+        mark("packs")
+        cpu = pstar.device.type == "cpu"
+        for _ in range(iteration):
+            if cpu:
+                cells.lambda_cells_plain(index, self.h, pack_a, fluid, pack_b)
+            else:
+                cells.lambda_cells_kernel(index, self.h, pack_a, fluid, pack_b)
+                self.launches["lambda_cells"] += 1
+            mark("lambda")
+            if cpu:
+                cells.delta_cells_plain(index, self.h, pack_b, fluid, *bounds, pack_a)
+            else:
+                cells.delta_cells_kernel(index, self.h, pack_b, fluid, *bounds, pack_a)
+                self.launches["delta_cells"] += 1
+            mark("delta")
+        return pack_a[:, :3].T
 
     def diffuse(self, index: CellIndex, colour, ptype, alive, dt):
         """Colour after one diffusion step."""

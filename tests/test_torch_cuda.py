@@ -35,7 +35,11 @@ sides), the 4-chunk λ rtol 1e-5, atol 1e-5 x max|value| (as the dense-λ
 kernels).  The op streams, dots and reshape: bit for bit (the same fused
 multiply-adds, multiplies, selects, IEEE sqrt and divide and ordered FFMA
 sums) in every CTA of the grid, but rsqrt rtol 1e-6 (MUFU.RSQ against
-torch's rsqrt on a contracting chain).
+torch's rsqrt on a contracting chain).  The main path's λ/Δp kernels
+(`csrc/pbf_cells.cu`) and their staged walk (`csrc/cells_staged.cu`): λ atol 1e-6, rtol 1e-5 and pStar atol 1e-5
+against their plain versions and against the per-row kernels with the
+wrappers' mask and clamp (the plain versions sum in the kernels' order with
+their fused multiply-adds, so they agree to the bit on the card).
 """
 
 import numpy as np
@@ -51,11 +55,13 @@ from pbf_sph_tpu_torch.models.torch_solver import (
     dyn_params_of,
     solve_frame,
 )
+from pbf_sph_tpu_torch.ops import cells
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.ops.grid import decode_key
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
+from pbf_sph_tpu_torch.tools import bench_cells as bc
 from pbf_sph_tpu_torch.tools import micro_chunk as mch
 from pbf_sph_tpu_torch.tools import micro_dense as md
 from pbf_sph_tpu_torch.tools import micro_loop as ml
@@ -111,6 +117,34 @@ def test_delta_kernel_matches_plain(card_frame):
     torch.testing.assert_close(moved[0], moved[1], atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("staged", [False, True])
+def test_cells_kernels_match_plain(card_frame, staged):
+    """The main path's λ/Δp kernels, each walk, against their plain versions
+    and against the per-row kernels with the wrappers' mask and clamp."""
+    spec, dyn, fr = card_frame
+    par = bc.parity(bc.Frame(spec, dyn, fr), staged)
+    assert par["lambda_ok"] and par["pstar_err"] <= 1e-5
+    assert par["packs_kept"] and par["finite"]
+    assert par["lambda_rows_diff"] <= 1e-6 and par["pstar_rows_diff"] <= 1e-5
+
+
+def test_solve_counts_cells_launches(card_frame):
+    spec, dyn, fr = card_frame
+    st = fr.state
+    phases = ph.PbfPhases(spec.h)
+    got = phases.solve(fr.index, fr.pstar, st.mass, st.ptype, st.alive, 2,
+                       torch.full((), spec.scale, device="cuda"),
+                       dyn["min_bound"], dyn["max_bound"])
+    torch.cuda.synchronize()
+    assert got.shape == (3, spec.capacity) and bool(torch.isfinite(got).all())
+    assert phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0,
+                               "lambda_cells": 2, "delta_cells": 2}
+    with pytest.raises(ValueError, match="alias"):
+        pack = torch.zeros((spec.capacity, 4), device="cuda")
+        cells.lambda_cells_kernel(fr.index, spec.h, pack, (st.ptype == FLUID) & st.alive,
+                                  pack)
+
+
 def test_wrappers_count_kernel_launches(card_frame):
     spec, dyn, fr = card_frame
     st = fr.state
@@ -122,7 +156,8 @@ def test_wrappers_count_kernel_launches(card_frame):
                        dyn["min_bound"], dyn["max_bound"])
     torch.cuda.synchronize()
     assert colour.is_cuda
-    assert phases.launches == {"diffuse": 1, "lambda": 1, "delta": 1}
+    assert phases.launches == {"diffuse": 1, "lambda": 1, "delta": 1,
+                               "lambda_cells": 0, "delta_cells": 0}
 
 
 @pytest.mark.parametrize("mxu", [False, True])

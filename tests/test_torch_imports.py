@@ -38,7 +38,9 @@ assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases
         "pbf_sph_tpu_torch.tools.micro_loop",
         "pbf_sph_tpu_torch.tools.micro_dense",
         "pbf_sph_tpu_torch.tools.micro_roll",
-        "pbf_sph_tpu_torch.tools.micro_vpu"} <= set(names)
+        "pbf_sph_tpu_torch.tools.micro_vpu",
+        "pbf_sph_tpu_torch.tools.bench_cells",
+        "pbf_sph_tpu_torch.tools.cells_staged"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -82,7 +84,8 @@ def test_cpu_run_launches_no_kernel():
     solver = TorchSolver(h=cfg.h, device="cpu")
     _, out = solver.advance(cfg, Scene(), xs)
     assert len(out) == len(xs)
-    assert solver.phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0}
+    assert solver.phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0,
+                                      "lambda_cells": 0, "delta_cells": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -159,7 +162,8 @@ def test_surface_steps_on_cpu_without_launches():
     assert int(out["mc_emit_overflow"]) == int(out["mc_strip_overflow"]) == 0
     res, _ = solver.advance(cfg, Scene(), xs)
     assert len(res.mesh) > 0 and len(res.mesh) % 3 == 0
-    assert solver.launches == {"diffuse": 0, "lambda": 0, "delta": 0, "mc_field": 0}
+    assert solver.launches == {"diffuse": 0, "lambda": 0, "delta": 0, "lambda_cells": 0,
+                               "delta_cells": 0, "mc_field": 0}
 
 
 def test_anchor_launchers_refuse_cpu_tensors():

@@ -143,6 +143,18 @@ with a non-zero exit and no result line:
    counted here), then at the 1M state the device time of each
    (`anchor_rate.held_ms`) beside its plain version's, its bound and the
    anchored ms;
+3m. the main path's diffuse kernels (`csrc/pbf_diffuse_cells.cu`,
+   `pbf_diffuse_cell_sums` and `pbf_diffuse_cells`) against their plain
+   versions bit for bit on the sort-time states of dam_break(32_000, 3),
+   dam_break(1_000_000, 6) and the 32k state with seeded colours and a
+   seeded 10% of its rows OBSTACLE and 5% dead; the 27-cell count exact
+   against the per-row `pbf_diffuse`'s, the 27-cell colour sums within an
+   fp32 sum's bound ((2 count + 27) 2^-24 of the sum) of its sums and the
+   colour within atol 1e-6 of row 3's path; then at
+   the 1M state the device time of each (`held_ms`) beside its plain
+   version's, its bound (the bytes in and out over 3.35 TB/s, the pack's 5
+   floats a cell that hold sums, not its 3 pad floats) and, for the
+   cell sums, `index_add_`'s, and the wrapper's time beside row 3's path;
 4. TorchSolver on the card against TorchSolver on the CPU, 2 frames of
    simple_config_with_2_cubes(700, 2, 500): position and velocity to atol
    1e-3, colour to 1e-5;
@@ -154,23 +166,25 @@ with a non-zero exit and no result line:
 5. the main path: dam_break(1_000_000, solver_iter=6) through
    TorchSolver(device="cuda"): prepare, the growth warmup of the benchmark,
    then timed frames; particles conserved, grid extent held, no capacity
-   overflow, positions finite and inside the bounds, and exactly 13 kernel
-   launches per frame (1 diffuse + 6 lambda_cells + 6 delta_cells); with the
-   stage times;
+   overflow, positions finite and inside the bounds, and exactly 14 kernel
+   launches per frame (1 diffuse_cell_sums + 1 diffuse_cells + 6
+   lambda_cells + 6 delta_cells); with the stage times;
 6. the surface path: mc128k, dam_break(128_000, 3) with its marching-cubes
    surface, through TorchSolver(device="cuda") in the same way: particles
    conserved, extent held, no growth pending, no emit overflow,
    0 < tri_count <= tri_capacity, the mesh's vertices finite and within
-   h*scale of the bounds, and exactly 8 kernel launches per frame
-   (1 mc_field + 1 diffuse + 3 lambda_cells + 3 delta_cells); with the stage
-   times.
+   h*scale of the bounds, and exactly 9 kernel launches per frame
+   (1 mc_field + 1 + 1 diffuse + 3 lambda_cells + 3 delta_cells); with the
+   stage times.
 
 Then one JSON line of kernels (launches from the main path that runs each:
-phase 5 for diffuse and λ/Δp (`lambda_cells`, `delta_cells`: the direct
-walk) and for the per-row λ/Δp, which it no longer runs (0; phase 3's
-round of them stands beside as `phase_launches`), 3l for the staged walk,
-whose line holds the held_ms times at the 1M state as the direct walk's does,
-phase 6 for the MC field, 3c for the tiled
+phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
+3m's held_ms times at the 1M state) and λ/Δp (`lambda_cells`,
+`delta_cells`: the direct walk) and for the per-row diffuse and λ/Δp, which
+it no longer runs (0; phase 3's round of them stands beside as
+`phase_launches`), 3l for the staged walk, whose line holds the held_ms
+times at the 1M state as the direct walk's does, phase 6 for the MC field,
+3c for the tiled
 kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
@@ -221,6 +235,12 @@ WARMUP = 10
 KERNELS = {
     "diffuse": ("pbf_sph_tpu_torch/csrc/pbf_phases.cu",
                 "pbf_sph_tpu/ops/pallas_pbf.py:578"),
+    # the main path's diffuse: make_diffuse_call with the wrapper's mix, as
+    # per-cell sums and a 27-cell gather
+    "diffuse_cell_sums": ("pbf_sph_tpu_torch/csrc/pbf_diffuse_cells.cu",
+                          "pbf_sph_tpu/ops/pallas_pbf.py:578"),
+    "diffuse_cells": ("pbf_sph_tpu_torch/csrc/pbf_diffuse_cells.cu",
+                      "pbf_sph_tpu/ops/pallas_pbf.py:578"),
     "lambda": ("pbf_sph_tpu_torch/csrc/pbf_phases.cu",
                "pbf_sph_tpu/ops/pallas_pbf.py:391"),
     "delta": ("pbf_sph_tpu_torch/csrc/pbf_phases.cu",
@@ -303,6 +323,10 @@ TILE_REPORTED = (64, True)
 # 2-cube scene (count, iterations, scaling) whose unions exceed the stage
 CELL_STATES = {"dam32k": (32_000, 3), "dam1m": (1_000_000, 6), "over-compressed": None}
 OVER_COMPRESSED = (20_000, 2, 1200.0)
+# 3m's states: the sort-time dam breaks, and dam32k with seeded colours and a
+# seeded 10% of its rows OBSTACLE and 5% dead inside their runs
+DIFFUSE_STATES = {"dam32k": (32_000, 3), "dam1m": (1_000_000, 6),
+                  "dam32k mixed": (32_000, 3)}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): device
 # memory, and fp32 outside the tensor cores.
@@ -338,6 +362,13 @@ SLAB_TEST_FLOP = 9
 # FLOP_PER_PAIR; a row of the row kernel does its epilogue (rho 2, the
 # gradient scale 3, norm2 5, ci 2, lambda 3)
 ROWFIX_FLOP = 15
+# csrc/pbf_diffuse_cells.cu: the cell sums add 5 a counted row; the gather
+# adds 27 x 5 a gathering row (member, fluid, alive), and a mixed row (count
+# > 0.5) pays the rate's divide and 4 x (divide, multiply, subtract,
+# multiply, add)
+CELL_SUM_FLOP = 5
+GATHER_FLOP = 27 * 5
+MIX_FLOP = 1 + 4 * 5
 
 
 def fail(msg: str) -> None:
@@ -429,14 +460,15 @@ def phase_kernels() -> dict:
     from pbf_sph_tpu_torch.core.types import FLUID
     from pbf_sph_tpu_torch.ops import phases as ph
 
-    report = {"launches_rows": {"lambda": 0, "delta": 0}}
+    report = {"launches_rows": {"diffuse": 0, "lambda": 0, "delta": 0}}
     for count, iters in ((32_000, 3), (1_000_000, 6)):
         spec, dyn, fr = sort_time_state(count, iters)
         st, idx, h = fr.state, fr.index, spec.h
         scale = torch.full((), spec.scale, device=st.mass.device)
-        # the per-row λ and Δp are off the main path: one round through
-        # their wrappers is what counts their launches
+        # the per-row diffuse, λ and Δp are off the main path: one round
+        # through their wrappers is what counts their launches
         rows = ph.PbfPhases(h)
+        rows.diffuse_rows(idx, st.colour, st.ptype, st.alive, dyn["dt"])
         rows.delta_phase(idx, fr.pstar, rows.lambda_phase(idx, fr.pstar, st.mass, st.ptype,
                                                           st.alive),
                          st.ptype, st.alive, scale, dyn["min_bound"], dyn["max_bound"])
@@ -1386,6 +1418,121 @@ def phase_cells():
     return report, launches
 
 
+def phase_diffuse_cells() -> dict:
+    """3m: the main path's diffuse kernels (csrc/pbf_diffuse_cells.cu)
+    against their plain versions bit for bit on DIFFUSE_STATES, the 27-cell
+    count against the per-row kernel's exactly, its colour sums within an
+    fp32 sum's bound of the per-row kernel's and the colour beside row 3's
+    path (`mix_colour` of `pbf_diffuse`, atol 1e-6), then at the 1M state the
+    device ms of each (held_ms) beside its plain version's, its bound, row 3's
+    path and, for the cell sums, `index_add_`.  Their launches are the main
+    path's (phases 5 and 6)."""
+    print("== 3m. main-path diffuse kernels (csrc/pbf_diffuse_cells.cu) against their "
+          "plain PyTorch versions")
+    from pbf_sph_tpu_torch.core.types import FLUID, OBSTACLE
+    from pbf_sph_tpu_torch.ops import diffuse_cells as dc
+    from pbf_sph_tpu_torch.ops import phases as ph
+    from pbf_sph_tpu_torch.tools import anchor_rate as ar
+
+    errs = {"diffuse_cell_sums": 0.0, "diffuse_cells": 0.0}
+    report = {}
+    for label, (count, iters) in DIFFUSE_STATES.items():
+        spec, dyn, fr = sort_time_state(count, iters)
+        idx, colour, dt = fr.index, fr.state.colour, dyn["dt"]
+        ptype, alive = fr.state.ptype, fr.state.alive
+        ncells = spec.grid.ncells
+        if label.endswith("mixed"):
+            rng = np.random.default_rng(14)
+            colour = torch.from_numpy(
+                rng.uniform(0.0, 1.0, (4, spec.capacity)).astype(np.float32)).to(colour.device)
+            obstacle = torch.from_numpy(rng.random(spec.capacity) < 0.1).to(colour.device)
+            dead = torch.from_numpy(rng.random(spec.capacity) < 0.05).to(colour.device)
+            ptype = torch.where(obstacle, OBSTACLE, ptype).to(torch.int32)
+            alive = alive & ~dead
+        pack = dc.diffuse_cell_sums_kernel(idx, colour, ptype, alive)
+        pack_p = dc.diffuse_cell_sums_plain(idx, colour, ptype, alive)
+        out = dc.diffuse_cells_kernel(idx, pack, colour, ptype, alive, dt)
+        out_p = dc.diffuse_cells_plain(idx, pack, colour, ptype, alive, dt)
+        torch.cuda.synchronize()
+        errs["diffuse_cell_sums"] = max(errs["diffuse_cell_sums"],
+                                        float((pack - pack_p).abs().max()))
+        errs["diffuse_cells"] = max(errs["diffuse_cells"], float((out - out_p).abs().max()))
+        print(f"{label}: capacity {spec.capacity}, grid {spec.grid.dims}, members "
+              f"{int(idx.table[-1])}, fullest cell {int(pack[:, 4].max())} counted rows")
+        check(torch.equal(pack, pack_p), f"{label}: diffuse_cell_sums bit for bit its plain "
+                                         f"version")
+        check(torch.equal(out, out_p), f"{label}: diffuse_cells bit for bit its plain version")
+        sums = ph.diffuse_kernel(idx, colour, ph.nonobstacle(ptype, alive))
+        cell_sums = dc.neighbour_sums_plain(idx, pack)
+        cnt = cell_sums[4]
+        check(torch.equal(cnt, sums[4]), f"{label}: 27-cell count exact against pbf_diffuse's "
+                                         f"(max {int(cnt.max())})")
+        # the colour sums themselves (the mix scales an error in them by
+        # dt / 750 * 1.33): two fp32 sums of the same cnt non-negative terms
+        # in other orders, cnt + 27 adds at most, differ by no more than
+        # (2 cnt + 27) 2^-24 of the sum
+        gap = (cell_sums[:4] - sums[:4]).abs()
+        limit = (2 * cnt + 27) * 2.0 ** -24 * torch.maximum(cell_sums[:4], sums[:4])
+        rel = float((gap / sums[:4].clamp(min=1e-30)).max())
+        check(bool((gap <= limit).all()) and bool(torch.isfinite(cell_sums).all()),
+              f"{label}: 27-cell colour sums within the fp32 sum's bound of pbf_diffuse's "
+              f"(max rel diff {rel:.3e})")
+        diff = float((out - ph.mix_colour(colour, sums, ptype, alive, dt)).abs().max())
+        mixed = int((out != colour).any(0).sum())
+        check(diff <= 1e-6 and mixed > 0,
+              f"{label}: colour max diff {diff:.3e} <= 1e-6 beside row 3's path, {mixed} rows "
+              f"changed")
+        if label != "dam1m":
+            continue
+        member = idx.key < ncells
+        counted = (ptype != OBSTACLE) & alive & member
+        gathering = (ptype == FLUID) & alive & member
+        n_mixed = int((gathering & (cnt > 0.5)).sum())
+        # the one PyTorch call that computes the cell sums: index_add_ of the
+        # counted rows' (r, g, b, a, 1) by cell, non-members into one more row
+        values = torch.where(counted[:, None], torch.cat([colour, torch.ones_like(colour[:1])]).T,
+                             0.0).contiguous()
+        at = torch.clamp(idx.key, max=ncells).long()
+        lib = torch.zeros((ncells + 1, 5), device=colour.device).index_add_(0, at, values)
+        check(torch.equal(lib[:ncells, 4], pack[:, 4]), "index_add_ gives the same counts")
+        lib_ms = ar.held_ms(lambda: lib.index_add_(0, at, values), 20)
+        # the pack's bytes that hold sums: 5 floats a cell (its 3 pad floats
+        # only align the float4 reads)
+        sum_bytes = ncells * 5 * pack.element_size()
+        work = {
+            "diffuse_cell_sums": (
+                lambda: dc.diffuse_cell_sums_kernel(idx, colour, ptype, alive),
+                lambda: dc.diffuse_cell_sums_plain(idx, colour, ptype, alive),
+                nbytes(colour, ptype, alive, idx.table) + sum_bytes,
+                int(counted.sum()) * CELL_SUM_FLOP, lib_ms),
+            "diffuse_cells": (
+                lambda: dc.diffuse_cells_kernel(idx, pack, colour, ptype, alive, dt),
+                lambda: dc.diffuse_cells_plain(idx, pack, colour, ptype, alive, dt),
+                sum_bytes + nbytes(idx.key, colour, ptype, alive, dt, out),
+                # no single PyTorch call gathers 27 cells' sums a row and mixes
+                int(gathering.sum()) * GATHER_FLOP + n_mixed * MIX_FLOP, None),
+        }
+        for name, (kern, plain, io_bytes, flops, library_ms) in work.items():
+            ms = ar.held_ms(kern, 20)
+            plain_ms = device_ms(plain, 1, warm=False)
+            bound_ms, bound_by = bound(io_bytes, flops)
+            lib_txt = f"index_add_ {library_ms:.4f} ms" if library_ms else "no library call"
+            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms by {bound_by} ({io_bytes} bytes, {flops} flop), "
+                  f"{lib_txt}")
+            report[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=library_ms)
+        phases = ph.PbfPhases(spec.h)
+        pair_ms = ar.held_ms(lambda: phases.diffuse(idx, colour, ptype, alive, dt), 20)
+        rows_ms = ar.held_ms(lambda: phases.diffuse_rows(idx, colour, ptype, alive, dt), 20)
+        print(f"  PbfPhases.diffuse (both kernels) {pair_ms:.4f} ms, diffuse_rows (row 3: "
+              f"pbf_diffuse, its pack and mix_colour) {rows_ms:.4f} ms; {n_mixed} rows mixed")
+        del lib, values, at
+    for name, err in errs.items():
+        report[name]["max_abs_err"] = err
+    return report
+
+
 def phase_parity() -> None:
     print("== 4. TorchSolver on the card against TorchSolver on the CPU")
     from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -1493,9 +1640,9 @@ def phase_main_path() -> dict:
     solver = TorchSolver(h=cfg.h, device="cuda")
     spec, state, dyn, scn, outs, frames, launches, wall, dev_ms = run_path(solver, cfg, xs)
     check_frames(spec, state, cfg, outs, n, solver)
-    want = {"diffuse": frames, "lambda": 0, "delta": 0, "lambda_cells": 6 * frames,
-            "delta_cells": 6 * frames, "mc_field": 0}
-    check(launches == want, f"kernel launches {launches} == 13 x {frames} frames")
+    want = {"diffuse": 0, "diffuse_cell_sums": frames, "diffuse_cells": frames, "lambda": 0,
+            "delta": 0, "lambda_cells": 6 * frames, "delta_cells": 6 * frames, "mc_field": 0}
+    check(launches == want, f"kernel launches {launches} == 14 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
     print(f"{card_line()}: {ms:.3f} ms/step (device events {dev_ms:.3f} ms/step), "
@@ -1533,9 +1680,10 @@ def phase_surface_path() -> dict:
     check(bool(torch.isfinite(vs).all()) and bool(((vs >= lo) & (vs <= hi)).all()),
           f"{t3} vertices finite and within h*scale = {reach:.3f} of the bounds "
           f"(min {vs.min(1).values.tolist()}, max {vs.max(1).values.tolist()})")
-    want = {"diffuse": frames, "lambda": 0, "delta": 0, "lambda_cells": 3 * frames,
-            "delta_cells": 3 * frames, "mc_field": frames}
-    check(launches == want, f"kernel launches {launches} == 8 x {frames} frames")
+    want = {"diffuse": 0, "diffuse_cell_sums": frames, "diffuse_cells": frames, "lambda": 0,
+            "delta": 0, "lambda_cells": 3 * frames, "delta_cells": 3 * frames,
+            "mc_field": frames}
+    check(launches == want, f"kernel launches {launches} == 9 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
     nan_share = float(torch.isnan(ns).any(0).float().mean())
@@ -1564,7 +1712,7 @@ def main() -> int:
     report = phase_kernels()
     row_launches = report.pop("launches_rows")
     check(all(v > 0 for v in row_launches.values()),
-          f"phase 3 launched the per-row λ and Δp kernels {row_launches}")
+          f"phase 3 launched the per-row diffuse, λ and Δp kernels {row_launches}")
     tile_launches = report.pop("launches_tile")
     check(all(v > 0 for v in tile_launches.values()),
           f"phase 3c launched every tiled kernel {tile_launches}")
@@ -1604,6 +1752,7 @@ def main() -> int:
     check(all(v > 0 for v in staged_launches.values()),
           f"phase 3l launched the staged-walk kernels {staged_launches}")
     report.update(cells_report)
+    report.update(phase_diffuse_cells())
     del states
     phase_parity()
     phase_extract(lattice)

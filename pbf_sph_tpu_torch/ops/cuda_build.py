@@ -39,6 +39,9 @@ SIGNATURES = {
     "pbf_lambda": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_delta": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_diffuse": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # csrc/pbf_diffuse_cells.cu
+    "pbf_diffuse_cell_sums": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "pbf_diffuse_cells": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # csrc/pbf_cells.cu, and csrc/cells_staged.cu's staged walk of the same
     **dict.fromkeys(("pbf_lambda_cells", "pbf_lambda_cells_staged"),
                     [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P]),

@@ -14,10 +14,12 @@ phase has three parts here:
   diffuse's mix and clamp.
 
 `PbfPhases.solve`, the solver's iterated λ/Δp, runs them through the
-kernels of `ops/cells.py`, which take the mask and the clamp in; the per-row
-kernels here stay as the anchors' subject.  `PbfPhases(h, sub, mxu)` runs
-lambda and delta through the tiled kernels of `ops/tiles.py` instead (the
-Pallas `sub`/`mxu` variants).
+kernels of `ops/cells.py`, which take the mask and the clamp in, and
+`PbfPhases.diffuse` runs the per-cell sums and the 27-cell gather of
+`ops/diffuse_cells.py`, which take the mix in; the per-row kernels here stay
+as the anchors' subject (`lambda_phase`, `delta_phase`, `diffuse_rows`).
+`PbfPhases(h, sub, mxu)` runs lambda and delta through the tiled kernels of
+`ops/tiles.py` instead (the Pallas `sub`/`mxu` variants).
 
 In place of the Pallas window plan (`wins`) every phase takes the frame's
 `CellIndex`: the sorted keys and the dense cell table.  A row walks the nine
@@ -340,9 +342,12 @@ class PbfPhases:
     kernel: `launches[name]` grows by one each time the wrapper launches its
     CUDA kernel, and at no other time.
 
-    `sub` and `mxu` mirror `PallasPhases(..., sub, mxu)`: with the defaults
-    (`sub=None, mxu=False`) `solve` runs the iterated solve through the
-    kernels of `ops/cells.py` ("lambda_cells", "delta_cells"), and
+    `diffuse` runs the kernels of `ops/diffuse_cells.py`
+    ("diffuse_cell_sums", "diffuse_cells"), `diffuse_rows` the per-row
+    kernel above ("diffuse").  `sub` and `mxu` mirror `PallasPhases(...,
+    sub, mxu)`: with the defaults (`sub=None, mxu=False`) `solve` runs the
+    iterated solve through the kernels of `ops/cells.py` ("lambda_cells",
+    "delta_cells"), and
     `lambda_phase`/`delta_phase` run the per-row kernels above; any other
     setting runs both through the tiled kernels of `ops/tiles.py` (`sub` 64
     when only `mxu` is given), counted under "lambda_tile" and
@@ -354,7 +359,8 @@ class PbfPhases:
         self.h = float(h)
         self.mxu = bool(mxu)
         self.plan = None
-        self.launches = {"diffuse": 0, "lambda": 0, "delta": 0}
+        self.launches = {"diffuse": 0, "diffuse_cell_sums": 0, "diffuse_cells": 0,
+                         "lambda": 0, "delta": 0}
         if sub is not None or self.mxu:
             self.plan = tiles.TilePlan(64 if sub is None else sub)
             self.launches.update(lambda_tile=0, delta_tile=0)
@@ -445,7 +451,22 @@ class PbfPhases:
         return pack_a[:, :3].T
 
     def diffuse(self, index: CellIndex, colour, ptype, alive, dt):
-        """Colour after one diffusion step."""
+        """Colour after one diffusion step: the per-cell colour sums, then
+        the 27-cell gather with the mix (`ops/diffuse_cells.py`)."""
+        from pbf_sph_tpu_torch.ops import diffuse_cells as dc
+
+        if colour.device.type == "cpu":
+            pack = dc.diffuse_cell_sums_plain(index, colour, ptype, alive)
+            return dc.diffuse_cells_plain(index, pack, colour, ptype, alive, dt)
+        pack = dc.diffuse_cell_sums_kernel(index, colour, ptype, alive)
+        self.launches["diffuse_cell_sums"] += 1
+        colour = dc.diffuse_cells_kernel(index, pack, colour, ptype, alive, dt)
+        self.launches["diffuse_cells"] += 1
+        return colour
+
+    def diffuse_rows(self, index: CellIndex, colour, ptype, alive, dt):
+        """`diffuse` through the per-row kernel and `mix_colour`
+        (`pallas_pbf.py:715-737`)."""
         nonobs = nonobstacle(ptype, alive, colour.dtype)
         if colour.device.type == "cpu":
             sums = diffuse_plain(index, colour, nonobs)

@@ -16,7 +16,8 @@ times (CUDA events over `reps` calls after a warm one, default 10):
   and wcap start where `tools/bench_phases.py` starts them and grow by
   `grown_strip_capacity`/`grown_wcap` until the plan reports no overflow;
   the run fails if one is left at STRIP_MAX/WCAP_MAX;
-* v1 (`ops/phases.py` `PbfPhases`): lambda, delta and diffuse.
+* v1 (`ops/phases.py` `PbfPhases`): lambda, delta and diffuse (the per-row
+  `diffuse_rows`).
 
 Then the parity of v2 against v1 on member rows (max |dlambda|, max
 |dpStar| after one delta phase and the clamp, each chain with its own
@@ -149,7 +150,7 @@ def main(argv=None) -> int:
         idx, fr.pstar, lam1, st.ptype, st.alive, *bounds)
     moved1 = del1_fn()
     times["delta1"] = device_ms(del1_fn, reps)
-    dif1_fn = lambda: phases1.diffuse(  # noqa: E731
+    dif1_fn = lambda: phases1.diffuse_rows(  # noqa: E731
         idx, st.colour, st.ptype, st.alive, dyn["dt"])
     colour1 = dif1_fn()
     times["diffuse1"] = device_ms(dif1_fn, reps)

@@ -39,7 +39,11 @@ torch's rsqrt on a contracting chain).  The main path's λ/Δp kernels
 (`csrc/pbf_cells.cu`) and their staged walk (`csrc/cells_staged.cu`): λ atol 1e-6, rtol 1e-5 and pStar atol 1e-5
 against their plain versions and against the per-row kernels with the
 wrappers' mask and clamp (the plain versions sum in the kernels' order with
-their fused multiply-adds, so they agree to the bit on the card).
+their fused multiply-adds, so they agree to the bit on the card).  The main
+path's diffuse kernels (`csrc/pbf_diffuse_cells.cu`): bit for bit their
+plain versions (the same fp32 adds in the same order, the mix op by op), on
+the frame as sorted and with obstacle and dead rows inside member runs;
+colour atol 1e-6 and count exact beside the per-row path.
 """
 
 import numpy as np
@@ -48,7 +52,7 @@ import pytest
 import torch
 
 from pbf_sph_tpu_torch.core.configs import dam_break
-from pbf_sph_tpu_torch.core.types import FLUID, Scene
+from pbf_sph_tpu_torch.core.types import FLUID, OBSTACLE, Scene
 from pbf_sph_tpu_torch.models.torch_solver import (
     TorchSolver,
     advect_and_sort,
@@ -56,6 +60,7 @@ from pbf_sph_tpu_torch.models.torch_solver import (
     solve_frame,
 )
 from pbf_sph_tpu_torch.ops import cells
+from pbf_sph_tpu_torch.ops import diffuse_cells as dc
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
@@ -93,6 +98,39 @@ def test_diffuse_kernel_matches_plain(card_frame):
     want = ph.diffuse_plain(fr.index, st.colour, nonobs)
     assert torch.equal(got, want)
     assert float(got[4].max()) > 1
+
+
+def _mixed(st):
+    """ptype and alive with a seeded 10% of the rows OBSTACLE and 5% dead,
+    without a new sort: obstacle and dead rows inside member runs."""
+    rng = np.random.default_rng(14)
+    n = st.ptype.shape[0]
+    obstacle = torch.from_numpy(rng.random(n) < 0.1).cuda()
+    dead = torch.from_numpy(rng.random(n) < 0.05).cuda()
+    return torch.where(obstacle, OBSTACLE, st.ptype).to(torch.int32), st.alive & ~dead
+
+
+@pytest.mark.parametrize("variant", ["scene", "mixed"])
+def test_diffuse_cells_kernels_match_plain(card_frame, variant):
+    """The main path's diffuse kernels bit for bit their plain versions, and
+    beside the per-row path (colour atol 1e-6, colour sums rtol 1e-5, count
+    exact)."""
+    spec, dyn, fr = card_frame
+    st = fr.state
+    ptype, alive = (st.ptype, st.alive) if variant == "scene" else _mixed(st)
+    pack = dc.diffuse_cell_sums_kernel(fr.index, st.colour, ptype, alive)
+    want_pack = dc.diffuse_cell_sums_plain(fr.index, st.colour, ptype, alive)
+    assert torch.equal(pack, want_pack)
+    got = dc.diffuse_cells_kernel(fr.index, pack, st.colour, ptype, alive, dyn["dt"])
+    want = dc.diffuse_cells_plain(fr.index, pack, st.colour, ptype, alive, dyn["dt"])
+    assert torch.equal(got, want)
+    assert not torch.equal(got, st.colour)
+    sums = ph.diffuse_plain(fr.index, st.colour, ph.nonobstacle(ptype, alive))
+    cell_sums = dc.neighbour_sums_plain(fr.index, pack)
+    assert torch.equal(cell_sums[4], sums[4])
+    torch.testing.assert_close(cell_sums[:4], sums[:4], rtol=1e-5, atol=0)
+    rows = ph.mix_colour(st.colour, sums, ptype, alive, dyn["dt"])
+    torch.testing.assert_close(got, rows, atol=1e-6, rtol=0)
 
 
 def test_lambda_kernel_matches_plain(card_frame):
@@ -137,8 +175,8 @@ def test_solve_counts_cells_launches(card_frame):
                        dyn["min_bound"], dyn["max_bound"])
     torch.cuda.synchronize()
     assert got.shape == (3, spec.capacity) and bool(torch.isfinite(got).all())
-    assert phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0,
-                               "lambda_cells": 2, "delta_cells": 2}
+    assert phases.launches == {"diffuse": 0, "diffuse_cell_sums": 0, "diffuse_cells": 0,
+                               "lambda": 0, "delta": 0, "lambda_cells": 2, "delta_cells": 2}
     with pytest.raises(ValueError, match="alias"):
         pack = torch.zeros((spec.capacity, 4), device="cuda")
         cells.lambda_cells_kernel(fr.index, spec.h, pack, (st.ptype == FLUID) & st.alive,
@@ -150,14 +188,15 @@ def test_wrappers_count_kernel_launches(card_frame):
     st = fr.state
     phases = ph.PbfPhases(spec.h)
     colour = phases.diffuse(fr.index, st.colour, st.ptype, st.alive, dyn["dt"])
+    rows = phases.diffuse_rows(fr.index, st.colour, st.ptype, st.alive, dyn["dt"])
     lam = phases.lambda_phase(fr.index, fr.pstar, st.mass, st.ptype, st.alive)
     phases.delta_phase(fr.index, fr.pstar, lam, st.ptype, st.alive,
                        torch.full((), spec.scale, device="cuda"),
                        dyn["min_bound"], dyn["max_bound"])
     torch.cuda.synchronize()
-    assert colour.is_cuda
-    assert phases.launches == {"diffuse": 1, "lambda": 1, "delta": 1,
-                               "lambda_cells": 0, "delta_cells": 0}
+    assert colour.is_cuda and rows.is_cuda
+    assert phases.launches == {"diffuse": 1, "diffuse_cell_sums": 1, "diffuse_cells": 1,
+                               "lambda": 1, "delta": 1, "lambda_cells": 0, "delta_cells": 0}
 
 
 @pytest.mark.parametrize("mxu", [False, True])
@@ -188,8 +227,8 @@ def test_tile_wrappers_count_kernel_launches(card_frame):
                        torch.full((), spec.scale, device="cuda"),
                        dyn["min_bound"], dyn["max_bound"])
     torch.cuda.synchronize()
-    assert phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0,
-                               "lambda_tile": 1, "delta_tile": 1}
+    assert phases.launches == {"diffuse": 0, "diffuse_cell_sums": 0, "diffuse_cells": 0,
+                               "lambda": 0, "delta": 0, "lambda_tile": 1, "delta_tile": 1}
     with pytest.raises(ValueError, match="instantiates"):
         tl.lambda_tile_kernel(tl.plan_tiles(fr.index, 128), fr.index, spec.h,
                               fr.pstar, st.mass, 128)

@@ -84,7 +84,8 @@ def test_cpu_run_launches_no_kernel():
     solver = TorchSolver(h=cfg.h, device="cpu")
     _, out = solver.advance(cfg, Scene(), xs)
     assert len(out) == len(xs)
-    assert solver.phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0,
+    assert solver.phases.launches == {"diffuse": 0, "diffuse_cell_sums": 0,
+                                      "diffuse_cells": 0, "lambda": 0, "delta": 0,
                                       "lambda_cells": 0, "delta_cells": 0}
 
 
@@ -162,7 +163,8 @@ def test_surface_steps_on_cpu_without_launches():
     assert int(out["mc_emit_overflow"]) == int(out["mc_strip_overflow"]) == 0
     res, _ = solver.advance(cfg, Scene(), xs)
     assert len(res.mesh) > 0 and len(res.mesh) % 3 == 0
-    assert solver.launches == {"diffuse": 0, "lambda": 0, "delta": 0, "lambda_cells": 0,
+    assert solver.launches == {"diffuse": 0, "diffuse_cell_sums": 0, "diffuse_cells": 0,
+                               "lambda": 0, "delta": 0, "lambda_cells": 0,
                                "delta_cells": 0, "mc_field": 0}
 
 

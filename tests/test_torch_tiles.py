@@ -112,8 +112,8 @@ def test_lambda_matches_pallas_variant(case, sub, mxu):
     got = phases.lambda_phase(fr.index, fr.pstar, st.mass, st.ptype, st.alive)
     assert np.abs(want).max() > 0
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-5)
-    assert phases.launches == {"diffuse": 0, "lambda": 0, "delta": 0,
-                               "lambda_tile": 0, "delta_tile": 0}
+    assert phases.launches == {"diffuse": 0, "diffuse_cell_sums": 0, "diffuse_cells": 0,
+                               "lambda": 0, "delta": 0, "lambda_tile": 0, "delta_tile": 0}
 
 
 @pytest.mark.parametrize("sub,mxu", SWEEP)

@@ -114,17 +114,25 @@ with a non-zero exit and no result line:
    100 launches, the SM clock sampled); its launches are counted over this
    phase;
 3k. the op streams, dots and reshape (`csrc/micro_vpu.cu`, the rest of
-   `tools/micro_vpu.py`: bench_streams, dot_kernel, dot2_kernel, tr_kernel):
-   the SASS (cuobjdump: each stream's trip loop one op a carry, sqrt and div
-   with one slow-path guard a carry on their fast path; each dot's trip loop
-   its products, scale multiplies, one add an output and its shared-memory
-   reads; tr one FFMA a trip, restage with its store, barrier and load
-   inside the trip; no local memory), each kernel against its plain version
-   at 256 trips on the tool's inputs and seeded ones, every CTA of the
-   streams' card-filling grid and of two copies of the dots and tr (bit for
-   bit, but rsqrt rtol 1e-6), then one reading of each through `MicroVpu`
-   (CUDA events, the marginal between 2048 and 8192 trips, the SM clock
-   sampled) and the library call of the dots (`torch.matmul`) and of tr
+   `tools/micro_vpu.py`: bench_streams, dot_kernel, dot2_kernel, tr_kernel,
+   and the redesigns of dot_kernel and tr_kernel, `vpu_dot_spread` and
+   `vpu_tr_split`): the SASS (cuobjdump: each stream's trip loop one op a
+   carry, sqrt and div with one slow-path guard a carry on their fast path;
+   each dot's trip loop its products, scale multiplies, one add an output
+   and its shared-memory reads; tr one FFMA a trip, restage with its store,
+   barrier and load inside the trip; dot_spread's tile loop its products,
+   scale multiplies, b's reads and stores and its chain one FADD a trip;
+   tr_split's chain unrolled, an FFMA and its scale a trip, its tree by
+   shuffles and no atomics; no local memory), each kernel against its plain
+   version at 256 trips on the tool's inputs and seeded ones, every CTA of
+   the streams' card-filling grid and of two copies of the dots and tr, and
+   the redesigns also on seeded inputs at more trips (dot_spread 2245 and
+   8192, tr_split 250 and 8192 over 64 parts, 256 over 1 and 256 parts; bit
+   for bit, but rsqrt rtol 1e-6), then one reading of each through
+   `MicroVpu` (CUDA events, the marginal between 2048 and 8192 trips, the SM
+   clock sampled; the redesigns at 8192 trips in a CUDA graph of 100
+   launches, CUDA events beside, and tr_split at 0 trips, the launch with
+   no trip) and the library call of the dots (`torch.matmul`) and of tr
    (`torch.mv`) in a CUDA graph; its launches are counted over this phase;
 3l. the main path's λ/Δp kernels (`csrc/pbf_cells.cu`, `pbf_lambda_cells` and
    `pbf_delta_cells` on their (C, 4) packs, the direct walk) and their
@@ -316,6 +324,10 @@ KERNELS = {
     "vpu_dot2": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:219"),
     "vpu_tr_direct": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:240"),
     "vpu_tr_restage": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:240"),
+    # dot_kernel and tr_kernel redesigned: one copy over the card, and a
+    # fixed split sum
+    "vpu_dot_spread": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:196"),
+    "vpu_tr_split": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:240"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -1251,11 +1263,9 @@ def phase_vpu():
     device = torch.device("cuda", torch.cuda.current_device())
     errs = dict.fromkeys(mv.KERNELS, 0.0)
     for label, (err, ok) in mv.card_parity(device).items():
-        head = label.split()
-        name = (f"vpu_tr_{head[1]}" if head[0] == "tr" else f"vpu_{head[0]}"
-                if head[0] in mv.DOTS else "vpu_streams")
-        tol = "rtol 1e-6" if head[0] == "rsqrt" else "bit for bit"
+        tol = "rtol 1e-6" if label.startswith("rsqrt") else "bit for bit"
         check(ok, f"{label}: max abs err {err:.3e} ({tol})")
+        name = mv.kernel_of(label)
         errs[name] = max(errs[name], err)
 
     vpu = mv.MicroVpu()
@@ -1269,6 +1279,9 @@ def phase_vpu():
             "vpu_dot2": mv.read_dot(vpu, "dot2", x, 1, 5),
             **{f"vpu_tr_{body}": mv.read_tr(vpu, body, x, 1, 5) for body in mv.TR_BODIES},
         }
+        redesigns = mv.read_redesigns(vpu, x, n)
+        readings["vpu_dot_spread"] = redesigns["dot_spread"]
+        readings["vpu_tr_split"] = redesigns["tr_split"]
         serial = mch.anchor_fma(ar.Anchor(), device, 5, serial=True)["ns_per_op"]
     torch.cuda.synchronize()
     launches = dict(vpu.launches)
@@ -1287,11 +1300,15 @@ def phase_vpu():
                      mv.library_call("dot2", x, n)),
         **{f"vpu_tr_{body}": (lambda body=body: mv.tr_plain(x.t, body, n), mv.tr_work(n, 1),
                               mv.library_call("tr", x, n)) for body in mv.TR_BODIES},
+        "vpu_dot_spread": (lambda: mv.dot_plain(x.a, x.b, n), mv.dot_work("dot", n, 1),
+                           mv.library_call("dot", x, n)),
+        "vpu_tr_split": (lambda: mv.tr_split_plain(x.t, n), mv.tr_work(n, 1),
+                         mv.library_call("tr", x, n)),
     }
     report = {}
     for name, (plain, work, library) in table.items():
         r = readings[name]
-        ms = r["ms"][1]
+        ms = r["graph_ms"] if "graph_ms" in r else r["ms"][1]
         plain_ms = device_ms(plain, 1, warm=False)
         bound_ms, bound_by, what = mv.bound_ms(work, mhz, sms)
         if "chain" in work:
@@ -1300,15 +1317,23 @@ def phase_vpu():
         if library is not None:
             got = library()
             err = float((got - plain()[0]).abs().max())
-            library_ms = graph_ms(library, launches=10)
-            lib = f", library {library_ms:.4f} ms in a graph (max abs err {err:.3e} to plain)"
+            # the redesigns' library call was read beside them, by their reader
+            read = {"vpu_dot_spread": "library_dot", "vpu_tr_split": "library_tr"}.get(name)
+            library_ms = (redesigns[read]["graph_ms"] if read
+                          else graph_ms(library, launches=10))
+            lib = f", library {library_ms:.5f} ms in a graph (max abs err {err:.3e} to plain)"
         else:
             lib = ""
         unit = (f"{r['lane_ops_per_s'] / 1e12:.3f} T lane-ops/s at {r['nblocks']} CTAs"
                 if "lane_ops_per_s" in r else f"{r['ns_per_dot']:.1f} ns a dot, one copy"
-                if "ns_per_dot" in r else f"{r['ns_per_reshape']:.3f} ns a reshape, one copy")
-        print(f"  {name}: kernel {ms:.4f} ms at {n} trips ({unit}), plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.6f} ms by {bound_by} ({what}){lib}")
+                if "ns_per_dot" in r else f"{r['ns_per_reshape']:.3f} ns a reshape, one copy"
+                if "ns_per_reshape" in r else f"one copy in a graph, {r['events_ms']:.5f} ms "
+                f"by events back to back")
+        if name == "vpu_tr_split":
+            unit += (f"; at 0 trips {redesigns['tr_split_no_trip']['graph_ms']:.5f} ms in a "
+                     f"graph, the launch with no trip")
+        print(f"  {name}: kernel {ms:.5f} ms at {n} trips ({unit}), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.7f} ms by {bound_by} ({what}){lib}")
         # the streams iterate one op on each carry: no single PyTorch call
         # computes that chain
         report[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,

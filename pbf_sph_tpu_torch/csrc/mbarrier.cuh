@@ -1,12 +1,13 @@
-// Shared-memory barriers for the asynchronous copies (sm_90a), shared by
-// csrc/micro_dense.cu (dense_scr's bulk copies) and csrc/micro_roll.cu
-// (vpu_dma's cp.async copies): one definition, inlined into both.
+// Shared-memory barriers (sm_90a), shared by csrc/micro_dense.cu
+// (dense_scr's bulk copies), csrc/micro_roll.cu (vpu_dma's cp.async copies)
+// and csrc/micro_vpu.cu (vpu_dot_spread's ring of producer and consumer
+// slots): one definition, inlined into each.
 //
 // One thread inits the barrier for its arrivals and, after a __syncthreads,
-// each arrives: with the bytes the copies complete on it (bulk copies), or
-// when its own copies land (cp.async); every thread then waits for phase 0.
-// A copy that never lands traps (a launch error) after ~1M tries rather
-// than hanging the card.
+// each arrives: with the bytes the copies complete on it (bulk copies), when
+// its own copies land (cp.async), or after its own stores (mbar_arrive); a
+// waiter then waits for the phase's parity.  A phase that never completes
+// traps (a launch error) after ~1M tries rather than hanging the card.
 //
 // Nothing here is a kernel; every function is inlined where it is called.
 
@@ -29,6 +30,12 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// A plain arrival, release at CTA scope: what the thread stored to shared
+// memory before it is seen by a thread whose wait on the phase succeeds.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {

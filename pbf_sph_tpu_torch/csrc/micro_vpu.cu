@@ -15,6 +15,11 @@
 //                  in two bodies: direct (thread t reads x[0, t] once) and
 //                  restage (the row passes through shared memory each trip,
 //                  a store, a barrier and a load, as dense_mxu restages).
+// and two redesigns of the same TPU kernels for this card, beside them:
+//   vpu_dot_spread <- dot_kernel: vpu_dot's function bit for bit, one copy
+//                  spread over 128 CTAs (see its note below);
+//   vpu_tr_split   <- tr_kernel: tr's sum over the trips in P parts and a
+//                  fixed tree (see its note below).
 // s_i = 1 + 1e-9 i in fp32, each op rounded, as JAX's weak typing computes
 // it.  pbf_sph_tpu_torch/tools/micro_vpu.py holds the wrappers, the plain
 // versions and the SASS check of every kernel here.
@@ -51,6 +56,7 @@
 #include <cuda_runtime.h>
 
 #include "grid_copies.cuh"
+#include "mbarrier.cuh"
 #include "micro_fma.cuh"
 
 namespace {
@@ -68,6 +74,41 @@ constexpr int kDot2M = 64, kDot2N = 128, kDot2K = 8;
 constexpr int kDot2Threads = 512, kDot2Cols = 8, kDot2Groups = kDot2N / kDot2Cols;
 constexpr int kDot2Half = kDot2M / 2;
 constexpr int kTrRows = 64;           // vpu_tr: x[0, 0:64], one thread each
+// vpu_dot_spread: CTA (blockIdx.x, blockIdx.y) = (row m and group of kSpreadCols
+// columns, copy); kSpreadWarps producer warps of kSpreadTrips trips a thread
+// fill a tile of kSpreadTile trips into one of kSpreadSlots ring slots, and
+// lanes 0-3 of the consumer warp (warp 11: the fourth scheduler's, which
+// holds two producer warps where the other three hold three) add it to acc
+// in trip order, kSpreadRead trips a read-in.  A ring row is an output's tile,
+// padded by a read-in (the read ahead past the tile's end stays in its row)
+// and by 4 floats (the 4 consumer lanes' float4 reads fall in 4 bank
+// groups).
+#ifndef MICRO_VPU_SPREAD_WARPS
+#define MICRO_VPU_SPREAD_WARPS 11
+#endif
+#ifndef MICRO_VPU_SPREAD_TRIPS
+#define MICRO_VPU_SPREAD_TRIPS 3
+#endif
+#ifndef MICRO_VPU_SPREAD_SLOTS
+#define MICRO_VPU_SPREAD_SLOTS 2
+#endif
+// what a sweep build keeps of the kernel: 0 all of it; 1 the producers (the
+// consumer adds one trip of each tile); 2 the chain (the producers store 0)
+#ifndef MICRO_VPU_SPREAD_PART
+#define MICRO_VPU_SPREAD_PART 0
+#endif
+constexpr int kSpreadCols = 4, kSpreadColGroups = kDotN / kSpreadCols;
+constexpr int kSpreadWarps = MICRO_VPU_SPREAD_WARPS, kSpreadTrips = MICRO_VPU_SPREAD_TRIPS;
+constexpr int kSpreadProducers = 32 * kSpreadWarps;
+constexpr int kSpreadThreads = kSpreadProducers + 32;
+constexpr int kSpreadTile = kSpreadProducers * kSpreadTrips;
+constexpr int kSpreadSlots = MICRO_VPU_SPREAD_SLOTS, kSpreadRead = 32;
+constexpr int kSpreadPart = MICRO_VPU_SPREAD_PART;
+constexpr int kSpreadStride = kSpreadTile + kSpreadRead + 4;
+// vpu_tr_split: a thread a (row, part), up to kTrSplitThreads a CTA; the
+// chain's trip loop unrolled kTrSplitUnroll times, so the scales of the
+// next trips are computed while the FFMAs of these wait on each other
+constexpr int kTrSplitThreads = 256, kTrSplitMaxParts = 256, kTrSplitUnroll = 4;
 
 enum TrBody { kTrDirect = 0, kTrRestage = 1 };
 
@@ -206,6 +247,191 @@ __global__ void __launch_bounds__(kTrRows)
   }
 }
 
+// vpu_dot_spread's consumer: one read-in of kSpreadRead trips of a ring
+// row (float4 g holds trips 4g to 4g + 3), and its adds in trip order.
+__device__ __forceinline__ void spread_read(float4 (&q)[kSpreadRead / 4], const float4* row4,
+                                            int group) {
+#pragma unroll
+  for (int g = 0; g < kSpreadRead / 4; ++g) q[g] = row4[group * (kSpreadRead / 4) + g];
+}
+
+__device__ __forceinline__ float spread_chain(float acc, const float4 (&q)[kSpreadRead / 4]) {
+#pragma unroll
+  for (int g = 0; g < kSpreadRead / 4; ++g) {
+    acc = __fadd_rn(acc, q[g].x);
+    acc = __fadd_rn(acc, q[g].y);
+    acc = __fadd_rn(acc, q[g].z);
+    acc = __fadd_rn(acc, q[g].w);
+  }
+  return acc;
+}
+
+// vpu_dot_spread: vpu_dot's function, one copy over the card.
+//
+// Replaces dot_kernel (tools/micro_vpu.py:184-192, pallas_call :196) as
+// vpu_dot does, bit for bit the same sums: every output is the chain
+// acc = fadd(acc, d_i) over the trips in order from 0, and each d_i the
+// chain d = fma(fl(a_k s_i), b_k, d) over k in order from 0.  What bounds
+// it: vpu_dot runs a copy as one CTA of 64 threads (one SM of 132), 2.45 us
+// a trip; the function's own floor is its chain of 8192 dependent FADDs an
+// output (~4 cycles each, 0.017 ms), about its flop bound.  But the d_i are
+// independent across trips, and only the adds into acc are ordered.  So a
+// CTA takes one row m and 4 columns for all trips (128 CTAs a copy, one an
+// SM): 11 producer warps compute the d of a tile of 1056 trips at once, a
+// thread 3 trips (each broadcast float4 read of b's 4 columns, k-major in
+// shared memory, feeds 12 FFMAs and 3 scale FMULs; the row of a in
+// registers, loaded once), into a ring of 2 slots; one consumer warp's
+// lanes 0-3 run the 4 chains over the tile in trip order, reading ahead,
+// while the producers fill the next.  Full and empty mbarriers order the
+// handoff (the arrive releases the stores before it, the wait acquires
+// them).  A trip costs the producers 21.3 warp instructions, 5.8 cycles of
+// the busiest of an SM's 4 schedulers (3 producer warps each; the
+// consumer's holds 2), and the chain ~4.4 cycles, so the producers bound the
+// kernel: they issue at ~3/4 of that, ~7.7 cycles a trip, held back by the
+// latencies that 3 warps a scheduler do not hide; more warps a scheduler
+// slow the consumer's chain, which shares one (`micro_vpu --sweep` reads
+// the producers alone and the chain alone, MICRO_VPU_SPREAD_PART 1 and 2,
+// and other warps, trips and slots).  The scale stays in every trip's
+// products (no (sum s_i) a b^T): that work is what the probe measures.
+__global__ void __launch_bounds__(kSpreadThreads, 1)
+    vpu_dot_spread_kernel(const float* __restrict__ a, const float* __restrict__ b, int niter,
+                          float* __restrict__ out) {
+  __shared__ __align__(16) float4 sb[kDotK];  // b's kSpreadCols columns at k
+  __shared__ __align__(16) float ring[kSpreadSlots][kSpreadCols][kSpreadStride];
+  __shared__ __align__(8) uint64_t full[kSpreadSlots], empty[kSpreadSlots];
+  const int m = blockIdx.x / kSpreadColGroups;
+  const int n0 = (blockIdx.x % kSpreadColGroups) * kSpreadCols;
+  const int t = threadIdx.x;
+  if (t < kDotK) {
+    sb[t] = make_float4(b[n0 * kDotK + t], b[(n0 + 1) * kDotK + t], b[(n0 + 2) * kDotK + t],
+                        b[(n0 + 3) * kDotK + t]);
+  }
+  if (t == 0) {
+    for (int s = 0; s < kSpreadSlots; ++s) {
+      mbar_init(smem_u32(&full[s]), kSpreadProducers);
+      mbar_init(smem_u32(&empty[s]), kSpreadCols);
+    }
+  }
+  __syncthreads();
+  const int ntiles = (niter + kSpreadTile - 1) / kSpreadTile;
+  if (t < kSpreadProducers) {
+    float4 ar[kDotK / 4];
+#pragma unroll
+    for (int q = 0; q < kDotK / 4; ++q) ar[q] = reinterpret_cast<const float4*>(a)[m * 32 + q];
+#pragma unroll 1
+    for (int tile = 0; tile < ntiles; ++tile) {
+      // a compiler fence: each tile reads b from shared memory (hoisted, the
+      // 512 floats of b's columns would not fit in registers)
+      asm volatile("" ::: "memory");
+      const int slot = tile % kSpreadSlots, use = tile / kSpreadSlots;
+      // thread t's trips: positions t + h kSpreadProducers of the tile, h <
+      // kSpreadTrips; a trip past niter is computed and stored but never read
+      float s[kSpreadTrips], d[kSpreadTrips][kSpreadCols];
+#pragma unroll
+      for (int h = 0; h < kSpreadTrips; ++h) {
+        s[h] = trip_scale(tile * kSpreadTile + h * kSpreadProducers + t);
+#pragma unroll
+        for (int c = 0; c < kSpreadCols; ++c) d[h][c] = 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < (kSpreadPart == 2 ? 0 : kDotK / 4); ++q) {
+        const float ak[4] = {ar[q].x, ar[q].y, ar[q].z, ar[q].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 bk = sb[4 * q + e];
+#pragma unroll
+          for (int h = 0; h < kSpreadTrips; ++h) {
+            const float as = __fmul_rn(ak[e], s[h]);
+            d[h][0] = fmaf(as, bk.x, d[h][0]);
+            d[h][1] = fmaf(as, bk.y, d[h][1]);
+            d[h][2] = fmaf(as, bk.z, d[h][2]);
+            d[h][3] = fmaf(as, bk.w, d[h][3]);
+          }
+        }
+      }
+      // the slot is free once the consumer has read its previous tile (the
+      // first use passes at once: the parity of the phase before phase 0)
+      mbar_wait_or_trap(smem_u32(&empty[slot]), (use & 1) ^ 1);
+#pragma unroll
+      for (int h = 0; h < kSpreadTrips; ++h) {
+#pragma unroll
+        for (int c = 0; c < kSpreadCols; ++c) ring[slot][c][h * kSpreadProducers + t] = d[h][c];
+      }
+      mbar_arrive(smem_u32(&full[slot]));
+    }
+  } else if (t < kSpreadProducers + kSpreadCols) {
+    const int c = t - kSpreadProducers;
+    float acc = 0.0f;
+#pragma unroll 1
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int slot = tile % kSpreadSlots, use = tile / kSpreadSlots;
+      const int count = min(kSpreadTile, niter - tile * kSpreadTile);
+      mbar_wait_or_trap(smem_u32(&full[slot]), use & 1);
+      const float* row = ring[slot][c];
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+      // read-ins of kSpreadRead trips in two buffers: one is read while the
+      // other's adds wait on each other (a read past the tile's count stays
+      // in the row's padding and is never added)
+      const int groups = kSpreadPart == 1 ? 0 : count / kSpreadRead;
+      float4 qa[kSpreadRead / 4], qb[kSpreadRead / 4];
+      spread_read(qa, row4, 0);
+      int gi = 0;
+#pragma unroll 1
+      for (; gi + 1 < groups; gi += 2) {
+        spread_read(qb, row4, gi + 1);
+        acc = spread_chain(acc, qa);
+        spread_read(qa, row4, gi + 2);
+        acc = spread_chain(acc, qb);
+      }
+      if (gi < groups) acc = spread_chain(acc, qa);
+#pragma unroll 1
+      for (int j = groups * kSpreadRead; j < (kSpreadPart == 1 ? 1 : count); ++j) {
+        acc = __fadd_rn(acc, row[j]);
+      }
+      mbar_arrive(smem_u32(&empty[slot]));
+    }
+    out[(blockIdx.y * kDotM + m) * kDotN + n0 + c] = acc;
+  }
+}
+
+// vpu_tr_split: tr's function, sum_i v_j s_i, in a fixed other order.
+//
+// Replaces tr_kernel (tools/micro_vpu.py:233-237, pallas_call :240) beside
+// vpu_tr.  What bounds it: the function is 0.5 M FFMAs, 16 ns of issue, far
+// under a launch; vpu_tr's one chain of 8192 dependent FFMAs a row (each
+// trip's scale, I2F + FMUL + FADD, in the same unroll-1 loop) takes 0.127
+// ms, and even at FFMA latency the chain is 0.017 ms, over torch.mv's
+// 0.007: no order-keeping design beats the call.  So each row's trips go to
+// `parts` contiguous parts of len = ceil(niter / parts) trips (the last may
+// be short or empty), a thread a (row, part) runs acc = fma(v, s_i, acc)
+// from 0 in trip order, its loop unrolled so the next trips' scales are
+// computed off the chain, and the parts' partials meet in a fixed tree:
+// x[p] += x[p + w] for w = parts / 2, ..., 1 (shared memory while w >= 32,
+// then shuffles), no atomics, so the sum is deterministic.  At 64 parts the
+// chain is 128 FFMAs and the kernel is launch bound.
+__global__ void __launch_bounds__(kTrSplitThreads)
+    vpu_tr_split_kernel(const float* __restrict__ x, int niter, int parts, int len,
+                        float* __restrict__ out) {
+  __shared__ float part_sum[kTrSplitThreads];
+  const int t = threadIdx.x, g = blockIdx.x * blockDim.x + t;
+  const int j = g / parts, p = g % parts;
+  const float v = x[j];
+  const int lo = min(p * len, niter), hi = min(lo + len, niter);
+  float acc = 0.0f;
+#pragma unroll kTrSplitUnroll
+  for (int i = lo; i < hi; ++i) acc = fmaf(v, trip_scale(i), acc);
+  for (int w = parts / 2; w >= 32; w /= 2) {
+    part_sum[t] = acc;
+    __syncthreads();
+    if (p < w) acc = __fadd_rn(acc, part_sum[t + w]);
+    __syncthreads();
+  }
+  for (int w = min(parts / 2, 16); w >= 1; w /= 2) {
+    acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, w));
+  }
+  if (p == 0) out[blockIdx.y * kTrRows + j] = acc;
+}
+
 using StreamFn = void (*)(const float*, int, int, float*);
 using PairFn = void (*)(const float*, const float*, int, float*);
 using TrFn = void (*)(const float*, int, float*);
@@ -291,6 +517,30 @@ int vpu_tr(const void* x, int body, int niter, int ncopies, void* out, void* str
   TrFn fn = find_tr(body);
   if (fn == nullptr || niter < 0 || ncopies <= 0) return (int)cudaErrorInvalidValue;
   fn<<<ncopies, kTrRows, 0, (cudaStream_t)stream>>>((const float*)x, niter, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// a (64, 128), b (8, 128); out (ncopies, 64, 8); ncopies <= 65535.
+int vpu_dot_spread(const void* a, const void* b, int niter, int ncopies, void* out,
+                   void* stream) {
+  if (niter < 0 || ncopies <= 0 || ncopies > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(kDotM * kSpreadColGroups, ncopies);
+  vpu_dot_spread_kernel<<<grid, kSpreadThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, niter, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// x (8, 128) (its first 64 floats are read); parts a power of two, 1 to 256;
+// out (ncopies, 64, 1); ncopies <= 65535.
+int vpu_tr_split(const void* x, int niter, int parts, int ncopies, void* out, void* stream) {
+  if (niter < 0 || parts < 1 || parts > kTrSplitMaxParts || (parts & (parts - 1)) ||
+      ncopies <= 0 || ncopies > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int threads = kTrRows * parts < kTrSplitThreads ? kTrRows * parts : kTrSplitThreads;
+  const dim3 grid(kTrRows * parts / threads, ncopies);
+  vpu_tr_split_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, niter, parts, (niter + parts - 1) / parts, (float*)out);
   return (int)cudaGetLastError();
 }
 

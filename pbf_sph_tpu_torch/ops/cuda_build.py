@@ -93,6 +93,8 @@ SIGNATURES = {
     "vpu_streams": [_P, _I, _I, _I, _I, _I, _P, _P],
     **dict.fromkeys(("vpu_dot", "vpu_dot2"), [_P, _P, _I, _I, _P, _P]),
     "vpu_tr": [_P, _I, _I, _I, _P, _P],
+    "vpu_dot_spread": [_P, _P, _I, _I, _P, _P],
+    "vpu_tr_split": [_P, _I, _I, _I, _P, _P],
 }
 
 

@@ -410,9 +410,9 @@ def innermost_loops(sass: Sass) -> List[collections.Counter]:
             for lo, hi in innermost_spans(sass)]
 
 
-def innermost_spans(sass: Sass) -> List[Tuple[int, int]]:
-    """(first, last) address of each innermost loop: the span of a backward
-    branch that holds no other such span; the last is the branch's own."""
+def all_spans(sass: Sass) -> List[Tuple[int, int]]:
+    """(first, last) address of each loop: the span of a backward branch;
+    the last is the branch's own."""
     insts, labels = sass
     spans = []
     for addr, op, inst in insts:
@@ -421,6 +421,13 @@ def innermost_spans(sass: Sass) -> List[Tuple[int, int]]:
         target = branch_target(inst, labels)
         if target is not None and target <= addr:
             spans.append((target, addr))
+    return spans
+
+
+def innermost_spans(sass: Sass) -> List[Tuple[int, int]]:
+    """(first, last) address of each innermost loop: the span of a backward
+    branch that holds no other such span."""
+    spans = all_spans(sass)
     return [s for s in spans
             if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
 

@@ -1,7 +1,7 @@
 """Op streams, fp32 dots and a lane->sublane reshape on the card, as the TPU
 tool asks them.
 
-    python -m pbf_sph_tpu_torch.tools.micro_vpu [reps]
+    python -m pbf_sph_tpu_torch.tools.micro_vpu [--sweep] [reps]
 
 Port of `tools/micro_vpu.py`.  Its `main` (`:102-247`) asks seven questions;
 the four kernels of `csrc/micro_vpu.cu` answer sections 1, 5, 6 and 7, and
@@ -19,7 +19,16 @@ sections 3, 4 and 4b:
   b (8, 128), a CTA of 512 a copy, a thread 8 columns of 2 rows;
 * `vpu_tr` (`tr_kernel`, row 7.18): acc(64, 1) += x[0, 0:64] s_i, a CTA of
   64 a copy, in two bodies, `direct` and `restage` (the row through shared
-  memory each trip).
+  memory each trip);
+* `vpu_dot_spread` (`dot_kernel` redesigned, row 7.16b): `vpu_dot`'s
+  function bit for bit, one copy spread over 128 CTAs, each a row and 4
+  columns for all trips: producer warps compute a tile of trips' d at once
+  into a shared-memory ring, and a consumer warp adds them to acc in trip
+  order (`spread_plan` is the grid's index model);
+* `vpu_tr_split` (`tr_kernel` redesigned, row 7.18b): the same Σ_i v s_i
+  in another fixed order, each row's trips in `parts` contiguous parts of
+  fused multiply-adds and the parts' partials in a fixed tree
+  (`tr_split_plain`).
 
 s_i = 1 + 1e-9 i, each op rounded in float32, as JAX's weak typing takes
 it.  Each kernel has a plain PyTorch version of the same signature;
@@ -43,8 +52,14 @@ copy; then reads every
 kernel as the marginal between NITER and 4 NITER trips (`anchor_rate.
 marginal`), at the tool's size (one copy) and with the card filled, beside
 the anchor's serial FFMA latency, while `nvidia-smi` samples the SM clock,
-and answers sections 3-4b through `MicroRoll`.  The last line is one JSON
-object.  Without a CUDA device the tool fails.
+and answers sections 3-4b through `MicroRoll`.  The two redesigns are read
+at one copy and 4 NITER trips in a CUDA graph (`micro_roll.read_launch`:
+they are too short for the marginal's 2x-for-4x check), beside the library
+call of their function in the same reader and `vpu_tr_split` at 0 trips
+(the launch with no trip).  With --sweep, `vpu_dot_spread` is also built
+alone at each producer shape and part of SWEEP (`-DMICRO_VPU_SPREAD_*`),
+checked bit for bit and read in turns at NITER and 4 NITER trips.  The last
+line is one JSON object.  Without a CUDA device the tool fails.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import micro_chunk as mch
 from pbf_sph_tpu_torch.tools import micro_roll as mr
+from pbf_sph_tpu_torch.tools.micro_mc_field import graph_ms
 
 # the TPU tool's constants (`:22-24`) and inputs (`:90`, `:194-195`, `:217-218`, `:239`)
 R, C, NITER = 512, 128, 2048
@@ -78,7 +94,28 @@ DOTS = {"dot": DOT, "dot2": DOT2}
 TR_IN, TR_ROWS = (8, 128), 64
 TR_BODIES = ("direct", "restage")
 TR_ID = {"direct": 0, "restage": 1}
-KERNELS = ("vpu_streams", "vpu_dot", "vpu_dot2", "vpu_tr_direct", "vpu_tr_restage")
+KERNELS = ("vpu_streams", "vpu_dot", "vpu_dot2", "vpu_tr_direct", "vpu_tr_restage",
+           "vpu_dot_spread", "vpu_tr_split")
+# vpu_dot_spread's grid (csrc/micro_vpu.cu's kSpread*): a CTA a (copy, row,
+# group of `cols` columns); `warps` producer warps of `trips` trips a thread
+# fill a tile of trips into one of `slots` ring slots; the consumer reads
+# `read` trips at a time
+SPREAD = dict(cols=4, warps=11, trips=3, slots=2, read=32)
+SPREAD_PRODUCERS = 32 * SPREAD["warps"]
+SPREAD_TILE = SPREAD_PRODUCERS * SPREAD["trips"]
+SPREAD_CTAS = DOT["out"][0] * DOT["out"][1] // SPREAD["cols"]   # a copy
+# vpu_tr_split: the parts of a row's trips (a power of two up to
+# TR_SPLIT_MAX_PARTS; csrc/micro_vpu.cu's kTrSplitMaxParts) and the chain
+# loop's unroll (kTrSplitUnroll)
+TR_PARTS = 64
+TR_SPLIT_MAX_PARTS = 256
+TR_SPLIT_UNROLL = 4
+# --sweep: (producer warps, trips a thread, ring slots, part) that
+# vpu_dot_spread is built alone at; part 0 is the kernel, 1 its producers
+# alone (the consumer adds one trip a tile), 2 its chain alone (the
+# producers store 0)
+SWEEP = ((7, 2, 3, 0), (7, 3, 2, 0), (7, 4, 2, 0), (11, 2, 2, 0), (11, 3, 2, 0), (7, 4, 3, 0),
+         (11, 3, 2, 1), (11, 3, 2, 2))
 FILL_ID = {"streams": 0, "dot": 1, "dot2": 2, "tr": 3}   # micro_vpu_fill's kernel
 
 # the readings: the marginal between NITER and 4 NITER trips; parity on the
@@ -258,6 +295,76 @@ def tr_plain(x, body: str = "direct", niter: int = NITER, ncopies: int = 1):
     return acc.expand(ncopies, -1, -1)
 
 
+def _check_tr_split(x, niter: int, parts: int, ncopies: int) -> None:
+    _check_tr(x, "direct", niter, ncopies)
+    if not 1 <= parts <= TR_SPLIT_MAX_PARTS or parts & (parts - 1):
+        raise ValueError(f"parts {parts}: csrc/micro_vpu.cu takes a power of two from 1 to "
+                         f"{TR_SPLIT_MAX_PARTS}")
+
+
+def split_len(niter: int, parts: int) -> int:
+    """L, the trips of a part: ceil(niter / parts); the last parts may
+    hold fewer, or none."""
+    return -(-niter // parts)
+
+
+def split_partials(x, niter: int, parts: int):
+    """(64, parts): part p of row j runs acc = fma(v_j, s_i, acc) from 0
+    over trips p L to min((p + 1) L, niter) in order (`torch.addcmul`, fused
+    as the kernel's `fmaf`), v = x[0, 0:64]; L steps on all parts at once."""
+    v = x[0, :TR_ROWS].reshape(TR_ROWS, 1)
+    span = split_len(niter, parts)
+    s = scales(niter, x.device)
+    first = torch.arange(parts, device=x.device) * span
+    acc = torch.zeros((TR_ROWS, parts), dtype=torch.float32, device=x.device)
+    for step in range(span):
+        trip = first + step
+        si = s[trip.clamp(max=niter - 1)]
+        acc = torch.where(trip < niter, torch.addcmul(acc, v, si), acc)
+    return acc
+
+
+def split_tree(partials):
+    """(rows, 1): the kernel's fixed tree over the parts, x[p] + x[p + w]
+    for w = parts / 2, ..., 1."""
+    w = partials.shape[1] // 2
+    while w:
+        partials = partials[:, :w] + partials[:, w:2 * w]
+        w //= 2
+    return partials
+
+
+def tr_split_plain(x, niter: int = NITER, parts: int = TR_PARTS, ncopies: int = 1):
+    """(ncopies, 64, 1) of `vpu_tr_split`: Σ_i v s_i as `split_tree` of
+    `split_partials`.  parts = 1 is `tr_plain`'s sum, bit for bit."""
+    _check_tr_split(x, niter, parts, ncopies)
+    return split_tree(split_partials(x, niter, parts)).expand(ncopies, -1, -1)
+
+
+def spread_plan(niter: int, ncopies: int = 1) -> dict:
+    """The index model of `vpu_dot_spread`'s grid: `outputs` (ncopies *
+    SPREAD_CTAS, cols), the flat (copy, m, n) index that each CTA's consumer
+    lanes write (CTA x, y = (m, column group), copy); `stored` (tiles,
+    SPREAD_TILE), the trip that producer thread t stores at ring position
+    h SPREAD_PRODUCERS + t of each tile (-1 past niter); `read`, the trips in
+    the order the consumer adds them (positions 0 to the tile's count of
+    each tile in turn)."""
+    groups = DOT["out"][1] // SPREAD["cols"]
+    bx, cols = np.arange(SPREAD_CTAS)[:, None], np.arange(SPREAD["cols"])
+    one = (bx // groups) * DOT["out"][1] + (bx % groups) * SPREAD["cols"] + cols
+    outputs = np.concatenate([c * DOT["out"][0] * DOT["out"][1] + one for c in range(ncopies)])
+    tiles = split_len(niter, SPREAD_TILE)
+    t, h = np.meshgrid(np.arange(SPREAD_PRODUCERS), np.arange(SPREAD["trips"]), indexing="ij")
+    pos = h * SPREAD_PRODUCERS + t
+    stored = np.full((tiles, SPREAD_TILE), -1)
+    for tile in range(tiles):
+        trip = tile * SPREAD_TILE + pos
+        stored[tile, pos] = np.where(trip < niter, trip, -1)
+    read = [stored[tile, j] for tile in range(tiles)
+            for j in range(min(SPREAD_TILE, niter - tile * SPREAD_TILE))]
+    return dict(outputs=outputs, stored=stored, read=read)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel launchers
 # ---------------------------------------------------------------------------
@@ -326,6 +433,33 @@ def tr_kernel(x, body: str = "direct", niter: int = NITER, ncopies: int = 1):
     return out
 
 
+def _check_grid(ncopies: int) -> None:
+    if ncopies > 65535:
+        raise ValueError(f"ncopies {ncopies}: the copies are the grid's y, at most 65535")
+
+
+def dot_spread_kernel(a, b, niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 8) from `vpu_dot_spread`: `vpu_dot`'s function."""
+    _check_dot("dot", a, b, niter, ncopies)
+    _check_grid(ncopies)
+    dev = ar._check_card(a=(a, torch.float32, DOT["a"]), b=(b, torch.float32, DOT["b"]))
+    if a.data_ptr() % 16:
+        raise ValueError("dot_spread: the kernel's float4 loads need a 16-byte aligned a")
+    out = torch.empty((ncopies, *DOT["out"]), dtype=torch.float32, device=dev)
+    _launch("vpu_dot_spread", dev, a.data_ptr(), b.data_ptr(), niter, ncopies, out.data_ptr())
+    return out
+
+
+def tr_split_kernel(x, niter: int = NITER, parts: int = TR_PARTS, ncopies: int = 1):
+    """(ncopies, 64, 1) from `vpu_tr_split`."""
+    _check_tr_split(x, niter, parts, ncopies)
+    _check_grid(ncopies)
+    dev = ar._check_card(x=(x, torch.float32, TR_IN))
+    out = torch.empty((ncopies, TR_ROWS, 1), dtype=torch.float32, device=dev)
+    _launch("vpu_tr_split", dev, x.data_ptr(), niter, parts, ncopies, out.data_ptr())
+    return out
+
+
 class MicroVpu:
     """The wrappers of the kernels, with a launch counter per kernel name
     (`KERNELS`): it starts at 0 and grows by one each time a method launches
@@ -365,6 +499,16 @@ class MicroVpu:
                          lambda: tr_plain(x, body, niter, ncopies),
                          lambda: tr_kernel(x, body, niter, ncopies))
 
+    def dot_spread(self, a, b, niter: int = NITER, ncopies: int = 1):
+        return self._run("vpu_dot_spread", a.device.type == "cpu",
+                         lambda: dot_plain(a, b, niter, ncopies),
+                         lambda: dot_spread_kernel(a, b, niter, ncopies))
+
+    def tr_split(self, x, niter: int = NITER, parts: int = TR_PARTS, ncopies: int = 1):
+        return self._run("vpu_tr_split", x.device.type == "cpu",
+                         lambda: tr_split_plain(x, niter, parts, ncopies),
+                         lambda: tr_split_kernel(x, niter, parts, ncopies))
+
 
 # ---------------------------------------------------------------------------
 # The SASS of the built kernels
@@ -387,11 +531,16 @@ DOT_THREAD = {"dot": dict(outputs=8, rows=1, lds128=256),
               "dot2": dict(outputs=16, rows=2, lds128=4)}
 
 
+# the mangled-name pieces of the kernels that are not templates
+MANGLED = {"dot": "14vpu_dot_kernel", "dot2": "15vpu_dot2_kernel",
+           "dot_spread": "21vpu_dot_spread_kernel", "tr_split": "19vpu_tr_split_kernel"}
+
+
 def pattern(name: str) -> str:
-    """The mangled-name piece of a kernel: "<op> <nstreams>", "dot", "dot2"
-    or "tr <body>"."""
-    if name in DOTS:
-        return {"dot": "14vpu_dot_kernel", "dot2": "15vpu_dot2_kernel"}[name]
+    """The mangled-name piece of a kernel: "<op> <nstreams>", "dot", "dot2",
+    "tr <body>", "dot_spread" or "tr_split"."""
+    if name in MANGLED:
+        return MANGLED[name]
     head, tail = name.split()
     if head == "tr":
         return f"13vpu_tr_kernelILi{TR_ID[tail]}E"
@@ -467,6 +616,58 @@ def tr_loop(sass: ar.Sass, body: str) -> dict:
     return dict(ok=ok, sts=sts, bar=bar, lds=lds, insts=insts)
 
 
+def _span_counts(sass: ar.Sass, span: Tuple[int, int]):
+    return mch._counts([op for addr, op, _ in sass[0] if span[0] <= addr <= span[1]])
+
+
+def spread_loops(sass: ar.Sass) -> dict:
+    """vpu_dot_spread's two loops.  The producers' tile loop, the smallest
+    loop that holds every FFMA of the kernel (it also holds the wait on a
+    free slot): a thread's trips x 4 outputs x K products, K - 1 or K of
+    each fused, K scale multiplies a trip and the trip scale's one, the
+    scale's one FADD a trip, one broadcast float4 read of b a k and one
+    store a trip and output.  The consumer's chain, the innermost loop with
+    the most FADDs and no FFMA: two read-ins, one FADD a trip, 4 trips a
+    float4 read.  No local memory."""
+    insts = sass[0]
+    total = mch._counts([op for _, op, _ in insts])
+    spans = [sp for sp in ar.all_spans(sass) if total["FFMA"]
+             and _span_counts(sass, sp)["FFMA"] == total["FFMA"]]
+    chains = [c for c in (_span_counts(sass, sp) for sp in ar.innermost_spans(sass))
+              if c["FADD"] and not c["FFMA"]]
+    if not spans or not chains:
+        return dict(ok=False)
+    c = _span_counts(sass, min(spans, key=lambda sp: sp[1] - sp[0]))
+    chain = max(chains, key=lambda c: c["FADD"])
+    trips, cols, k = SPREAD["trips"], SPREAD["cols"], DOT["k"]
+    n = trips * cols
+    lds, chain_lds = mch._lds128(c), mch._lds128(chain)
+    ok = (n * (k - 1) <= c["FFMA"] <= n * k
+          and c["FFMA"] + c["FMUL"] == trips * (cols + 1) * k + trips and c["FADD"] == trips
+          and lds == k and c["STS"] == n and chain["FADD"] == 2 * SPREAD["read"]
+          and chain_lds * 4 == chain["FADD"] and not local_memory(sass))
+    return dict(ok=ok, ffma=c["FFMA"], fmul=c["FMUL"], fadd=c["FADD"], lds128=lds,
+                sts=c["STS"], chain_fadd=chain["FADD"], chain_lds128=chain_lds,
+                local=local_memory(sass))
+
+
+def split_loop(sass: ar.Sass) -> dict:
+    """vpu_tr_split's chain, the loop with the most FFMAs: TR_SPLIT_UNROLL
+    trips, each one FFMA and its scale's FMUL and FADD (none contracted);
+    the tree by shuffles, no atomics, no local memory."""
+    c, guards, insts, _ = _best_loop(sass, "FFMA")
+    if c is None:
+        return dict(ok=False)
+    ops = [op for _, op, _ in sass[0]]
+    shfl = sum(op.startswith("SHFL") for op in ops)
+    atomics = sum(op.startswith(("ATOM", "RED")) for op in ops)
+    u = TR_SPLIT_UNROLL
+    ok = (c["FFMA"] == c["FMUL"] == c["FADD"] == u and guards == 0 and shfl >= 1
+          and not atomics and not local_memory(sass))
+    return dict(ok=ok, ffma=c["FFMA"], fmul=c["FMUL"], fadd=c["FADD"], shfl=shfl,
+                atomics=atomics, local=local_memory(sass), insts=insts)
+
+
 def check_sass(lib_path) -> Dict[str, dict]:
     """`check_funcs` of the built library."""
     return check_funcs(ar.sass_functions(lib_path))
@@ -474,8 +675,9 @@ def check_sass(lib_path) -> Dict[str, dict]:
 
 def check_funcs(funcs) -> Dict[str, dict]:
     """name -> dict(ok, counts) of every kernel of csrc/micro_vpu.cu: the
-    24 stream instantiations (`stream_loop`), the two dots (`dot_loop`) and
-    the two tr bodies (`tr_loop`)."""
+    24 stream instantiations (`stream_loop`), the two dots (`dot_loop`), the
+    two tr bodies (`tr_loop`), dot_spread (`spread_loops`) and tr_split
+    (`split_loop`)."""
     report = {}
     for op in OPS:
         for ns in STREAMS:
@@ -485,6 +687,8 @@ def check_funcs(funcs) -> Dict[str, dict]:
         report[which] = dot_loop(ar._one(funcs, pattern(which)), which)
     for body in TR_BODIES:
         report[f"tr {body}"] = tr_loop(ar._one(funcs, pattern(f"tr {body}")), body)
+    report["dot_spread"] = spread_loops(ar._one(funcs, pattern("dot_spread")))
+    report["tr_split"] = split_loop(ar._one(funcs, pattern("tr_split")))
     return report
 
 
@@ -507,16 +711,36 @@ def dot_atol(a, b, niter: int):
     return DOT_ATOL * (a.abs().double() @ b.abs().double().T).float() * niter
 
 
+# the redesigns' further parity cases on the seeded inputs, beyond
+# PARITY_TRIPS: dot_spread at two full tiles and a ragged one and at the
+# readings' 4 NITER trips; tr_split with a ragged split, at 4 NITER trips,
+# and at 1 part (one chain) and 256 (three tree levels in shared memory)
+SPREAD_CASES = (2 * SPREAD_TILE + 133, 4 * NITER)
+SPLIT_CASES = ((PARITY_TRIPS - 6, TR_PARTS), (4 * NITER, TR_PARTS), (PARITY_TRIPS, 1),
+               (PARITY_TRIPS, TR_SPLIT_MAX_PARTS))
+
+
+def kernel_of(label: str) -> str:
+    """The kernel (`KERNELS`) that a `card_parity` label holds."""
+    head = label.split()
+    if head[0] == "tr":
+        return f"vpu_tr_{head[1]}"
+    if head[0] in ("dot", "dot2", "dot_spread", "tr_split"):
+        return f"vpu_{head[0]}"
+    return "vpu_streams"
+
+
 def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     """Each kernel against its plain version on the card at PARITY_TRIPS
     trips, its launches not counted; "label case" -> (max abs err, ok), on
     the tool's inputs and on `random_inputs`.  Every CTA of the streams'
     card-filling grid (the readings' grid, a partial copy at its end) and
-    every one of PARITY_COPIES copies of the dots and tr is held.  Bit for
-    bit (the same fused multiply-adds, multiplies, selects and IEEE sqrt and
-    divide, each rounded once, and the dots' ordered FFMA sums) but rsqrt,
-    rtol 1e-6 (the card's MUFU.RSQ against torch's rsqrt; the chain
-    contracts to 1, so the difference does not grow)."""
+    every one of PARITY_COPIES copies of the dots and tr is held, and the
+    redesigns also at SPREAD_CASES and SPLIT_CASES.  Bit for bit (the same
+    fused multiply-adds, multiplies, selects and IEEE sqrt and divide, each
+    rounded once, the dots' ordered FFMA sums and tr_split's parts and tree)
+    but rsqrt, rtol 1e-6 (the card's MUFU.RSQ against torch's rsqrt; the
+    chain contracts to 1, so the difference does not grow)."""
     res = {}
     n = PARITY_TRIPS
     for case, x in (("tool", tool_inputs(device)), ("random", random_inputs(seed, device))):
@@ -537,6 +761,17 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
         for body in TR_BODIES:
             res[f"tr {body} {case}"] = mr.bit_equal(tr_kernel(x.t, body, n, PARITY_COPIES),
                                                  tr_plain(x.t, body, n))
+        res[f"dot_spread {case}"] = mr.bit_equal(dot_spread_kernel(x.a, x.b, n, PARITY_COPIES),
+                                              dot_plain(x.a, x.b, n))
+        res[f"tr_split {case}"] = mr.bit_equal(tr_split_kernel(x.t, n, TR_PARTS, PARITY_COPIES),
+                                            tr_split_plain(x.t, n, TR_PARTS))
+    x = random_inputs(seed, device)
+    for trips in SPREAD_CASES:
+        res[f"dot_spread random {trips} trips"] = mr.bit_equal(
+            dot_spread_kernel(x.a, x.b, trips), dot_plain(x.a, x.b, trips))
+    for trips, parts in SPLIT_CASES:
+        res[f"tr_split random {trips} trips {parts} parts"] = mr.bit_equal(
+            tr_split_kernel(x.t, trips, parts), tr_split_plain(x.t, trips, parts))
     return res
 
 
@@ -666,9 +901,24 @@ def read_tr(mv: MicroVpu, body: str, x: Inputs, ncopies: int, reps: int) -> dict
                 ns_per_reshape=dt * 1e9 / trips)
 
 
+def read_redesigns(mv: MicroVpu, x: Inputs, niter: int) -> dict:
+    """The redesigns through `mv` (counted) at one copy and niter trips:
+    `vpu_dot_spread`, `vpu_tr_split` (TR_PARTS parts) and `vpu_tr_split` at
+    0 trips (its grid, tree and stores with no trip: the launch's floor), and
+    the library calls of their functions (not counted), each by
+    `micro_roll.read_launch` (a CUDA graph of 100 launches, and CUDA events
+    over 100 back to back)."""
+    return dict(dot_spread=mr.read_launch(lambda: mv.dot_spread(x.a, x.b, niter)),
+                tr_split=mr.read_launch(lambda: mv.tr_split(x.t, niter)),
+                tr_split_no_trip=mr.read_launch(lambda: mv.tr_split(x.t, 0)),
+                library_dot=mr.read_launch(library_call("dot", x, niter)),
+                library_tr=mr.read_launch(library_call("tr", x, niter)))
+
+
 def read_all(mv: MicroVpu, device, reps: int) -> dict:
     """Every kernel through `mv` (counted) at the tool's inputs, one copy
-    (the tool's size) and the card filled, beside the anchor's serial FFMA
+    (the tool's size) and the card filled, and the redesigns at one copy
+    and 4 NITER trips (`read_redesigns`), beside the anchor's serial FFMA
     latency, with the SM clock sampled."""
     x = tool_inputs(device)
     res = {"streams": {}, "dots": {}, "tr": {}}
@@ -685,7 +935,74 @@ def read_all(mv: MicroVpu, device, reps: int) -> dict:
             res["tr"][body] = {g: read_tr(mv, body, x, n, reps)
                                for g, n in (("tool", 1),
                                             ("fill", fill_blocks(device, "tr", body=body)))}
+        res["redesigns"] = read_redesigns(mv, x, TRIPS[1])
         res["anchor_serial"] = mch.anchor_fma(ar.Anchor(), device, reps, serial=True)
+    res["clocks_sm_mhz"] = clock.summary()
+    return res
+
+
+def sweep_libraries(shapes):
+    """{shape: (ctypes library, ptxas's line for vpu_dot_spread)}: csrc/
+    micro_vpu.cu built alone at each (warps, trips, slots, part), one nvcc
+    for each, all at once, into the build directory (named by the sources'
+    hash)."""
+    import ctypes
+    import subprocess
+
+    src = cuda_build.SRC_DIR / "micro_vpu.cu"
+    digest = cuda_build.library_path().stem.rsplit("_", 1)[1]
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for shape in shapes:
+        out = cuda_build.BUILD_DIR / f"libmicro_vpu_{'_'.join(map(str, shape))}_{digest}.so"
+        defs = [f"-DMICRO_VPU_SPREAD_{k}={v}"
+                for k, v in zip(("WARPS", "TRIPS", "SLOTS", "PART"), shape)]
+        cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, *defs, "-Xptxas", "-v",
+               "-shared", "-o", str(out), str(src)]
+        procs[shape] = (out, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for shape, (out, cmd, proc) in procs.items():
+        log = proc.communicate()[0]
+        cuda_build._check_nvcc(cmd, proc.returncode, log)
+        lines = log.splitlines()
+        at = next(i for i, line in enumerate(lines)
+                  if "Compiling" in line and pattern("dot_spread") in line)
+        lib = ctypes.CDLL(str(out))
+        lib.vpu_dot_spread.argtypes = cuda_build.SIGNATURES["vpu_dot_spread"]
+        lib.vpu_dot_spread.restype = ctypes.c_int
+        libs[shape] = (lib, " ".join(line.split(":", 1)[-1].strip()
+                                     for line in lines[at + 2:at + 4]))
+    return libs
+
+
+def sweep(device, shapes=SWEEP) -> dict:
+    """`vpu_dot_spread` at each shape of `sweep_libraries` on seeded inputs,
+    one copy: the whole kernel bit for bit `dot_plain` at SPREAD_CASES, then
+    every shape in a CUDA graph at NITER and 4 NITER trips, in turns (the
+    shapes in order, then reversed), the SM clock sampled."""
+    libs = sweep_libraries(shapes)
+    x = random_inputs(0, device)
+    out = torch.empty((1, *DOT["out"]), dtype=torch.float32, device=device)
+
+    def run(lib, n):
+        cuda_build.check("vpu_dot_spread", lib.vpu_dot_spread(
+            x.a.data_ptr(), x.b.data_ptr(), n, 1, out.data_ptr(), ph._stream(device)))
+
+    res = {}
+    for shape, (lib, ptxas) in libs.items():
+        entry = res[" ".join(map(str, shape))] = dict(ptxas=ptxas, ms={})
+        if shape[3] == 0:
+            same = []
+            for n in SPREAD_CASES:
+                run(lib, n)
+                same.append(mr.bit_equal(out, dot_plain(x.a, x.b, n))[1])
+            entry["same"] = all(same)
+    with ar.ClockSampler(device) as clock:
+        for shape in list(libs) + list(libs)[::-1]:
+            entry = res[" ".join(map(str, shape))]["ms"]
+            for n in TRIPS:
+                entry.setdefault(str(n), []).append(graph_ms(lambda: run(libs[shape][0], n)))
     res["clocks_sm_mhz"] = clock.summary()
     return res
 
@@ -714,6 +1031,8 @@ def main(argv=None) -> int:
     from pbf_sph_tpu_torch.tools.bench_kernel_variants import card_line
 
     argv = sys.argv[1:] if argv is None else argv
+    do_sweep = "--sweep" in argv
+    argv = [a for a in argv if a != "--sweep"]
     reps = int(argv[0]) if argv else 5
     if not torch.cuda.is_available():
         raise SystemExit("micro_vpu: needs a CUDA device")
@@ -776,9 +1095,38 @@ def main(argv=None) -> int:
               f"({full['copies']} copies) {full['ns_per_reshape']:.3f} ns, kernel "
               f"{full['ms'][1]:.4f} ms, bound {bms:.4f} ms by {what}, its chain "
               f"{chain_ms(work, serial):.4f} ms")
+    red, n = res["redesigns"], TRIPS[1]
+    dot_bound = bound_ms(dot_work("dot", n, 1), mhz, sms)
+    tr_bound = bound_ms(tr_work(n, 1), mhz, sms)
+    print(f"== 5b. dot_spread (one copy over {SPREAD_CTAS} CTAs) at {n} trips: "
+          f"{red['dot_spread']['graph_ms']:.5f} ms in a graph, "
+          f"{red['dot_spread']['events_ms']:.5f} back to back; library (torch.matmul + "
+          f".sum(0)) {red['library_dot']['graph_ms']:.5f} ms in a graph; vpu_dot (one copy) "
+          f"{res['dots']['dot']['tool']['ms'][1]:.4f} ms; bound {dot_bound[0]:.5f} ms by "
+          f"{dot_bound[2]}")
+    print(f"== 7b. tr_split ({TR_PARTS} parts) at {n} trips: {red['tr_split']['graph_ms']:.5f} ms "
+          f"in a graph, {red['tr_split']['events_ms']:.5f} back to back; at 0 trips "
+          f"{red['tr_split_no_trip']['graph_ms']:.5f} ms in a graph; library (torch.mv) "
+          f"{red['library_tr']['graph_ms']:.5f} ms in a graph; vpu_tr direct (one copy) "
+          f"{res['tr']['direct']['tool']['ms'][1]:.4f} ms; bound {tr_bound[0]:.7f} ms by "
+          f"{tr_bound[2]}")
+    swept = None
+    if do_sweep:
+        swept = sweep(device)
+        print(f"== 5c. dot_spread built at (producer warps, trips a thread, ring slots, part: "
+              f"0 all, 1 producers alone, 2 chain alone), ms in a graph at {TRIPS} trips, in "
+              f"turns; SM clock {swept['clocks_sm_mhz']}")
+        for name, entry in swept.items():
+            if name != "clocks_sm_mhz":
+                print(f"  {name}: " + "; ".join(
+                    f"{n}: " + ", ".join(f"{t:.5f}" for t in ms) for n, ms in entry["ms"].items())
+                    + f"; bit for bit {entry.get('same', '-')}; {entry['ptxas']}")
+        wrong = [k for k, e in swept.items() if k != "clocks_sm_mhz" and e.get("same") is False]
+        if wrong:
+            raise SystemExit(f"micro_vpu: the sweep's {wrong} disagree with dot_plain")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "reps": reps,
                       "sass": sass, "parity": {k: e for k, (e, _) in parity.items()},
-                      "readings": res, "roll_probes": verdicts,
+                      "readings": res, "roll_probes": verdicts, "sweep": swept,
                       "launches": {**mv.launches, **roll_launches}}))
     return 0
 

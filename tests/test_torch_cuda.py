@@ -690,6 +690,20 @@ def test_vpu_dots_and_tr_match_plain(card):
                                     mv.tr_plain(x.t, body, niter))[1], (body, niter)
 
 
+def test_vpu_redesigns_match_plain(card):
+    """vpu_dot_spread bit for bit dot_plain at no trip, one, a ragged tile
+    and several tiles with a ragged end, over 3 copies; vpu_tr_split bit for
+    bit tr_split_plain at every power-of-two split, ragged ones included."""
+    for x in (mv.tool_inputs(card), mv.random_inputs(3, card)):
+        for niter in (0, 1, 300, 2 * mv.SPREAD_TILE + 133):
+            assert mr.bit_equal(mv.dot_spread_kernel(x.a, x.b, niter, 3),
+                                mv.dot_plain(x.a, x.b, niter))[1], niter
+        for niter in (0, 1, 5, 300):
+            for parts in (1, 2, 8, 32, 64, 128, 256):
+                assert mr.bit_equal(mv.tr_split_kernel(x.t, niter, parts, 3),
+                                    mv.tr_split_plain(x.t, niter, parts))[1], (niter, parts)
+
+
 def test_vpu_wrappers_count_kernel_launches(card):
     vpu = mv.MicroVpu()
     x = mv.tool_inputs(card, rows=8)
@@ -699,9 +713,14 @@ def test_vpu_wrappers_count_kernel_launches(card):
     vpu.dot2(x.a2, x.b2, 10, 2)
     for body in mv.TR_BODIES:
         vpu.tr(x.t, body, 10)
+    vpu.dot_spread(x.a, x.b, 10)
+    vpu.tr_split(x.t, 10)
+    vpu.tr_split(x.t, 10, parts=4)
     torch.cuda.synchronize()
     assert vpu.launches == {"vpu_streams": 6, "vpu_dot": 1, "vpu_dot2": 1, "vpu_tr_direct": 1,
-                            "vpu_tr_restage": 1}
+                            "vpu_tr_restage": 1, "vpu_dot_spread": 1, "vpu_tr_split": 2}
+    with pytest.raises(ValueError, match="power of two"):
+        vpu.tr_split(x.t, 10, parts=3)
     with pytest.raises(ValueError, match="instantiates"):
         vpu.streams(x.x, "fma", 3, 10)
     with pytest.raises(ValueError, match="aligned"):
@@ -714,5 +733,5 @@ def test_micro_vpu_sass_is_full(card):
 
     cuda_build.library()
     report = mv.check_sass(cuda_build.library_path())
-    assert len(report) == 24 + 2 + 2
+    assert len(report) == 24 + 2 + 2 + 2
     assert mv.short(report) == [], report

@@ -70,7 +70,12 @@ with a non-zero exit and no result line:
    max|value|), then one kernel-ladder reading at mc128k through
    `McFieldBisect` (noop -> rows -> loops -> full, CUDA events over
    back-to-back launches and over a CUDA graph of captured launches, the SM
-   clock sampled); its launches are counted over this phase;
+   clock sampled), then noop, its redesign `mc_field_zero_fill` (the same
+   zeros by 16-byte stores over the filled card, held equal to noop's plain
+   version at both states, into a NaN-filled output) and `torch.zeros((9,
+   L))`, the call that computes what both write, read in 10 turns of a CUDA
+   graph of 100 launches each (medians, min-max and whether each kernel
+   loses to the call); its launches are counted over this phase;
 3h. the pair-chunk and loop probes (`csrc/micro_chunk.cu`, the kernels of
    `tools/micro_chunk.py`; `csrc/micro_loop.cu`, the bodies that
    `tools/micro_loop.py` runs): the SASS (cuobjdump: each pair body's trip
@@ -115,19 +120,24 @@ with a non-zero exit and no result line:
    phase;
 3k. the op streams, dots and reshape (`csrc/micro_vpu.cu`, the rest of
    `tools/micro_vpu.py`: bench_streams, dot_kernel, dot2_kernel, tr_kernel,
-   and the redesigns of dot_kernel and tr_kernel, `vpu_dot_spread` and
-   `vpu_tr_split`): the SASS (cuobjdump: each stream's trip loop one op a
-   carry, sqrt and div with one slow-path guard a carry on their fast path;
-   each dot's trip loop its products, scale multiplies, one add an output
-   and its shared-memory reads; tr one FFMA a trip, restage with its store,
-   barrier and load inside the trip; dot_spread's tile loop its products,
-   scale multiplies, b's reads and stores and its chain one FADD a trip;
-   tr_split's chain unrolled, an FFMA and its scale a trip, its tree by
-   shuffles and no atomics; no local memory), each kernel against its plain
-   version at 256 trips on the tool's inputs and seeded ones, every CTA of
-   the streams' card-filling grid and of two copies of the dots and tr, and
+   and the redesigns of dot_kernel, tr_kernel and dot2_kernel,
+   `vpu_dot_spread`, `vpu_tr_split` and `vpu_dot2_spread`): the SASS
+   (cuobjdump: each stream's trip loop one op a carry, sqrt and div with
+   one slow-path guard a carry on their fast path; each dot's trip loop
+   its products, scale multiplies, one add an output and its shared-memory
+   reads; tr one FFMA a trip, restage with its store, barrier and load
+   inside the trip; dot_spread's tile loop its products, scale multiplies,
+   b's reads and stores and its chain one FADD a trip; dot2_spread's tile
+   loop its products, the row's scale multiplies and float4 stores, no
+   shared-memory read and no multiply of a product, its chain one FADD a
+   trip and a float4 read every 4, no tensor-core instruction; tr_split's
+   chain unrolled, an FFMA and its scale a trip, its tree by shuffles and
+   no atomics; no local memory), each kernel against its plain version at
+   256 trips on the tool's inputs and seeded ones, every CTA of the
+   streams' card-filling grid and of two copies of the dots and tr, and
    the redesigns also on seeded inputs at more trips (dot_spread 2245 and
-   8192, tr_split 250 and 8192 over 64 parts, 256 over 1 and 256 parts; bit
+   8192, tr_split 250 and 8192 over 64 parts, 256 over 1 and 256 parts;
+   dot2_spread on both inputs at 256, 2245 and 8192 over 3 copies; bit
    for bit, but rsqrt rtol 1e-6), then one reading of each through
    `MicroVpu` (CUDA events, the marginal between 2048 and 8192 trips, the SM
    clock sampled; the redesigns at 8192 trips in a CUDA graph of 100
@@ -199,7 +209,8 @@ rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
 kernel at the larger of their two sizes, 3f for the window kernels, whose
 line holds scenario A at nblocks 1024, the flat kernel's split body, 3g for
 the MC-field bisection kernels, whose ms is the CUDA-graph reading at
-mc128k, as is noop's library_ms, torch.zeros of the (9, L) output, 3h for
+mc128k, but noop's and zero_fill's ms and library_ms (torch.zeros of the
+(9, L) output) are the medians of their turns, 3h for
 the probes, whose line holds the larger size with the card filled: the old
 and new bodies at interleave 1, the fma ceiling at 8 streams, the loop
 bodies b) 16 streams, c) the chain of 16 and e) rsqrt, each bound by its
@@ -290,6 +301,8 @@ KERNELS = {
     # the MC-field bisection of tools/micro_mc_field.py: make_variant's noop,
     # rows and loops bodies
     "mc_field_noop": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
+    # and its redesign, the same zeros by 16-byte stores over the filled card
+    "mc_field_zero_fill": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
     "mc_field_rows": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
     "mc_field_loops": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
     # the pair-chunk micro-benchmark of tools/micro_chunk.py: make_bench's
@@ -328,6 +341,7 @@ KERNELS = {
     # fixed split sum
     "vpu_dot_spread": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:196"),
     "vpu_tr_split": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:240"),
+    "vpu_dot2_spread": ("pbf_sph_tpu_torch/csrc/micro_vpu.cu", "tools/micro_vpu.py:219"),
 }
 # the variant whose numbers stand in the kernels line for the tiled kernels
 TILE_REPORTED = (64, True)
@@ -954,8 +968,9 @@ def phase_mc_field():
 def phase_mc_bisect(states):
     """3g: the MC-field bisection kernels (csrc/mc_field.cu): the SASS
     (cuobjdump), each against its plain version on 3b's states (uncounted),
-    then one kernel-ladder reading at mc128k through `McFieldBisect` (the
-    launches counted for these kernels).  Returns (report, launches)."""
+    then one kernel-ladder reading at mc128k through `McFieldBisect` and
+    noop's turns beside torch.zeros (the launches counted for these
+    kernels).  Returns (report, launches)."""
     print("== 3g. MC-field bisection kernels (csrc/mc_field.cu) against their plain PyTorch "
           "versions")
     from pbf_sph_tpu_torch.ops import cuda_build
@@ -968,7 +983,8 @@ def phase_mc_bisect(states):
     for workload, (spec, fr, st) in states.items():
         for label, (err, ok) in mcb.card_parity(spec, fr, st, workload).items():
             check(ok, f"{label}: max abs err {err:.3e} (noop zero, rows bit for bit, loops "
-                      f"rtol {mcb.RTOL} with atol {mcb.ATOL_SCALE} x max|value|)")
+                      f"rtol {mcb.RTOL} with atol {mcb.ATOL_SCALE} x max|value|, zero_fill "
+                      f"equal to noop_plain)")
             name = mcb.KERNEL_OF[label.split()[0]]
             errs[name] = max(errs[name], err)
 
@@ -976,7 +992,6 @@ def phase_mc_bisect(states):
     bisect = mcb.McFieldBisect(spec.h)
     ladder = mcb.kernel_ladder(bisect, spec, fr, st, 10)
     torch.cuda.synchronize()
-    launches = dict(bisect.launches)
     print(f"  SM clock beside the ladder (nvidia-smi, MHz): {ladder['clocks_sm_mhz']}")
     args = mcb.field_args(spec, fr, st)
     nodes = int(np.prod(spec.surface.sample))
@@ -989,16 +1004,32 @@ def phase_mc_bisect(states):
             continue
         plain = mcb.PLAIN[r["step"]]
         plain_ms = device_ms(lambda: plain(*args), 1)
-        # torch.zeros computes what noop writes, read as the kernel is (a CUDA
-        # graph); no PyTorch call computes the others
-        library_ms = (mcb.graph_ms(lambda: torch.zeros((9, nodes), device=st.position.device))
-                      if r["step"] == "noop" else None)
         name = mcb.KERNEL_OF[r["step"]]
         report[name] = dict(max_abs_err=errs[name], ms=r["graph_ms"], plain_ms=plain_ms,
-                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                            library_ms=library_ms)
-        lib = f", torch.zeros {library_ms:.4f} ms" if library_ms is not None else ""
-        print(f"  {name}: plain {plain_ms:.4f} ms{lib}")
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
+        print(f"  {name}: plain {plain_ms:.4f} ms")
+    # torch.zeros computes what noop and its redesign zero_fill write (no
+    # PyTorch call computes the others): the three read in turns by the
+    # ladder's reader, a CUDA graph
+    turns = mcb.noop_turns(bisect, spec, fr, st)
+    torch.cuda.synchronize()
+    launches = dict(bisect.launches)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    for k, v in turns.items():
+        print(f"  {k} in {len(v)} turns (ms in a graph of {mcb.GRAPH_LAUNCHES}): median "
+              f"{med[k]:.5f}, min-max {min(v):.5f}-{max(v):.5f}: " + ", ".join(
+                  f"{t:.5f}" for t in v))
+    for body in ("noop", "zero_fill"):
+        print(f"  {mcb.KERNEL_OF[body]} loses to torch.zeros((9, {nodes})) (median over by > "
+              f"5%, ranges apart): {mcb.noop_loses(turns, body=body)}")
+    noop = report["mc_field_noop"]
+    noop.update(ms=med["noop"], library_ms=med["zeros"])
+    report["mc_field_zero_fill"] = dict(
+        max_abs_err=errs["mc_field_zero_fill"], ms=med["zero_fill"],
+        plain_ms=device_ms(lambda: mcb.noop_plain(*args), 1), bound_ms=noop["bound_ms"],
+        bound_by=noop["bound_by"], library_ms=med["zeros"])
+    print(f"  mc_field_zero_fill: plain {report['mc_field_zero_fill']['plain_ms']:.4f} ms, "
+          f"bound {noop['bound_ms']:.4f} ms by {noop['bound_by']} (noop's output)")
     print(f"  bisection wrapper launches: {launches}")
     return report, launches
 
@@ -1282,6 +1313,7 @@ def phase_vpu():
         redesigns = mv.read_redesigns(vpu, x, n)
         readings["vpu_dot_spread"] = redesigns["dot_spread"]
         readings["vpu_tr_split"] = redesigns["tr_split"]
+        readings["vpu_dot2_spread"] = redesigns["dot2_spread"]
         serial = mch.anchor_fma(ar.Anchor(), device, 5, serial=True)["ns_per_op"]
     torch.cuda.synchronize()
     launches = dict(vpu.launches)
@@ -1304,6 +1336,8 @@ def phase_vpu():
                            mv.library_call("dot", x, n)),
         "vpu_tr_split": (lambda: mv.tr_split_plain(x.t, n), mv.tr_work(n, 1),
                          mv.library_call("tr", x, n)),
+        "vpu_dot2_spread": (lambda: mv.dot2_plain(x.a2, x.b2, n), mv.dot_work("dot2", n, 1),
+                            mv.library_call("dot2", x, n)),
     }
     report = {}
     for name, (plain, work, library) in table.items():
@@ -1318,7 +1352,8 @@ def phase_vpu():
             got = library()
             err = float((got - plain()[0]).abs().max())
             # the redesigns' library call was read beside them, by their reader
-            read = {"vpu_dot_spread": "library_dot", "vpu_tr_split": "library_tr"}.get(name)
+            read = {"vpu_dot_spread": "library_dot", "vpu_tr_split": "library_tr",
+                    "vpu_dot2_spread": "library_dot2"}.get(name)
             library_ms = (redesigns[read]["graph_ms"] if read
                           else graph_ms(library, launches=10))
             lib = f", library {library_ms:.5f} ms in a graph (max abs err {err:.3e} to plain)"

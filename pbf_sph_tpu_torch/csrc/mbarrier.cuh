@@ -1,7 +1,7 @@
 // Shared-memory barriers (sm_90a), shared by csrc/micro_dense.cu
 // (dense_scr's bulk copies), csrc/micro_roll.cu (vpu_dma's cp.async copies)
-// and csrc/micro_vpu.cu (vpu_dot_spread's ring of producer and consumer
-// slots): one definition, inlined into each.
+// and csrc/micro_vpu.cu (the ring of producer and consumer slots of
+// vpu_dot_spread and vpu_dot2_spread): one definition, inlined into each.
 //
 // One thread inits the barrier for its arrivals and, after a __syncthreads,
 // each arrives: with the bytes the copies complete on it (bulk copies), when

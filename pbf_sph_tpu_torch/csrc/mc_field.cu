@@ -57,6 +57,9 @@
 //                     too), so y, z and w are xor-ed into a sink a candidate
 //                     (integer ops, no fp32) and written to row 1 through a
 //                     mask that is 0 for every th2 >= 0.
+// Beside them, mc_field_zero_fill redesigns "noop" for this card (see its
+// note below); mc_field_noop stays as the ladder's first rung, the MC-field
+// launch's shape.
 // pbf_sph_tpu_torch/tools/micro_mc_field.py holds their wrappers, plain
 // versions and the SASS check (kFull's candidate loops keep the opcodes of the
 // kernel before the template).  Each is bound by its bytes: the (9, L) output,
@@ -66,6 +69,9 @@
 // synchronises, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "grid_copies.cuh"
 
 namespace {
 
@@ -187,6 +193,38 @@ int launch(const void* pos, const void* colour, const void* key,
   return (int)cudaGetLastError();
 }
 
+// mc_field_zero_fill: make_variant(mcf, "noop")'s output, redesigned.
+//
+// Replaces the "noop" variant (tools/micro_mc_field.py:83) beside
+// mc_field_noop: the same (9, L) zeros.  What bounds it: the output's bytes
+// (0.0011 ms at mc128k, under a launch); mc_field_noop writes them one
+// thread a node, nine 4-byte stores strided by L, and read 0.0025 ms in a
+// CUDA graph against torch.zeros((9, L))'s 0.0021.  So this kernel writes
+// them as 16-byte stores, consecutive threads on consecutive float4s, a
+// thread kFillVecs of them a pass, over the card-filling grid (`fill_ctas`,
+// a grid-stride loop; no more CTAs than one pass needs), and the n mod 4
+// floats past the last float4 by scalar stores of CTA 0: at mc128k, 457
+// CTAs of 128 threads.
+
+// a CTA's threads and the float4 stores a thread makes a pass of the grid
+constexpr int kFillThreads = 128, kFillVecs = 4;
+constexpr int kFillPerCta = kFillThreads * kFillVecs;
+
+__global__ void __launch_bounds__(kFillThreads)
+    mc_field_zero_fill_kernel(float* __restrict__ out, int n) {
+  const int n4 = n / 4, t = threadIdx.x;
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int base = blockIdx.x * kFillPerCta; base < n4; base += gridDim.x * kFillPerCta) {
+#pragma unroll
+    for (int j = 0; j < kFillVecs; ++j) {
+      const int i = base + j * kFillThreads + t;
+      if (i < n4) out4[i] = zero;
+    }
+  }
+  if (blockIdx.x == 0 && t < n - 4 * n4) out[4 * n4 + t] = 0.0f;
+}
+
 }  // namespace
 
 #define MC_FIELD_LAUNCHER(name, body)                                          \
@@ -204,5 +242,19 @@ MC_FIELD_LAUNCHER(mc_field, kFull)
 MC_FIELD_LAUNCHER(mc_field_noop, kNoop)
 MC_FIELD_LAUNCHER(mc_field_rows, kRows)
 MC_FIELD_LAUNCHER(mc_field_loops, kLoops)
+
+// The card-filling CTA count of mc_field_zero_fill (0 if a query fails).
+int mc_field_zero_fill_ctas() { return fill_ctas(mc_field_zero_fill_kernel, kFillThreads); }
+
+// out: n floats, 16-byte aligned; nblocks >= 1 CTAs.
+int mc_field_zero_fill(void* out, int n, int nblocks, void* stream) {
+  if (n < 0 || nblocks < 1 || (uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
+  // no more CTAs than the output has passes' worth of float4s
+  const int grid = min(nblocks, max(1, (n / 4 + kFillPerCta - 1) / kFillPerCta));
+  if (n > 0) {
+    mc_field_zero_fill_kernel<<<grid, kFillThreads, 0, (cudaStream_t)stream>>>((float*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // extern "C"

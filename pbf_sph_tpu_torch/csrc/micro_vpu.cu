@@ -15,8 +15,10 @@
 //                  in two bodies: direct (thread t reads x[0, t] once) and
 //                  restage (the row passes through shared memory each trip,
 //                  a store, a barrier and a load, as dense_mxu restages).
-// and two redesigns of the same TPU kernels for this card, beside them:
+// and three redesigns of the same TPU kernels for this card, beside them:
 //   vpu_dot_spread <- dot_kernel: vpu_dot's function bit for bit, one copy
+//                  spread over 128 CTAs (see its note below);
+//   vpu_dot2_spread <- dot2_kernel: vpu_dot2's function bit for bit, one copy
 //                  spread over 128 CTAs (see its note below);
 //   vpu_tr_split   <- tr_kernel: tr's sum over the trips in P parts and a
 //                  fixed tree (see its note below).
@@ -105,6 +107,91 @@ constexpr int kSpreadTile = kSpreadProducers * kSpreadTrips;
 constexpr int kSpreadSlots = MICRO_VPU_SPREAD_SLOTS, kSpreadRead = 32;
 constexpr int kSpreadPart = MICRO_VPU_SPREAD_PART;
 constexpr int kSpreadStride = kSpreadTile + kSpreadRead + 4;
+// vpu_dot2_spread: CTA (blockIdx.x, blockIdx.y) = (a block of kSpread2Rows
+// rows x kSpread2Width columns of the output, copy), 128 CTAs a copy.
+// Producer warp p of kSpread2Producers takes the block's 8 outputs 8 (p mod
+// 8) to 8 (p mod 8) + 7 (kSpread2Cols, of one row: its row of a and its
+// columns of b in registers, loaded once) and part p / 8 of each tile's
+// trips: lane l trips 4 l to 4 l + 3 of each 128 of its part,
+// kSpread2Trips in all, a float4 store an output and 4 trips into one of
+// kSpread2Slots ring slots.  The consumers add the block's 64 chains in
+// trip order, kSpread2Chains a lane (1: warps 0 and 4, 2: warp 0), a
+// read-in of kSpread2Read trips at a time, on the SM's first scheduler
+// (warp w runs on scheduler w mod 4), which holds kSpread2Share producer
+// warps beside them; the other producers fill the other three schedulers'
+// warps in order, and warps left over idle.  A ring row (an output's tile)
+// is padded as vpu_dot_spread's: by a read-in and 4 floats.
+#ifndef MICRO_VPU_SPREAD2_ROWS
+#define MICRO_VPU_SPREAD2_ROWS 1
+#endif
+#ifndef MICRO_VPU_SPREAD2_WARPS
+#define MICRO_VPU_SPREAD2_WARPS 8
+#endif
+#ifndef MICRO_VPU_SPREAD2_TRIPS
+#define MICRO_VPU_SPREAD2_TRIPS 8
+#endif
+#ifndef MICRO_VPU_SPREAD2_SLOTS
+#define MICRO_VPU_SPREAD2_SLOTS 2
+#endif
+#ifndef MICRO_VPU_SPREAD2_CHAINS
+#define MICRO_VPU_SPREAD2_CHAINS 1
+#endif
+#ifndef MICRO_VPU_SPREAD2_SHARE
+#define MICRO_VPU_SPREAD2_SHARE 0
+#endif
+// as MICRO_VPU_SPREAD_PART: 0 all of it; 1 the producers; 2 the chain
+#ifndef MICRO_VPU_SPREAD2_PART
+#define MICRO_VPU_SPREAD2_PART 0
+#endif
+constexpr int kSpread2Outputs = 64, kSpread2Cols = 8, kSpread2Read = 32;
+constexpr int kSpread2Rows = MICRO_VPU_SPREAD2_ROWS;
+constexpr int kSpread2Width = kSpread2Outputs / kSpread2Rows;
+constexpr int kSpread2ColBlocks = kDot2N / kSpread2Width;
+constexpr int kSpread2Ctas = kDot2M * kDot2N / kSpread2Outputs;
+constexpr int kSpread2Groups = kSpread2Outputs / kSpread2Cols;
+constexpr int kSpread2Producers = MICRO_VPU_SPREAD2_WARPS;  // warps
+constexpr int kSpread2Trips = MICRO_VPU_SPREAD2_TRIPS;
+constexpr int kSpread2Chains = MICRO_VPU_SPREAD2_CHAINS;
+constexpr int kSpread2Consumers = kSpread2Outputs / kSpread2Chains;  // threads
+constexpr int kSpread2Share = MICRO_VPU_SPREAD2_SHARE;
+constexpr int kSpread2Block = 32 * 4;  // a warp's 4 trips a lane
+constexpr int kSpread2Tile = kSpread2Producers / kSpread2Groups * 32 * kSpread2Trips;
+constexpr int kSpread2Slots = MICRO_VPU_SPREAD2_SLOTS, kSpread2Part = MICRO_VPU_SPREAD2_PART;
+constexpr int kSpread2Stride = kSpread2Tile + kSpread2Read + 4;
+constexpr size_t kSpread2Smem =
+    sizeof(float) * (size_t)kSpread2Slots * kSpread2Outputs * kSpread2Stride;
+
+// The producer warp that warp w = 4 r + q of a vpu_dot2_spread CTA is, or
+// -1: on scheduler 0 (q = 0) the consumer warps come first, then
+// kSpread2Share producers; on the others the rest of the producers, in
+// rows r below the share each needs.
+__host__ __device__ constexpr int spread2_producer(int w) {
+  constexpr int kConsumerWarps = kSpread2Consumers / 32;
+  constexpr int kRows = (kSpread2Producers - kSpread2Share + 2) / 3;
+  int p = 0;
+  for (int v = 0; v <= w; ++v) {
+    const int r = v / 4;
+    const bool producer =
+        v % 4 ? r < kRows : r >= kConsumerWarps && r < kConsumerWarps + kSpread2Share;
+    if (v == w) return producer && p < kSpread2Producers ? p : -1;
+    p += producer;
+  }
+  return -1;
+}
+
+// The CTA's warps: up to the last producer's.
+__host__ __device__ constexpr int spread2_warps() {
+  int w = 0;
+  while (spread2_producer(w) != kSpread2Producers - 1) ++w;
+  return w + 1;
+}
+
+constexpr int kSpread2Threads = 32 * spread2_warps();
+static_assert(kSpread2Width % kSpread2Cols == 0 && kDot2N % kSpread2Width == 0,
+              "a block's columns are whole groups of 8 and tile the output's");
+static_assert(kSpread2Producers % kSpread2Groups == 0 && kSpread2Trips % 4 == 0,
+              "every group has the same producer warps, each whole float4s of trips");
+static_assert(kSpread2Chains == 1 || kSpread2Chains == 2, "64 chains in 1 or 2 warps");
 // vpu_tr_split: a thread a (row, part), up to kTrSplitThreads a CTA; the
 // chain's trip loop unrolled kTrSplitUnroll times, so the scales of the
 // next trips are computed while the FFMAs of these wait on each other
@@ -247,23 +334,102 @@ __global__ void __launch_bounds__(kTrRows)
   }
 }
 
-// vpu_dot_spread's consumer: one read-in of kSpreadRead trips of a ring
-// row (float4 g holds trips 4g to 4g + 3), and its adds in trip order.
-__device__ __forceinline__ void spread_read(float4 (&q)[kSpreadRead / 4], const float4* row4,
-                                            int group) {
-#pragma unroll
-  for (int g = 0; g < kSpreadRead / 4; ++g) q[g] = row4[group * (kSpreadRead / 4) + g];
+// The ring of both spread kernels: the producers fill slot tile mod SLOTS
+// with a tile of trips' d, the consumers add them in trip order.  A full and
+// an empty mbarrier a slot order the handoff (an arrive releases the stores
+// before it, a wait acquires them): the producers wait for a free slot,
+// store and arrive on full; the consumers wait on full, read and arrive on
+// empty.  Use u = tile / SLOTS of a slot waits for parity u & 1 on full and
+// (u & 1) ^ 1 on empty, so each slot's first use passes at once.
+template <int SLOTS>
+struct RingBars {
+  uint64_t full[SLOTS], empty[SLOTS];
+};
+
+template <int SLOTS>
+__device__ __forceinline__ void ring_init(RingBars<SLOTS>& r, int producers, int consumers) {
+  for (int s = 0; s < SLOTS; ++s) {
+    mbar_init(smem_u32(&r.full[s]), producers);
+    mbar_init(smem_u32(&r.empty[s]), consumers);
+  }
 }
 
-__device__ __forceinline__ float spread_chain(float acc, const float4 (&q)[kSpreadRead / 4]) {
+template <int SLOTS>
+__device__ __forceinline__ void ring_wait_free(RingBars<SLOTS>& r, int tile) {
+  mbar_wait_or_trap(smem_u32(&r.empty[tile % SLOTS]), ((tile / SLOTS) & 1) ^ 1);
+}
+
+template <int SLOTS>
+__device__ __forceinline__ void ring_filled(RingBars<SLOTS>& r, int tile) {
+  mbar_arrive(smem_u32(&r.full[tile % SLOTS]));
+}
+
+template <int SLOTS>
+__device__ __forceinline__ void ring_wait_full(RingBars<SLOTS>& r, int tile) {
+  mbar_wait_or_trap(smem_u32(&r.full[tile % SLOTS]), (tile / SLOTS) & 1);
+}
+
+template <int SLOTS>
+__device__ __forceinline__ void ring_drained(RingBars<SLOTS>& r, int tile) {
+  mbar_arrive(smem_u32(&r.empty[tile % SLOTS]));
+}
+
+// A consumer's read-in of R trips of each of its NC ring rows (float4 g of
+// group `group` holds trips 4g to 4g + 3 of it), and its adds in trip order,
+// the NC chains interleaved trip by trip (each add waits only on its own
+// chain).
+template <int R, int NC>
+__device__ __forceinline__ void spread_read(float4 (&q)[NC][R / 4],
+                                            const float* const (&row)[NC], int group) {
 #pragma unroll
-  for (int g = 0; g < kSpreadRead / 4; ++g) {
-    acc = __fadd_rn(acc, q[g].x);
-    acc = __fadd_rn(acc, q[g].y);
-    acc = __fadd_rn(acc, q[g].z);
-    acc = __fadd_rn(acc, q[g].w);
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int g = 0; g < R / 4; ++g) {
+      q[c][g] = reinterpret_cast<const float4*>(row[c])[group * (R / 4) + g];
+    }
   }
-  return acc;
+}
+
+template <int R, int NC>
+__device__ __forceinline__ void spread_chain(float (&acc)[NC], const float4 (&q)[NC][R / 4]) {
+#pragma unroll
+  for (int g = 0; g < R / 4; ++g) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] = __fadd_rn(acc[c], q[c][g].x);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] = __fadd_rn(acc[c], q[c][g].y);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] = __fadd_rn(acc[c], q[c][g].z);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] = __fadd_rn(acc[c], q[c][g].w);
+  }
+}
+
+// One tile's `count` trips of each row added to its chain in trip order:
+// read-ins of R trips in two buffers, one read while the other's adds wait
+// on each other, then the ragged rest a trip at a time (a read past the
+// count stays in the row's padding and is never added).  ONE (a sweep build
+// of the producers alone) adds the tile's first trip only.
+template <int R, int NC, bool ONE>
+__device__ __forceinline__ void spread_tile(float (&acc)[NC], const float* const (&row)[NC],
+                                            int count) {
+  const int groups = ONE ? 0 : count / R;
+  float4 qa[NC][R / 4], qb[NC][R / 4];
+  spread_read<R, NC>(qa, row, 0);
+  int gi = 0;
+#pragma unroll 1
+  for (; gi + 1 < groups; gi += 2) {
+    spread_read<R, NC>(qb, row, gi + 1);
+    spread_chain<R, NC>(acc, qa);
+    spread_read<R, NC>(qa, row, gi + 2);
+    spread_chain<R, NC>(acc, qb);
+  }
+  if (gi < groups) spread_chain<R, NC>(acc, qa);
+#pragma unroll 1
+  for (int j = groups * R; j < (ONE ? 1 : count); ++j) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[c] = __fadd_rn(acc[c], row[c][j]);
+  }
 }
 
 // vpu_dot_spread: vpu_dot's function, one copy over the card.
@@ -298,7 +464,7 @@ __global__ void __launch_bounds__(kSpreadThreads, 1)
                           float* __restrict__ out) {
   __shared__ __align__(16) float4 sb[kDotK];  // b's kSpreadCols columns at k
   __shared__ __align__(16) float ring[kSpreadSlots][kSpreadCols][kSpreadStride];
-  __shared__ __align__(8) uint64_t full[kSpreadSlots], empty[kSpreadSlots];
+  __shared__ __align__(8) RingBars<kSpreadSlots> bars;
   const int m = blockIdx.x / kSpreadColGroups;
   const int n0 = (blockIdx.x % kSpreadColGroups) * kSpreadCols;
   const int t = threadIdx.x;
@@ -306,12 +472,7 @@ __global__ void __launch_bounds__(kSpreadThreads, 1)
     sb[t] = make_float4(b[n0 * kDotK + t], b[(n0 + 1) * kDotK + t], b[(n0 + 2) * kDotK + t],
                         b[(n0 + 3) * kDotK + t]);
   }
-  if (t == 0) {
-    for (int s = 0; s < kSpreadSlots; ++s) {
-      mbar_init(smem_u32(&full[s]), kSpreadProducers);
-      mbar_init(smem_u32(&empty[s]), kSpreadCols);
-    }
-  }
+  if (t == 0) ring_init(bars, kSpreadProducers, kSpreadCols);
   __syncthreads();
   const int ntiles = (niter + kSpreadTile - 1) / kSpreadTile;
   if (t < kSpreadProducers) {
@@ -323,7 +484,7 @@ __global__ void __launch_bounds__(kSpreadThreads, 1)
       // a compiler fence: each tile reads b from shared memory (hoisted, the
       // 512 floats of b's columns would not fit in registers)
       asm volatile("" ::: "memory");
-      const int slot = tile % kSpreadSlots, use = tile / kSpreadSlots;
+      const int slot = tile % kSpreadSlots;
       // thread t's trips: positions t + h kSpreadProducers of the tile, h <
       // kSpreadTrips; a trip past niter is computed and stored but never read
       float s[kSpreadTrips], d[kSpreadTrips][kSpreadCols];
@@ -349,48 +510,150 @@ __global__ void __launch_bounds__(kSpreadThreads, 1)
           }
         }
       }
-      // the slot is free once the consumer has read its previous tile (the
-      // first use passes at once: the parity of the phase before phase 0)
-      mbar_wait_or_trap(smem_u32(&empty[slot]), (use & 1) ^ 1);
+      ring_wait_free(bars, tile);
 #pragma unroll
       for (int h = 0; h < kSpreadTrips; ++h) {
 #pragma unroll
         for (int c = 0; c < kSpreadCols; ++c) ring[slot][c][h * kSpreadProducers + t] = d[h][c];
       }
-      mbar_arrive(smem_u32(&full[slot]));
+      ring_filled(bars, tile);
     }
   } else if (t < kSpreadProducers + kSpreadCols) {
     const int c = t - kSpreadProducers;
-    float acc = 0.0f;
+    float acc[1] = {0.0f};
+    const float* row[1];
 #pragma unroll 1
     for (int tile = 0; tile < ntiles; ++tile) {
-      const int slot = tile % kSpreadSlots, use = tile / kSpreadSlots;
-      const int count = min(kSpreadTile, niter - tile * kSpreadTile);
-      mbar_wait_or_trap(smem_u32(&full[slot]), use & 1);
-      const float* row = ring[slot][c];
-      const float4* row4 = reinterpret_cast<const float4*>(row);
-      // read-ins of kSpreadRead trips in two buffers: one is read while the
-      // other's adds wait on each other (a read past the tile's count stays
-      // in the row's padding and is never added)
-      const int groups = kSpreadPart == 1 ? 0 : count / kSpreadRead;
-      float4 qa[kSpreadRead / 4], qb[kSpreadRead / 4];
-      spread_read(qa, row4, 0);
-      int gi = 0;
-#pragma unroll 1
-      for (; gi + 1 < groups; gi += 2) {
-        spread_read(qb, row4, gi + 1);
-        acc = spread_chain(acc, qa);
-        spread_read(qa, row4, gi + 2);
-        acc = spread_chain(acc, qb);
-      }
-      if (gi < groups) acc = spread_chain(acc, qa);
-#pragma unroll 1
-      for (int j = groups * kSpreadRead; j < (kSpreadPart == 1 ? 1 : count); ++j) {
-        acc = __fadd_rn(acc, row[j]);
-      }
-      mbar_arrive(smem_u32(&empty[slot]));
+      ring_wait_full(bars, tile);
+      row[0] = ring[tile % kSpreadSlots][c];
+      spread_tile<kSpreadRead, 1, kSpreadPart == 1>(
+          acc, row, min(kSpreadTile, niter - tile * kSpreadTile));
+      ring_drained(bars, tile);
     }
-    out[(blockIdx.y * kDotM + m) * kDotN + n0 + c] = acc;
+    out[(blockIdx.y * kDotM + m) * kDotN + n0 + c] = acc[0];
+  }
+}
+
+// vpu_dot2_spread: vpu_dot2's function, one copy over the card.
+//
+// Replaces dot2_kernel (tools/micro_vpu.py:210-215, pallas_call :219) as
+// vpu_dot2 does, bit for bit the same sums: every output is the chain acc =
+// fadd(acc, d_i) over the trips in order from 0, and each d_i the chain d =
+// fma(fl(a_k s_i), b_k, d) over k = 0..7 in order from 0.  What bounds it:
+// vpu_dot2 runs a copy as one CTA of 512 threads (one SM of 132), ~380 ns a
+// trip; the function's floor is a chain of 8192 dependent FADDs an output
+// (~4 cycles each, ~0.017 ms), about its flop bound, and it has 8192 such
+// chains, 16x vpu_dot's, each d 16x cheaper (K = 8).  So, as vpu_dot_spread,
+// a CTA takes 64 outputs (a block of rows x columns) for all trips: 8
+// producer warps, each one row of a and 8 columns of b in registers,
+// compute the d of 8 trips a lane (a trip: the row's 8 scale multiplies and
+// 64 FFMAs; a float4 store an output and 4 trips) into a shared-memory ring
+// of 2 tiles of 256 trips; two consumer warps run the 64 chains in trip
+// order.  A trip costs an SM's producers ~620 lane-instructions, 4.8 cycles
+// of its 4 schedulers, the ring 512 bytes of shared memory (4 cycles), and
+// a chain ~4 cycles of FADD latency.  But a consumer that shares its
+// scheduler with producer warps is starved of issue slots (the producers
+// always have an FFMA ready): 8 producers spread 2 to a scheduler run alone
+// at 0.032 ms, and the kernel at 0.049 with the consumers beside two of
+// them.  So the consumers have the first scheduler to themselves and the
+// producers run 3, 3 and 2 to the others: the kernel is the busiest
+// scheduler's 3 producer warps, ~10 cycles a trip, 0.042 ms (micro_vpu
+// --sweep on an H100 80GB HBM3 at 700 W; it builds the kernel at other
+// block shapes, producer warps, trips, slots, chains a consumer lane and
+// producers beside the consumers, and its producers and chain alone,
+// -DMICRO_VPU_SPREAD2_*).  The scale stays in every trip's products, each
+// trip computes its own d (no (sum s_i) a b, no d shared by trips of equal
+// s_i, no tensor cores, which round s_i - 1 away): that work is what the
+// probe measures.
+__global__ void __launch_bounds__(kSpread2Threads, 1)
+    vpu_dot2_spread_kernel(const float* __restrict__ a, const float* __restrict__ b, int niter,
+                           float* __restrict__ out) {
+  // kSpread2Slots x kSpread2Outputs ring rows of kSpread2Stride floats
+  extern __shared__ __align__(16) float ring2[];
+  __shared__ __align__(8) RingBars<kSpread2Slots> bars;
+  const int m0 = blockIdx.x / kSpread2ColBlocks * kSpread2Rows;
+  const int nb = blockIdx.x % kSpread2ColBlocks * kSpread2Width;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  if (t == 0) ring_init(bars, 32 * kSpread2Producers, kSpread2Consumers);
+  __syncthreads();
+  const int ntiles = (niter + kSpread2Tile - 1) / kSpread2Tile;
+  const int p = spread2_producer(warp);
+  if (p >= 0) {
+    // the warp's 8 outputs, o0 to o0 + 7 of the block (row o0 / width, its
+    // columns from o0 mod width), and its lane's first position in a tile
+    const int o0 = (p % kSpread2Groups) * kSpread2Cols;
+    const int m = m0 + o0 / kSpread2Width, n0 = nb + o0 % kSpread2Width;
+    const int first = (p / kSpread2Groups) * 32 * kSpread2Trips + 4 * lane;
+    const float4* a4 = reinterpret_cast<const float4*>(a + m * kDot2K);
+    const float4 alo = a4[0], ahi = a4[1];
+    const float ar[kDot2K] = {alo.x, alo.y, alo.z, alo.w, ahi.x, ahi.y, ahi.z, ahi.w};
+    float br[kDot2K][kSpread2Cols];
+#pragma unroll
+    for (int k = 0; k < kDot2K; ++k) {
+      const float4* b4 = reinterpret_cast<const float4*>(b + k * kDot2N + n0);
+      const float4 lo = b4[0], hi = b4[1];
+      const float bk[kSpread2Cols] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int c = 0; c < kSpread2Cols; ++c) br[k][c] = bk[c];
+    }
+#pragma unroll 1
+    for (int tile = 0; tile < ntiles; ++tile) {
+      // trip h of the lane: position first + (h / 4) kSpread2Block + h mod 4
+      // of the tile; a trip past niter is computed and stored but never read
+      float s[kSpread2Trips], d[kSpread2Trips][kSpread2Cols];
+#pragma unroll
+      for (int h = 0; h < kSpread2Trips; ++h) {
+        s[h] = trip_scale(tile * kSpread2Tile + first + (h / 4) * kSpread2Block + h % 4);
+#pragma unroll
+        for (int c = 0; c < kSpread2Cols; ++c) d[h][c] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < (kSpread2Part == 2 ? 0 : kDot2K); ++k) {
+#pragma unroll
+        for (int h = 0; h < kSpread2Trips; ++h) {
+          const float as = __fmul_rn(ar[k], s[h]);
+#pragma unroll
+          for (int c = 0; c < kSpread2Cols; ++c) d[h][c] = fmaf(as, br[k][c], d[h][c]);
+        }
+      }
+      ring_wait_free(bars, tile);
+      float* slot = ring2 + (tile % kSpread2Slots) * kSpread2Outputs * kSpread2Stride;
+#pragma unroll
+      for (int c = 0; c < kSpread2Cols; ++c) {
+#pragma unroll
+        for (int j = 0; j < kSpread2Trips / 4; ++j) {
+          *reinterpret_cast<float4*>(slot + (o0 + c) * kSpread2Stride + first +
+                                     j * kSpread2Block) =
+              make_float4(d[4 * j][c], d[4 * j + 1][c], d[4 * j + 2][c], d[4 * j + 3][c]);
+        }
+      }
+      ring_filled(bars, tile);
+    }
+  } else if (warp % 4 == 0 && warp / 4 < kSpread2Consumers / 32) {
+    // consumer thread ct: outputs ct + j kSpread2Consumers of the block
+    const int ct = warp / 4 * 32 + lane;
+    float acc[kSpread2Chains];
+    const float* row[kSpread2Chains];
+#pragma unroll
+    for (int j = 0; j < kSpread2Chains; ++j) acc[j] = 0.0f;
+#pragma unroll 1
+    for (int tile = 0; tile < ntiles; ++tile) {
+      ring_wait_full(bars, tile);
+      const float* slot = ring2 + (tile % kSpread2Slots) * kSpread2Outputs * kSpread2Stride;
+#pragma unroll
+      for (int j = 0; j < kSpread2Chains; ++j) {
+        row[j] = slot + (ct + j * kSpread2Consumers) * kSpread2Stride;
+      }
+      spread_tile<kSpread2Read, kSpread2Chains, kSpread2Part == 1>(
+          acc, row, min(kSpread2Tile, niter - tile * kSpread2Tile));
+      ring_drained(bars, tile);
+    }
+#pragma unroll
+    for (int j = 0; j < kSpread2Chains; ++j) {
+      const int o = ct + j * kSpread2Consumers;
+      out[(blockIdx.y * kDot2M + m0 + o / kSpread2Width) * kDot2N + nb + o % kSpread2Width] =
+          acc[j];
+    }
   }
 }
 
@@ -526,6 +789,19 @@ int vpu_dot_spread(const void* a, const void* b, int niter, int ncopies, void* o
   if (niter < 0 || ncopies <= 0 || ncopies > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(kDotM * kSpreadColGroups, ncopies);
   vpu_dot_spread_kernel<<<grid, kSpreadThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, niter, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// a (64, 8), b (8, 128); out (ncopies, 64, 128); ncopies <= 65535.
+int vpu_dot2_spread(const void* a, const void* b, int niter, int ncopies, void* out,
+                    void* stream) {
+  if (niter < 0 || ncopies <= 0 || ncopies > 65535) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      vpu_dot2_spread_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSpread2Smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(kSpread2Ctas, ncopies);
+  vpu_dot2_spread_kernel<<<grid, kSpread2Threads, kSpread2Smem, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, niter, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -55,6 +55,9 @@ SIGNATURES = {
     **dict.fromkeys(
         ("mc_field", "mc_field_noop", "mc_field_rows", "mc_field_loops"),
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P]),
+    # and the noop body's redesign (mc_field_zero_fill_ctas returns a CTA count)
+    "mc_field_zero_fill_ctas": [],
+    "mc_field_zero_fill": [_P, _I, _I, _P],
     # csrc/pbf_phases2.cu
     "pbf_compact": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     "pbf_lambda2": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
@@ -93,7 +96,7 @@ SIGNATURES = {
     "vpu_streams": [_P, _I, _I, _I, _I, _I, _P, _P],
     **dict.fromkeys(("vpu_dot", "vpu_dot2"), [_P, _P, _I, _I, _P, _P]),
     "vpu_tr": [_P, _I, _I, _I, _P, _P],
-    "vpu_dot_spread": [_P, _P, _I, _I, _P, _P],
+    **dict.fromkeys(("vpu_dot_spread", "vpu_dot2_spread"), [_P, _P, _I, _I, _P, _P]),
     "vpu_tr_split": [_P, _I, _I, _I, _P, _P],
 }
 

@@ -22,6 +22,10 @@ node, in lattice order, the node's exact ranges read from the cell table):
   obstacle tests, the distance mask, the weight, the nine sums and the
   colour loads.
 
+Beside them `mc_field_zero_fill` ("zero_fill") redesigns "noop" for this
+card: the same (9, L) zeros by 16-byte stores over a card-filling grid, read
+in turns beside noop and `torch.zeros((9, L))` (`noop_turns`).
+
 Each body has a plain PyTorch version of `mc_field_plain`'s signature and a
 launcher of `mc_field_kernel`'s; `McFieldBisect` holds the wrappers, which
 take the plain version for CPU tensors and the kernel for CUDA ones, and
@@ -37,6 +41,7 @@ reads
   prebuilt output, by CUDA events over back-to-back launches and over the
   replay of a CUDA graph of captured launches, with the host's time a
   launch, each step's bound and the SM clock sampled beside;
+* noop, zero_fill and `torch.zeros((9, L))` in turns (`noop_turns`);
 * the wrapper ladder, the pieces of `McField.__call__` (nonobstacle, the
   (C, 4) packs, the kernel, `post_pass` with its host-side `skip_box`, the
   whole call, and the frame's "mc field" stage): device ms, host ms a call
@@ -52,6 +57,7 @@ device the tool fails.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import sys
 import time
@@ -61,18 +67,21 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from pbf_sph_tpu_torch.ops import cuda_build
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops.phases import nonobstacle
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 
 BODIES = ("noop", "rows", "loops")
-KERNEL_OF = {"noop": "mc_field_noop", "rows": "mc_field_rows", "loops": "mc_field_loops"}
+KERNEL_OF = {"noop": "mc_field_noop", "rows": "mc_field_rows", "loops": "mc_field_loops",
+             "zero_fill": "mc_field_zero_fill"}
 KERNELS = tuple(KERNEL_OF.values())
 BODY_ID = {"noop": 0, "rows": 1, "loops": 2, "full": 3}  # McBody of csrc/mc_field.cu
 WORKLOADS = ("bench20k", "mc128k")
 SETTLE_FRAMES = 5
 GRAPH_LAUNCHES = 100   # launches captured in one CUDA graph
 GRAPH_REPLAYS = 5
+NOOP_TURNS = 10   # alternations of mc_field_noop and torch.zeros((9, L))
 RTOL, ATOL_SCALE = 1e-5, 1e-6   # loops: atol = ATOL_SCALE * max|value| (sums run to ~1e7)
 # the bound: published peaks of one H100 SXM (700 W); fp32 operations a
 # candidate (loops: its FFMA; full: l, d2 and the compares) and a hit (full:
@@ -125,7 +134,7 @@ def loops_plain(index, mc, h: float, scale: float, position, colour, nonobs, min
     return out
 
 
-PLAIN = {"noop": noop_plain, "rows": rows_plain, "loops": loops_plain}
+PLAIN = {"noop": noop_plain, "rows": rows_plain, "loops": loops_plain, "zero_fill": noop_plain}
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +160,41 @@ def loops_kernel(index, mc, h: float, scale: float, position, colour, nonobs, mi
                               KERNEL_OF["loops"])
 
 
-LAUNCHERS = {"noop": noop_kernel, "rows": rows_kernel, "loops": loops_kernel}
+@functools.cache
+def zero_fill_ctas(device_index: int) -> int:
+    """The card-filling CTA count of `mc_field_zero_fill` on a device."""
+    with torch.cuda.device(device_index):
+        n = cuda_build.library().mc_field_zero_fill_ctas()
+    if n <= 0:
+        raise RuntimeError("mc_field_zero_fill: the occupancy query failed")
+    return n
+
+
+def zero_fill_launch(out) -> None:
+    """`mc_field_zero_fill` into `out`, a contiguous 16-byte aligned float32
+    CUDA tensor (CUDA tensors only)."""
+    if out.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {out.device}")
+    if out.dtype != torch.float32 or not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("zero_fill: want a contiguous 16-byte aligned float32 output")
+    with torch.cuda.device(out.device):
+        err = cuda_build.library().mc_field_zero_fill(
+            out.data_ptr(), out.numel(), zero_fill_ctas(out.device.index),
+            mf._stream(out.device))
+    cuda_build.check("mc_field_zero_fill", err)
+
+
+def zero_fill_kernel(index, mc, h: float, scale: float, position, colour, nonobs, min_extent):
+    """(9, L) from `mc_field_zero_fill` (replaces `make_variant(mcf, "noop")`
+    beside `noop_kernel`)."""
+    out = torch.empty((9, int(np.prod(mc.sample))), dtype=torch.float32,
+                      device=position.device)
+    zero_fill_launch(out)
+    return out
+
+
+LAUNCHERS = {"noop": noop_kernel, "rows": rows_kernel, "loops": loops_kernel,
+             "zero_fill": zero_fill_kernel}
 
 
 class McFieldBisect:
@@ -174,9 +217,13 @@ class McFieldBisect:
         return out
 
     def launch(self, body: str, index, mc, scale: float, pos4, col4, min_extent, out) -> None:
-        """`body`'s kernel on prebuilt packs into `out` (CUDA tensors only)."""
-        mf.mc_field_launch(KERNEL_OF[body], index, mc, self.h, scale, pos4, col4,
-                           min_extent, out)
+        """`body`'s kernel on prebuilt packs into `out` (CUDA tensors only;
+        zero_fill reads no pack)."""
+        if body == "zero_fill":
+            zero_fill_launch(out)
+        else:
+            mf.mc_field_launch(KERNEL_OF[body], index, mc, self.h, scale, pos4, col4,
+                               min_extent, out)
         self.launches[KERNEL_OF[body]] += 1
 
 
@@ -372,7 +419,8 @@ def field_args(spec, fr, st):
 def card_parity(spec, fr, st, tag: str) -> Dict[str, tuple]:
     """Each body's kernel against its plain version at a frame, its launches
     not counted; "body tag" -> (max abs err, within tolerance): noop all
-    zero, rows bit for bit, loops rtol 1e-5 with atol 1e-6 x max|value|."""
+    zero, rows bit for bit, loops rtol 1e-5 with atol 1e-6 x max|value|,
+    and zero_fill into a NaN-filled output equal to noop_plain."""
     args = field_args(spec, fr, st)
     res = {}
     for body in BODIES:
@@ -386,6 +434,10 @@ def card_parity(spec, fr, st, tag: str) -> Dict[str, tuple]:
             atol = ATOL_SCALE * float(want.abs().max())
             ok = torch.allclose(got, want, rtol=RTOL, atol=atol) and bool(want[0].any())
         res[f"{body} {tag}"] = (err, ok)
+    want = noop_plain(*args)
+    got = torch.full_like(want, float("nan"))
+    zero_fill_launch(got)
+    res[f"zero_fill {tag}"] = (float((got - want).abs().max()), torch.equal(got, want))
     return res
 
 
@@ -482,6 +534,36 @@ def kernel_ladder(bisect: McFieldBisect, spec, fr, st, reps: int) -> dict:
     return dict(census=cen, steps=steps, clocks_sm_mhz=clock.summary())
 
 
+def noop_turns(bisect: McFieldBisect, spec, fr, st, turns: int = NOOP_TURNS) -> dict:
+    """`mc_field_noop` and `mc_field_zero_fill` through `bisect` (counted)
+    on packs and an output made beforehand, and `torch.zeros((9, L))`, the
+    one call that computes what both write, read in turns: `turns` rounds of
+    the three, each reading a CUDA graph of GRAPH_LAUNCHES launches
+    (`graph_ms`, the ladder's reader).  {"noop": [ms, ...], "zero_fill":
+    [...], "zeros": [...]}."""
+    index, mc, h, scale, position, colour, nonobs, mine = field_args(spec, fr, st)
+    pos4, col4 = mf.mc_field_packs(position, colour, nonobs)
+    mine = mine.contiguous()
+    nodes = int(np.prod(mc.sample))
+    out = torch.empty((9, nodes), dtype=torch.float32, device=position.device)
+    calls = {body: (lambda b=body: bisect.launch(b, index, mc, scale, pos4, col4, mine, out))
+             for body in ("noop", "zero_fill")}
+    calls["zeros"] = lambda: torch.zeros((9, nodes), dtype=torch.float32, device=position.device)
+    res = {name: [] for name in calls}
+    for _ in range(turns):
+        for name, fn in calls.items():
+            res[name].append(graph_ms(fn))
+    return res
+
+
+def noop_loses(turns: dict, margin: float = 0.05, body: str = "noop") -> bool:
+    """Whether `noop_turns` shows `body` slower than its call: its median
+    over the call's by more than `margin` and the two ranges apart (its
+    fastest turn above the call's slowest)."""
+    mine, zeros = turns[body], turns["zeros"]
+    return bool(np.median(mine) > (1 + margin) * np.median(zeros) and min(mine) > max(zeros))
+
+
 def wrapper_ladder(s: Settled, reps: int) -> dict:
     """The pieces of `McField.__call__` at the settled frame: per piece
     device ms (CUDA events over `reps` back-to-back calls), host ms a call
@@ -529,7 +611,6 @@ def wrapper_ladder(s: Settled, reps: int) -> dict:
 
 
 def main(argv=None) -> int:
-    from pbf_sph_tpu_torch.ops import cuda_build
     from pbf_sph_tpu_torch.tools.bench_kernel_variants import card_line
 
     argv = sys.argv[1:] if argv is None else argv
@@ -585,6 +666,13 @@ def main(argv=None) -> int:
               f"{r['host_us']:.2f} us a launch; bound {r['bound_ms']:.4f} ms by "
               f"{r['bound_by']}{rate}")
 
+    turns = noop_turns(bisect, s.spec, s.fr, s.st)
+    print(f"== 4b. noop, zero_fill and torch.zeros((9, L)) in {NOOP_TURNS} turns (ms in a CUDA "
+          f"graph of {GRAPH_LAUNCHES} launches)")
+    for name, v in turns.items():
+        loses = "" if name == "zeros" else f"; loses to torch.zeros: {noop_loses(turns, body=name)}"
+        print(f"  {name:9s} median {np.median(v):.5f}, min-max {min(v):.5f}-{max(v):.5f}{loses}")
+
     wl = wrapper_ladder(s, reps)
     print(f"== 5. wrapper ladder at {workload}: the pieces of McField.__call__ (device ms "
           f"by CUDA events over {reps} back-to-back calls, host ms a call without a "
@@ -609,7 +697,7 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0),
                       "workload": workload, "reps": reps, "census": cen, "sass": sass,
                       "parity": {k: e for k, (e, _) in parity.items()},
-                      "kernel_ladder": kl, "wrapper_ladder": wl,
+                      "kernel_ladder": kl, "noop_turns": turns, "wrapper_ladder": wl,
                       "launches": bisect.launches}))
     return 0
 

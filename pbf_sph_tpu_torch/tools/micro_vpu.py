@@ -25,6 +25,13 @@ sections 3, 4 and 4b:
   columns for all trips: producer warps compute a tile of trips' d at once
   into a shared-memory ring, and a consumer warp adds them to acc in trip
   order (`spread_plan` is the grid's index model);
+* `vpu_dot2_spread` (`dot2_kernel` redesigned, row 7.17b): `vpu_dot2`'s
+  function bit for bit, one copy spread over 128 CTAs, each 64 outputs (a
+  row and 64 columns by default) for all trips: producer warps, each a row
+  of a and 8 columns of b in registers, compute 8 trips' d a lane (a float4
+  store an output and 4 trips) into a shared-memory ring, and two consumer
+  warps on a scheduler of their own add them to the 64 chains in trip order
+  (`spread2_plan` is the grid's index model);
 * `vpu_tr_split` (`tr_kernel` redesigned, row 7.18b): the same Σ_i v s_i
   in another fixed order, each row's trips in `parts` contiguous parts of
   fused multiply-adds and the parts' partials in a fixed tree
@@ -46,25 +53,29 @@ The tool prints the card line; checks the SASS (cuobjdump: each stream's
 trip loop holds one op a carry, sqrt and div counted on their fast path with
 their slow-path guards; each dot's trip loop its products and scale
 multiplies and one add an output; tr one FFMA a trip, restage with its
-store, barrier and load inside the trip); holds each kernel against its
-plain version on the tool's inputs and on seeded ones, every CTA of every
-copy; then reads every
-kernel as the marginal between NITER and 4 NITER trips (`anchor_rate.
-marginal`), at the tool's size (one copy) and with the card filled, beside
-the anchor's serial FFMA latency, while `nvidia-smi` samples the SM clock,
-and answers sections 3-4b through `MicroRoll`.  The two redesigns are read
-at one copy and 4 NITER trips in a CUDA graph (`micro_roll.read_launch`:
-they are too short for the marginal's 2x-for-4x check), beside the library
-call of their function in the same reader and `vpu_tr_split` at 0 trips
-(the launch with no trip).  With --sweep, `vpu_dot_spread` is also built
-alone at each producer shape and part of SWEEP (`-DMICRO_VPU_SPREAD_*`),
-checked bit for bit and read in turns at NITER and 4 NITER trips.  The last
-line is one JSON object.  Without a CUDA device the tool fails.
+store, barrier and load inside the trip; the redesigns as `spread_loops`,
+`split_loop` and `spread2_loops` say); holds each kernel against its plain
+version on the tool's inputs and on seeded ones, every CTA of every copy;
+then reads every kernel as the marginal between NITER and 4 NITER trips
+(`anchor_rate.marginal`), at the tool's size (one copy) and with the card
+filled, beside the anchor's serial FFMA latency, while `nvidia-smi` samples
+the SM clock, and answers sections 3-4b through `MicroRoll`.  The three
+redesigns are read at one copy and 4 NITER trips in a CUDA graph
+(`micro_roll.read_launch`: they are too short for the marginal's
+2x-for-4x check), beside the library call of their function in the same
+reader and `vpu_tr_split` at 0 trips (the launch with no trip).  With
+--sweep, `vpu_dot_spread` is also built alone at each producer shape and
+part of SWEEP (`-DMICRO_VPU_SPREAD_*`) and `vpu_dot2_spread` at each block
+shape, producer shape, consumer layout and part of SWEEP2
+(`-DMICRO_VPU_SPREAD2_*`), each checked bit for bit and read in turns at
+NITER and 4 NITER trips.  The last line is one JSON object.
+Without a CUDA device the tool fails.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import sys
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -95,7 +106,7 @@ TR_IN, TR_ROWS = (8, 128), 64
 TR_BODIES = ("direct", "restage")
 TR_ID = {"direct": 0, "restage": 1}
 KERNELS = ("vpu_streams", "vpu_dot", "vpu_dot2", "vpu_tr_direct", "vpu_tr_restage",
-           "vpu_dot_spread", "vpu_tr_split")
+           "vpu_dot_spread", "vpu_tr_split", "vpu_dot2_spread")
 # vpu_dot_spread's grid (csrc/micro_vpu.cu's kSpread*): a CTA a (copy, row,
 # group of `cols` columns); `warps` producer warps of `trips` trips a thread
 # fill a tile of trips into one of `slots` ring slots; the consumer reads
@@ -104,6 +115,45 @@ SPREAD = dict(cols=4, warps=11, trips=3, slots=2, read=32)
 SPREAD_PRODUCERS = 32 * SPREAD["warps"]
 SPREAD_TILE = SPREAD_PRODUCERS * SPREAD["trips"]
 SPREAD_CTAS = DOT["out"][0] * DOT["out"][1] // SPREAD["cols"]   # a copy
+# vpu_dot2_spread's grid (csrc/micro_vpu.cu's kSpread2*): a CTA a (copy,
+# block of `rows` rows x 64 / rows columns); `warps` producer warps, warp p
+# the 8 (`cols`) outputs 8 (p mod 8) to 8 (p mod 8) + 7 of the block and
+# part p / 8 of each tile, lane l trips 4l to 4l + 3 of each 128 of it,
+# `trips` in all, into one of `slots` ring slots; the consumers add `chains`
+# chains a lane, `read` trips at a time, from warps 0 and 4 (chains 1) or 0
+# (2) on the first scheduler, which holds `share` producer warps beside them
+SPREAD2 = dict(rows=1, cols=8, warps=8, trips=8, slots=2, chains=1, share=0, read=32)
+SPREAD2_OUTPUTS = 64   # a CTA's
+SPREAD2_GROUPS = SPREAD2_OUTPUTS // SPREAD2["cols"]
+SPREAD2_CONSUMERS = SPREAD2_OUTPUTS // SPREAD2["chains"]
+SPREAD2_TILE = SPREAD2["warps"] // SPREAD2_GROUPS * 32 * SPREAD2["trips"]
+SPREAD2_CTAS = DOT2["out"][0] * DOT2["out"][1] // SPREAD2_OUTPUTS   # a copy
+
+
+def spread2_roles(warps: int = SPREAD2["warps"], chains: int = SPREAD2["chains"],
+                  share: int = SPREAD2["share"]) -> list:
+    """Each warp's role in a vpu_dot2_spread CTA, as the kernel's
+    `spread2_producer` gives it, up to the last producer warp:
+    ("consumer", c), ("producer", p) or ("idle", None).  Warp w = 4r + q runs
+    on scheduler q; on scheduler 0 the consumer warps come first, then
+    `share` producers, and the other producers fill rows r < ceil((warps -
+    share) / 3) of the other three, in warp order."""
+    consumer_warps = SPREAD2_OUTPUTS // chains // 32
+    rows = -(-(warps - share) // 3)
+    roles, p, w = [], 0, 0
+    while p < warps:
+        r, q = divmod(w, 4)
+        if q == 0 and r < consumer_warps:
+            roles.append(("consumer", r))
+        elif r < rows if q else r < consumer_warps + share:
+            roles.append(("producer", p))
+            p += 1
+        else:
+            roles.append(("idle", None))
+        w += 1
+    return roles
+
+
 # vpu_tr_split: the parts of a row's trips (a power of two up to
 # TR_SPLIT_MAX_PARTS; csrc/micro_vpu.cu's kTrSplitMaxParts) and the chain
 # loop's unroll (kTrSplitUnroll)
@@ -116,6 +166,17 @@ TR_SPLIT_UNROLL = 4
 # producers store 0)
 SWEEP = ((7, 2, 3, 0), (7, 3, 2, 0), (7, 4, 2, 0), (11, 2, 2, 0), (11, 3, 2, 0), (7, 4, 3, 0),
          (11, 3, 2, 1), (11, 3, 2, 2))
+# --sweep: (rows a CTA, producer warps, trips a lane, ring slots, chains a
+# consumer lane, producer warps beside the consumers, part) that
+# vpu_dot2_spread is built alone at; part as SWEEP's
+SWEEP2 = ((1, 8, 8, 2, 1, 0, 0), (1, 8, 8, 2, 1, 2, 0), (1, 8, 8, 2, 2, 2, 0),
+          (1, 8, 8, 2, 1, 2, 1), (1, 8, 8, 2, 2, 2, 1), (1, 8, 8, 2, 1, 1, 0),
+          (1, 8, 8, 2, 2, 0, 0), (1, 8, 4, 3, 1, 2, 0), (1, 8, 8, 2, 2, 2, 2),
+          (1, 8, 8, 2, 1, 0, 1), (1, 8, 8, 2, 1, 0, 2))
+# the -DMICRO_VPU_<kernel>_<knob> names of SWEEP's and SWEEP2's entries
+SWEEP_KNOBS = {"dot_spread": ("SPREAD", ("WARPS", "TRIPS", "SLOTS", "PART")),
+               "dot2_spread": ("SPREAD2", ("ROWS", "WARPS", "TRIPS", "SLOTS", "CHAINS",
+                                           "SHARE", "PART"))}
 FILL_ID = {"streams": 0, "dot": 1, "dot2": 2, "tr": 3}   # micro_vpu_fill's kernel
 
 # the readings: the marginal between NITER and 4 NITER trips; parity on the
@@ -365,6 +426,54 @@ def spread_plan(niter: int, ncopies: int = 1) -> dict:
     return dict(outputs=outputs, stored=stored, read=read)
 
 
+def spread2_plan(niter: int, ncopies: int = 1) -> dict:
+    """The index model of `vpu_dot2_spread`'s grid.  `outputs` (ncopies *
+    SPREAD2_CTAS, 64): the flat (copy, m, n) index that the consumers write
+    for block output o (consumer thread o mod SPREAD2_CONSUMERS, of warp 4
+    (thread / 32), its chain o / SPREAD2_CONSUMERS); `produced`, the same for
+    the (m, n) whose row of a and column of b the producer warp of output o
+    holds; `writes` (64, SPREAD2_TILE), how many (producer warp, lane, trip)
+    store each ring position of a tile; `stored` (tiles, SPREAD2_TILE), the
+    trip stored at each position (-1 past niter); `read`, the trips in the
+    order a chain adds them."""
+    cols, trips = SPREAD2["cols"], SPREAD2["trips"]
+    width = SPREAD2_OUTPUTS // SPREAD2["rows"]
+    n_out = DOT2["out"][1]
+    blocks = n_out // width
+    producers = [p for role, p in spread2_roles() if role == "producer"]
+    outputs = np.empty((ncopies * SPREAD2_CTAS, SPREAD2_OUTPUTS), np.int64)
+    produced = np.empty_like(outputs)
+    for copy in range(ncopies):
+        base = copy * DOT2["out"][0] * n_out
+        for x in range(SPREAD2_CTAS):
+            m0, nb = x // blocks * SPREAD2["rows"], x % blocks * width
+            cta = copy * SPREAD2_CTAS + x
+            for ct in range(SPREAD2_CONSUMERS):
+                for j in range(SPREAD2["chains"]):
+                    o = ct + j * SPREAD2_CONSUMERS
+                    outputs[cta, o] = base + (m0 + o // width) * n_out + nb + o % width
+            for p in producers:
+                o0 = (p % SPREAD2_GROUPS) * cols
+                for c in range(cols):
+                    produced[cta, o0 + c] = base + (m0 + o0 // width) * n_out + nb + o0 % width + c
+    writes = np.zeros((SPREAD2_OUTPUTS, SPREAD2_TILE), np.int64)
+    trip_at = np.full(SPREAD2_TILE, -1)
+    for p in producers:
+        o0 = (p % SPREAD2_GROUPS) * cols
+        for lane in range(32):
+            first = (p // SPREAD2_GROUPS) * 32 * trips + 4 * lane
+            for h in range(trips):
+                pos = first + (h // 4) * 128 + h % 4
+                writes[o0:o0 + cols, pos] += 1
+                trip_at[pos] = pos
+    tiles = split_len(niter, SPREAD2_TILE)
+    trip = np.arange(tiles)[:, None] * SPREAD2_TILE + trip_at[None]
+    stored = np.where((trip_at[None] >= 0) & (trip < niter), trip, -1)
+    read = [stored[tile, j] for tile in range(tiles)
+            for j in range(min(SPREAD2_TILE, niter - tile * SPREAD2_TILE))]
+    return dict(outputs=outputs, produced=produced, writes=writes, stored=stored, read=read)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel launchers
 # ---------------------------------------------------------------------------
@@ -450,6 +559,18 @@ def dot_spread_kernel(a, b, niter: int = NITER, ncopies: int = 1):
     return out
 
 
+def dot2_spread_kernel(a, b, niter: int = NITER, ncopies: int = 1):
+    """(ncopies, 64, 128) from `vpu_dot2_spread`: `vpu_dot2`'s function."""
+    _check_dot("dot2", a, b, niter, ncopies)
+    _check_grid(ncopies)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("dot2_spread: the kernel's float4 loads need 16-byte aligned a and b")
+    dev = ar._check_card(a=(a, torch.float32, DOT2["a"]), b=(b, torch.float32, DOT2["b"]))
+    out = torch.empty((ncopies, *DOT2["out"]), dtype=torch.float32, device=dev)
+    _launch("vpu_dot2_spread", dev, a.data_ptr(), b.data_ptr(), niter, ncopies, out.data_ptr())
+    return out
+
+
 def tr_split_kernel(x, niter: int = NITER, parts: int = TR_PARTS, ncopies: int = 1):
     """(ncopies, 64, 1) from `vpu_tr_split`."""
     _check_tr_split(x, niter, parts, ncopies)
@@ -509,6 +630,11 @@ class MicroVpu:
                          lambda: tr_split_plain(x, niter, parts, ncopies),
                          lambda: tr_split_kernel(x, niter, parts, ncopies))
 
+    def dot2_spread(self, a, b, niter: int = NITER, ncopies: int = 1):
+        return self._run("vpu_dot2_spread", a.device.type == "cpu",
+                         lambda: dot2_plain(a, b, niter, ncopies),
+                         lambda: dot2_spread_kernel(a, b, niter, ncopies))
+
 
 # ---------------------------------------------------------------------------
 # The SASS of the built kernels
@@ -533,12 +659,13 @@ DOT_THREAD = {"dot": dict(outputs=8, rows=1, lds128=256),
 
 # the mangled-name pieces of the kernels that are not templates
 MANGLED = {"dot": "14vpu_dot_kernel", "dot2": "15vpu_dot2_kernel",
-           "dot_spread": "21vpu_dot_spread_kernel", "tr_split": "19vpu_tr_split_kernel"}
+           "dot_spread": "21vpu_dot_spread_kernel", "tr_split": "19vpu_tr_split_kernel",
+           "dot2_spread": "22vpu_dot2_spread_kernel"}
 
 
 def pattern(name: str) -> str:
     """The mangled-name piece of a kernel: "<op> <nstreams>", "dot", "dot2",
-    "tr <body>", "dot_spread" or "tr_split"."""
+    "tr <body>", "dot_spread", "tr_split" or "dot2_spread"."""
     if name in MANGLED:
         return MANGLED[name]
     head, tail = name.split()
@@ -651,6 +778,74 @@ def spread_loops(sass: ar.Sass) -> dict:
                 local=local_memory(sass))
 
 
+# the tensor-core instructions of sm_90a: none may stand in for a dot's FFMAs
+TENSOR_CORE = ("HMMA", "HGMMA", "IMMA", "IGMMA", "DMMA", "BMMA", "QGMMA")
+# opcodes whose first register is read, not written
+NO_DEST = ("ST", "RED", "ATOM", "ISETP", "FSETP", "DSETP", "BRA", "SYNCS", "BAR", "EXIT",
+           "YIELD", "CALL", "RET")
+
+
+def products_scaled(sass: ar.Sass, span: Tuple[int, int]) -> int:
+    """The FMULs of a span that read a register an FFMA wrote last before
+    them in the span: a scale multiplied onto a product's result (d s_i)
+    rather than onto an operand (a s_i).  A .64 or .WIDE destination writes
+    two registers and a .128 one four."""
+    last, n = {}, 0
+    for addr, op, inst in sass[0]:
+        if not span[0] <= addr <= span[1]:
+            continue
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", inst)]
+        writes = bool(regs) and not op.startswith(NO_DEST)
+        srcs = regs[1:] if writes else regs
+        if op.startswith("FMUL") and any(last.get(r) == "FFMA" for r in srcs):
+            n += 1
+        if writes:
+            width = 4 if ".128" in op else 2 if ".64" in op or ".WIDE" in op else 1
+            for r in range(regs[0], regs[0] + width):
+                last[r] = op.split(".")[0]
+    return n
+
+
+def spread2_loops(sass: ar.Sass) -> dict:
+    """vpu_dot2_spread's two loops.  The producers' tile loop, the smallest
+    loop that holds every FFMA of the kernel (it holds the wait on a free
+    slot): a lane's trips x 8 columns x K products, K - 1 or K of each
+    fused, the row's K scale multiplies a trip and the trip scale's one, the
+    scale's one FADD a trip, one float4 store an output and 4 trips, no
+    shared-memory read (a and b stay in registers) and no multiply of a
+    product's result (the scale is not hoisted onto d).  The consumer's
+    chain, the innermost loop with the most FADDs and no FFMA: two read-ins
+    of each of a lane's chains, one FADD a trip and chain, one float4 read
+    every 4.  No local memory and no tensor-core instruction."""
+    insts = sass[0]
+    total = mch._counts([op for _, op, _ in insts])
+    spans = [sp for sp in ar.all_spans(sass) if total["FFMA"]
+             and _span_counts(sass, sp)["FFMA"] == total["FFMA"]]
+    chains = [c for c in (_span_counts(sass, sp) for sp in ar.innermost_spans(sass))
+              if c["FADD"] and not c["FFMA"]]
+    if not spans or not chains:
+        return dict(ok=False)
+    tile = min(spans, key=lambda sp: sp[1] - sp[0])
+    c = _span_counts(sass, tile)
+    chain = max(chains, key=lambda c: c["FADD"])
+    trips, cols, k = SPREAD2["trips"], SPREAD2["cols"], DOT2["k"]
+    n = trips * cols
+    sts = sum(1 for addr, op, _ in insts
+              if tile[0] <= addr <= tile[1] and op.startswith("STS") and "128" in op)
+    lds = sum(v for key, v in c.items() if key.startswith("LDS"))
+    scaled = products_scaled(sass, tile)
+    tensor = sum(1 for _, op, _ in insts if op.startswith(TENSOR_CORE))
+    chain_lds = mch._lds128(chain)
+    ok = (n * (k - 1) <= c["FFMA"] <= n * k
+          and c["FFMA"] + c["FMUL"] == n * k + trips * k + trips and c["FADD"] == trips
+          and sts == n // 4 and lds == 0 and scaled == 0 and tensor == 0
+          and chain["FADD"] == 2 * SPREAD2["read"] * SPREAD2["chains"]
+          and chain_lds * 4 == chain["FADD"] and not local_memory(sass))
+    return dict(ok=ok, ffma=c["FFMA"], fmul=c["FMUL"], fadd=c["FADD"], sts128=sts, lds=lds,
+                scaled_products=scaled, tensor_core=tensor, chain_fadd=chain["FADD"],
+                chain_lds128=chain_lds, local=local_memory(sass))
+
+
 def split_loop(sass: ar.Sass) -> dict:
     """vpu_tr_split's chain, the loop with the most FFMAs: TR_SPLIT_UNROLL
     trips, each one FFMA and its scale's FMUL and FADD (none contracted);
@@ -676,8 +871,8 @@ def check_sass(lib_path) -> Dict[str, dict]:
 def check_funcs(funcs) -> Dict[str, dict]:
     """name -> dict(ok, counts) of every kernel of csrc/micro_vpu.cu: the
     24 stream instantiations (`stream_loop`), the two dots (`dot_loop`), the
-    two tr bodies (`tr_loop`), dot_spread (`spread_loops`) and tr_split
-    (`split_loop`)."""
+    two tr bodies (`tr_loop`), dot_spread (`spread_loops`), tr_split
+    (`split_loop`) and dot2_spread (`spread2_loops`)."""
     report = {}
     for op in OPS:
         for ns in STREAMS:
@@ -689,6 +884,7 @@ def check_funcs(funcs) -> Dict[str, dict]:
         report[f"tr {body}"] = tr_loop(ar._one(funcs, pattern(f"tr {body}")), body)
     report["dot_spread"] = spread_loops(ar._one(funcs, pattern("dot_spread")))
     report["tr_split"] = split_loop(ar._one(funcs, pattern("tr_split")))
+    report["dot2_spread"] = spread2_loops(ar._one(funcs, pattern("dot2_spread")))
     return report
 
 
@@ -716,6 +912,10 @@ def dot_atol(a, b, niter: int):
 # readings' 4 NITER trips; tr_split with a ragged split, at 4 NITER trips,
 # and at 1 part (one chain) and 256 (three tree levels in shared memory)
 SPREAD_CASES = (2 * SPREAD_TILE + 133, 4 * NITER)
+# dot2_spread on both inputs over SPREAD2_COPIES copies: at PARITY_TRIPS and
+# SPREAD_CASES (17 full tiles and a ragged one; 64 full tiles)
+SPREAD2_CASES = (PARITY_TRIPS, *SPREAD_CASES)
+SPREAD2_COPIES = 3
 SPLIT_CASES = ((PARITY_TRIPS - 6, TR_PARTS), (4 * NITER, TR_PARTS), (PARITY_TRIPS, 1),
                (PARITY_TRIPS, TR_SPLIT_MAX_PARTS))
 
@@ -725,7 +925,7 @@ def kernel_of(label: str) -> str:
     head = label.split()
     if head[0] == "tr":
         return f"vpu_tr_{head[1]}"
-    if head[0] in ("dot", "dot2", "dot_spread", "tr_split"):
+    if head[0] in ("dot", "dot2", "dot_spread", "tr_split", "dot2_spread"):
         return f"vpu_{head[0]}"
     return "vpu_streams"
 
@@ -736,7 +936,8 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     the tool's inputs and on `random_inputs`.  Every CTA of the streams'
     card-filling grid (the readings' grid, a partial copy at its end) and
     every one of PARITY_COPIES copies of the dots and tr is held, and the
-    redesigns also at SPREAD_CASES and SPLIT_CASES.  Bit for bit (the same
+    redesigns also at SPREAD_CASES and SPLIT_CASES (dot2_spread on both
+    inputs at SPREAD2_CASES over SPREAD2_COPIES copies).  Bit for bit (the same
     fused multiply-adds, multiplies, selects and IEEE sqrt and divide, each
     rounded once, the dots' ordered FFMA sums and tr_split's parts and tree)
     but rsqrt, rtol 1e-6 (the card's MUFU.RSQ against torch's rsqrt; the
@@ -765,6 +966,10 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
                                               dot_plain(x.a, x.b, n))
         res[f"tr_split {case}"] = mr.bit_equal(tr_split_kernel(x.t, n, TR_PARTS, PARITY_COPIES),
                                             tr_split_plain(x.t, n, TR_PARTS))
+        for trips in SPREAD2_CASES:
+            res[f"dot2_spread {case} {trips} trips"] = mr.bit_equal(
+                dot2_spread_kernel(x.a2, x.b2, trips, SPREAD2_COPIES),
+                dot2_plain(x.a2, x.b2, trips))
     x = random_inputs(seed, device)
     for trips in SPREAD_CASES:
         res[f"dot_spread random {trips} trips"] = mr.bit_equal(
@@ -903,16 +1108,18 @@ def read_tr(mv: MicroVpu, body: str, x: Inputs, ncopies: int, reps: int) -> dict
 
 def read_redesigns(mv: MicroVpu, x: Inputs, niter: int) -> dict:
     """The redesigns through `mv` (counted) at one copy and niter trips:
-    `vpu_dot_spread`, `vpu_tr_split` (TR_PARTS parts) and `vpu_tr_split` at
-    0 trips (its grid, tree and stores with no trip: the launch's floor), and
-    the library calls of their functions (not counted), each by
-    `micro_roll.read_launch` (a CUDA graph of 100 launches, and CUDA events
-    over 100 back to back)."""
+    `vpu_dot_spread`, `vpu_tr_split` (TR_PARTS parts), `vpu_tr_split` at 0
+    trips (its grid, tree and stores with no trip: the launch's floor) and
+    `vpu_dot2_spread`, and the library calls of their functions (not
+    counted), each by `micro_roll.read_launch` (a CUDA graph of 100
+    launches, and CUDA events over 100 back to back)."""
     return dict(dot_spread=mr.read_launch(lambda: mv.dot_spread(x.a, x.b, niter)),
                 tr_split=mr.read_launch(lambda: mv.tr_split(x.t, niter)),
                 tr_split_no_trip=mr.read_launch(lambda: mv.tr_split(x.t, 0)),
+                dot2_spread=mr.read_launch(lambda: mv.dot2_spread(x.a2, x.b2, niter)),
                 library_dot=mr.read_launch(library_call("dot", x, niter)),
-                library_tr=mr.read_launch(library_call("tr", x, niter)))
+                library_tr=mr.read_launch(library_call("tr", x, niter)),
+                library_dot2=mr.read_launch(library_call("dot2", x, niter)))
 
 
 def read_all(mv: MicroVpu, device, reps: int) -> dict:
@@ -941,22 +1148,24 @@ def read_all(mv: MicroVpu, device, reps: int) -> dict:
     return res
 
 
-def sweep_libraries(shapes):
-    """{shape: (ctypes library, ptxas's line for vpu_dot_spread)}: csrc/
-    micro_vpu.cu built alone at each (warps, trips, slots, part), one nvcc
-    for each, all at once, into the build directory (named by the sources'
-    hash)."""
+def sweep_libraries(kernel: str, shapes):
+    """{shape: (ctypes library, ptxas's line for the kernel)}: csrc/
+    micro_vpu.cu built alone at each shape of `kernel` ("dot_spread": SWEEP's
+    entries, "dot2_spread": SWEEP2's; `SWEEP_KNOBS` names their defines),
+    one nvcc for each, all at once, into the build directory (named by the
+    sources' hash)."""
     import ctypes
     import subprocess
 
     src = cuda_build.SRC_DIR / "micro_vpu.cu"
     digest = cuda_build.library_path().stem.rsplit("_", 1)[1]
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    prefix, knobs = SWEEP_KNOBS[kernel]
     procs = {}
     for shape in shapes:
-        out = cuda_build.BUILD_DIR / f"libmicro_vpu_{'_'.join(map(str, shape))}_{digest}.so"
-        defs = [f"-DMICRO_VPU_SPREAD_{k}={v}"
-                for k, v in zip(("WARPS", "TRIPS", "SLOTS", "PART"), shape)]
+        out = (cuda_build.BUILD_DIR
+               / f"libmicro_vpu_{kernel}_{'_'.join(map(str, shape))}_{digest}.so")
+        defs = [f"-DMICRO_VPU_{prefix}_{k}={v}" for k, v in zip(knobs, shape)]
         cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, *defs, "-Xptxas", "-v",
                "-shared", "-o", str(out), str(src)]
         procs[shape] = (out, cmd, subprocess.Popen(
@@ -967,42 +1176,47 @@ def sweep_libraries(shapes):
         cuda_build._check_nvcc(cmd, proc.returncode, log)
         lines = log.splitlines()
         at = next(i for i, line in enumerate(lines)
-                  if "Compiling" in line and pattern("dot_spread") in line)
+                  if "Compiling" in line and pattern(kernel) in line)
         lib = ctypes.CDLL(str(out))
-        lib.vpu_dot_spread.argtypes = cuda_build.SIGNATURES["vpu_dot_spread"]
-        lib.vpu_dot_spread.restype = ctypes.c_int
-        libs[shape] = (lib, " ".join(line.split(":", 1)[-1].strip()
-                                     for line in lines[at + 2:at + 4]))
+        fn = getattr(lib, f"vpu_{kernel}")
+        fn.argtypes = cuda_build.SIGNATURES[f"vpu_{kernel}"]
+        fn.restype = ctypes.c_int
+        libs[shape] = (fn, " ".join(line.split(":", 1)[-1].strip()
+                                    for line in lines[at + 2:at + 4]))
     return libs
 
 
-def sweep(device, shapes=SWEEP) -> dict:
-    """`vpu_dot_spread` at each shape of `sweep_libraries` on seeded inputs,
-    one copy: the whole kernel bit for bit `dot_plain` at SPREAD_CASES, then
-    every shape in a CUDA graph at NITER and 4 NITER trips, in turns (the
-    shapes in order, then reversed), the SM clock sampled."""
-    libs = sweep_libraries(shapes)
+def sweep(device) -> dict:
+    """Each spread kernel at each shape of `sweep_libraries` on seeded
+    inputs, one copy: the whole kernel (part 0) bit for bit its plain
+    version at SPREAD_CASES, then every shape in a CUDA graph at NITER and 4
+    NITER trips, in turns (the shapes in order, then reversed), the SM clock
+    sampled.  {kernel: {shape: entry}, "clocks_sm_mhz": ...}."""
     x = random_inputs(0, device)
-    out = torch.empty((1, *DOT["out"]), dtype=torch.float32, device=device)
+    plans = {"dot_spread": (SWEEP, x.a, x.b, DOT["out"], dot_plain),
+             "dot2_spread": (SWEEP2, x.a2, x.b2, DOT2["out"], dot2_plain)}
+    res, runs = {}, []
+    for kernel, (shapes, a, b, shape_out, plain) in plans.items():
+        out = torch.empty((1, *shape_out), dtype=torch.float32, device=device)
 
-    def run(lib, n):
-        cuda_build.check("vpu_dot_spread", lib.vpu_dot_spread(
-            x.a.data_ptr(), x.b.data_ptr(), n, 1, out.data_ptr(), ph._stream(device)))
+        def run(fn, n, a=a, b=b, out=out, kernel=kernel):
+            cuda_build.check(f"vpu_{kernel}", fn(a.data_ptr(), b.data_ptr(), n, 1,
+                                                 out.data_ptr(), ph._stream(device)))
 
-    res = {}
-    for shape, (lib, ptxas) in libs.items():
-        entry = res[" ".join(map(str, shape))] = dict(ptxas=ptxas, ms={})
-        if shape[3] == 0:
-            same = []
-            for n in SPREAD_CASES:
-                run(lib, n)
-                same.append(mr.bit_equal(out, dot_plain(x.a, x.b, n))[1])
-            entry["same"] = all(same)
+        res[kernel] = {}
+        for shape, (fn, ptxas) in sweep_libraries(kernel, shapes).items():
+            entry = res[kernel][" ".join(map(str, shape))] = dict(ptxas=ptxas, ms={})
+            if shape[-1] == 0:
+                same = []
+                for n in SPREAD_CASES:
+                    run(fn, n)
+                    same.append(mr.bit_equal(out, plain(a, b, n))[1])
+                entry["same"] = all(same)
+            runs.append((entry["ms"], lambda n, fn=fn, run=run: run(fn, n)))
     with ar.ClockSampler(device) as clock:
-        for shape in list(libs) + list(libs)[::-1]:
-            entry = res[" ".join(map(str, shape))]["ms"]
+        for ms, fn in runs + runs[::-1]:
             for n in TRIPS:
-                entry.setdefault(str(n), []).append(graph_ms(lambda: run(libs[shape][0], n)))
+                ms.setdefault(str(n), []).append(graph_ms(lambda: fn(n)))
     res["clocks_sm_mhz"] = clock.summary()
     return res
 
@@ -1097,6 +1311,7 @@ def main(argv=None) -> int:
               f"{chain_ms(work, serial):.4f} ms")
     red, n = res["redesigns"], TRIPS[1]
     dot_bound = bound_ms(dot_work("dot", n, 1), mhz, sms)
+    dot2_bound = bound_ms(dot_work("dot2", n, 1), mhz, sms)
     tr_bound = bound_ms(tr_work(n, 1), mhz, sms)
     print(f"== 5b. dot_spread (one copy over {SPREAD_CTAS} CTAs) at {n} trips: "
           f"{red['dot_spread']['graph_ms']:.5f} ms in a graph, "
@@ -1104,6 +1319,12 @@ def main(argv=None) -> int:
           f".sum(0)) {red['library_dot']['graph_ms']:.5f} ms in a graph; vpu_dot (one copy) "
           f"{res['dots']['dot']['tool']['ms'][1]:.4f} ms; bound {dot_bound[0]:.5f} ms by "
           f"{dot_bound[2]}")
+    print(f"== 6b. dot2_spread (one copy over {SPREAD2_CTAS} CTAs) at {n} trips: "
+          f"{red['dot2_spread']['graph_ms']:.5f} ms in a graph, "
+          f"{red['dot2_spread']['events_ms']:.5f} back to back; library (torch.matmul + "
+          f".sum(0)) {red['library_dot2']['graph_ms']:.5f} ms in a graph; vpu_dot2 (one copy) "
+          f"{res['dots']['dot2']['tool']['ms'][1]:.4f} ms; bound {dot2_bound[0]:.5f} ms by "
+          f"{dot2_bound[2]}")
     print(f"== 7b. tr_split ({TR_PARTS} parts) at {n} trips: {red['tr_split']['graph_ms']:.5f} ms "
           f"in a graph, {red['tr_split']['events_ms']:.5f} back to back; at 0 trips "
           f"{red['tr_split_no_trip']['graph_ms']:.5f} ms in a graph; library (torch.mv) "
@@ -1113,17 +1334,21 @@ def main(argv=None) -> int:
     swept = None
     if do_sweep:
         swept = sweep(device)
-        print(f"== 5c. dot_spread built at (producer warps, trips a thread, ring slots, part: "
-              f"0 all, 1 producers alone, 2 chain alone), ms in a graph at {TRIPS} trips, in "
-              f"turns; SM clock {swept['clocks_sm_mhz']}")
-        for name, entry in swept.items():
-            if name != "clocks_sm_mhz":
-                print(f"  {name}: " + "; ".join(
+        print(f"== 5c/6c. the spread kernels built at other shapes (dot_spread: producer "
+              f"warps, trips a thread, ring slots, part; dot2_spread: rows a CTA, producer "
+              f"warps, trips a lane, ring slots, chains a lane, part; part 0 all, 1 producers "
+              f"alone, 2 chain alone), ms in a graph at {TRIPS} trips, in turns; SM clock "
+              f"{swept['clocks_sm_mhz']}")
+        wrong = []
+        for kernel in SWEEP_KNOBS:
+            for name, entry in swept[kernel].items():
+                print(f"  {kernel} {name}: " + "; ".join(
                     f"{n}: " + ", ".join(f"{t:.5f}" for t in ms) for n, ms in entry["ms"].items())
                     + f"; bit for bit {entry.get('same', '-')}; {entry['ptxas']}")
-        wrong = [k for k, e in swept.items() if k != "clocks_sm_mhz" and e.get("same") is False]
+                if entry.get("same") is False:
+                    wrong.append(f"{kernel} {name}")
         if wrong:
-            raise SystemExit(f"micro_vpu: the sweep's {wrong} disagree with dot_plain")
+            raise SystemExit(f"micro_vpu: the sweep's {wrong} disagree with their plain versions")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "reps": reps,
                       "sass": sass, "parity": {k: e for k, (e, _) in parity.items()},
                       "readings": res, "roll_probes": verdicts, "sweep": swept,

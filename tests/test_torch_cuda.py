@@ -466,9 +466,32 @@ def test_mc_bisect_wrappers_count_kernel_launches(card_surface_frame):
     for body in mcb.BODIES:
         bisect(body, *args[:2], *args[3:])
     ladder = mcb.kernel_ladder(bisect, spec, fr, st, 2)
+    turns = mcb.noop_turns(bisect, spec, fr, st, 1)
     torch.cuda.synchronize()
     assert [s["step"] for s in ladder["steps"]] == ["noop", "rows", "loops", "full"]
+    assert {k: len(v) for k, v in turns.items()} == {"noop": 1, "zero_fill": 1, "zeros": 1}
     assert all(v > mcb.GRAPH_LAUNCHES for v in bisect.launches.values())
+
+
+def test_mc_zero_fill_is_noop_plain(card_surface_frame):
+    """mc_field_zero_fill writes every float of a NaN-filled (9, L) output,
+    the n mod 4 tail included, as noop_plain's zeros; at lengths off a
+    float4 too; and refuses an output off 16 bytes."""
+    spec, dyn, fr, st = card_surface_frame
+    args = mcb.field_args(spec, fr, st)
+    assert mcb.card_parity(spec, fr, st, "dam32k")["zero_fill dam32k"][1]
+    for n in (1, 3, 4, 7, 4 * 300_001 + 2):
+        out = torch.full((n,), float("nan"), device=st.position.device)
+        mcb.zero_fill_launch(out)
+        assert torch.equal(out, torch.zeros_like(out)), n
+    off = torch.zeros(9 * 4 + 1, device=st.position.device)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        mcb.zero_fill_launch(off)
+    bisect = mcb.McFieldBisect(spec.h)
+    got = bisect("zero_fill", *args[:2], *args[3:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, mcb.noop_plain(*args))
+    assert bisect.launches["mc_field_zero_fill"] == 1
 
 
 def test_mc_bisect_pieces_equal_mc_field(card_surface_frame):
@@ -692,12 +715,17 @@ def test_vpu_dots_and_tr_match_plain(card):
 
 def test_vpu_redesigns_match_plain(card):
     """vpu_dot_spread bit for bit dot_plain at no trip, one, a ragged tile
-    and several tiles with a ragged end, over 3 copies; vpu_tr_split bit for
-    bit tr_split_plain at every power-of-two split, ragged ones included."""
+    and several tiles with a ragged end, over 3 copies; vpu_dot2_spread bit
+    for bit dot2_plain at no trip, one, a ragged tile, several tiles with a
+    ragged end and 8192 trips, over 3 copies; vpu_tr_split bit for bit
+    tr_split_plain at every power-of-two split, ragged ones included."""
     for x in (mv.tool_inputs(card), mv.random_inputs(3, card)):
         for niter in (0, 1, 300, 2 * mv.SPREAD_TILE + 133):
             assert mr.bit_equal(mv.dot_spread_kernel(x.a, x.b, niter, 3),
                                 mv.dot_plain(x.a, x.b, niter))[1], niter
+        for niter in (0, 1, 100, 2 * mv.SPREAD2_TILE + 133, 8192):
+            assert mr.bit_equal(mv.dot2_spread_kernel(x.a2, x.b2, niter, 3),
+                                mv.dot2_plain(x.a2, x.b2, niter))[1], niter
         for niter in (0, 1, 5, 300):
             for parts in (1, 2, 8, 32, 64, 128, 256):
                 assert mr.bit_equal(mv.tr_split_kernel(x.t, niter, parts, 3),
@@ -716,16 +744,23 @@ def test_vpu_wrappers_count_kernel_launches(card):
     vpu.dot_spread(x.a, x.b, 10)
     vpu.tr_split(x.t, 10)
     vpu.tr_split(x.t, 10, parts=4)
+    vpu.dot2_spread(x.a2, x.b2, 10, 2)
     torch.cuda.synchronize()
     assert vpu.launches == {"vpu_streams": 6, "vpu_dot": 1, "vpu_dot2": 1, "vpu_tr_direct": 1,
-                            "vpu_tr_restage": 1, "vpu_dot_spread": 1, "vpu_tr_split": 2}
+                            "vpu_tr_restage": 1, "vpu_dot_spread": 1, "vpu_tr_split": 2,
+                            "vpu_dot2_spread": 1}
     with pytest.raises(ValueError, match="power of two"):
         vpu.tr_split(x.t, 10, parts=3)
     with pytest.raises(ValueError, match="instantiates"):
         vpu.streams(x.x, "fma", 3, 10)
     with pytest.raises(ValueError, match="aligned"):
         vpu.dot(x.a, torch.ones(8 * 128 + 1, device=card)[1:].view(8, 128), 10)
+    with pytest.raises(ValueError, match="aligned"):
+        vpu.dot2_spread(x.a2, torch.ones(8 * 128 + 1, device=card)[1:].view(8, 128), 10)
+    with pytest.raises(ValueError, match="65535"):
+        vpu.dot2_spread(x.a2, x.b2, 10, 65536)
     assert vpu.launches["vpu_streams"] == 6 and vpu.launches["vpu_dot"] == 1
+    assert vpu.launches["vpu_dot2_spread"] == 1
 
 
 def test_micro_vpu_sass_is_full(card):
@@ -733,5 +768,5 @@ def test_micro_vpu_sass_is_full(card):
 
     cuda_build.library()
     report = mv.check_sass(cuda_build.library_path())
-    assert len(report) == 24 + 2 + 2 + 2
+    assert len(report) == 24 + 2 + 2 + 3
     assert mv.short(report) == [], report

@@ -147,6 +147,21 @@ def test_noop_and_rows_match_pallas(scene):
 
 
 @pytest.mark.parametrize("scene", SCENES)
+def test_zero_fill_takes_noop_plain_on_cpu(scene):
+    """`mc_field_zero_fill`, noop's redesign, on CPU tensors: noop_plain's
+    (9, L) zeros, as the interpreted noop variant; nothing launched, and its
+    launcher refuses a CPU output."""
+    bisect = mcb.McFieldBisect(port_frame(scene)[0].h)
+    got = bisect("zero_fill", *bisect_args(scene))
+    assert got.shape == (9, jax_inputs(scene)[0].static["L"]) and got.dtype == torch.float32
+    assert torch.equal(got, mcb.noop_plain(*field_args(scene)))
+    assert not jax_variant(scene, "noop").any()
+    assert bisect.launches == dict.fromkeys(mcb.KERNELS, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        mcb.zero_fill_launch(torch.zeros(8))
+
+
+@pytest.mark.parametrize("scene", SCENES)
 def test_loops_plain_matches_float64(scene):
     """Row 0 is sum p.x * ax over every candidate of the node's nine ranges
     (no key, z-wrap, obstacle or distance test), evaluated here node by node."""
@@ -239,6 +254,19 @@ def test_work_counts_the_inputs_each_body_reads():
     assert abs(ms["noop"][0] - 0.00112) < 2e-5 and abs(ms["rows"][0] - ms["noop"][0]) < 1e-7
     assert abs(ms["loops"][0] - 0.00186) < 2e-5
     assert ms["full"][0] > ms["loops"][0]
+
+
+@pytest.mark.parametrize("noop, zeros, loses", [
+    ([2.4, 2.5, 2.3], [2.1, 2.2, 2.0], True),     # 9% over, ranges apart
+    ([2.3, 2.5, 2.2], [2.1, 2.25, 2.0], False),   # 9% over, ranges overlap
+    ([2.2, 2.25, 2.2], [2.1, 2.15, 2.1], False),  # ranges apart, but 4.8% over
+    ([2.0, 2.1, 1.9], [2.3, 2.4, 2.2], False),    # noop faster
+])
+def test_noop_loses_needs_its_median_over_and_the_ranges_apart(noop, zeros, loses):
+    """Row 7.20a's rule: mc_field_noop loses to torch.zeros((9, L)) only if
+    its median of the turns is over the call's by more than 5% and its
+    fastest turn is slower than the call's slowest."""
+    assert mcb.noop_loses({"noop": noop, "zeros": zeros}) is loses
 
 
 def sass_listing(name, body_ops, copies):

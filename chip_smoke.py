@@ -16,11 +16,12 @@ with a non-zero exit and no result line:
    per-row lambda and delta are off the main path (which runs
    `csrc/pbf_cells.cu`): one round through their `PbfPhases` wrappers on
    each state counts their launches;
-3b. the MC field kernel against its plain version on the card, on the
-   post-finalise state of mc128k (res 1.0) and bench20k (res 2.0): count
-   exact, S0 and S to rtol 1e-4 / atol 1e-3, the post-passed v, n and c as
-   `tests/test_pallas_mc.py` holds them, the skip node 0; with CUDA-event
-   times and node-candidate pairs per second;
+3b. row 4's MC field kernel (`mc_field`, off the main path since row 4b)
+   against its plain version on the card, on the post-finalise state of
+   mc128k (res 1.0) and bench20k (res 2.0): count exact, S0 and S to rtol
+   1e-4 / atol 1e-3, the post-passed v, n and c as `tests/test_pallas_mc.py`
+   holds them, the skip node 0; with CUDA-event times and node-candidate
+   pairs per second, and its launches in this phase (`ROW4_LAUNCHES`);
 3c. each tiled kernel (`csrc/pbf_tiles.cu`, the Pallas sub/mxu variants)
    through its `PbfPhases(h, sub, mxu)` wrapper against its tile plain
    version, for every instantiated sub (8, 16, 32, 64) and both r2 routes,
@@ -76,6 +77,17 @@ with a non-zero exit and no result line:
    L))`, the call that computes what both write, read in 10 turns of a CUDA
    graph of 100 launches each (medians, min-max and whether each kernel
    loses to the call); its launches are counted over this phase;
+3n. the main path's MC field (`mc_field_cells` of `csrc/mc_field_cells.cu`,
+   row 4b: row 4's sums over the z-clamped ranges with the post-pass
+   folded in) on 3b's two finalised states, against its plain version and
+   against row 4 (`post_pass(mc_field(...))`): v to rtol 1e-4 / atol 1e-3,
+   n and c as 3b holds them, the NaN pattern of c element for element, the
+   skip node 0 in all 8 rows (`micro_mc_field.cells_agree`), and two
+   launches bit for bit; then at each state the kernel alone beside row 4's
+   kernel, and `McField.__call__` (one allocation, one launch) beside row
+   4's call rebuilt from its pieces (`field_by_pieces`), in 5 turns of a CUDA
+   graph of 100 launches (`micro_mc_field.cells_turns`), the host ms a call
+   of both calls, G node-candidate pairs/s and the bound;
 3h. the pair-chunk and loop probes (`csrc/micro_chunk.cu`, the kernels of
    `tools/micro_chunk.py`; `csrc/micro_loop.cu`, the bodies that
    `tools/micro_loop.py` runs): the SASS (cuobjdump: each pair body's trip
@@ -192,8 +204,9 @@ with a non-zero exit and no result line:
    conserved, extent held, no growth pending, no emit overflow,
    0 < tri_count <= tri_capacity, the mesh's vertices finite and within
    h*scale of the bounds, and exactly 9 kernel launches per frame
-   (1 mc_field + 1 + 1 diffuse + 3 lambda_cells + 3 delta_cells); with the
-   stage times.
+   (1 mc_field_cells + 1 + 1 diffuse + 3 lambda_cells + 3 delta_cells); row
+   4's mc_field, counted by its launcher, 0 on both paths; with the stage
+   times.
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
@@ -201,8 +214,10 @@ phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
 `delta_cells`: the direct walk) and for the per-row diffuse and λ/Δp, which
 it no longer runs (0; phase 3's round of them stands beside as
 `phase_launches`), 3l for the staged walk, whose line holds the held_ms
-times at the 1M state as the direct walk's does, phase 6 for the MC field,
-3c for the tiled
+times at the 1M state as the direct walk's does, phase 6 for the MC field
+(`mc_field_cells`, whose ms is 3n's median in a CUDA graph at mc128k; row
+4's `mc_field`, read 0 on phases 5 and 6, with 3b's numbers and 3b's launches
+as `phase_launches`), 3c for the tiled
 kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
@@ -266,6 +281,10 @@ KERNELS = {
               "pbf_sph_tpu/ops/pallas_pbf.py:491"),
     "mc_field": ("pbf_sph_tpu_torch/csrc/mc_field.cu",
                  "pbf_sph_tpu/ops/pallas_mc.py:185"),
+    # the main path's MC field: make_mc_field_call with the post-pass, each
+    # node's candidates over a lane group (row 4b)
+    "mc_field_cells": ("pbf_sph_tpu_torch/csrc/mc_field_cells.cu",
+                       "pbf_sph_tpu/ops/pallas_mc.py:185"),
     # the main path's λ and Δp: make_lambda_call and
     # make_delta_call with the wrappers' mask and clamp (the direct walk)
     "lambda_cells": ("pbf_sph_tpu_torch/csrc/pbf_cells.cu",
@@ -900,18 +919,19 @@ def finalised_state(workload: str):
 
 
 def phase_mc_field():
-    """The MC field kernel against its plain version; returns the mc128k
+    """Row 4's MC field kernel against its plain version; returns the mc128k
     numbers, the mc128k lattice (spec, dyn, frame, v, n, c) and each
-    workload's (spec, frame, finalised state)."""
-    print("== 3b. MC field kernel against its plain PyTorch version, on the card")
+    workload's (spec, frame, finalised state, dyn)."""
+    print("== 3b. row 4's MC field kernel against its plain PyTorch version, on the card")
     from pbf_sph_tpu_torch.ops import mc_field as mf
     from pbf_sph_tpu_torch.ops import phases as ph
 
     report = lattice = None
     states = {}
+    row4_at_start = mf.ROW4_LAUNCHES["mc_field"]
     for workload in ("bench20k", "mc128k"):
         spec, dyn, fr, st = finalised_state(workload)
-        states[workload] = (spec, fr, st)
+        states[workload] = (spec, fr, st, dyn)
         mc = spec.surface
         nonobs = ph.nonobstacle(st.ptype, st.alive)
         args = (fr.index, mc, spec.h, spec.scale, st.position, st.colour, nonobs,
@@ -962,6 +982,8 @@ def phase_mc_field():
         report = dict(max_abs_err=max(err_s, err_c), ms=ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         lattice = (spec, dyn, fr, vk, nk, ck)
+    report["phase_launches"] = mf.ROW4_LAUNCHES["mc_field"] - row4_at_start
+    check(report["phase_launches"] > 0, f"3b launched mc_field {report['phase_launches']} times")
     return report, lattice, states
 
 
@@ -980,7 +1002,7 @@ def phase_mc_bisect(states):
         check(r["ok"], f"SASS {name}: " + ", ".join(
             f"{k} {v}" for k, v in r.items() if k not in ("ok", "opcodes", "parent")))
     errs = dict.fromkeys(mcb.KERNELS, 0.0)
-    for workload, (spec, fr, st) in states.items():
+    for workload, (spec, fr, st, _) in states.items():
         for label, (err, ok) in mcb.card_parity(spec, fr, st, workload).items():
             check(ok, f"{label}: max abs err {err:.3e} (noop zero, rows bit for bit, loops "
                       f"rtol {mcb.RTOL} with atol {mcb.ATOL_SCALE} x max|value|, zero_fill "
@@ -988,7 +1010,7 @@ def phase_mc_bisect(states):
             name = mcb.KERNEL_OF[label.split()[0]]
             errs[name] = max(errs[name], err)
 
-    spec, fr, st = states["mc128k"]
+    spec, fr, st, _ = states["mc128k"]
     bisect = mcb.McFieldBisect(spec.h)
     ladder = mcb.kernel_ladder(bisect, spec, fr, st, 10)
     torch.cuda.synchronize()
@@ -1032,6 +1054,64 @@ def phase_mc_bisect(states):
           f"bound {noop['bound_ms']:.4f} ms by {noop['bound_by']} (noop's output)")
     print(f"  bisection wrapper launches: {launches}")
     return report, launches
+
+
+def phase_mc_field_cells(states) -> dict:
+    """3n: row 4b, the main path's MC field (csrc/mc_field_cells.cu), on 3b's
+    states: against its plain version and row 4 (`cells_agree`), two
+    launches bit for bit, then the kernel and the whole call in turns beside
+    row 4's (`cells_turns`), with the host ms a call, pairs/s and the bound.
+    Returns the mc128k numbers of the kernels line."""
+    print("== 3n. the main path's MC field (csrc/mc_field_cells.cu, row 4b) against its plain "
+          "PyTorch version and row 4")
+    from pbf_sph_tpu_torch.ops import mc_field as mf
+    from pbf_sph_tpu_torch.tools import micro_mc_field as mcb
+
+    report = None
+    err_plain = 0.0
+    for workload in ("bench20k", "mc128k"):
+        spec, fr, st, dyn = states[workload]
+        mc, size = spec.surface, dyn["mc_particle_size"]
+        args = mcb.cells_args(spec, fr, st, size)
+        got, again = mf.mc_field_cells_kernel(*args), mf.mc_field_cells_kernel(*args)
+        want = mf.mc_field_cells_plain(*args)
+        raw = mf.mc_field_kernel(*mcb.field_args(spec, fr, st))
+        _, _, skip = mf.lattice_nodes(mc, spec.grid.extent, st.position.device)
+        cen, cen4 = mcb.census(spec, fr, raw, clamped=True), mcb.census(spec, fr, raw)
+        print(f"{workload}: G {mf.CELLS_LANES}; {cen['pairs']} node-candidate "
+              f"pairs over the clamped ranges (row 4's ranges {cen4['pairs']}), {cen['live']} "
+              f"live nodes, {cen['per_live']:.2f} a live node (max {cen['max_per_node']}), "
+              f"{cen['hits']} within h*scale")
+        for ref, vnc in (("its plain version", (want[0], want[1:4], want[4:8])),
+                         ("row 4", mf.post_pass(raw, mc, spec.grid.extent, size))):
+            for name, (ok, err) in mcb.cells_agree(got, vnc, skip).items():
+                check(ok, f"{workload}, against {ref}: {name} ({err:g}; v rtol "
+                          f"{mcb.V_RTOL} atol {mcb.V_ATOL}, n and c as 3b)")
+                if ref == "its plain version" and name in ("v", "n", "c"):
+                    err_plain = max(err_plain, err)
+        check(mcb.bits_equal(got, again), f"{workload}: two launches bit for bit")
+
+        ct = mcb.cells_turns(spec, fr, st, size)
+        med = {k: float(np.median(v)) for k, v in ct["graph_ms"].items()}
+        for name, v in ct["graph_ms"].items():
+            print(f"  {name} in {len(v)} turns (ms in a graph of {mcb.GRAPH_LAUNCHES}): median "
+                  f"{med[name]:.5f}, min-max {min(v):.5f}-{max(v):.5f}: "
+                  + ", ".join(f"{t:.5f}" for t in v))
+        plain_ms = device_ms(lambda: mf.mc_field_cells_plain(*args), 1)
+        bound_ms, bound_by = bound(*mcb.work("cells", fr.index, mc, cen["pairs"], cen["hits"]))
+        rate = cen["pairs"] / med["cells"] / 1e6
+        print(f"  mc_field_cells: kernel {med['cells']:.5f} ms ({rate:.3f} G node-candidate "
+              f"pairs/s), row 4's mc_field {med['mc_field']:.5f} ms "
+              f"({med['mc_field'] / med['cells']:.2f}x), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms by {bound_by}")
+        print(f"  McField call {med['call']:.5f} ms in a graph, host {ct['host_ms']['call']:.4f} "
+              f"ms a call; row 4's call (field_by_pieces) {med['pieces']:.5f} ms, host "
+              f"{ct['host_ms']['pieces']:.4f} ms a call")
+        # no single PyTorch call sums the kernel weights of the particles
+        # near each lattice node
+        report = dict(max_abs_err=err_plain, ms=med["cells"], plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return report
 
 
 def phase_micro():
@@ -1701,7 +1781,8 @@ def phase_main_path() -> dict:
     spec, state, dyn, scn, outs, frames, launches, wall, dev_ms = run_path(solver, cfg, xs)
     check_frames(spec, state, cfg, outs, n, solver)
     want = {"diffuse": 0, "diffuse_cell_sums": frames, "diffuse_cells": frames, "lambda": 0,
-            "delta": 0, "lambda_cells": 6 * frames, "delta_cells": 6 * frames, "mc_field": 0}
+            "delta": 0, "lambda_cells": 6 * frames, "delta_cells": 6 * frames,
+            "mc_field_cells": 0, "mc_field": 0}
     check(launches == want, f"kernel launches {launches} == 14 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
@@ -1742,7 +1823,7 @@ def phase_surface_path() -> dict:
           f"(min {vs.min(1).values.tolist()}, max {vs.max(1).values.tolist()})")
     want = {"diffuse": 0, "diffuse_cell_sums": frames, "diffuse_cells": frames, "lambda": 0,
             "delta": 0, "lambda_cells": 3 * frames, "delta_cells": 3 * frames,
-            "mc_field": frames}
+            "mc_field_cells": frames, "mc_field": 0}
     check(launches == want, f"kernel launches {launches} == 9 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
@@ -1792,6 +1873,7 @@ def main() -> int:
     check(all(v > 0 for v in bisect_launches.values()),
           f"phase 3g launched every MC-field bisection kernel {bisect_launches}")
     report.update(bisect_report)
+    report["mc_field_cells"] = phase_mc_field_cells(states)
     micro_report, micro_launches = phase_micro()
     check(all(v > 0 for v in micro_launches.values()),
           f"phase 3h launched every pair-chunk and loop kernel {micro_launches}")
@@ -1819,7 +1901,9 @@ def main() -> int:
     del lattice
     torch.cuda.empty_cache()
     launches = phase_main_path()
-    launches["mc_field"] = phase_surface_path()["mc_field"]
+    surface = phase_surface_path()
+    launches["mc_field_cells"] = surface["mc_field_cells"]
+    launches["mc_field"] += surface["mc_field"]  # row 4: both paths, each held at 0
     launches.update(staged_launches)
     launches.update(tile_launches)
     launches.update(v2_launches)

@@ -1,9 +1,11 @@
 // Marching-cubes lattice field (sm_90a).
 //
 // Replaces the Pallas TPU kernel make_mc_field_call
-// (pbf_sph_tpu/ops/pallas_mc.py:185): raw field sums per lattice node.  The
-// post-pass (v = size*S0, n = -S/|S|, c = Csum/cnt, the skip node at 0) stays
-// in the Python wrapper (pbf_sph_tpu_torch/ops/mc_field.py).
+// (pbf_sph_tpu/ops/pallas_mc.py:185): raw field sums per lattice node (row
+// 4).  The post-pass (v = size*S0, n = -S/|S|, c = Csum/cnt, the skip node at
+// 0) is `post_pass` of pbf_sph_tpu_torch/ops/mc_field.py.  Since row 4b
+// (csrc/mc_field_cells.cu) no solver path runs it: it stays as the
+// bisection's last rung and the yardstick row 4b is read beside.
 //
 // Node i = (x*nyn + y)*nzn + z sits at world position
 //   aw = (min_extent + node*step)*scale,  step = h/res,
@@ -36,9 +38,10 @@
 // arrays and one write of the (9, L) output, which bounds the work at a few
 // microseconds (by bytes).  On an H100 at mc128k (3.5M node-candidate pairs)
 // the kernel takes ~0.09 ms (chip_smoke.py): the few live threads walk their
-// candidates serially and the dependent loads are not hidden.  A warp or
-// several threads per node, shared-memory staging of a block's cells, or a
-// compact list of live nodes are left for later work.
+// candidates serially and the dependent loads are not hidden.  Row 4b
+// (csrc/mc_field_cells.cu) splits each node's candidates over a lane group
+// and folds the packs and the post-pass in; shared-memory staging of a
+// block's cells and a compact list of live nodes are untried.
 //
 // The bisection bodies.  The kernel is a template on its body; the
 // production launcher mc_field instantiates kFull.  The three reduced bodies

@@ -58,6 +58,11 @@ SIGNATURES = {
     # and the noop body's redesign (mc_field_zero_fill_ctas returns a CTA count)
     "mc_field_zero_fill_ctas": [],
     "mc_field_zero_fill": [_P, _I, _I, _P],
+    # csrc/mc_field_cells.cu: row 4's redesign, the main path's MC field
+    # (mc_field_cells_lanes() returns the build's G, the lanes a node)
+    "mc_field_cells_lanes": [],
+    "mc_field_cells": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _F, _F, _F, _P, _P],
     # csrc/pbf_phases2.cu
     "pbf_compact": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     "pbf_lambda2": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],

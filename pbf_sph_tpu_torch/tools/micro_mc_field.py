@@ -1,13 +1,13 @@
 """Bisect the MC-field stage of a surface frame: kernel, wrapper and host.
 
-    python -m pbf_sph_tpu_torch.tools.micro_mc_field [workload] [reps]
+    python -m pbf_sph_tpu_torch.tools.micro_mc_field [--sweep] [workload] [reps]
 
-Port of `tools/micro_mc_field.py`.  The `mc_field` kernel of a surface
-frame sits far above its byte bound, and the "mc field" stage of the frame
-takes several times the kernel.  This tool says where both go, with the
-three bisection bodies of `csrc/mc_field.cu`, each the JAX tool's variant
-(`make_variant`) reduced from the port's own kernel (one thread a lattice
-node, in lattice order, the node's exact ranges read from the cell table):
+Port of `tools/micro_mc_field.py`.  Row 4's `mc_field` kernel sat far above
+its byte bound, and the "mc field" stage of the frame took several times the
+kernel.  This tool says where both go, with the three bisection bodies of
+`csrc/mc_field.cu`, each the JAX tool's variant (`make_variant`) reduced from
+row 4's kernel (one thread a lattice node, in lattice order, the node's
+exact ranges read from the cell table):
 
 * `mc_field_noop` ("noop"): launch and the (9, L) output, all zeros;
 * `mc_field_rows` ("rows"): + the node decode, its cell and world position;
@@ -24,29 +24,39 @@ node, in lattice order, the node's exact ranges read from the cell table):
 
 Beside them `mc_field_zero_fill` ("zero_fill") redesigns "noop" for this
 card: the same (9, L) zeros by 16-byte stores over a card-filling grid, read
-in turns beside noop and `torch.zeros((9, L))` (`noop_turns`).
+in turns beside noop and `torch.zeros((9, L))` (`noop_turns`).  Row 4b,
+`mc_field_cells` (`csrc/mc_field_cells.cu`, the main path's MC field since
+it replaced row 4), is read in turns beside row 4 (`cells_turns`), kernel
+and whole call, and with `--sweep` at each G of SWEEP_LANES.
 
 Each body has a plain PyTorch version of `mc_field_plain`'s signature and a
 launcher of `mc_field_kernel`'s; `McFieldBisect` holds the wrappers, which
 take the plain version for CPU tensors and the kernel for CUDA ones, and
-count launches.
+count launches.  `PiecesField` is row 4's call as a solver's field, the
+"before" of the stage.
 
 The tool settles the workload (default mc128k; bench20k, res 2.0, is the
 second case) and takes one more frame's sort-time index and finalised state;
 checks the SASS of the four bodies (cuobjdump) and fails with no time if one
-is off; holds each body against its plain version at both workloads; then
-reads
+is off; holds each body against its plain version at both workloads, and row
+4b against its plain version and row 4 (`cells_agree`); then reads
 
 * the kernel ladder noop -> rows -> loops -> full on prebuilt packs and a
   prebuilt output, by CUDA events over back-to-back launches and over the
   replay of a CUDA graph of captured launches, with the host's time a
   launch, each step's bound and the SM clock sampled beside;
 * noop, zero_fill and `torch.zeros((9, L))` in turns (`noop_turns`);
-* the wrapper ladder, the pieces of `McField.__call__` (nonobstacle, the
-  (C, 4) packs, the kernel, `post_pass` with its host-side `skip_box`, the
-  whole call, and the frame's "mc field" stage): device ms, host ms a call
-  and the device work one call launches (`torch.profiler`), and from them the
-  stage split into kernel, wrapper device work and host.
+* row 4b's kernel beside row 4's, and `McField.__call__` (one launch) beside
+  row 4's call rebuilt from its pieces (`field_by_pieces`), in turns in a
+  CUDA graph, with the host's time a call (`cells_turns`);
+* the wrapper ladder: row 4's pieces (nonobstacle, the (C, 4) packs, the
+  kernel, `post_pass` with its host-side `skip_box`, the whole) and the
+  one-launch call: device ms, host ms a call and the device work one call
+  launches (`torch.profiler`); and the frame's "mc field" stage with each
+  field in turns, split into kernel, wrapper device work and host;
+* with `--sweep`, `csrc/mc_field_cells.cu` built alone at each G (the
+  lanes that walk a node) of SWEEP_LANES, each held to its plain version
+  and to itself at both workloads and read in a CUDA graph in turns.
 
 The JAX tool's `plan_mc_windows` and its unpermute (gather or sort) have no
 counterpart: the port reads its ranges from the cell table inside the kernel
@@ -82,15 +92,26 @@ SETTLE_FRAMES = 5
 GRAPH_LAUNCHES = 100   # launches captured in one CUDA graph
 GRAPH_REPLAYS = 5
 NOOP_TURNS = 10   # alternations of mc_field_noop and torch.zeros((9, L))
+CELLS_TURNS = 5   # alternations of row 4b and row 4, kernel and call
+STAGE_TURNS = 2   # alternations of the frame's "mc field" stage, row 4b and row 4
+# --sweep: the G (-DMC_FIELD_CELLS_LANES) mc_field_cells.cu is built at, the
+# default (`mf.CELLS_LANES`) first
+SWEEP_LANES = (mf.CELLS_LANES, 2, 8, 16)
 RTOL, ATOL_SCALE = 1e-5, 1e-6   # loops: atol = ATOL_SCALE * max|value| (sums run to ~1e7)
 # the bound: published peaks of one H100 SXM (700 W); fp32 operations a
-# candidate (loops: its FFMA; full: l, d2 and the compares) and a hit (full:
-# the weight and the nine sums), and a node (rows: its position and sum)
+# candidate (loops: its FFMA; full and cells: l, d2 and the compares) and a
+# hit (the weight and the nine sums), and a node (rows: its position and
+# sum; cells: the post-pass, v 1, |S| 6, n 3, c 4)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-FLOP_PER_CANDIDATE = {"noop": 0, "rows": 0, "loops": 2, "full": 10}
-FLOP_PER_HIT = {"noop": 0, "rows": 0, "loops": 0, "full": 14}
-FLOP_PER_NODE = {"noop": 0, "rows": 12, "loops": 0, "full": 0}
+FLOP_PER_CANDIDATE = {"noop": 0, "rows": 0, "loops": 2, "full": 10, "cells": 10}
+FLOP_PER_HIT = {"noop": 0, "rows": 0, "loops": 0, "full": 14, "cells": 14}
+FLOP_PER_NODE = {"noop": 0, "rows": 12, "loops": 0, "full": 0, "cells": 14}
+# row 4b against its plain version and row 4: v rtol/atol, and n and c on
+# the finite active nodes (v > ACTIVE_V) rtol/atol with under NAN_SHARE of
+# the nodes NaN on one side only (chip_smoke.py 3b's rule)
+V_RTOL, V_ATOL = 1e-4, 1e-3
+NC_TOL, ACTIVE_V, NAN_SHARE = 1e-3, 1e-3, 0.01
 # what each step of the ladder adds to the one before it
 LADDER = (("noop", "launch and the (9, L) output stores"),
           ("rows", "the node decode, its cell and world position"),
@@ -244,14 +265,43 @@ def raw_from_packs(index, mc, h: float, scale: float, pos4, col4, min_extent, ou
 
 def field_by_pieces(h: float, index, mc, scale: float, position, colour, ptype, alive,
                     min_extent, particle_size):
-    """What `McField(h)(...)` returns, from the pieces the wrapper ladder
-    times: nonobstacle, the packs, the field from the packs, `post_pass`."""
+    """What row 4's `McField(h)(...)` returned, from the pieces the wrapper
+    ladder times: nonobstacle, the packs, the field from the packs,
+    `post_pass`."""
     nonobs = nonobstacle(ptype, alive, position.dtype)
     pos4, col4 = mf.mc_field_packs(position, colour, nonobs)
     raw = torch.empty((9, int(np.prod(mc.sample))), dtype=position.dtype,
                       device=position.device)
     raw_from_packs(index, mc, h, scale, pos4, col4, min_extent.contiguous(), raw)
     return mf.post_pass(raw, mc, index.grid.extent, particle_size)
+
+
+class PiecesField:
+    """Row 4's call (`field_by_pieces`) as a solver's MC field, with its
+    launch counter `launches["mc_field"]`: the "before" of the stage."""
+
+    def __init__(self, h: float):
+        self.h = float(h)
+        self.launches = {"mc_field": 0}
+
+    def reset_launches(self) -> None:
+        self.launches["mc_field"] = 0
+
+    def __call__(self, index, mc, scale: float, position, colour, ptype, alive, min_extent,
+                 particle_size):
+        if position.device.type != "cpu":
+            self.launches["mc_field"] += 1
+        return field_by_pieces(self.h, index, mc, scale, position, colour, ptype, alive,
+                               min_extent, particle_size)
+
+
+def pieces_solver(h: float, device="cuda"):
+    """A `TorchSolver` whose surface stage runs `PiecesField`."""
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    solver = TorchSolver(h=h, device=device)
+    solver.mc_field = PiecesField(h)
+    return solver
 
 
 # ---------------------------------------------------------------------------
@@ -263,16 +313,18 @@ def work(body: str, index, mc, pairs: int, hits: int = 0):
     """(bytes, fp32 operations) the body must move and do at a frame of
     `pairs` node-candidate pairs and `hits` within h*scale: each input it
     reads once (noop none; rows min_extent; loops the (C, 4) positions and
-    the cell table; full both packs, the keys and the table) and the (9, L)
-    output once."""
+    the cell table; full both packs, the keys and the table; cells, row 4b,
+    position 12, colour 16, ptype 4 and alive 1 a row, the table,
+    min_extent and the size) and its output once ((9, L); cells (8, L))."""
     nodes = int(np.prod(mc.sample))
     cap = index.key.shape[0]
     table = 4 * (index.grid.ncells + 1)
     read = {"noop": 0, "rows": 12, "loops": 16 * cap + table + 12,
-            "full": 32 * cap + 4 * cap + table + 12}[body]
+            "full": 32 * cap + 4 * cap + table + 12,
+            "cells": 33 * cap + table + 16}[body]
     flops = (FLOP_PER_CANDIDATE[body] * pairs + FLOP_PER_HIT[body] * hits
              + FLOP_PER_NODE[body] * nodes)
-    return read + 36 * nodes, flops
+    return read + 4 * (8 if body == "cells" else 9) * nodes, flops
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -282,13 +334,17 @@ def bound_ms(nbytes: float, flops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def census(spec, fr, raw) -> dict:
+def census(spec, fr, raw, clamped: bool = False) -> dict:
     """The lattice, its nodes, the live ones (one candidate or more), the
-    node-candidate pairs, the hits within h*scale (`raw` row 8) and the
-    candidates a live node."""
+    node-candidate pairs, the hits within h*scale (`raw` row 8, row 4's raw
+    sums) and the candidates a live node; over row 4's ranges, or with
+    `clamped` over row 4b's (the z-wrapped cells dropped)."""
     mc = spec.surface
     _, cell, skip = mf.lattice_nodes(mc, spec.grid.extent, raw.device)
-    lo, hi, _ = mf.node_ranges(fr.index, cell, skip)
+    if clamped:
+        lo, hi = mf.node_ranges_clamped(fr.index, cell, skip)
+    else:
+        lo, hi, _ = mf.node_ranges(fr.index, cell, skip)
     per_node = (hi - lo).sum(0)
     live = int((per_node > 0).sum())
     pairs = int(per_node.sum())
@@ -441,6 +497,41 @@ def card_parity(spec, fr, st, tag: str) -> Dict[str, tuple]:
     return res
 
 
+def cells_args(spec, fr, st, particle_size):
+    """The (index, mc, h, scale, position, colour, ptype, alive, min_extent,
+    particle_size) of row 4b's field at a frame."""
+    return (fr.index, spec.surface, spec.h, spec.scale, st.position, st.colour, st.ptype,
+            st.alive, fr.min_extent, particle_size)
+
+
+def bits_equal(a, b) -> bool:
+    """The same shape and the same bits, NaN payloads included."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def cells_agree(got, want, skip) -> Dict[str, tuple]:
+    """Row 4b's (8, L) `got` against `want` = (v, n, c) of its plain version
+    or of row 4: name -> (within tolerance, max abs err or count).  v rtol
+    V_RTOL, atol V_ATOL; n and c on the finite nodes with v > ACTIVE_V rtol
+    and atol NC_TOL, NaN on one side only on under NAN_SHARE of the nodes;
+    c NaN on exactly the same elements (the count is exact); the skip node 0
+    in all 8 rows."""
+    v, n, c = got[0], got[1:4], got[4:8]
+    wv, wn, wc = want
+    res = {"v": (torch.allclose(v, wv, rtol=V_RTOL, atol=V_ATOL), float((v - wv).abs().max()))}
+    active = wv > ACTIVE_V
+    for name, g, w in (("n", n, wn), ("c", c, wc)):
+        disagree = float((torch.isfinite(g) != torch.isfinite(w)).float().mean())
+        m = torch.isfinite(w) & active
+        err = float((g[m] - w[m]).abs().max()) if bool(m.any()) else 0.0
+        res[name] = (disagree < NAN_SHARE and bool(m.any())
+                     and torch.allclose(g[m], w[m], rtol=NC_TOL, atol=NC_TOL), err)
+    res["c NaN pattern"] = (torch.equal(torch.isnan(c), torch.isnan(wc)),
+                            int(torch.isnan(wc[0]).sum()))
+    res["skip node 0"] = (int(skip.sum()) == 1 and not bool(got[:, skip].any()), 0)
+    return res
+
+
 def host_ms(fn, calls: int) -> float:
     """Host ms a call of fn(): the clock around `calls` calls with no
     synchronise inside, what the host spends enqueueing."""
@@ -480,8 +571,8 @@ def graph_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = GRAPH_REPLAYS) -
 
 def profile_call(fn, calls: int = 5) -> dict:
     """`torch.profiler` over `calls` calls of fn(): the kernels one call
-    launches, their summed device ms (busy), and the device ms of those
-    whose name holds "mc_field_kernel"."""
+    launches, their summed device ms (busy), and the device ms of the field
+    kernel's (a name holding "mc_field_kernel" or "mc_field_cells_kernel")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -495,7 +586,8 @@ def profile_call(fn, calls: int = 5) -> dict:
     return dict(kernels=sum(e.count for e in dev) / calls,
                 busy_ms=sum(e.self_device_time_total for e in dev) / calls / 1e3,
                 field_kernel_ms=sum(e.self_device_time_total for e in dev
-                                    if "mc_field_kernel" in e.key) / calls / 1e3)
+                                    if "mc_field_kernel" in e.key
+                                    or "mc_field_cells_kernel" in e.key) / calls / 1e3)
 
 
 def kernel_ladder(bisect: McFieldBisect, spec, fr, st, reps: int) -> dict:
@@ -564,31 +656,80 @@ def noop_loses(turns: dict, margin: float = 0.05, body: str = "noop") -> bool:
     return bool(np.median(mine) > (1 + margin) * np.median(zeros) and min(mine) > max(zeros))
 
 
-def wrapper_ladder(s: Settled, reps: int) -> dict:
-    """The pieces of `McField.__call__` at the settled frame: per piece
-    device ms (CUDA events over `reps` back-to-back calls), host ms a call
-    and `profile_call`; the whole call also from a CUDA graph; the "mc field"
-    stage of `bench.phase_breakdown` over 5 frames; and the stage split into
-    the kernel, the wrapper's other device work and the host (the stage less
-    the call's device work)."""
+def cells_turns(spec, fr, st, particle_size, turns: int = CELLS_TURNS, reps: int = 20) -> dict:
+    """Row 4b beside row 4 at a frame, in turns: `turns` rounds of the four,
+    each reading a CUDA graph of GRAPH_LAUNCHES launches (`graph_ms`): row
+    4b's kernel alone ("cells", into an output made beforehand), row 4's
+    ("mc_field", on packs and an output made beforehand), `McField.__call__`
+    ("call": one allocation and one launch) and row 4's call rebuilt from
+    its pieces ("pieces", `field_by_pieces`); then the host ms a call of the
+    two calls (`host_ms` over `reps`).  {"graph_ms": {name: [ms, ...]},
+    "host_ms": {"call": ms, "pieces": ms}, "launches": McField's}."""
+    index, mc, h, scale, position, colour, nonobs, mine = field_args(spec, fr, st)
+    args = cells_args(spec, fr, st, particle_size)
+    pos4, col4 = mf.mc_field_packs(position, colour, nonobs)
+    mine4 = mine.contiguous()
+    nodes = int(np.prod(mc.sample))
+    out8 = torch.empty((8, nodes), dtype=torch.float32, device=position.device)
+    out9 = torch.empty((9, nodes), dtype=torch.float32, device=position.device)
+    field = mf.McField(h)
+    call_args = args[:2] + args[3:]
+    calls = {
+        "cells": lambda: mf.mc_field_cells_launch(*args, out8),
+        "mc_field": lambda: mf.mc_field_launch("mc_field", index, mc, h, scale, pos4, col4,
+                                               mine4, out9),
+        "call": lambda: field(*call_args),
+        "pieces": lambda: field_by_pieces(h, *call_args),
+    }
+    ms = {name: [] for name in calls}
+    for _ in range(turns):
+        for name, fn in calls.items():
+            ms[name].append(graph_ms(fn))
+    host = {name: host_ms(calls[name], reps) for name in ("call", "pieces")}
+    return dict(graph_ms=ms, host_ms=host, launches=dict(field.launches))
+
+
+def stage_turns(s: Settled, turns: int = STAGE_TURNS, frames: int = 5) -> dict:
+    """The frame's stages (`bench.phase_breakdown`, device ms a frame over
+    `frames` frames from the settled state) with row 4b's `McField`
+    ("cells", the settled solver) and with row 4's call (`pieces_solver`), in
+    turns: {"cells": [{stage: ms}, ...], "pieces": [...]}."""
     from pbf_sph_tpu_torch.bench import phase_breakdown
+
+    solvers = {"cells": s.solver, "pieces": pieces_solver(s.spec.h, s.solver.device)}
+    res = {name: [] for name in solvers}
+    for _ in range(turns):
+        for name, solver in solvers.items():
+            res[name].append(phase_breakdown(solver, s.spec, s.state, s.dyn, s.scn, frames)[1])
+    return res
+
+
+def wrapper_ladder(s: Settled, reps: int) -> dict:
+    """Row 4's call piece by piece, and row 4b's one-launch call, at the
+    settled frame: per piece device ms (CUDA events over `reps`
+    back-to-back calls), host ms a call and `profile_call`; both whole calls
+    also from a CUDA graph; and for each field the frame's "mc field" stage
+    (`stage_turns`, medians) split into the field kernel, the wrapper's
+    other device work and the host (the stage less the call's device
+    work)."""
     from pbf_sph_tpu_torch.tools.bench_kernel_variants import device_ms
 
     spec, fr, st = s.spec, s.fr, s.st
     index, mc, h, scale, position, colour, nonobs, mine = field_args(spec, fr, st)
     pos4, col4 = mf.mc_field_packs(position, colour, nonobs)
-    mine = mine.contiguous()
+    mine4 = mine.contiguous()
     raw = torch.empty((9, int(np.prod(mc.sample))), dtype=torch.float32,
                       device=position.device)
     size = s.dyn["mc_particle_size"]
     field = mf.McField(h)
+    call_args = (index, mc, scale, position, colour, st.ptype, st.alive, fr.min_extent, size)
     pieces = {
         "nonobstacle": lambda: nonobstacle(st.ptype, st.alive, position.dtype),
         "packs": lambda: mf.mc_field_packs(position, colour, nonobs),
-        "kernel": lambda: raw_from_packs(index, mc, h, scale, pos4, col4, mine, raw),
+        "kernel": lambda: raw_from_packs(index, mc, h, scale, pos4, col4, mine4, raw),
         "post_pass": lambda: mf.post_pass(raw, mc, spec.grid.extent, size),
-        "call": lambda: field(index, mc, scale, position, colour, st.ptype, st.alive,
-                              fr.min_extent, size),
+        "pieces": lambda: field_by_pieces(h, *call_args),
+        "call": lambda: field(*call_args),
     }
     res = {}
     for name, fn in pieces.items():
@@ -598,15 +739,95 @@ def wrapper_ladder(s: Settled, reps: int) -> dict:
     for _ in range(reps):
         mf.skip_box(mc, spec.grid.extent)
     res["skip_box"] = dict(host_ms=(time.perf_counter() - t0) * 1e3 / reps)
-    res["call"]["graph_ms"] = graph_ms(pieces["call"], 20, 2)
-    _, stages = phase_breakdown(s.solver, spec, s.state, s.dyn, s.scn, 5)
-    stage = stages["mc field"]
-    call = res["call"]
-    kernel = call["field_kernel_ms"]
-    res["stage"] = dict(stage_ms=stage, mc_extract_ms=stages["mc extract"],
-                        frame_device_ms=sum(stages.values()), kernel_ms=kernel,
-                        wrapper_device_ms=call["busy_ms"] - kernel,
-                        host_ms=stage - call["busy_ms"])
+    for name in ("pieces", "call"):
+        res[name]["graph_ms"] = graph_ms(pieces[name], 20, 2)
+    stages = stage_turns(s)
+    res["stage"] = {}
+    for field_name, name in (("cells", "call"), ("pieces", "pieces")):
+        med = {k: float(np.median([t[k] for t in stages[field_name]]))
+               for k in stages[field_name][0]}
+        call = res[name]
+        kernel = call["field_kernel_ms"]
+        res["stage"][field_name] = dict(
+            stage_ms=med["mc field"], stage_turns=[t["mc field"] for t in stages[field_name]],
+            mc_extract_ms=med["mc extract"], frame_device_ms=sum(med.values()),
+            kernel_ms=kernel, wrapper_device_ms=call["busy_ms"] - kernel,
+            host_ms=med["mc field"] - call["busy_ms"])
+    return res
+
+
+def sweep_libraries(lanes=SWEEP_LANES):
+    """{G: (launcher, ptxas's lines for the kernel)}: csrc/mc_field_cells.cu
+    built alone at each G of `lanes` (-DMC_FIELD_CELLS_LANES), one nvcc for
+    each, all at once, into the build directory (named by the sources'
+    hash)."""
+    import ctypes
+    import subprocess
+
+    src = cuda_build.SRC_DIR / "mc_field_cells.cu"
+    digest = cuda_build.library_path().stem.rsplit("_", 1)[1]
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for g in lanes:
+        out = cuda_build.BUILD_DIR / f"libmc_field_cells_g{g}_{digest}.so"
+        cmd = [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, f"-DMC_FIELD_CELLS_LANES={g}",
+               "-Xptxas", "-v", "-shared", "-o", str(out), str(src)]
+        procs[g] = (cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    libs = {}
+    for g, (cmd, proc, out) in procs.items():
+        log = proc.communicate()[0]
+        cuda_build._check_nvcc(cmd, proc.returncode, log)
+        lib = ctypes.CDLL(str(out))
+        fn = lib.mc_field_cells
+        fn.argtypes = cuda_build.SIGNATURES["mc_field_cells"]
+        fn.restype = ctypes.c_int
+        lib.mc_field_cells_lanes.restype = ctypes.c_int
+        if lib.mc_field_cells_lanes() != g:
+            raise RuntimeError(f"mc_field_cells built at G {g} reports "
+                               f"{lib.mc_field_cells_lanes()}")
+        libs[g] = (fn, " ".join(line.split(":", 1)[-1].strip()
+                                for line in log.splitlines()
+                                if "registers" in line or "spill" in line))
+    return libs
+
+
+def launch_build(fn, args, out) -> None:
+    """The launcher `fn` of a sweep build into `out`, on `mf.mc_field_cells_args`'
+    arguments `args` (index, mc, h, scale, position, colour, ptype, alive,
+    min_extent, particle_size)."""
+    with torch.cuda.device(out.device):
+        err = fn(*mf.mc_field_cells_args(*args, out))
+    cuda_build.check("mc_field_cells", err)
+
+
+def sweep(settled: Dict[str, Settled]) -> dict:
+    """Row 4b at each G of `sweep_libraries` on each settled frame: held to
+    its plain version (`cells_agree`) and to itself over two launches (bit
+    for bit), then every build in a CUDA graph (`graph_ms`) in turns (the
+    builds in order, then reversed), the SM clock sampled.  {"ptxas": {G:
+    lines}, workload: {G: entry}, "clocks_sm_mhz": ...}."""
+    libs = sweep_libraries()
+    res = {"ptxas": {g: p for g, (_, p) in libs.items()}}
+    runs = []
+    for w, s in settled.items():
+        args = cells_args(s.spec, s.fr, s.st, s.dyn["mc_particle_size"])
+        _, _, skip = mf.lattice_nodes(s.spec.surface, s.spec.grid.extent, s.st.position.device)
+        want = mf.mc_field_cells_plain(*args)
+        res[w] = {}
+        for g, (fn, _) in libs.items():
+            out, again = torch.empty_like(want), torch.empty_like(want)
+            launch_build(fn, args, out)
+            launch_build(fn, args, again)
+            agree = cells_agree(out, (want[0], want[1:4], want[4:8]), skip)
+            entry = res[w][g] = dict(ok=all(ok for ok, _ in agree.values()),
+                                     same_bits=bits_equal(out, again), ms=[])
+            runs.append((entry["ms"], lambda fn=fn, args=args, out=out:
+                         launch_build(fn, args, out)))
+    with ar.ClockSampler(want.device) as clock:
+        for ms, fn in runs + runs[::-1]:
+            ms.append(graph_ms(fn))
+    res["clocks_sm_mhz"] = clock.summary()
     return res
 
 
@@ -614,6 +835,8 @@ def main(argv=None) -> int:
     from pbf_sph_tpu_torch.tools.bench_kernel_variants import card_line
 
     argv = sys.argv[1:] if argv is None else argv
+    do_sweep = "--sweep" in argv
+    argv = [a for a in argv if a != "--sweep"]
     workload = argv[0] if argv else "mc128k"
     reps = int(argv[1]) if len(argv) > 1 else 20
     if workload not in WORKLOADS:
@@ -627,11 +850,14 @@ def main(argv=None) -> int:
     s = settled[workload]
     raw = mf.mc_field_kernel(*field_args(s.spec, s.fr, s.st))
     cen = census(s.spec, s.fr, raw)
+    cen_cells = census(s.spec, s.fr, raw, clamped=True)
     print(f"== 1. {workload} settled ({SETTLE_FRAMES} frames, then one frame's sort-time index "
           f"and finalised state): res {cen['res']}, lattice {cen['lattice']} ({cen['nodes']} "
           f"nodes), {cen['live']} live nodes, {cen['pairs']} node-candidate pairs, "
           f"{cen['hits']} within h*scale, {cen['per_live']:.2f} candidates a live node "
-          f"(max {cen['max_per_node']})")
+          f"(max {cen['max_per_node']}); row 4b's clamped ranges: {cen_cells['live']} live, "
+          f"{cen_cells['pairs']} pairs, {cen_cells['per_live']:.2f} a live node (max "
+          f"{cen_cells['max_per_node']})")
 
     print("== 2. SASS of csrc/mc_field.cu (cuobjdump)")
     cuda_build.library()
@@ -647,7 +873,17 @@ def main(argv=None) -> int:
     parity = {}
     for w, sw in settled.items():
         parity.update(card_parity(sw.spec, sw.fr, sw.st, w))
-    print("== 3. each kernel against its plain version: " + ", ".join(
+        args = cells_args(sw.spec, sw.fr, sw.st, sw.dyn["mc_particle_size"])
+        _, _, skip = mf.lattice_nodes(sw.spec.surface, sw.spec.grid.extent, sw.st.position.device)
+        got, again = mf.mc_field_cells_kernel(*args), mf.mc_field_cells_kernel(*args)
+        want = mf.mc_field_cells_plain(*args)
+        row4 = mf.post_pass(mf.mc_field_kernel(*field_args(sw.spec, sw.fr, sw.st)),
+                            sw.spec.surface, sw.spec.grid.extent, sw.dyn["mc_particle_size"])
+        for ref, w_vnc in (("plain", (want[0], want[1:4], want[4:8])), ("row 4", row4)):
+            for check, (ok, err) in cells_agree(got, w_vnc, skip).items():
+                parity[f"cells {w} against {ref}: {check}"] = (err, ok)
+        parity[f"cells {w} two launches bit for bit"] = (0.0, bits_equal(got, again))
+    print("== 3. each kernel against its plain version (row 4b also against row 4): " + ", ".join(
         f"{k} {e:.3e}" for k, (e, _) in parity.items()))
     wrong = [k for k, (_, ok) in parity.items() if not ok]
     if wrong:
@@ -673,10 +909,23 @@ def main(argv=None) -> int:
         loses = "" if name == "zeros" else f"; loses to torch.zeros: {noop_loses(turns, body=name)}"
         print(f"  {name:9s} median {np.median(v):.5f}, min-max {min(v):.5f}-{max(v):.5f}{loses}")
 
+    ct = cells_turns(s.spec, s.fr, s.st, s.dyn["mc_particle_size"])
+    b_ms, b_by = bound_ms(*work("cells", s.fr.index, s.spec.surface, cen_cells["pairs"],
+                                cen_cells["hits"]))
+    print(f"== 4c. row 4b (mc_field_cells, G {mf.CELLS_LANES}) beside row 4 at {workload} in "
+          f"{CELLS_TURNS} turns (ms in a CUDA graph of {GRAPH_LAUNCHES}); bound {b_ms:.4f} ms "
+          f"by {b_by}")
+    for name, v in ct["graph_ms"].items():
+        rate = (f", {cen_cells['pairs'] / (np.median(v) * 1e-3) / 1e9:.2f} G pairs/s"
+                if name == "cells" else "")
+        host = f"; host {ct['host_ms'][name]:.4f} ms a call" if name in ct["host_ms"] else ""
+        print(f"  {name:8s} median {np.median(v):.5f}, min-max {min(v):.5f}-{max(v):.5f}"
+              f"{rate}{host}")
+
     wl = wrapper_ladder(s, reps)
-    print(f"== 5. wrapper ladder at {workload}: the pieces of McField.__call__ (device ms "
-          f"by CUDA events over {reps} back-to-back calls, host ms a call without a "
-          f"synchronise, device work a call by torch.profiler)")
+    print(f"== 5. wrapper ladder at {workload}: row 4's call piece by piece and row 4b's "
+          f"one-launch call (device ms by CUDA events over {reps} back-to-back calls, host ms "
+          f"a call without a synchronise, device work a call by torch.profiler)")
     print("  plan_mc_windows and the unpermute (gather or sort) of the JAX tool have no "
           "counterpart: the kernel reads its ranges from the cell table and keeps "
           "lattice order")
@@ -689,15 +938,36 @@ def main(argv=None) -> int:
               f"call{graph}")
     print(f"  skip_box    host {wl['skip_box']['host_ms']:.4f} ms a call (numpy, inside "
           f"post_pass)")
-    st = wl["stage"]
-    print(f"  the \"mc field\" stage {st['stage_ms']:.4f} ms a frame (phase_breakdown, 5 "
-          f"frames; mc extract {st['mc_extract_ms']:.4f}, frame {st['frame_device_ms']:.4f}) "
-          f"= kernel {st['kernel_ms']:.4f} + wrapper device work "
-          f"{st['wrapper_device_ms']:.4f} + host {st['host_ms']:.4f}")
+    for field_name, st in wl["stage"].items():
+        print(f"  the \"mc field\" stage with {field_name} {st['stage_ms']:.4f} ms a frame "
+              f"(phase_breakdown, 5 frames, median of {STAGE_TURNS} turns: "
+              f"{', '.join(f'{t:.4f}' for t in st['stage_turns'])}; mc extract "
+              f"{st['mc_extract_ms']:.4f}, frame {st['frame_device_ms']:.4f}) = kernel "
+              f"{st['kernel_ms']:.4f} + wrapper device work {st['wrapper_device_ms']:.4f} + "
+              f"host {st['host_ms']:.4f}")
+
+    swept = None
+    if do_sweep:
+        swept = sweep(settled)
+        print(f"== 6. row 4b at each G of {SWEEP_LANES}, built alone "
+              f"(-DMC_FIELD_CELLS_LANES), in a CUDA graph of {GRAPH_LAUNCHES} in "
+              f"turns; SM clock {swept['clocks_sm_mhz']}")
+        for w in settled:
+            for g, e in swept[w].items():
+                print(f"  {w} G {g}: {', '.join(f'{t:.5f}' for t in e['ms'])} ms; agrees "
+                      f"{e['ok']}, two launches bit for bit {e['same_bits']}; "
+                      f"{swept['ptxas'][g]}")
+        wrong = [(w, g) for w in settled for g, e in swept[w].items()
+                 if not (e["ok"] and e["same_bits"])]
+        if wrong:
+            raise SystemExit(f"micro_mc_field: the sweep's {wrong} disagree with the plain "
+                             f"version or with themselves")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0),
-                      "workload": workload, "reps": reps, "census": cen, "sass": sass,
+                      "workload": workload, "reps": reps, "census": cen,
+                      "census_cells": cen_cells, "sass": sass,
                       "parity": {k: e for k, (e, _) in parity.items()},
-                      "kernel_ladder": kl, "noop_turns": turns, "wrapper_ladder": wl,
+                      "kernel_ladder": kl, "noop_turns": turns, "cells_turns": ct,
+                      "cells_bound": [b_ms, b_by], "wrapper_ladder": wl, "sweep": swept,
                       "launches": bisect.launches}))
     return 0
 

@@ -9,7 +9,12 @@ kernel's order); lambda atol 1e-6, rtol 1e-5; pStar after one delta phase
 atol 1e-5 in simulation units (the kernel contracts to FMAs and sums in
 another order; the tile kernels' fp64 tensor-core r2 rounds as the plain
 version's fp64 r2 does); MC field count exact (the kernel rounds the distances as
-the plain version does), sums rtol 1e-4, atol 1e-3.  The v2 phases: slabs
+the plain version does), sums rtol 1e-4, atol 1e-3; the main path's MC field
+(row 4b, `csrc/mc_field_cells.cu`) against its plain version and row 4 with
+the post-pass: v rtol 1e-4, atol 1e-3, n and c rtol/atol 1e-3 on the finite
+active nodes, c NaN on the same elements (`micro_mc_field.cells_agree`; the
+lanes of a node sum in another order than the plain version), and bit for
+bit over two launches.  The v2 phases: slabs
 bit for bit on the columns the compaction writes, lambda2 and delta2 as
 lambda and delta, diffuse2 count exact and sums atol 1e-6 (the plain
 version sums column by column in the kernel's order).  The rate anchor's
@@ -52,6 +57,7 @@ import pytest
 import torch
 
 from pbf_sph_tpu_torch.core.configs import dam_break
+from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
 from pbf_sph_tpu_torch.core.types import FLUID, OBSTACLE, Scene
 from pbf_sph_tpu_torch.models.torch_solver import (
     TorchSolver,
@@ -345,13 +351,74 @@ def test_mc_field_kernel_matches_plain(card_surface_frame):
 
 
 def test_mc_field_counts_kernel_launches(card_surface_frame):
+    """McField on the card launches row 4b once a call, into one (8, L)
+    output whose rows are v, n and c."""
     spec, dyn, fr, st = card_surface_frame
     field = mf.McField(spec.h)
     v, n, c = field(fr.index, spec.surface, spec.scale, st.position, st.colour,
                     st.ptype, st.alive, fr.min_extent, dyn["mc_particle_size"])
     torch.cuda.synchronize()
     assert v.is_cuda and n.shape == (3, v.shape[0]) and c.shape == (4, v.shape[0])
-    assert field.launches == {"mc_field": 1}
+    assert field.launches == {"mc_field_cells": 1, "mc_field": 0}
+    L = v.shape[0]
+    assert n.data_ptr() == v.data_ptr() + 4 * L and c.data_ptr() == v.data_ptr() + 16 * L
+
+
+def test_mc_field_row4_launches_are_counted(card_surface_frame):
+    """Row 4's launcher adds one to ROW4_LAUNCHES a launch of `mc_field` and
+    none for the bisection bodies, and McField reports it since its reset."""
+    spec, dyn, fr, st = card_surface_frame
+    field = mf.McField(spec.h)
+    start = mf.ROW4_LAUNCHES["mc_field"]
+    args = (fr.index, spec.surface, spec.h, spec.scale, st.position, st.colour,
+            ph.nonobstacle(st.ptype, st.alive), fr.min_extent)
+    mf.mc_field_kernel(*args)
+    mf.mc_field_kernel(*args, name="mc_field_loops")
+    torch.cuda.synchronize()
+    assert mf.ROW4_LAUNCHES["mc_field"] == start + 1
+    assert field.launches == {"mc_field_cells": 0, "mc_field": 1}
+    field.reset_launches()
+    assert field.launches == {"mc_field_cells": 0, "mc_field": 0}
+
+
+@pytest.fixture(scope="module")
+def card_field_frames(card_surface_frame):
+    """{res: (spec, dyn, frame, finalised state)}: the dam break of
+    `card_surface_frame` (res 1.0) and a 2-cube frame at res 2.0."""
+    mc, cfg, xs = simple_config_with_2_cubes(1500, 2, 500.0)
+    cfg = cfg.replace(surface=mc)
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    dyn = dyn_params_of(cfg, device="cuda")
+    fr, st, _ = solve_frame(spec, solver.phases, state, dyn, scn)
+    assert spec.surface.resolution == 2.0
+    return {1.0: card_surface_frame, 2.0: (spec, dyn, fr, st)}
+
+
+@pytest.mark.parametrize("res", [1.0, 2.0])
+def test_mc_field_cells_kernel_matches_plain(card_field_frames, res):
+    """Row 4b against its plain version and against row 4 with the
+    post-pass, at res 1.0 and 2.0."""
+    spec, dyn, fr, st = card_field_frames[res]
+    size = dyn["mc_particle_size"]
+    args = mcb.cells_args(spec, fr, st, size)
+    got = mf.mc_field_cells_kernel(*args)
+    want = mf.mc_field_cells_plain(*args)
+    row4 = mf.post_pass(mf.mc_field_kernel(*mcb.field_args(spec, fr, st)), spec.surface,
+                        spec.grid.extent, size)
+    _, _, skip = mf.lattice_nodes(spec.surface, spec.grid.extent, st.position.device)
+    for ref in ((want[0], want[1:4], want[4:8]), row4):
+        res_ = mcb.cells_agree(got, ref, skip)
+        assert all(ok for ok, _ in res_.values()), res_
+    assert bool((got[0] > 1e-3).any()) and bool(torch.isnan(got[4]).any())
+
+
+@pytest.mark.parametrize("res", [1.0, 2.0])
+def test_mc_field_cells_is_deterministic(card_field_frames, res):
+    spec, dyn, fr, st = card_field_frames[res]
+    args = mcb.cells_args(spec, fr, st, dyn["mc_particle_size"])
+    first = mf.mc_field_cells_kernel(*args)
+    assert all(mcb.bits_equal(first, mf.mc_field_cells_kernel(*args)) for _ in range(3))
 
 
 @pytest.fixture(scope="module")
@@ -495,12 +562,22 @@ def test_mc_zero_fill_is_noop_plain(card_surface_frame):
 
 
 def test_mc_bisect_pieces_equal_mc_field(card_surface_frame):
+    """Row 4's call rebuilt from its pieces gives post_pass(mc_field_kernel)
+    bit for bit, and agrees with McField (row 4b) as 3n holds them."""
     spec, dyn, fr, st = card_surface_frame
+    size = dyn["mc_particle_size"]
     args = (fr.index, spec.surface, spec.scale, st.position, st.colour, st.ptype, st.alive,
-            fr.min_extent, dyn["mc_particle_size"])
-    for got, want in zip(mcb.field_by_pieces(spec.h, *args), mf.McField(spec.h)(*args)):
+            fr.min_extent, size)
+    pieces = mcb.field_by_pieces(spec.h, *args)
+    row4 = mf.post_pass(mf.mc_field_kernel(*mcb.field_args(spec, fr, st)), spec.surface,
+                        spec.grid.extent, size)
+    for got, want in zip(pieces, row4):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    v, n, c = mf.McField(spec.h)(*args)
+    _, _, skip = mf.lattice_nodes(spec.surface, spec.grid.extent, st.position.device)
+    agree = mcb.cells_agree(torch.cat([v[None], n, c]), pieces, skip)
+    assert all(ok for ok, _ in agree.values()), agree
 
 
 def test_mc_bisect_sass(card):

@@ -105,6 +105,14 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         mf.mc_field_kernel(index, spec.surface, spec.h, spec.scale, state.position,
                            state.colour, state.mass, torch.zeros(3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mf.mc_field_cells_kernel(index, spec.surface, spec.h, spec.scale, state.position,
+                                 state.colour, state.ptype, state.alive, torch.zeros(3),
+                                 torch.zeros(()))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mf.mc_field_cells_launch(index, spec.surface, spec.h, spec.scale, state.position,
+                                 state.colour, state.ptype, state.alive, torch.zeros(3),
+                                 torch.zeros(()), torch.empty((8, 1)))
 
 
 def test_tile_launchers_refuse_cpu_tensors():
@@ -165,7 +173,7 @@ def test_surface_steps_on_cpu_without_launches():
     assert len(res.mesh) > 0 and len(res.mesh) % 3 == 0
     assert solver.launches == {"diffuse": 0, "diffuse_cell_sums": 0, "diffuse_cells": 0,
                                "lambda": 0, "delta": 0, "lambda_cells": 0,
-                               "delta_cells": 0, "mc_field": 0}
+                               "delta_cells": 0, "mc_field_cells": 0, "mc_field": 0}
 
 
 def test_anchor_launchers_refuse_cpu_tensors():
@@ -231,6 +239,29 @@ def test_mc_bisect_launchers_refuse_cpu_tensors():
     assert not bisect("noop", *args[:2], *args[3:]).any()
     assert bisect.launches == dict.fromkeys(mcb.KERNELS, 0)
 
+
+
+def test_mc_field_reports_row4_launches_since_reset(monkeypatch):
+    """Row 4's launcher counts a launch of `mc_field` only where it launches
+    (a CPU tensor raises first), and McField reports row 4's count since its
+    last reset beside its own, so a path that reached row 4 would show."""
+    monkeypatch.setitem(mf.ROW4_LAUNCHES, "mc_field", 5)
+    mc, cfg, xs = dam_break(2000, solver_iter=2, surface=True)
+    solver = TorchSolver(h=cfg.h, device="cpu")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    index = ph.CellIndex(spec.grid, torch.zeros(spec.capacity, dtype=torch.int32),
+                         torch.zeros(spec.grid.ncells + 1, dtype=torch.int32))
+    assert solver.launches["mc_field"] == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        mf.mc_field_launch("mc_field", index, spec.surface, spec.h, spec.scale,
+                           state.position.t().contiguous(), state.colour.t().contiguous(),
+                           torch.zeros(3), torch.empty(0))
+    assert mf.ROW4_LAUNCHES["mc_field"] == 5 and solver.launches["mc_field"] == 0
+    mf.ROW4_LAUNCHES["mc_field"] += 2
+    assert solver.launches["mc_field"] == 2
+    assert solver.mc_field.launches == {"mc_field_cells": 0, "mc_field": 2}
+    solver.reset_launches()
+    assert solver.mc_field.launches == {"mc_field_cells": 0, "mc_field": 0}
 
 def test_micro_mc_field_needs_a_card(monkeypatch):
     """The MC-field bisection measures on the card or fails; it never times

@@ -1,11 +1,17 @@
 """The port's marching cubes against the JAX package's, on CPU.
 
 * tables and `McSpec.from_extent` equal the JAX package's;
-* `mc_field_plain` and the `McField` post-pass against `PallasMcField` in
-  interpret mode, on the post-finalise state of the port's frame.  Raw count
-  exact; v rtol 1e-4, atol 1e-3; n and c rtol 1e-3, atol 1e-3 on finite
-  nodes with v > 1e-3, NaN disagreement under 1% of the nodes
-  (`test_pallas_mc.py`'s tolerances); the skip node 0;
+* `mc_field_plain` and `McField` (row 4b's plain version,
+  `mc_field_cells_plain`) against `PallasMcField` in interpret mode, on the
+  post-finalise state of the port's frame.  Raw count exact; v rtol 1e-4,
+  atol 1e-3; n and c rtol 1e-3, atol 1e-3 on finite nodes with v > 1e-3,
+  NaN disagreement under 1% of the nodes (`test_pallas_mc.py`'s
+  tolerances); c NaN exactly where Pallas counts 0; the skip node 0;
+* row 4b's ranges, clamped at the z-ends from the table, admit exactly the
+  candidates of row 4's key test, on the frames and on a synthetic index
+  with members in the z-wrapping cells, an empty column and columns off the
+  grid; `mc_field_cells_plain` gives `post_pass(mc_field_plain)`'s bits
+  (both walk one padded layout, so only the admission test differs);
 * `mc_extract` against JAX `mc_extract` on an analytic lattice, on the
   global and the compacted path: total exact, the same vertex order, values
   rtol 1e-6, atol 1e-5 (the lerp in another fp order), NaN where JAX has NaN;
@@ -33,7 +39,7 @@ from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of, so
 from pbf_sph_tpu_torch.ops import mc as tmc
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import mc_tables as tables
-from pbf_sph_tpu_torch.ops.grid import decode_key
+from pbf_sph_tpu_torch.ops.grid import GridSpec, build_cell_table, decode_key
 from test_mc_emit import _sphere_lattice
 
 
@@ -117,10 +123,7 @@ def test_mc_field_plain_matches_pallas(field_frame):
     np.testing.assert_array_equal(raw[8].numpy(), cnt_want)
     assert cnt_want.max() > 1
 
-    field = mf.McField(spec.h)
-    v, n, c = field(fr.index, spec.surface, spec.scale, st.position, st.colour,
-                    st.ptype, st.alive, fr.min_extent, dyn["mc_particle_size"])
-    assert field.launches == {"mc_field": 0}
+    v, n, c = _cells_field(field_frame)  # McField, with no launch counted
     np.testing.assert_allclose(v.numpy(), v_want, rtol=1e-4, atol=1e-3)
     active = v_want > 1e-3
     assert active.any()
@@ -149,6 +152,123 @@ def test_mc_field_ranges_are_disjoint(field_frame):
     lo, order = torch.sort(lo, dim=0)
     hi = torch.gather(hi, 0, order)
     assert (hi[:-1] <= lo[1:]).all()
+
+
+def _cells_field(field_frame):
+    """`McField` on the CPU (`mc_field_cells_plain`) at the frame, once."""
+    if "cells" not in field_frame:
+        spec, fr, st, dyn = (field_frame[k] for k in ("spec", "fr", "st", "dyn"))
+        field = mf.McField(spec.h)
+        field_frame["cells"] = field(fr.index, spec.surface, spec.scale, st.position,
+                                     st.colour, st.ptype, st.alive, fr.min_extent,
+                                     dyn["mc_particle_size"])
+        assert field.launches == {"mc_field_cells": 0, "mc_field": 0}
+    return field_frame["cells"]
+
+
+def test_mc_field_cells_nan_pattern_is_pallas_empty_nodes(field_frame):
+    """c is NaN exactly on the nodes where the Pallas kernel counts no
+    candidate (its count is exact, as the port's), but the skip node, which
+    is 0 in v, n and c."""
+    spec = field_frame["spec"]
+    v, n, c = _cells_field(field_frame)
+    cnt_want = field_frame["want"][3]
+    _, _, skip = mf.lattice_nodes(spec.surface, spec.grid.extent, "cpu")
+    empty = (cnt_want == 0) & ~skip.numpy()
+    assert 0 < empty.sum() < empty.size
+    for ch in c.numpy():
+        np.testing.assert_array_equal(np.isnan(ch), empty)
+    assert v[skip].item() == 0 and (n[:, skip] == 0).all() and (c[:, skip] == 0).all()
+
+
+def test_mc_field_cells_plain_is_post_passed_row4(field_frame):
+    """Row 4b's plain version against `post_pass(mc_field_plain(...))`: the
+    same bits, NaN in the same places, the skip node 0 in both."""
+    spec, fr, st, dyn = (field_frame[k] for k in ("spec", "fr", "st", "dyn"))
+    size = dyn["mc_particle_size"]
+    raw = mf.mc_field_plain(fr.index, spec.surface, spec.h, spec.scale, st.position,
+                            st.colour, mf.nonobstacle(st.ptype, st.alive), fr.min_extent)
+    want = mf.post_pass(raw, spec.surface, spec.grid.extent, size)
+    got = mf.mc_field_cells_plain(fr.index, spec.surface, spec.h, spec.scale, st.position,
+                                  st.colour, st.ptype, st.alive, fr.min_extent, size)
+    assert got.shape == (8, raw.shape[1])
+    for g, w in zip((got[0], got[1:4], got[4:8]), want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    for g, w in zip(_cells_field(field_frame), want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert np.isnan(want[2].numpy()).any() and (want[0] > 1e-3).any()
+
+
+def _admitted(index, cell, skip):
+    """(lo, j, admitted): row 4's padded layout over `node_ranges` and the
+    candidates its key test admits (z-wrapped cells dropped)."""
+    lo, hi, base = mf.node_ranges(index, cell, skip)
+    width = int((hi - lo).max())
+    j = lo[..., None] + torch.arange(width)
+    valid = j < hi[..., None]
+    key = index.key.long()[torch.where(valid, j, 0)]
+    bz = cell[2].long()[None, :, None] + key - base[..., None]
+    return j, valid & (bz >= 0) & (bz < index.grid.dims[2])
+
+
+def _assert_clamp_admits_key_test(index, cell, skip):
+    j, admitted = _admitted(index, cell, skip)
+    clo, chi = mf.node_ranges_clamped(index, cell, skip)
+    assert torch.equal(admitted, (j >= clo[..., None]) & (j < chi[..., None]))
+    assert torch.equal(admitted.sum(-1), chi - clo)
+    return admitted
+
+
+def test_mc_field_clamped_ranges_admit_the_key_test(field_frame):
+    """On the frame: each of a node's nine clamped ranges holds exactly the
+    slots of `node_ranges` that the key test admits."""
+    spec, fr = field_frame["spec"], field_frame["fr"]
+    _, cell, skip = mf.lattice_nodes(spec.surface, spec.grid.extent, "cpu")
+    admitted = _assert_clamp_admits_key_test(fr.index, cell, skip)
+    assert int(admitted.sum()) > 0
+
+
+def _synthetic_index():
+    """A 4 x 3 x 5 grid (extent (3, 2, 4)): every cell at z = 0 and z = ez
+    holds 1-3 members (the cells that z-wrap into the next or last column),
+    the others 0-3, column (2, 1) none, then 5 rows that are no members."""
+    grid = GridSpec(extent=(3, 2, 4), maxz=0, quirks=False)
+    gnx, gny, gnz = grid.dims
+    rng = np.random.default_rng(17)
+    counts = rng.integers(0, 4, size=(gnx, gny, gnz))
+    counts[:, :, [0, gnz - 1]] = rng.integers(1, 4, size=(gnx, gny, 2))
+    counts[2, 1, :] = 0
+    key = np.concatenate([np.repeat(np.arange(grid.ncells), counts.ravel()),
+                          np.full(5, grid.ncells)])
+    key = torch.from_numpy(key.astype(np.int32))
+    return mf.CellIndex(grid, key, build_cell_table(key, grid))
+
+
+@pytest.mark.parametrize("res", [1.0, 2.0])
+def test_mc_field_clamped_ranges_on_synthetic_index(res):
+    """Every node of the lattice at `res`, node by node: the clamped range of
+    each (dx, dy) column is the list of candidates the key test admits, in
+    order; a z-end node's unclamped range holds a wrapped cell that the clamp
+    drops, a column off the grid and the empty column give empty ranges."""
+    index = _synthetic_index()
+    mc = tmc.McSpec.from_extent(index.grid.extent, res)
+    _, cell, skip = mf.lattice_nodes(mc, index.grid.extent, "cpu")
+    lo, hi, base = (t.numpy() for t in mf.node_ranges(index, cell, skip))
+    clo, chi = (t.numpy() for t in mf.node_ranges_clamped(index, cell, skip))
+    key, cz = index.key.numpy(), cell[2].numpy()
+    gnx, gny, gnz = index.grid.dims
+    dropped = off_grid = empty = 0
+    for i in range(cell.shape[1]):
+        for s in range(9):
+            want = [j for j in range(lo[s, i], hi[s, i]) if 0 <= cz[i] + key[j] - base[s, i] < gnz]
+            assert list(range(clo[s, i], chi[s, i])) == want, (i, s)
+            dropped += hi[s, i] - lo[s, i] - len(want)
+            bx, by = cell[0, i] + s // 3 - 1, cell[1, i] + s % 3 - 1
+            off_grid += not (0 <= bx < gnx and 0 <= by < gny) and not skip[i]
+            empty += (int(bx), int(by)) == (2, 1) and chi[s, i] == clo[s, i]
+    assert dropped > 0 and off_grid > 0 and empty > 0
+    assert int(skip.sum()) == 1 and (clo[:, skip] == chi[:, skip]).all()
+    _assert_clamp_admits_key_test(index, cell, skip)
 
 
 # -- extraction ------------------------------------------------------------------

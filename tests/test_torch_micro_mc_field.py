@@ -22,6 +22,7 @@ them back in lattice order.
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -233,7 +234,7 @@ def test_wrapper_pieces_compose_to_mcfield(scene):
     for g, w in zip(got, want):
         assert torch.equal(torch.nan_to_num(g, nan=7.0), torch.nan_to_num(w, nan=7.0))
         assert torch.equal(torch.isnan(g), torch.isnan(w))
-    assert field.launches == {"mc_field": 0}
+    assert field.launches == {"mc_field_cells": 0, "mc_field": 0}
     bisect = mcb.McFieldBisect(spec.h)
     for body in mcb.BODIES:
         bisect(body, *bisect_args(scene))
@@ -254,6 +255,72 @@ def test_work_counts_the_inputs_each_body_reads():
     assert abs(ms["noop"][0] - 0.00112) < 2e-5 and abs(ms["rows"][0] - ms["noop"][0]) < 1e-7
     assert abs(ms["loops"][0] - 0.00186) < 2e-5
     assert ms["full"][0] > ms["loops"][0]
+
+
+def test_cells_shape_matches_the_source():
+    """ops/mc_field.py's CELLS_LANES is csrc/mc_field_cells.cu's default G,
+    its one build knob, and the sweep's first G."""
+    src = (REPO / "pbf_sph_tpu_torch" / "csrc" / "mc_field_cells.cu").read_text()
+    assert re.findall(r"#define (MC_FIELD_CELLS_\w+) (\d+)", src) == [
+        ("MC_FIELD_CELLS_LANES", str(mf.CELLS_LANES))]
+    assert mcb.SWEEP_LANES[0] == mf.CELLS_LANES
+    assert len(set(mcb.SWEEP_LANES)) == len(mcb.SWEEP_LANES)
+    assert all(g & (g - 1) == 0 and 1 <= g <= 32 for g in mcb.SWEEP_LANES)
+
+
+def test_cells_work_counts_what_row_4b_reads():
+    """At mc128k's shapes (L 103,823, C 130,048): row 4b moves ~8.0 MB, so
+    ~0.0024 ms at 3.35 TB/s, bound by bytes; 4 bytes a node fewer out than
+    full, and ptype and alive in place of the packs and keys."""
+    mc, cfg, _ = WORKLOADS["mc128k"]()
+    spec = TorchSolver(h=cfg.h, device="cpu").make_spec(cfg, Scene(), 130_048)
+    index = mf.CellIndex(spec.grid, torch.zeros(130_048, dtype=torch.int32),
+                         torch.zeros(spec.grid.ncells + 1, dtype=torch.int32))
+    nbytes, flops = mcb.work("cells", index, spec.surface, 3_496_500, 1_000_000)
+    assert nbytes == 33 * 130_048 + 4 * (spec.grid.ncells + 1) + 16 + 32 * 103_823
+    assert flops == 10 * 3_496_500 + 14 * 1_000_000 + 14 * 103_823
+    ms, by = mcb.bound_ms(nbytes, flops)
+    assert by == "bytes" and abs(ms - 0.0024) < 1e-4
+
+
+def test_cells_agree_catches_each_fault():
+    """`cells_agree`, 3n's check, on the CPU: the plain version agrees with
+    row 4's post-passed plain sums, and a v off by 1%, a c where the count
+    is 0, a NaN where it is not and a non-zero skip node each fail their
+    check alone."""
+    spec, dyn, fr, st, _ = port_frame("dam4096")
+    size = dyn["mc_particle_size"]
+    got = mf.mc_field_cells_plain(*mcb.cells_args(spec, fr, st, size))
+    want = mf.post_pass(mf.mc_field_plain(*mcb.field_args(spec, fr, st)), spec.surface,
+                        spec.grid.extent, size)
+    _, _, skip = mf.lattice_nodes(spec.surface, spec.grid.extent, "cpu")
+    assert all(ok for ok, _ in mcb.cells_agree(got, want, skip).values())
+    assert mcb.bits_equal(got, got.clone()) and not mcb.bits_equal(got, torch.flip(got, [1]))
+    empty = int(torch.nonzero(torch.isnan(got[4]))[0])
+    full = int(torch.nonzero(got[0] > 1e-3)[0])
+    faults = {"v": lambda t: t[0].mul_(1.01), "c NaN pattern": lambda t: t[4:8, empty].fill_(0.5),
+              "n": lambda t: t[1:4, full].fill_(float("nan")),
+              "skip node 0": lambda t: t.__setitem__((slice(None), skip), 1.0)}
+    for name, fault in faults.items():
+        bad = got.clone()
+        fault(bad)
+        failed = {k for k, (ok, _) in mcb.cells_agree(bad, want, skip).items() if not ok}
+        assert name in failed, (name, failed)
+
+
+def test_pieces_field_is_row_4s_call():
+    """`PiecesField`, the stage's "before", returns row 4's call and counts
+    no launch on the CPU."""
+    spec, dyn, fr, st, _ = port_frame("dam4096")
+    args = (fr.index, spec.surface, spec.scale, st.position, st.colour, st.ptype, st.alive,
+            fr.min_extent, dyn["mc_particle_size"])
+    field = mcb.PiecesField(spec.h)
+    for g, w in zip(field(*args), mcb.field_by_pieces(spec.h, *args)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    assert field.launches == {"mc_field": 0}
+    solver = mcb.pieces_solver(spec.h, "cpu")
+    assert isinstance(solver.mc_field, mcb.PiecesField)
 
 
 @pytest.mark.parametrize("noop, zeros, loses", [

@@ -206,7 +206,28 @@ with a non-zero exit and no result line:
    h*scale of the bounds, and exactly 9 kernel launches per frame
    (1 mc_field_cells + 1 + 1 diffuse + 3 lambda_cells + 3 delta_cells); row
    4's mc_field, counted by its launcher, 0 on both paths; with the stage
-   times.
+   times;
+7. the gather backend (`TorchSolver(gather=True)`: the JAX package's XLA
+   gather path on plain torch ops, no kernel) and the CLI:
+7a. gather on the card against gather on the CPU, 2 frames of
+   simple_config_with_2_cubes(700, 2, 500) with its surface: in float32
+   phase 4's tolerances, in float64 position, velocity and colour atol
+   1e-7; triangle counts within 1%;
+7b. gather against the kernel backend on the card, one frame of mc128k from
+   the same particles: particle count exact, position and velocity atol
+   1e-3, colour 1e-5, triangle counts within 1%;
+7c. dam1m through gather in float32: prepare, the growth warmup (2 frames a
+   round), then 3 timed frames; phase 5's checks, 0 launches of every port
+   kernel; ms/step, the peak device memory and one frame's stage times;
+7d. mc128k through gather in float64 with its surface, in the same way:
+   phase 6's checks, 0 launches; ms/step and one frame's stage times;
+7e. `pbf_sph_tpu_torch.cli.main` on bench20k, `--warmup 2 --iter 3`, once
+   with `--impl torch` and once with `--impl gather --fp64`: each returns 0
+   and prints the stats block; the final particle count is the input's,
+   the vertex count above 0, and both files are written and read back; the
+   kernel backend's solver launched kernels, the gather backend's none;
+   `--impl torch --fp64` returns 1.  Each backend's frame-time mean is
+   printed beside the card line.
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
@@ -1726,10 +1747,11 @@ def phase_extract(lattice) -> None:
           f"on the CPU (within 1%)")
 
 
-def run_path(solver, cfg, xs):
-    """prepare, the growth warmup and TIMED_FRAMES timed frames, with the
-    launch counts set to 0 just before and read just after.  Returns
-    (spec, state, dyn, scn, outs, frames run, launches, wall s, device ms)."""
+def run_path(solver, cfg, xs, warmup: int = WARMUP, frames: int = TIMED_FRAMES):
+    """prepare, the growth warmup (`warmup` frames a round) and `frames`
+    timed frames, with the launch counts set to 0 just before and read just
+    after.  Returns (spec, state, dyn, scn, outs, frames run, launches, wall
+    s, device ms)."""
     from pbf_sph_tpu_torch.bench import time_frames, warm_up
     from pbf_sph_tpu_torch.core.types import Scene
     from pbf_sph_tpu_torch.models.torch_solver import dyn_params_of
@@ -1740,12 +1762,12 @@ def run_path(solver, cfg, xs):
     print(f"{len(xs)} particles, capacity {spec.capacity}, grid {spec.grid.dims} "
           f"({spec.grid.ncells} cells)")
     t0 = time.perf_counter()
-    spec, state, warm = warm_up(solver, spec, state, dyn, scn, xs, WARMUP)
+    spec, state, warm = warm_up(solver, spec, state, dyn, scn, xs, warmup)
     torch.cuda.synchronize()
     print(f"warmup: {warm} frames in {time.perf_counter() - t0:.2f} s")
-    state, outs, wall, dev_ms = time_frames(solver, spec, state, dyn, scn, TIMED_FRAMES)
+    state, outs, wall, dev_ms = time_frames(solver, spec, state, dyn, scn, frames)
     launches = dict(solver.launches)
-    return spec, state, dyn, scn, outs, warm + TIMED_FRAMES, launches, wall, dev_ms
+    return spec, state, dyn, scn, outs, warm + frames, launches, wall, dev_ms
 
 
 def check_frames(spec, state, cfg, outs, n: int, solver) -> dict:
@@ -1794,16 +1816,9 @@ def phase_main_path() -> dict:
     return launches
 
 
-def phase_surface_path() -> dict:
-    print("== 6. surface path: mc128k through TorchSolver(device='cuda')")
-    from pbf_sph_tpu_torch.bench import phase_breakdown
-    from pbf_sph_tpu_torch.core.configs import WORKLOADS
-    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
-
-    mc, cfg, xs = WORKLOADS["mc128k"]()
-    n = len(xs)
-    solver = TorchSolver(h=cfg.h, device="cuda")
-    spec, state, dyn, scn, outs, frames, launches, wall, dev_ms = run_path(solver, cfg, xs)
+def check_surface(spec, state, cfg, outs, n: int, solver) -> dict:
+    """`check_frames` and the surface checks of a surface path; returns the
+    last frame's outputs."""
     sur = spec.surface
     print(f"surface: res {sur.resolution}, lattice {sur.sample}, tri_capacity "
           f"{sur.tri_capacity}, cube_cap {sur.cube_cap}")
@@ -1821,12 +1836,27 @@ def phase_surface_path() -> dict:
     check(bool(torch.isfinite(vs).all()) and bool(((vs >= lo) & (vs <= hi)).all()),
           f"{t3} vertices finite and within h*scale = {reach:.3f} of the bounds "
           f"(min {vs.min(1).values.tolist()}, max {vs.max(1).values.tolist()})")
+    return out
+
+
+def phase_surface_path() -> dict:
+    print("== 6. surface path: mc128k through TorchSolver(device='cuda')")
+    from pbf_sph_tpu_torch.bench import phase_breakdown
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    mc, cfg, xs = WORKLOADS["mc128k"]()
+    n = len(xs)
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, dyn, scn, outs, frames, launches, wall, dev_ms = run_path(solver, cfg, xs)
+    out = check_surface(spec, state, cfg, outs, n, solver)
     want = {"diffuse": 0, "diffuse_cell_sums": frames, "diffuse_cells": frames, "lambda": 0,
             "delta": 0, "lambda_cells": 3 * frames, "delta_cells": 3 * frames,
             "mc_field_cells": frames, "mc_field": 0}
     check(launches == want, f"kernel launches {launches} == 9 x {frames} frames")
 
     ms = 1000 * wall / TIMED_FRAMES
+    ns = out["mesh_ns"][:, :3 * int(out["tri_count"])]
     nan_share = float(torch.isnan(ns).any(0).float().mean())
     print(f"{card_line()}: {ms:.3f} ms/step (device events {dev_ms:.3f} ms/step), "
           f"{n * TIMED_FRAMES / wall:.4e} particle-steps/s over {TIMED_FRAMES} frames; "
@@ -1837,6 +1867,175 @@ def phase_surface_path() -> dict:
         f"{k} {v:.4f}" for k, v in stages.items()))
     check("mc field" in stages and "mc extract" in stages, "both MC stages timed")
     return launches
+
+
+# phase 7c/7d: the gather backend's growth warmup (frames a round) and timed
+# frames; its frame takes seconds at dam1m
+GATHER_WARMUP = 2
+GATHER_FRAMES = 3
+
+
+def check_no_launches(solver, what: str) -> None:
+    """The solver launched no port kernel since its counts were last set to
+    0 (by `run_path`, or when it was built)."""
+    check(all(v == 0 for v in solver.launches.values()),
+          f"{what}: no port kernel launched {solver.launches}")
+
+
+def phase_gather_parity() -> None:
+    print("== 7a. the gather backend on the card against the gather backend on the CPU")
+    from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    mc, cfg, xs = simple_config_with_2_cubes(700, 2, 500.0)
+    cfg = cfg.replace(surface=mc)
+    for dtype, atols in (("float32", (1e-3, 1e-3, 1e-5)), ("float64", (1e-7, 1e-7, 1e-7))):
+        ends, tris = [], []
+        for device in ("cuda", "cpu"):
+            solver = TorchSolver(h=cfg.h, dtype=dtype, gather=True, device=device)
+            x = xs
+            for _ in range(2):
+                res, x = solver.advance(cfg, Scene(), x)
+            check_no_launches(solver, f"{dtype} on {device}")
+            ends.append(x.order_by_id())
+            tris.append(len(res.mesh) // 3)
+        g, c = ends
+        check(np.array_equal(g.pid, c.pid) and g.position.dtype == np.dtype(dtype),
+              f"{dtype}: same {len(g)} particle ids")
+        for name, atol in zip(("position", "velocity", "colour"), atols):
+            err = float(np.abs(getattr(g, name) - getattr(c, name)).max())
+            check(err <= atol, f"{dtype} {name} max abs err {err:.3e} <= {atol}")
+        check(tris[1] > 0 and abs(tris[0] - tris[1]) <= 0.01 * tris[1],
+              f"{dtype}: {tris[0]} triangles on the card, {tris[1]} on the CPU (within 1%)")
+
+
+def phase_gather_vs_kernels() -> None:
+    print("== 7b. the gather backend against the kernel backend on the card, one mc128k frame")
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    mc, cfg, xs = WORKLOADS["mc128k"]()
+    ends, tris = [], []
+    for gather in (True, False):
+        solver = TorchSolver(h=cfg.h, gather=gather, device="cuda")
+        res, x = solver.advance(cfg, Scene(), xs)
+        ends.append(x.order_by_id())
+        tris.append(len(res.mesh) // 3)
+    g, k = ends
+    check(len(g) == len(k) == len(xs) and np.array_equal(g.pid, k.pid),
+          f"{len(g)} particles on both, the same ids")
+    for name, atol in (("position", 1e-3), ("velocity", 1e-3), ("colour", 1e-5)):
+        err = float(np.abs(getattr(g, name) - getattr(k, name)).max())
+        check(err <= atol, f"{name} max abs err {err:.3e} <= {atol}")
+    check(tris[1] > 0 and abs(tris[0] - tris[1]) <= 0.01 * tris[1],
+          f"{tris[0]} triangles through gather, {tris[1]} through the kernels (within 1%)")
+
+
+def gather_path(workload: str, dtype: str, breakdown_frames: int):
+    """One gather path through `run_path`: the checks of its main path, 0
+    launches, ms/step, the peak device memory and the stage times.
+    Returns the last frame's outputs, the spec and the solver."""
+    from pbf_sph_tpu_torch.bench import phase_breakdown
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    mc, cfg, xs = WORKLOADS[workload]()
+    n = len(xs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solver = TorchSolver(h=cfg.h, dtype=dtype, gather=True, device="cuda")
+    spec, state, dyn, scn, outs, frames, _, wall, dev_ms = run_path(
+        solver, cfg, xs, GATHER_WARMUP, GATHER_FRAMES)
+    if spec.surface is None:
+        out = check_frames(spec, state, cfg, outs, n, solver)
+    else:
+        out = check_surface(spec, state, cfg, outs, n, solver)
+    check_no_launches(solver, f"{workload} {dtype} through gather over {frames} frames")
+    check(state.position.dtype == getattr(torch, dtype), f"state in {dtype}")
+    ms = 1000 * wall / GATHER_FRAMES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{card_line()}: {workload} gather {dtype}: {ms:.3f} ms/step (device events "
+          f"{dev_ms:.3f} ms/step) over {GATHER_FRAMES} frames, K {spec.cell_capacity}, "
+          f"capacity {spec.capacity}, peak device memory {peak:.3f} GiB")
+    _, stages = phase_breakdown(solver, spec, state, dyn, scn, breakdown_frames)
+    print(f"device ms per frame by stage (CUDA events, {breakdown_frames} frames): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    return out, spec
+
+
+def phase_gather_paths() -> None:
+    print("== 7c. dam1m through the gather backend, float32")
+    gather_path("dam1m", "float32", 1)
+    print("== 7d. mc128k through the gather backend, float64, with its surface")
+    _, spec = gather_path("mc128k", "float64", 2)
+    check(spec.surface is not None, "the surface was extracted")
+
+
+def run_cli(argv):
+    """`cli.main(argv)` with its standard output captured (and printed);
+    returns (exit code, {stats label: value}, output)."""
+    import contextlib
+    import io
+
+    from pbf_sph_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    print(text.rstrip())
+    stats = {line.split(":")[0].strip(): line.split(":", 1)[1].strip()
+             for line in text.splitlines() if " : " in line}
+    return rc, stats, text
+
+
+def phase_cli() -> None:
+    print("== 7e. the CLI on bench20k through both backends")
+    import tempfile
+    from pathlib import Path
+
+    from pbf_sph_tpu_torch import cli
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+
+    n = len(WORKLOADS["bench20k"]()[2])
+    made = []
+    make = cli.make_solver
+
+    def make_and_keep(*args, **kwargs):  # the CLI's solver, to read its launches
+        made.append(make(*args, **kwargs))
+        return made[-1]
+
+    cli.make_solver = make_and_keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for impl, extra, fp64 in (("torch", [], False), ("gather", ["--fp64"], True)):
+                argv = ["--impl", impl, *extra, "--warmup", "2", "--iter", "3",
+                        "--output", f"{tmp}/out_{{impl}}_{{type}}_{{iter}}"]
+                rc, stats, text = run_cli(argv)
+                check(rc == 0 and "Results flushed." in text, f"cli {' '.join(argv)}: rc 0")
+                count, verts = int(stats["Final Particle count"]), int(stats["Final Vertex count"])
+                check(count == n and verts > 0,
+                      f"{impl}: {count} particles of {n}, {verts} vertices")
+                out = Path(tmp) / cli.rendered_output_name("out_{impl}_{type}_{iter}", impl,
+                                                           fp64, 3)
+                ply = (out / "cloud.ply").read_text().splitlines()
+                obj = (out / "mesh.obj").read_text().splitlines()
+                check(f"element vertex {n}" in ply and len(ply) - ply.index("end_header") - 1 == n
+                      and sum(1 for line in obj if line.startswith("v ")) == verts,
+                      f"{impl}: {out.name}/cloud.ply holds {n} points, mesh.obj {verts} vertices")
+                solver = made[-1]
+                launched = sum(solver.launches.values())
+                check((launched > 0) == (impl == "torch"),
+                      f"{impl}: {launched} kernel launches {solver.launches}")
+                print(f"{card_line()}: cli bench20k --impl {impl}{' --fp64' if fp64 else ''}: "
+                      f"frame-time mean {stats['Frame-time mean']}, "
+                      f"min {stats['Frame-time min']}, max {stats['Frame-time max']}")
+    finally:
+        cli.make_solver = make
+    rc, _, _ = run_cli(["--impl", "torch", "--fp64"])
+    check(rc == 1, "cli --impl torch --fp64 returns 1")
 
 
 def main() -> int:
@@ -1902,6 +2101,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = phase_main_path()
     surface = phase_surface_path()
+    phase_gather_parity()
+    phase_gather_vs_kernels()
+    phase_gather_paths()
+    phase_cli()
     launches["mc_field_cells"] = surface["mc_field_cells"]
     launches["mc_field"] += surface["mc_field"]  # row 4: both paths, each held at 0
     launches.update(staged_launches)

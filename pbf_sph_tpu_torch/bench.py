@@ -11,9 +11,11 @@ marching-cubes surface, whose "mc field" and "mc extract" stages then appear
 in the stage table.
 
 Env overrides, as for the root `bench.py`: PBF_BENCH_COUNT, PBF_BENCH_FRAMES,
-PBF_BENCH_WARMUP, PBF_BENCH_ITERS, PBF_BENCH_WORKLOAD.  PBF_BENCH_IMPL is not
-read: the port has one backend, `torch-cuda`.  There is no CPU fallback; the
-run fails without a CUDA device.
+PBF_BENCH_WARMUP, PBF_BENCH_ITERS, PBF_BENCH_WORKLOAD, and PBF_BENCH_IMPL, the
+backend: `torch` (the CUDA kernels, the default) or `gather` (the JAX
+package's XLA gather path on plain torch ops).  PBF_BENCH_FP64=1 runs in
+float64, which only `gather` accepts.  The JSON line names the backend and
+the dtype.  There is no CPU fallback; the run fails without a CUDA device.
 
 After the timed frames it prints to stderr the device time of each stage of
 the frame (CUDA events between the stages, over 5 more frames), and
@@ -93,22 +95,31 @@ class PhaseClock:
     """CUDA events recorded as each stage of a frame is enqueued (the step's
     `mark` hook); `totals()` sums the device time between consecutive marks by
     the name of the stage that ends there.  The gap from one frame's last
-    stage to the next frame's "begin" is the device waiting on the host."""
+    stage to the next frame's "begin" is the device waiting on the host.
 
-    def __init__(self):
+    `cuda=False` reads the host clock at each mark instead, for a frame on
+    the CPU, whose ops have finished when they return."""
+
+    def __init__(self, cuda: bool = True):
+        self.cuda = cuda
         self.events = []
 
     def mark(self, name: str) -> None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        else:
+            ev = time.perf_counter()
         self.events.append((name, ev))
 
     def totals(self):
-        torch.cuda.synchronize()
+        if self.cuda:
+            torch.cuda.synchronize()
         out = {}
         for (_, a), (name, b) in zip(self.events, self.events[1:]):
             name = "idle before frame" if name == "begin" else name
-            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+            ms = a.elapsed_time(b) if self.cuda else 1000.0 * (b - a)
+            out[name] = out.get(name, 0.0) + ms
         return out
 
 
@@ -152,8 +163,10 @@ def load_workload() -> Tuple:
 def main() -> int:
     frames = int(os.environ.get("PBF_BENCH_FRAMES", 30))
     warmup = int(os.environ.get("PBF_BENCH_WARMUP", 10))
+    impl = os.environ.get("PBF_BENCH_IMPL", "torch")
+    dtype = "float64" if os.environ.get("PBF_BENCH_FP64", "") == "1" else "float32"
     mc, cfg, xs = load_workload()
-    solver = make_solver("torch", h=cfg.h, device="cuda")
+    solver = make_solver(impl, h=cfg.h, dtype=dtype, device="cuda")
     spec, state, scn = solver.prepare(cfg, Scene(), xs)
     dyn = dyn_params_of(cfg, solver.dtype, solver.device)
 
@@ -172,11 +185,12 @@ def main() -> int:
     surface = ", surface" if cfg.surface is not None else ""
     print(json.dumps({
         "metric": f"particle-steps/sec ({workload} {n} particles, "
-                  f"{cfg.iteration} iters{surface}, torch-cuda)",
+                  f"{cfg.iteration} iters{surface}, {impl}-cuda, {dtype})",
         "value": round(pps, 1),
         "unit": "particle-steps/s",
         "vs_baseline": round(pps / NORTH_STAR, 4),
-        "impl": "torch-cuda",
+        "impl": f"{impl}-cuda",
+        "dtype": dtype,
         "device": torch.cuda.get_device_name(0),
     }))
     print(

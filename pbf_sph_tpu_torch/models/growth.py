@@ -7,10 +7,13 @@ overflows, the frame is suspect and must be re-run under a larger spec.
 Consumed by `TorchSolver.advance` (re-run the same frame) and by `bench.py`
 (restart warmup from a fresh state).
 
-The port's phase kernels walk exact cell ranges and have no strip buffer, so
-there is no strip-capacity branch: `strip_overflow` is always 0.  Nor is
-there an MC strip (`mc_strip_overflow` is always 0) or an XLA field to fall
-back to, and the blocked emission (`emit_block`) is not ported.
+On the gather backend, `max_occupancy > cell_capacity` means that the (K, C)
+gathers truncated a cell's candidates: the frame is re-run under the larger
+K.  The kernel backend walks exact cell ranges, so there its cell branch
+only keeps the specs and warmups of both backends alike.  Neither backend
+has a strip buffer, so there is no strip-capacity branch: `strip_overflow`
+is always 0, and so is `mc_strip_overflow`; the blocked emission
+(`emit_block`) is not ported.
 """
 
 from __future__ import annotations

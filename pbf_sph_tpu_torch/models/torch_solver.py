@@ -1,16 +1,23 @@
-"""PyTorch solver backend: one frame as a sequence of tensor ops on one device.
+"""PyTorch solver backends: one frame as a sequence of tensor ops on one device.
 
-Port of `pbf_sph_tpu/models/jax_solver.py` with the main path's Pallas
-kernels replaced by the hand-written CUDA kernels of `ops/phases.py`.  The
-frame is the same: sources, drains, advect, cell sort, dense cell table,
-centre-cell queries, colour diffusion, the iterated lambda/delta solve with
-its in-iteration bounds clamp, finalise, and the marching-cubes surface.
-State has a fixed capacity and stays on `device`; `step_device` never reads a
-value back to the host.
+Port of `pbf_sph_tpu/models/jax_solver.py`.  The frame is the same: sources,
+drains, advect, cell sort, dense cell table, centre-cell queries, colour
+diffusion, the iterated lambda/delta solve with its in-iteration bounds
+clamp, finalise, and the marching-cubes surface.  State has a fixed capacity
+and stays on `device`; `step_device` never reads a value back to the host.
 
-On a CUDA device the three neighbour phases and the MC field launch their
-kernels; on the CPU they run their plain PyTorch versions.  The device is
-"cuda" unless the caller asks for another; nothing falls back to the CPU.
+Two backends, chosen by name and never substituted for each other:
+* `torch` (the kernel backend): the main path's Pallas kernels replaced by
+  the hand-written CUDA kernels of `ops/phases.py` and `ops/mc_field.py`.
+  On a CUDA device they launch their kernels; on the CPU they run their
+  plain PyTorch versions.  fp32 only, as the Pallas backend.
+* `gather` (`TorchSolver(gather=True)`): the JAX package's XLA path, the
+  K-capped (K, C) gathers of `ops/pbf.py` over `ops/grid.stencil_ranges` and
+  the XLA field `ops/mc.mc_field`, plain torch ops on either device.  It
+  launches no kernel of the port and runs fp32 or fp64.
+
+The device is "cuda" unless the caller asks for another; nothing falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -41,17 +48,23 @@ from pbf_sph_tpu_torch.ops.grid import (
     GridSpec,
     build_cell_table,
     cell_coords,
+    decode_key,
     max_cell_occupancy,
     sort_key,
+    stencil_ranges,
 )
-from pbf_sph_tpu_torch.ops.mc import McSpec, mc_extract
+from pbf_sph_tpu_torch.ops.mc import McSpec, mc_extract, mc_field as gather_mc_field
 from pbf_sph_tpu_torch.ops.mc_field import McField
+from pbf_sph_tpu_torch.ops.pbf import scalar
 from pbf_sph_tpu_torch.ops.phases import CellIndex, PbfPhases
 
-# Capacities are rounded up to the JAX package's Pallas block (1024 rows), so
-# the port holds the same state shapes as the main path it is held against.
-# The kernels themselves take any capacity.
+# Capacities are rounded up as the JAX package rounds them, so each backend
+# holds the state shapes of the JAX path it is held against: the Pallas block
+# (1024 rows) for the kernel backend, 128 for the gather backend (the XLA
+# path's `_cap_align`, `jax_solver.py:571-576`).  The kernels themselves take
+# any capacity.
 CAPACITY_ALIGN = 1024
+GATHER_CAPACITY_ALIGN = 128
 
 Tensors = Dict[str, torch.Tensor]
 # Called with a stage name as each stage of a frame has been enqueued
@@ -86,9 +99,10 @@ class SceneSpec:
 @dataclass(frozen=True)
 class StepSpec:
     capacity: int
-    # Largest cell population the spec was sized for.  The phase kernels walk
-    # exact cell ranges, so nothing in this port is bounded by it; it is kept
-    # with its growth signal so specs and warmups match the JAX package's.
+    # Largest cell population the spec was sized for: K of the gather
+    # backend's (K, C) candidate gathers, which truncate a more populous cell
+    # (the growth policy then re-runs the frame under a larger K).  The
+    # kernel backend walks exact cell ranges and is not bounded by it.
     cell_capacity: int
     grid: GridSpec
     h: float
@@ -155,12 +169,6 @@ def dyn_params_of(config: SphParams, dtype=np.float32, device="cuda") -> Tensors
 # ---------------------------------------------------------------------------
 
 
-def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-d tensor on `like`'s device.  Dividing by it is a true division on
-    CUDA too, where a host scalar divisor becomes a reciprocal multiply."""
-    return torch.full((), value, dtype=like.dtype, device=like.device)
-
-
 def _apply_sources(state: FluidState, scn: Tensors, spec: StepSpec):
     """Spawn particles into dead slots (reference `src/omp/ompsph.hpp:93-105`);
     the reference's emplace_back becomes mask-set on a fixed-capacity array."""
@@ -168,8 +176,8 @@ def _apply_sources(state: FluidState, scn: Tensors, spec: StepSpec):
     total = sc.total_spawn
     if total == 0:
         return state, torch.zeros((), dtype=torch.int32, device=state.pid.device)
-    h = _scalar(spec.h, state.mass)
-    scale = _scalar(spec.scale, state.mass)
+    h = scalar(spec.h, state.mass)
+    scale = scalar(spec.scale, state.mass)
     spacing = h * scale / 2
     dev, f = state.mass.device, state.mass.dtype
 
@@ -246,8 +254,8 @@ def _queries(scn: Tensors, spec: StepSpec, pid, ptype, alive, cell_table, min_ex
     if sc.n_queries == 0:
         return (torch.zeros((0, qcap), dtype=torch.int32, device=dev),
                 torch.zeros((0,), dtype=torch.int32, device=dev), overflow)
-    h = _scalar(spec.h, min_extent)
-    scale = _scalar(spec.scale, min_extent)
+    h = scalar(spec.h, min_extent)
+    scale = scalar(spec.scale, min_extent)
     steps = torch.arange(qcap, dtype=torch.int32, device=dev)
     out_ids, out_counts = [], []
     for qi in range(sc.n_queries):
@@ -289,8 +297,8 @@ class SortedFrame:
 def advect_and_sort(spec: StepSpec, state: FluidState, dyn: Tensors,
                     scn: Tensors, mark: Mark = None) -> SortedFrame:
     mark = mark or _no_mark
-    scale = _scalar(spec.scale, state.mass)
-    h = _scalar(spec.h, state.mass)
+    scale = scalar(spec.scale, state.mass)
+    h = scalar(spec.h, state.mass)
     dt = dyn["dt"]
     min_bound, max_bound = dyn["min_bound"], dyn["max_bound"]
     padding = h * 2
@@ -341,29 +349,45 @@ def advect_and_sort(spec: StepSpec, state: FluidState, dyn: Tensors,
                        min_extent=min_extent, extent_ok=extent_ok)
 
 
-def neighbour_phases(phases: PbfPhases, iteration: int, index: CellIndex,
+def neighbour_phases(phases: Optional[PbfPhases], spec: StepSpec, index: CellIndex,
                      colour, pstar, mass, ptype, alive,
                      dt, scale, min_bound, max_bound, mark: Mark = None):
-    """Colour diffusion, then `iteration` rounds of lambda and delta
-    (`jax_solver.py:328-339`).  Returns (colour, pstar)."""
+    """Colour diffusion, then `spec.iteration` rounds of lambda and delta
+    (`jax_solver.py:310-352`), through the kernel backend's `phases` or, when
+    `phases` is None, the gather backend's K-capped gathers.  Returns
+    (colour, pstar)."""
     mark = mark or _no_mark
-    colour = phases.diffuse(index, colour, ptype, alive, dt)
+    if phases is not None:
+        colour = phases.diffuse(index, colour, ptype, alive, dt)
+        mark("diffuse")
+        pstar = phases.solve(index, pstar, mass, ptype, alive, spec.iteration,
+                             scale, min_bound, max_bound, mark)
+        return colour, pstar
+    cells, member = decode_key(index.key, spec.grid)
+    ranges = stencil_ranges(cells, member, index.table, spec.grid)
+    K = spec.cell_capacity
+    colour = pbf.diffuse(colour, ptype, alive, ranges, K, dt)
     mark("diffuse")
-    pstar = phases.solve(index, pstar, mass, ptype, alive, iteration,
-                         scale, min_bound, max_bound, mark)
+    for _ in range(spec.iteration):
+        lam = pbf.lambda_phase(pstar, mass, ptype, alive, ranges, K, spec.h)
+        mark("lambda")
+        pstar = pbf.delta_phase(pstar, lam, ptype, alive, ranges, K, spec.h,
+                                scale, min_bound, max_bound)
+        mark("delta")
     return colour, pstar
 
 
-def solve_frame(spec: StepSpec, phases: PbfPhases, state: FluidState,
+def solve_frame(spec: StepSpec, phases: Optional[PbfPhases], state: FluidState,
                 dyn: Tensors, scn: Tensors, mark: Mark = None):
     """Stages 1-10 of a frame: sources, drains, advect, sort, table, queries,
-    diffusion, the constraint solve and finalise.  Returns (frame, new_state,
-    outputs): the sort-time frame (its cell index feeds the MC field), the
-    finalised state in cell order, and the frame's output tensors."""
+    diffusion, the constraint solve and finalise; `phases` None takes the
+    gather backend.  Returns (frame, new_state, outputs): the sort-time frame
+    (its cell index feeds the MC field), the finalised state in cell order,
+    and the frame's output tensors."""
     mark = mark or _no_mark
     mark("begin")
     dev = state.pid.device
-    scale = _scalar(spec.scale, state.mass)
+    scale = scalar(spec.scale, state.mass)
     dt = dyn["dt"]
     min_bound, max_bound = dyn["min_bound"], dyn["max_bound"]
 
@@ -386,7 +410,7 @@ def solve_frame(spec: StepSpec, phases: PbfPhases, state: FluidState,
 
     # 8-9. colour diffusion + constraint solve
     colour, pstar = neighbour_phases(
-        phases, spec.iteration, fr.index,
+        phases, spec, fr.index,
         state.colour, fr.pstar, state.mass, state.ptype, state.alive,
         dt, scale, min_bound, max_bound, mark,
     )
@@ -402,8 +426,8 @@ def solve_frame(spec: StepSpec, phases: PbfPhases, state: FluidState,
         alive_count=state.alive.sum().to(torch.int32),
         spawn_dropped=spawn_dropped,
         extent_ok=fr.extent_ok,
-        # the kernels walk exact cell ranges and have no strip buffer,
-        # so nothing can overflow one: always 0
+        # neither backend has a strip buffer, so nothing can overflow
+        # one: always 0
         strip_overflow=torch.zeros((), dtype=torch.int32, device=dev),
         query_ids=q_ids,
         query_counts=q_counts,
@@ -416,31 +440,40 @@ def solve_frame(spec: StepSpec, phases: PbfPhases, state: FluidState,
     return fr, new_state, outputs
 
 
-def surface_stage(spec: StepSpec, mc_field: McField, fr: SortedFrame,
+def surface_stage(spec: StepSpec, mc_field: Optional[McField], fr: SortedFrame,
                   state: FluidState, dyn: Tensors, mark: Mark = None) -> Tensors:
     """Stage 11, the marching-cubes surface of the finalised `state`: the
     field gathers by the sort-time cells of `fr` and measures distances to
-    the post-finalise positions (`jax_solver.py:484-504`)."""
+    the post-finalise positions (`jax_solver.py:484-504`), through the
+    kernel backend's `mc_field` or, when it is None, the XLA field."""
     mark = mark or _no_mark
     mc = spec.surface
-    lat_v, lat_n, lat_c = mc_field(
-        fr.index, mc, spec.scale, state.position, state.colour, state.ptype,
-        state.alive, fr.min_extent, dyn["mc_particle_size"])
+    if mc_field is not None:
+        lat_v, lat_n, lat_c = mc_field(
+            fr.index, mc, spec.scale, state.position, state.colour, state.ptype,
+            state.alive, fr.min_extent, dyn["mc_particle_size"])
+    else:
+        lat_v, lat_n, lat_c = gather_mc_field(
+            state.position, state.colour, state.ptype, state.alive, fr.index.table,
+            spec.grid, fr.min_extent, spec.grid.extent, mc, spec.cell_capacity, spec.h,
+            scalar(spec.scale, state.mass), dyn["mc_particle_size"],
+            dyn["mc_particle_influence"])
     mark("mc field")
     vs, ns, cs, total, emit_ovf = mc_extract(
         lat_v, lat_n, lat_c, fr.min_extent, mc, spec.h,
-        _scalar(spec.scale, lat_v), dyn["mc_isolevel"])
+        scalar(spec.scale, lat_v), dyn["mc_isolevel"])
     mark("mc extract")
     return dict(mesh_vs=vs, mesh_ns=ns, mesh_cs=cs, tri_count=total,
                 mc_emit_overflow=emit_ovf,
-                # no strip buffer in the field kernel either: always 0
+                # no strip buffer in either field: always 0
                 mc_strip_overflow=torch.zeros_like(total))
 
 
-def build_step(spec: StepSpec, phases: PbfPhases, mc_field: McField):
+def build_step(spec: StepSpec, phases: Optional[PbfPhases], mc_field: Optional[McField]):
     """The full-frame step for a static spec:
     step(state, dyn, scn, mark=None) -> (new_state, outputs), all tensors
-    on the state's device."""
+    on the state's device.  `phases` and `mc_field` None take the gather
+    backend."""
 
     def step(state: FluidState, dyn: Tensors, scn: Tensors, mark: Mark = None):
         fr, new_state, outputs = solve_frame(spec, phases, state, dyn, scn, mark)
@@ -458,25 +491,34 @@ def build_step(spec: StepSpec, phases: PbfPhases, mc_field: McField):
 
 class TorchSolver(Solver):
     """The port's solver on `device`: "cuda[:n]" unless the caller asks for
-    "cpu"."""
+    "cpu".  `gather=False` is the kernel backend (`torch`, fp32 only);
+    `gather=True` the gather backend, in `dtype` float32 or float64."""
 
     def __init__(
         self,
         h: float = 0.1,
         cell_capacity: int = 48,
         query_capacity: int = 128,
+        dtype: str = "float32",
+        gather: bool = False,
         device="cuda",
     ):
         super().__init__(h)
+        self.dtype = np.dtype(dtype)
+        self.gather = bool(gather)
+        if not self.gather and self.dtype != np.dtype(np.float32):
+            # the kernels are fp32-only, as the Pallas backend refuses fp64
+            # (`jax_solver.py:536-540`)
+            raise ValueError("FP64 is not supported for the torch backend")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "TorchSolver(device='cuda') needs a CUDA device, but "
                 "torch.cuda.is_available() is False")
-        # the phase kernels are fp32-only; fp64 is a later slice
-        self.dtype = np.dtype(np.float32)
         self.cell_capacity = int(cell_capacity)
         self.query_capacity = int(query_capacity)
+        # the kernel backend's wrappers; the gather backend calls neither, so
+        # their launch counts stay 0 on it
         self.phases = PbfPhases(self.h)
         self.mc_field = McField(self.h)
         self._steps: Dict[StepSpec, Any] = {}
@@ -493,12 +535,16 @@ class TorchSolver(Solver):
     def get_step(self, spec: StepSpec):
         fn = self._steps.get(spec)
         if fn is None:
-            fn = self._steps[spec] = build_step(spec, self.phases, self.mc_field)
+            if self.gather:
+                fn = build_step(spec, None, None)
+            else:
+                fn = build_step(spec, self.phases, self.mc_field)
+            self._steps[spec] = fn
         return fn
 
     def _capacity_for(self, config: SphParams, scene: Scene, n: int) -> int:
         n += scene_spec_of(scene, config, self.query_capacity).total_spawn
-        al = CAPACITY_ALIGN
+        al = GATHER_CAPACITY_ALIGN if self.gather else CAPACITY_ALIGN
         return max(al, -(-n // al) * al)
 
     # -- device-resident fast path (benchmark loop) ---------------------------
@@ -557,14 +603,17 @@ class TorchSolver(Solver):
 
     # -- host-level API (reference `Solver::advance` parity) ------------------
 
-    def advance(self, config: SphParams, scene: Scene, xs: ParticleSoA):
+    def advance(self, config: SphParams, scene: Scene, xs: ParticleSoA,
+                mark: Mark = None):
+        """One frame of `xs` (reference `Solver::advance`); `mark` is the
+        step's stage hook, called again for each re-run of the frame."""
         spec = self.make_spec(config, scene, self._capacity_for(config, scene, len(xs)))
         scn = scene_arrays_of(scene, spec.scene, self.dtype, self.device)
         dyn = dyn_params_of(config, self.dtype, self.device)
 
         for _attempt in range(4):
             state = FluidState.from_soa(xs, spec.capacity, self.dtype, self.device)
-            new_state, out = self.step_device(spec, state, dyn, scn)
+            new_state, out = self.step_device(spec, state, dyn, scn, mark)
             if not bool(out["extent_ok"]):
                 raise RuntimeError(
                     "frame bounds exceed the grid extent "

@@ -13,7 +13,9 @@ Membership still mirrors the reference's Morton rules (the reference skips
 stencil cells with `offset >= gridTableN`, `src/sph.hpp:207`): with
 `quirks=True` a particle is a grid member iff its cell is inside the extent
 box AND its Morton code is < maxz, which excludes exactly the far-corner
-cell.  `quirks=False` makes every in-box cell a member.
+cell.  `quirks=False` makes every in-box cell a member.  The gather backend's
+`stencil_ranges` also keeps the reference's end-rule: a stencil cell is
+gathered only if its Morton code + 1 is < maxz.
 
 The dense table is a bincount (scatter-add) plus an exclusive cumsum.
 """
@@ -21,7 +23,7 @@ The dense table is a bincount (scatter-add) plus an exclusive cumsum.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,9 @@ import torch
 from pbf_sph_tpu_torch.ops.curves import morton_encode3
 
 Cells = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # three (C,) int32
+
+# 27-cell stencil, x fastest (reference `src/sph.hpp:220-234` order).
+STENCIL27 = [(dx, dy, dz) for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 
 
 @dataclass(frozen=True)
@@ -135,6 +140,33 @@ def build_cell_table(sorted_key, spec: GridSpec):
     cnt = torch.zeros(ncells + 1, dtype=torch.int32, device=sorted_key.device)
     cnt.scatter_add_(0, k, torch.ones_like(sorted_key, dtype=torch.int32))
     return (torch.cumsum(cnt, 0, dtype=torch.int32) - cnt).to(torch.int32)
+
+
+def stencil_ranges(cells: Cells, member, cell_table, spec: GridSpec) -> List[Tuple]:
+    """Per-particle [start, end) candidate ranges for each of the 27 stencil
+    cells, in `STENCIL27` order (reference `foreach_grid`,
+    `src/sph.hpp:203-236`).  `cells`/`member` must be in sorted order.
+    Returns a 27-element list of (start, end), each (C,) int32.  Port of
+    `pbf_sph_tpu/ops/grid.py:150-176`."""
+    nx, ny, nz = spec.dims
+    maxz = spec.maxz
+    out = []
+    for dx, dy, dz in STENCIL27:
+        nc = (cells[0] + dx, cells[1] + dy, cells[2] + dz)
+        in_box = ((nc[0] >= 0) & (nc[0] < nx) & (nc[1] >= 0) & (nc[1] < ny)
+                  & (nc[2] >= 0) & (nc[2] < nz))
+        safe = [torch.where(in_box, c, 0) for c in nc]
+        if spec.quirks:
+            zc = morton_encode3(safe[0], safe[1], safe[2])
+            # reference skip rule + end-rule quirk (src/sph.hpp:207-208)
+            ok = member & in_box & (zc < maxz) & (zc + 1 < maxz)
+        else:
+            ok = member & in_box
+        lin = torch.where(ok, (safe[0] * ny + safe[1]) * nz + safe[2], 0).long()
+        start = torch.where(ok, cell_table[lin], 0)
+        end = torch.where(ok, cell_table[lin + 1], 0)
+        out.append((start, end))
+    return out
 
 
 def max_cell_occupancy(cell_table):

@@ -9,7 +9,8 @@ import torch
 
 from pbf_sph_tpu_torch.core.configs import dam_break
 from pbf_sph_tpu_torch.core.types import Scene
-from pbf_sph_tpu_torch.models import make_solver
+from pbf_sph_tpu_torch import bench
+from pbf_sph_tpu_torch.models import BACKENDS, make_solver
 from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
@@ -40,7 +41,9 @@ assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases
         "pbf_sph_tpu_torch.tools.micro_roll",
         "pbf_sph_tpu_torch.tools.micro_vpu",
         "pbf_sph_tpu_torch.tools.bench_cells",
-        "pbf_sph_tpu_torch.tools.cells_staged"} <= set(names)
+        "pbf_sph_tpu_torch.tools.cells_staged",
+        "pbf_sph_tpu_torch.cli", "pbf_sph_tpu_torch.utils.stopwatch",
+        "pbf_sph_tpu_torch.utils.export"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -56,7 +59,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 32  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 36  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):
@@ -73,10 +76,34 @@ def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchSolver()
+    for impl in BACKENDS:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_solver(impl)
     with pytest.raises(RuntimeError, match="CUDA"):
-        make_solver("torch")
+        make_solver("gather", dtype="float64")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert TorchSolver().device == torch.device("cuda")
+    assert make_solver("gather").device == torch.device("cuda")
+    assert BACKENDS == ("torch", "gather")
+
+
+@pytest.mark.parametrize("env", [{}, {"PBF_BENCH_IMPL": "gather"},
+                                 {"PBF_BENCH_IMPL": "gather", "PBF_BENCH_FP64": "1"}])
+def test_bench_needs_a_card(monkeypatch, env):
+    """bench.py runs on the card or fails, for either backend."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("PBF_BENCH_COUNT", "1000")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main()
+
+
+def test_bench_refuses_fp64_on_torch(monkeypatch):
+    monkeypatch.setenv("PBF_BENCH_COUNT", "1000")
+    monkeypatch.setenv("PBF_BENCH_FP64", "1")
+    with pytest.raises(ValueError, match="FP64 is not supported for the torch backend"):
+        bench.main()
 
 
 def test_cpu_run_launches_no_kernel():

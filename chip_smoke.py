@@ -227,7 +227,34 @@ with a non-zero exit and no result line:
    the vertex count above 0, and both files are written and read back; the
    kernel backend's solver launched kernels, the gather backend's none;
    `--impl torch --fp64` returns 1.  Each backend's frame-time mean is
-   printed beside the card line.
+   printed beside the card line;
+8. the visualise loop, `pbf_sph_tpu_torch.visualise.main` in-process with
+   `--devices` left at its default, its module-level `make_solver`,
+   `save_ply_points`, `save_obj_mesh` and `render_frame` wrapped to keep the
+   solver, each frame's launches (the counts set to 0 just before each
+   `advance` and read just after) and the host-clock time of `advance` and
+   of each file written.  Each card run: rc 0, the solver the kernel
+   backend on cuda, the files written exactly the expected set, each PLY
+   the particle count, each OBJ > 0 vertices finite and within h*scale of
+   its frame's bounds, each PNG 640x480 with covered pixels, and each
+   frame's launches a whole number of attempts of its frame's set (9 at
+   iteration 3 with the surface, 5 at iteration 1, 2 + 2 iteration without
+   it; 0 of the per-row kernels and row 4's `mc_field`);
+8a. the GUI workload: the 2-cube scene, `--particles 20000 --solver-iter 3
+   --frames 24 --every 4 --render --checkpoint-every 8 --turntable 2`,
+   motion on, with `--set`s 6:iteration=1, 10:mc_resolution=1.0,
+   14:surface=0, 18:surface=1 (back at `McParams()`'s defaults) and
+   20:force=0,12,0, each held to take effect at its frame; then `--resume`
+   from its frame-16 checkpoint for 2 frames (17-18, the count conserved),
+   and the first 2 frames of a 700-particle copy on the card and with
+   `--devices cpu`: phase 4's tolerances, triangle counts within 1%;
+8b. the rendering user's loop: `--workload dam --particles 128000
+   --solver-iter 3 --mc-resolution 1.0 --frames 12` (mc128k's lattice),
+   export every frame, once without `--render` and once with it, 8a's checks
+   and every step spec at res 1.0; the host-clock means over frames 2-11 of
+   `advance`, the PLY write, the OBJ write and the render, beside the card
+   line.  The launches of phase 8's card runs are printed on a line of
+   their own; the kernels line keeps the launches of the phases above.
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
@@ -2038,6 +2065,253 @@ def phase_cli() -> None:
     check(rc == 1, "cli --impl torch --fp64 returns 1")
 
 
+# phase 8: the visualise loop.  8a's scheduled changes: the λ/Δp launches an
+# attempt drop to 1 each, the MC lattice grows, the surface stage goes and
+# comes back with McParams()'s defaults, a dynamic force changes
+VIS_SETS = ("6:iteration=1", "10:mc_resolution=1.0", "14:surface=0", "18:surface=1",
+            "20:force=0,12,0")
+# kernels of the per-row path and row 4, which no visualise frame launches
+VIS_ZERO = ("diffuse", "lambda", "delta", "mc_field")
+BACKGROUND = (20, 22, 28)  # render.render_mesh's bg as save_png writes it
+
+
+class VisRun:
+    """`visualise.main(argv)` in-process with its module-level names wrapped:
+    the solver it builds (kept), each frame's config, launches by kernel (the
+    counts set to 0 just before its `advance` and read just after) and,
+    with `keep`, (result, xs); the host-clock seconds of each `advance` and
+    of each PLY, OBJ and PNG written, by file name.  `visualise.py` itself
+    has no timing code."""
+
+    def __init__(self, argv, keep: bool = False):
+        import contextlib
+        import io
+
+        from pbf_sph_tpu_torch import visualise
+
+        self.solvers, self.frames, self.advance_s, self.write_s = [], [], [], {}
+        names = ("make_solver", "save_ply_points", "save_obj_mesh", "render_frame")
+        real = {name: getattr(visualise, name) for name in names}
+        run = self
+
+        class Counted:
+            def __init__(self, solver):
+                self.solver = solver
+
+            def advance(self, config, scene, xs):
+                self.solver.reset_launches()
+                t0 = time.perf_counter()
+                result, xs = self.solver.advance(config, scene, xs)
+                run.advance_s.append(time.perf_counter() - t0)
+                run.frames.append(dict(config=config, launches=dict(self.solver.launches),
+                                       n=len(xs), kept=(result, xs) if keep else None))
+                return result, xs
+
+        def make_solver(*args, **kwargs):
+            run.solvers.append(real["make_solver"](*args, **kwargs))
+            return Counted(run.solvers[-1])
+
+        def timed(name):
+            def write(path, *args, **kwargs):
+                t0 = time.perf_counter()
+                real[name](path, *args, **kwargs)
+                run.write_s[path.name] = time.perf_counter() - t0
+            return write
+
+        buf = io.StringIO()
+        try:
+            visualise.make_solver = make_solver
+            for name in names[1:]:
+                setattr(visualise, name, timed(name))
+            with contextlib.redirect_stdout(buf):
+                self.rc = visualise.main(argv)
+        finally:
+            for name in names:
+                setattr(visualise, name, real[name])
+        self.text = buf.getvalue()
+        self.solver = self.solvers[-1]
+
+    def launch_totals(self) -> dict:
+        total = {}
+        for f in self.frames:
+            for k, v in f["launches"].items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+
+def check_vis_run(run: VisRun, out, frames, every: int, ckpt_every: int, render: bool,
+                  turntable: int, n: int, surface_on, frame0: int = 0) -> None:
+    """Checks of one card run of the loop: rc 0 and the frame lines, the
+    files written exactly the expected set, each PLY the particle count,
+    each OBJ > 0 vertices finite and within h*scale of its frame's bounds,
+    each PNG 640x480 with covered pixels, the solver on cuda (kernel
+    backend), and each frame's launches a whole number of attempts of its
+    set: iteration lambda_cells and delta_cells, one diffuse_cell_sums,
+    diffuse_cells and (with the surface) mc_field_cells an attempt, and 0 of
+    the per-row kernels and row 4."""
+    from PIL import Image
+
+    check(run.rc == 0 and len(run.frames) == frames and all(
+        f"frame {frame0 + i}: particles={n} " in run.text for i in range(frames)),
+        f"rc 0, frames {frame0}..{frame0 + frames - 1} with {n} particles each")
+    solver = run.solver
+    check(solver.device.type == "cuda" and not solver.gather,
+          f"the solver runs the kernel backend on {solver.device}")
+    want = set()
+    for f in range(frame0, frame0 + frames):
+        if f % every == 0:
+            want.add(f"cloud_{f:05d}.ply")
+            if surface_on(f):
+                want.add(f"mesh_{f:05d}.obj")
+            if render:
+                want.add(f"frame_{f:05d}.png")
+        if ckpt_every and f % ckpt_every == 0:
+            want.add(f"ckpt_{f:05d}.npz")
+    want |= {f"turntable_{k:02d}.png" for k in range(turntable)}
+    got = {p.name for p in out.iterdir()}
+    check(got == want, f"the files written are the {len(want)} expected "
+          f"({len([w for w in want if w.endswith('.obj')])} OBJ, "
+          f"{len([w for w in want if w.endswith('.png')])} PNG)")
+
+    plys = sorted(out.glob("cloud_*.ply"))
+    ok = True
+    for p in plys:
+        lines = p.read_text().splitlines()
+        ok &= f"element vertex {n}" in lines and len(lines) - lines.index("end_header") - 1 == n
+    check(ok, f"each of {len(plys)} PLY holds {n} points")
+    objs, reaches = {}, set()
+    for p in sorted(out.glob("mesh_*.obj")):
+        cfg = run.frames[int(p.stem.split("_")[1]) - frame0]["config"]
+        vs = np.array([[float(x) for x in line.split()[1:4]]
+                       for line in p.read_text().splitlines() if line.startswith("v ")])
+        reach = cfg.h * cfg.scale
+        lo, hi = np.asarray(cfg.min_bound) - reach, np.asarray(cfg.max_bound) + reach
+        ok = len(vs) > 0 and np.isfinite(vs).all() and ((vs >= lo) & (vs <= hi)).all()
+        objs[p.stem[5:]] = len(vs) if ok else f"FAILED ({len(vs)})"
+        reaches.add(round(reach, 3))
+    check(all(isinstance(v, int) for v in objs.values()),
+          f"each OBJ > 0 vertices, finite, within h*scale = {sorted(reaches)} of its "
+          f"frame's bounds: vertices by frame {objs}")
+    pngs = {}
+    for p in sorted(out.glob("*.png")):
+        img = np.asarray(Image.open(p).convert("RGB"))
+        covered = int((img != np.asarray(BACKGROUND, np.uint8)).any(-1).sum())
+        pngs[p.stem] = covered if img.shape == (480, 640, 3) and covered >= 100 else \
+            f"FAILED {img.shape} {covered}"
+    check(all(isinstance(v, int) for v in pngs.values()),
+          f"each PNG 640x480 with covered pixels: {pngs}")
+
+    attempts = []
+    for f in run.frames:
+        c, launches = f["config"], f["launches"]
+        k = launches.get("diffuse_cells", 0)
+        expect = dict.fromkeys(VIS_ZERO, 0)
+        expect.update(diffuse_cell_sums=k, diffuse_cells=k, lambda_cells=c.iteration * k,
+                      delta_cells=c.iteration * k,
+                      mc_field_cells=k if c.surface is not None else 0)
+        attempts.append((k, sum(launches.values()) // max(k, 1))
+                        if k >= 1 and launches == expect else (0, launches))
+    check(all(a[0] >= 1 for a in attempts),
+          "each frame's launches a whole number of attempts of its set, 0 of "
+          f"{', '.join(VIS_ZERO)}: (attempts, launches an attempt) by frame {attempts}")
+
+
+def vis_split(run: VisRun, frames) -> str:
+    """Host-clock means over `frames` of advance and each file written."""
+    parts = [f"advance {1e3 * np.mean([run.advance_s[f] for f in frames]):.3f}"]
+    for label, name in (("PLY write", "cloud_{:05d}.ply"), ("OBJ write", "mesh_{:05d}.obj"),
+                        ("render", "frame_{:05d}.png")):
+        ts = [run.write_s[name.format(f)] for f in frames if name.format(f) in run.write_s]
+        parts.append(f"{label} {1e3 * np.mean(ts):.3f}" if ts else f"{label} not run")
+    return ", ".join(parts) + " ms a frame"
+
+
+def phase_visualise() -> dict:
+    """Phase 8; returns the launches by kernel summed over its card runs."""
+    import tempfile
+    from pathlib import Path
+
+    from pbf_sph_tpu_torch.core.configs import dam_break
+    from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
+    from pbf_sph_tpu_torch.core.types import McParams
+
+    totals = {}
+
+    def add(run):
+        for k, v in run.launch_totals().items():
+            totals[k] = totals.get(k, 0) + v
+
+    print("== 8a. the visualise loop: the GUI workload with scheduled changes")
+    n = len(simple_config_with_2_cubes(20_000, 3, 500.0)[2])
+    sets = [a for s in VIS_SETS for a in ("--set", s)]
+    base = ["--particles", "20000", "--solver-iter", "3", "--every", "4", "--render",
+            "--checkpoint-every", "8", "--turntable", "2", *sets]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "gui"
+        run = VisRun([*base, "--frames", "24", "--out", str(out)])
+        print(run.text.rstrip())
+        check_vis_run(run, out, 24, 4, 8, True, 2, n, lambda f: not 14 <= f < 18)
+        add(run)
+        cfgs = [f["config"] for f in run.frames]
+        check([c.iteration for c in cfgs] == [3] * 6 + [1] * 18
+              and [c.surface.resolution if c.surface else None for c in cfgs]
+              == [2.0] * 10 + [1.0] * 4 + [None] * 4 + [2.0] * 6
+              and cfgs[18].surface == McParams()
+              and all(c.constant_force == ((0.0, 12.0, 0.0) if i >= 20 else (0.0, 9.8, 0.0))
+                      for i, c in enumerate(cfgs)),
+              "the scheduled changes took effect at their frames (iteration 3 -> 1 at 6, "
+              "res 2.0 -> 1.0 at 10, surface off 14-17, back at McParams() at 18, force at 20)")
+        lattices = sorted({s.surface.sample for s in run.solver._steps if s.surface})
+        print(f"one TorchSolver, {len(run.solver._steps)} step specs, MC lattices {lattices}")
+        check("turntable: 2 views" in run.text, "2 turntable views")
+        print(f"{card_line()}: 8a host clock, frames 2-23: {vis_split(run, range(2, 24))}")
+
+        resumed = Path(tmp) / "resumed"
+        run2 = VisRun([*base, "--resume", str(out / "ckpt_00016.npz"), "--frames", "2",
+                       "--out", str(resumed)])
+        print(run2.text.rstrip())
+        check(f"resumed {n} particles after frame 16" in run2.text, "resumed after frame 16")
+        check_vis_run(run2, resumed, 2, 4, 8, True, 2, n, lambda f: True, frame0=17)
+        add(run2)
+
+        small = [*base, "--particles", "700", "--frames", "2"]
+        card = VisRun([*small, "--out", str(Path(tmp) / "card")], keep=True)
+        cpu = VisRun([*small, "--devices", "cpu", "--out", str(Path(tmp) / "cpu")], keep=True)
+        check(card.solver.device.type == "cuda" and cpu.solver.device.type == "cpu"
+              and card.rc == cpu.rc == 0, "the 700-particle copy on the card and with "
+              "--devices cpu")
+        add(card)
+        for i in range(2):
+            (rg, g), (rc_, c) = card.frames[i]["kept"], cpu.frames[i]["kept"]
+            g, c = g.order_by_id(), c.order_by_id()
+            check(np.array_equal(g.pid, c.pid), f"frame {i}: same {len(g)} particle ids")
+            for name, atol in (("position", 1e-3), ("velocity", 1e-3), ("colour", 1e-5)):
+                err = float(np.abs(getattr(g, name) - getattr(c, name)).max())
+                check(err <= atol, f"frame {i}: {name} max abs err {err:.3e} <= {atol}")
+            t_g, t_c = len(rg.mesh) // 3, len(rc_.mesh) // 3
+            check(t_c > 0 and abs(t_g - t_c) <= 0.01 * t_c,
+                  f"frame {i}: {t_g} triangles on the card, {t_c} on the CPU (within 1%)")
+
+    print("== 8b. the visualise loop: the rendering user's 128k dam break, mc128k's lattice")
+    n = len(dam_break(128_000, 3)[2])
+    base = ["--workload", "dam", "--particles", "128000", "--solver-iter", "3",
+            "--mc-resolution", "1.0", "--frames", "12"]
+    for render in (False, True):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "dam"
+            run = VisRun([*base, *(["--render"] if render else []), "--out", str(out)])
+            print("\n".join(run.text.splitlines()[:2] + ["..."] + run.text.splitlines()[-1:]))
+            check_vis_run(run, out, 12, 1, 0, render, 0, n, lambda f: True)
+            add(run)
+            specs = run.solver._steps
+            check(all(s.surface.resolution == 1.0 for s in specs),
+                  f"{len(specs)} step specs, all at res 1.0: MC lattices "
+                  f"{sorted({s.surface.sample for s in specs})}")
+            print(f"{card_line()}: 8b{' --render' if render else ''} host clock, means "
+                  f"over frames 2-11: {vis_split(run, range(2, 12))}")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2105,6 +2379,10 @@ def main() -> int:
     phase_gather_vs_kernels()
     phase_gather_paths()
     phase_cli()
+    vis_launches = phase_visualise()
+    check(vis_launches["mc_field_cells"] > 0 and vis_launches["lambda_cells"] > 0,
+          "phase 8 ran the main path's kernels")
+    print(f"visualise launches (phase 8, its card runs): {json.dumps(vis_launches)}")
     launches["mc_field_cells"] = surface["mc_field_cells"]
     launches["mc_field"] += surface["mc_field"]  # row 4: both paths, each held at 0
     launches.update(staged_launches)

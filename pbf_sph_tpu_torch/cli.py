@@ -103,6 +103,20 @@ def find_device(specs: List[str], verbose: bool = False) -> torch.device:
     raise SystemExit(f"No device matched {specs!r} (available devices listed above)")
 
 
+def choose_device(specs: List[str], verbose: bool = False) -> torch.device:
+    """The device of a run: the `--devices` choice (`find_device`), else
+    `cuda:0`.  Without a CUDA device only `--devices cpu` runs; nothing
+    falls back to the CPU by itself."""
+    if specs:
+        device = find_device(specs, verbose)
+        print(f"Using device: {device}")
+        return device
+    if torch.cuda.is_available():
+        return torch.device("cuda", 0)
+    raise SystemExit("No CUDA device (torch.cuda.is_available() is False); "
+                     "pass --devices cpu to run on the CPU")
+
+
 def rendered_output_name(template: str, impl: str, fp64: bool, iterations: int) -> str:
     """Output-name templating (reference `src/args.cpp:69-75`)."""
     t = "double" if fp64 else "float"
@@ -147,14 +161,7 @@ def main(argv=None) -> int:
         print(f"FP64 is not supported for the {args.impl} backend!", file=sys.stderr)
         return 1
 
-    if args.devices:
-        device = find_device(args.devices, args.verbose)
-        print(f"Using device: {device}")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
-        raise SystemExit("No CUDA device (torch.cuda.is_available() is False); "
-                         "pass --devices cpu to run on the CPU")
+    device = choose_device(args.devices, args.verbose)
 
     if args.count and args.workload.startswith("bench"):
         from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes

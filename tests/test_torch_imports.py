@@ -43,7 +43,8 @@ assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases
         "pbf_sph_tpu_torch.tools.bench_cells",
         "pbf_sph_tpu_torch.tools.cells_staged",
         "pbf_sph_tpu_torch.cli", "pbf_sph_tpu_torch.utils.stopwatch",
-        "pbf_sph_tpu_torch.utils.export"} <= set(names)
+        "pbf_sph_tpu_torch.utils.export", "pbf_sph_tpu_torch.utils.render",
+        "pbf_sph_tpu_torch.visualise"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -59,7 +60,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 36  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 38  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):

@@ -254,7 +254,34 @@ with a non-zero exit and no result line:
    and every step spec at res 1.0; the host-clock means over frames 2-11 of
    `advance`, the PLY write, the OBJ write and the render, beside the card
    line.  The launches of phase 8's card runs are printed on a line of
-   their own; the kernels line keeps the launches of the phases above.
+   their own; the kernels line keeps the launches of the phases above;
+9. the 1D slab engine (`pbf_sph_tpu_torch/parallel/sharded.py`), its ranks
+   as threads of this process on cuda:0 (`parallel/comm.py` ThreadComm),
+   the kernel backend on every rank, launches counted per rank (set to 0
+   just before a run's first frame and read just after its last):
+9a. dam_break(20_000, 3), fixed slabs, 2 frames at D=2 and D=4: each
+   rank's ghost_peak (some > 0 at D=4), no dropped or deferred particle;
+   the busiest D=4 rank's first-frame diffuse, λ and Δp kernels against
+   their plain versions on its inputs (3l's and 3m's tolerances); the
+   particles against the same runs on the CPU (plain versions; phase 4's
+   tolerances) and against TorchSolver(device="cuda") (count exact,
+   position and velocity atol 0.1, colour 2e-3); every rank 1
+   diffuse_cell_sums + 1 diffuse_cells + 3 lambda_cells + 3 delta_cells a
+   frame and 0 of the per-row kernels and row 4; D=2 twice, the same bits;
+9b. dam1m at D=4 with rebalance=True, sloshing bounds, 2 warmup and 4
+   timed frames: particles conserved, no dropped particle or ghost, no
+   deferral at the end, extent held, the bounds moved; ms/frame on the host
+   clock beside the card line and phase 5's ms/step (four ranks share the
+   one card: not a multi-card speed);
+9c. mc128k with its surface at D=2, rebalance=True, 2 frames: triangles
+   within 1% of TorchSolver(gather=True) (the same XLA field), the
+   gathered mesh 3 rows a triangle, finite and within h*scale of the
+   bounds;
+9d. `pbf_sph_tpu_torch.cli.main` with `--multichip 1` on bench20k (NCCL at
+   world size 1), fixed and `--rebalance`: rc 0, the stats block with
+   `Per-device particles`, the particle count the input's, both files
+   written and read back; `--multichip 2` on this one card fails with its
+   message.  Phase 9's launches are printed on a line of their own.
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
@@ -1840,7 +1867,7 @@ def phase_main_path() -> dict:
     _, stages = phase_breakdown(solver, spec, state, dyn, scn, 5)
     print("device ms per frame by stage (CUDA events, 5 frames): " + ", ".join(
         f"{k} {v:.4f}" for k, v in stages.items()))
-    return launches
+    return launches, ms
 
 
 def check_surface(spec, state, cfg, outs, n: int, solver) -> dict:
@@ -2312,6 +2339,348 @@ def phase_visualise() -> dict:
     return totals
 
 
+# phase 9: the slab engine.  Phase 4's tolerances (card against CPU), the
+# JAX package's sharded-against-single tolerances (tests/test_sharded.py:
+# 63-77), the per-row kernels that no slab frame launches, and 9b's frames
+SLAB_TOLS = (("position", 1e-3), ("velocity", 1e-3), ("colour", 1e-5))
+SLAB_SINGLE_TOLS = (("position", 0.1), ("velocity", 0.1), ("colour", 2e-3))
+SLAB_ZERO = ("diffuse", "lambda", "delta")
+SLAB_WARMUP = 2
+SLAB_FRAMES = 4
+SLAB_PROFILED = 2
+
+
+def slab_probe_phases(h):
+    """A `PbfPhases` that keeps the inputs of its first `diffuse` and `solve`
+    (the rank's local index at the shapes of the slab frame), so that each
+    kernel can be held against its plain version on them afterwards."""
+    from pbf_sph_tpu_torch.ops.phases import PbfPhases
+
+    class SlabProbe(PbfPhases):
+        kept_diffuse = kept_solve = None
+
+        def diffuse(self, index, colour, ptype, alive, dt):
+            if self.kept_diffuse is None:
+                self.kept_diffuse = (index, colour.clone(), ptype, alive, dt)
+            return super().diffuse(index, colour, ptype, alive, dt)
+
+        def solve(self, index, pstar, mass, ptype, alive, iteration, scale, min_bound,
+                  max_bound, mark=None, refresh_lam=None, refresh_pstar=None):
+            if self.kept_solve is None:
+                self.kept_solve = (index, pstar.clone(), mass, ptype, alive, scale,
+                                   min_bound, max_bound)
+            return super().solve(index, pstar, mass, ptype, alive, iteration, scale,
+                                 min_bound, max_bound, mark, refresh_lam, refresh_pstar)
+
+    return SlabProbe(h)
+
+
+def slab_run(spec, cfg, xs, device, frames: int, motion: bool = False, probe: bool = False,
+             timed_from=None, start=None, frame0: int = 0):
+    """`frames` frames of the slab engine from `xs` (or from `start`, the
+    ranks of an earlier run: their states and bounds) on `spec.n_dev`
+    ThreadComm ranks on `device`; with `motion` the sloshing bounds of
+    frames frame0... The launch counts are set to 0 just before the first
+    frame and read just after the last.  With `timed_from`, rank 0 reads the
+    host clock around frames timed_from.. (each end after every rank has
+    enqueued its frames and the card has finished them).  Returns the
+    ranks' dicts in rank order."""
+    from pbf_sph_tpu_torch.core.scene import apply_motion_sin_x_cos_z
+    from pbf_sph_tpu_torch.models.torch_solver import dyn_params_of
+    from pbf_sph_tpu_torch.parallel import sharded
+    from pbf_sph_tpu_torch.parallel.comm import run_ranks
+
+    if start is None:
+        bounds0 = spec.initial_bounds(xs)
+        whole = sharded.distribute_particles(xs, spec, bounds=bounds0)
+
+    def settle(comm):
+        comm.all_reduce_sum(torch.zeros(1, device=device))  # every rank enqueued
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    def rank(comm):
+        if start is None:
+            state, b = sharded.local_state(whole, comm.rank, spec, device), bounds0
+        else:
+            state, b = start[comm.rank]["state"], start[comm.rank]["last_bounds"]
+        step = sharded.build_sharded_step(spec, comm)
+        if probe:
+            step.phases = slab_probe_phases(spec.h)
+        stats, bounds, t0 = [], [], None
+        step.reset_launches()
+        for f in range(frames):
+            if f == timed_from:
+                t0 = settle(comm)
+            g = frame0 + f
+            dyn = dyn_params_of(apply_motion_sin_x_cos_z(cfg, g) if motion else cfg,
+                                np.float32, device)
+            if spec.rebalance:
+                state, s, b = step(state, dyn, bounds=b)
+                bounds.append(b.cpu().numpy())
+            else:
+                state, s = step(state, dyn)
+            stats.append(s)
+        wall = settle(comm) - t0 if t0 is not None else None
+        return dict(state=state, stats=stats, bounds=bounds, last_bounds=b,
+                    launches=step.launches, phases=step.phases, wall=wall)
+
+    return run_ranks(spec.n_dev, rank, device)
+
+
+def slab_profile(spec, cfg, ranks, frames: int, frame0: int):
+    """`frames` more frames from `ranks` under torch.profiler (CUDA
+    activity, started on this thread: every rank's kernels): the kernels'
+    summed device ms over the wall ms (the busy share; thread start
+    included), and (ms a frame, launches a frame, name) of each kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        slab_run(spec, cfg, None, torch.device("cuda", 0), frames, motion=True, start=ranks,
+                 frame0=frame0)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in ev) / 1e3 / wall_ms
+    return busy, sorted(((e.self_device_time_total / 1e3 / frames, e.count // frames,
+                          e.key[:70]) for e in ev), reverse=True)
+
+
+def slab_soa(ranks):
+    from pbf_sph_tpu_torch.parallel import sharded
+
+    return sharded.gather_soa([r["state"] for r in ranks]).order_by_id()
+
+
+def check_soa_close(a, b, tols, what: str) -> None:
+    check(np.array_equal(a.pid, b.pid), f"{what}: the same {len(a)} particle ids")
+    errs = {name: float(np.abs(getattr(a, name) - getattr(b, name)).max()) for name, _ in tols}
+    check(all(errs[name] <= atol for name, atol in tols),
+          f"{what}: " + ", ".join(f"{n} max abs err {errs[n]:.3e} <= {t}" for n, t in tols))
+
+
+def check_slab_launches(ranks, frames: int, iteration: int, what: str) -> dict:
+    """Each rank: 1 diffuse_cell_sums + 1 diffuse_cells + iteration
+    lambda_cells + iteration delta_cells a frame, 0 of the per-row kernels.
+    Returns the launches summed over the ranks."""
+    want = dict.fromkeys(SLAB_ZERO, 0)
+    want.update(diffuse_cell_sums=frames, diffuse_cells=frames,
+                lambda_cells=iteration * frames, delta_cells=iteration * frames)
+    got = [r["launches"] for r in ranks]
+    check(all(g == want for g in got),
+          f"{what}: every rank's launches {want} ({2 + 2 * iteration} x {frames} frames)")
+    return {k: sum(g[k] for g in got) for k in want}
+
+
+def check_slab_kernels(ranks) -> None:
+    """The kernels of the busiest rank's first slab frame against their
+    plain versions on its inputs, on the card: the diffuse pair with
+    torch.equal, λ (atol 1e-6, rtol 1e-5) and pStar after Δp and the clamp
+    (atol 1e-5) as 3l holds them.  Direct kernel calls: no wrapper counts
+    them."""
+    from pbf_sph_tpu_torch.core.types import FLUID
+    from pbf_sph_tpu_torch.ops import cells
+    from pbf_sph_tpu_torch.ops import diffuse_cells as dc
+
+    r = max(ranks, key=lambda r: int(r["stats"][0]["alive_count"][0]))
+    ph = r["phases"]
+    index, colour, ptype, alive, dt = ph.kept_diffuse
+    sums_k = dc.diffuse_cell_sums_kernel(index, colour, ptype, alive)
+    sums_p = dc.diffuse_cell_sums_plain(index, colour, ptype, alive)
+    mix_k = dc.diffuse_cells_kernel(index, sums_p, colour, ptype, alive, dt)
+    mix_p = dc.diffuse_cells_plain(index, sums_p, colour, ptype, alive, dt)
+    check(torch.equal(sums_k, sums_p) and torch.equal(mix_k, mix_p),
+          f"slab frame (rank with {int(alive.sum())} rows alive, capacity "
+          f"{alive.shape[0]}, local grid {index.grid.dims}): diffuse_cell_sums and "
+          "diffuse_cells bit for bit their plain versions")
+    index, pstar, mass, ptype, alive, *bounds = ph.kept_solve
+    fluid = (ptype == FLUID) & alive
+    pack_a = torch.stack([pstar[0], pstar[1], pstar[2], mass], dim=1)
+    b_k, b_p = torch.empty_like(pack_a), torch.empty_like(pack_a)
+    cells.lambda_cells_kernel(index, ph.h, pack_a, fluid, b_k)
+    cells.lambda_cells_plain(index, ph.h, pack_a, fluid, b_p)
+    lam_err = float((b_k - b_p).abs().max())
+    check(torch.allclose(b_k, b_p, atol=1e-6, rtol=1e-5),
+          f"slab frame: lambda_cells max abs err {lam_err:.3e} (atol 1e-6, rtol 1e-5)")
+    a_k, a_p = pack_a.clone(), pack_a.clone()
+    cells.delta_cells_kernel(index, ph.h, b_p, fluid, *bounds, a_k)
+    cells.delta_cells_plain(index, ph.h, b_p, fluid, *bounds, a_p)
+    d_err = float((a_k - a_p).abs().max())
+    check(d_err <= 1e-5 and bool(torch.isfinite(a_k).all()),
+          f"slab frame: delta_cells pStar max abs err {d_err:.3e} <= 1e-5, finite")
+
+
+def phase_slabs_parity() -> dict:
+    """9a; returns the launches of its card runs summed over ranks."""
+    print("== 9a. the slab engine (parallel/sharded.py), ThreadComm ranks on cuda:0: "
+          "dam_break(20_000, 3), fixed slabs, 2 frames")
+    from pbf_sph_tpu_torch.core.configs import dam_break
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+    from pbf_sph_tpu_torch.ops import mc_field as mf
+    from pbf_sph_tpu_torch.parallel import sharded
+
+    mc, cfg, xs = dam_break(20_000, solver_iter=3)
+    single = TorchSolver(h=cfg.h, device="cuda")
+    x = xs
+    for _ in range(2):
+        _, x = single.advance(cfg, Scene(), x)
+    x = x.order_by_id()
+    card, totals = torch.device("cuda", 0), {}
+    row4 = mf.ROW4_LAUNCHES["mc_field"]
+    for D in (2, 4):
+        spec = sharded.ShardSpec.create(cfg, D, len(xs), cfg.h, gather=False)
+        ranks = slab_run(spec, cfg, xs, card, 2, probe=True)
+        peaks = [int(r["stats"][-1]["ghost_peak"][0]) for r in ranks]
+        alive = [int(r["stats"][-1]["alive_count"][0]) for r in ranks]
+        print(f"D={D}: capacity {spec.cap_total} a rank, local grid {spec.grid_local.dims}; "
+              f"alive_count {alive}, ghost_peak {peaks}")
+        for k in ("migrate_dropped", "ghost_dropped", "migrate_deferred"):
+            check(all(int(s[k][0]) == 0 for r in ranks for s in r["stats"]),
+                  f"D={D}: {k} 0 every frame")
+        if D == 4:
+            check(max(peaks) > 0, f"D=4: ghosts on a boundary (ghost_peak {peaks})")
+            check_slab_kernels(ranks)
+        for k, v in check_slab_launches(ranks, 2, cfg.iteration, f"D={D}").items():
+            totals[k] = totals.get(k, 0) + v
+        got = slab_soa(ranks)
+        check(len(got) == len(xs), f"D={D}: {len(got)} particles of {len(xs)}")
+        cpu = slab_soa(slab_run(spec, cfg, xs, torch.device("cpu"), 2))
+        check_soa_close(got, cpu, SLAB_TOLS, f"D={D} card against the CPU (plain versions)")
+        check_soa_close(got, x, SLAB_SINGLE_TOLS, f"D={D} against TorchSolver(device='cuda')")
+        if D == 2:
+            again = slab_soa(slab_run(spec, cfg, xs, card, 2))
+            check(all(np.array_equal(getattr(got, k), getattr(again, k))
+                      for k in ("pid", "position", "velocity", "colour")),
+                  "D=2 twice: the same bits")
+    check(mf.ROW4_LAUNCHES["mc_field"] == row4,
+          "row 4 (mc_field) 0 launches; the slab step holds no row-4b wrapper (McField)")
+    return totals
+
+
+def phase_slabs_dam1m(single_ms: float) -> dict:
+    """9b; returns the launches summed over ranks."""
+    print(f"== 9b. dam1m at D=4 with rebalance=True on the one card, sloshing bounds: "
+          f"{SLAB_WARMUP} warmup + {SLAB_FRAMES} timed frames")
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.parallel import sharded
+
+    mc, cfg, xs = WORKLOADS["dam1m"]()
+    spec = sharded.ShardSpec.create(cfg, 4, len(xs), cfg.h, gather=False, rebalance=True)
+    frames = SLAB_WARMUP + SLAB_FRAMES
+    print(f"{len(xs)} particles; cap_local {spec.cap_local}, ghost_cap {spec.ghost_cap}, "
+          f"capacity {spec.cap_total} a rank; local grid {spec.grid_local.dims}; "
+          f"initial bounds {spec.initial_bounds(xs).tolist()}")
+    ranks = slab_run(spec, cfg, xs, torch.device("cuda", 0), frames, motion=True,
+                     timed_from=SLAB_WARMUP)
+    stats = [sharded.assemble_stats([r["stats"][f] for r in ranks]) for f in range(frames)]
+    for f, st in enumerate(stats):
+        print(f"  frame {f}: bounds {ranks[0]['bounds'][f].tolist()}, alive_count "
+              f"{st['alive_count'].tolist()}, ghost_peak {st['ghost_peak'].tolist()}, "
+              f"migrate_deferred {st['migrate_deferred'].tolist()}")
+    check(all(int(st["alive_count"].sum()) == len(xs) for st in stats),
+          f"{len(xs)} particles every frame")
+    check(all(int(st[k].sum()) == 0 for st in stats for k in ("migrate_dropped", "ghost_dropped"))
+          and int(stats[-1]["migrate_deferred"].sum()) == 0,
+          "migrate_dropped and ghost_dropped 0 every frame, migrate_deferred 0 at the end")
+    check(all(st["extent_ok"].all() for st in stats), "extent_ok every frame")
+    b0 = spec.initial_bounds(xs)
+    moved = sum(not np.array_equal(b, a) for a, b in zip([b0] + ranks[0]["bounds"][:-1],
+                                                         ranks[0]["bounds"]))
+    check(moved >= 1, f"the bounds moved in {moved} of {frames} frames")
+    totals = check_slab_launches(ranks, frames, cfg.iteration, "dam1m D=4")
+    ms = 1e3 * ranks[0]["wall"] / SLAB_FRAMES
+    print(f"{card_line()}: slab engine dam1m, 4 ThreadComm ranks sharing this one card "
+          f"(not a multi-card speed): {ms:.3f} ms/frame over {SLAB_FRAMES} frames (host "
+          f"clock); phase 5's single-chip dam1m {single_ms:.3f} ms/step")
+    busy, kernels = slab_profile(spec, cfg, ranks, SLAB_PROFILED, frames)
+    print(f"  {SLAB_PROFILED} more frames under torch.profiler: device busy share "
+          f"{busy:.4f}, kernels {sum(k[0] for k in kernels):.3f} ms a frame in "
+          f"{sum(k[1] for k in kernels)} launches; the largest (ms a frame, launches a frame, "
+          "name): " + "; ".join(f"{ms_:.3f} {n} {name}" for ms_, n, name in kernels[:8]))
+    return totals
+
+
+def phase_slabs_surface() -> dict:
+    """9c; returns the launches summed over ranks."""
+    print("== 9c. mc128k with its surface at D=2, rebalance=True, 2 frames")
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+    from pbf_sph_tpu_torch.parallel import sharded
+
+    mc, cfg, xs = WORKLOADS["mc128k"]()
+    spec = sharded.ShardSpec.create(cfg, 2, len(xs), cfg.h, gather=False, rebalance=True)
+    ranks = slab_run(spec, cfg, xs, torch.device("cuda", 0), 2)
+    last = [r["stats"][-1] for r in ranks]
+    check(all(int(s[k][0]) == 0 for s in last for k in ("mc_emit_overflow", "migrate_dropped",
+                                                         "ghost_dropped")),
+          "no emit overflow, no dropped particle or ghost")
+    tris = [int(s["tri_count"][0]) for s in last]
+    check(all(t <= spec.surface.tri_capacity for t in tris),
+          f"tri_count {tris} <= tri_capacity {spec.surface.tri_capacity} a rank")
+    vs, ns, cs = sharded.gather_mesh(last)
+    check(len(vs) == 3 * sum(tris) == len(ns) == len(cs),
+          f"gather_mesh: {len(vs)} rows = 3 x {sum(tris)} triangles")
+    reach = cfg.h * spec.scale
+    lo, hi = np.asarray(cfg.min_bound) - reach, np.asarray(cfg.max_bound) + reach
+    check(np.isfinite(vs).all() and ((vs >= lo) & (vs <= hi)).all(),
+          f"{len(vs)} vertices finite and within h*scale = {reach:.3f} of the bounds")
+    single = TorchSolver(h=cfg.h, gather=True, device="cuda")
+    x, res = xs, None
+    for _ in range(2):
+        res, x = single.advance(cfg, Scene(), x)
+    t1 = len(res.mesh) // 3
+    check(t1 > 0 and abs(sum(tris) - t1) <= 0.01 * t1,
+          f"{sum(tris)} triangles over the slabs, {t1} from TorchSolver(gather=True) "
+          "(within 1%)")
+    check_soa_close(slab_soa(ranks), x.order_by_id(), SLAB_SINGLE_TOLS,
+                    "mc128k D=2 against TorchSolver(gather=True)")
+    return check_slab_launches(ranks, 2, cfg.iteration, "mc128k D=2")
+
+
+def phase_slabs_cli() -> None:
+    print("== 9d. the CLI's --multichip on bench20k: real NCCL at world size 1")
+    import tempfile
+    from pathlib import Path
+
+    from pbf_sph_tpu_torch import cli
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+
+    n = len(WORKLOADS["bench20k"]()[2])
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in ([], ["--rebalance"]):
+            out = Path(tmp) / f"m{len(extra)}"
+            argv = ["--multichip", "1", *extra, "--warmup", "2", "--iter", "3",
+                    "--output", str(out)]
+            rc, stats, text = run_cli(argv)
+            check(rc == 0 and "Results flushed." in text and "Frame-time mean" in stats
+                  and stats.get("Per-device particles") == f"[{n}]",
+                  f"cli {' '.join(argv)}: rc 0, the stats block, Per-device particles [{n}]")
+            count, verts = int(stats["Final Particle count"]), int(stats["Final Vertex count"])
+            ply = (out / "cloud.ply").read_text().splitlines()
+            obj = (out / "mesh.obj").read_text().splitlines()
+            check(count == n and verts > 0 and f"element vertex {n}" in ply
+                  and len(ply) - ply.index("end_header") - 1 == n
+                  and sum(1 for line in obj if line.startswith("v ")) == verts,
+                  f"{count} particles of {n}, {verts} vertices; cloud.ply and mesh.obj "
+                  "read back")
+            print(f"{card_line()}: cli --multichip 1{' --rebalance' if extra else ''}: "
+                  f"frame-time mean {stats['Frame-time mean']}")
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, _, _ = run_cli(["--multichip", "2", "--warmup", "0", "--iter", "1"])
+    check(rc != 0 and "needs 2 CUDA devices" in err.getvalue(),
+          f"cli --multichip 2 on one card: rc {rc}, {err.getvalue().strip()!r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2373,7 +2742,7 @@ def main() -> int:
     phase_extract(lattice)
     del lattice
     torch.cuda.empty_cache()
-    launches = phase_main_path()
+    launches, main_ms = phase_main_path()
     surface = phase_surface_path()
     phase_gather_parity()
     phase_gather_vs_kernels()
@@ -2383,6 +2752,13 @@ def main() -> int:
     check(vis_launches["mc_field_cells"] > 0 and vis_launches["lambda_cells"] > 0,
           "phase 8 ran the main path's kernels")
     print(f"visualise launches (phase 8, its card runs): {json.dumps(vis_launches)}")
+    slab_launches = phase_slabs_parity()
+    for part in (phase_slabs_dam1m(main_ms), phase_slabs_surface()):
+        for k, v in part.items():
+            slab_launches[k] += v
+    phase_slabs_cli()
+    print(f"slab engine launches (phase 9a-9c, its card runs, all ranks): "
+          f"{json.dumps(slab_launches)}")
     launches["mc_field_cells"] = surface["mc_field_cells"]
     launches["mc_field"] += surface["mc_field"]  # row 4: both paths, each held at 0
     launches.update(staged_launches)

@@ -8,8 +8,13 @@ reference benchmark's flags and output (reference `src/args.hpp:38-56`,
   --impl {torch,gather}   the CUDA kernels (fp32), or the JAX package's XLA
                           gather path on plain torch ops (fp32 or fp64)
   --list --verbose --devices --iter --warmup --fp64 --output
-plus --workload, --count, --no-surface and --phase-timings.  The multi-chip
-flags of the JAX CLI are not ported yet.
+plus --workload, --count, --no-surface and --phase-timings, and the JAX
+CLI's multi-device flags for the 1D slab engine (`parallel/sharded.py`):
+  --multichip N [--rebalance] [--ckpt-every K]
+which runs N processes, one rank each, over `torch.distributed`: rank r on
+`cuda:r` with NCCL, or on the CPU with gloo under `--devices cpu`.  It needs
+N cards; unlike the JAX CLI it never falls back to a virtual CPU mesh.  The
+2D tile engine (`--multichip NXxNY`) is not ported yet.
 
 Default workload is the reference benchmark: 20k particles (two cubes),
 6 constraint iterations, scale 500, surface on, oscillating bounds, 200 warmup
@@ -24,7 +29,10 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
+import shutil
 import sys
+import tempfile
 import time
 from typing import List
 
@@ -66,6 +74,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-surface", action="store_true", help="disable marching cubes")
     p.add_argument("--phase-timings", action="store_true",
                    help="print the per-frame Stopwatch phase table")
+    p.add_argument("--multichip", default="", metavar="N|NXxNY",
+                   help="run the workload across N devices (x-slab domain "
+                        "decomposition + halo exchange over torch.distributed: "
+                        "one process a rank, NCCL on cuda:0..N-1, or gloo with "
+                        "--devices cpu).  Needs N cards; no fallback.  NXxNY, "
+                        "the 2D tile mesh, is not ported yet")
+    p.add_argument("--rebalance", action="store_true",
+                   help="dynamic equal-count re-partitioning from the "
+                        "particle CDF (multichip: slab widths in 1D)")
+    p.add_argument("--ckpt-every", type=int, default=50, metavar="K",
+                   help="multichip: snapshot the state every K frames so a "
+                        "capacity recovery replays only the frames after the "
+                        "last snapshot instead of the whole window (default 50)")
     return p
 
 
@@ -149,6 +170,284 @@ def timed_advance(solver, config, xs):
     return result, xs, Stopwatch.from_durations(name, clock.totals().items())
 
 
+def _silent(*args, **kwargs) -> None:
+    pass
+
+
+def run_multichip(args, config, particles, output) -> int:
+    """Benchmark the workload over N ranks of the slab engine (the 1D half of
+    the JAX CLI's `run_multichip`, `pbf_sph_tpu/cli.py:126-402`): N worker
+    processes, or this one for N = 1, over a file store in a temporary
+    directory."""
+    text = str(args.multichip).strip().lower()
+    if "x" in text:
+        print(f"--multichip {args.multichip}: the 2D tile engine (NXxNY) is not "
+              "ported yet (ROADMAP.md queue 1, item 5); pass N for the 1D slab "
+              "engine", file=sys.stderr)
+        return 1
+    try:
+        n_dev = int(text)
+    except ValueError:
+        n_dev = 0
+    if n_dev < 1:
+        print(f"--multichip {args.multichip}: want a device count N >= 1",
+              file=sys.stderr)
+        return 1
+    cpu = any(s.strip().lower() == "cpu" for s in args.devices)
+    if not cpu:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n_dev:
+            print(f"--multichip {n_dev} needs {n_dev} CUDA devices, one a rank; this "
+                  f"machine has {have} (pass --devices cpu to run the ranks on the "
+                  "CPU)", file=sys.stderr)
+            return 1
+    store = tempfile.mkdtemp(prefix="pbf_multichip_")
+    work = (n_dev, cpu, store, args, config, particles, output)
+    try:
+        if n_dev == 1:
+            return multichip_rank(0, *work)
+        import torch.multiprocessing as mp
+
+        try:
+            mp.start_processes(_multichip_worker, args=work, nprocs=n_dev, join=True,
+                               start_method="spawn")
+        except mp.ProcessException as e:
+            print(f"--multichip {n_dev}: {e}", file=sys.stderr)
+            return 1
+        return 0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _multichip_worker(rank: int, *work) -> None:
+    rc = multichip_rank(rank, *work)
+    if rc:
+        raise SystemExit(rc)
+
+
+def multichip_rank(rank: int, n_dev: int, cpu: bool, store: str, args, config,
+                   particles, output) -> int:
+    """Rank `rank` of a `--multichip` run: joins the process group (gloo on
+    the CPU, NCCL on `cuda:rank`) and runs the frames."""
+    import torch.distributed as dist
+
+    from pbf_sph_tpu_torch.parallel.comm import DistComm
+
+    if cpu:
+        device = torch.device("cpu")
+        # the ranks share the cores: at most a share each, and never more
+        # threads than the process was given (OMP_NUM_THREADS)
+        torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                         (os.cpu_count() or 1) // n_dev)))
+    else:
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo" if cpu else "nccl",
+                            store=dist.FileStore(os.path.join(store, "store"), n_dev),
+                            rank=rank, world_size=n_dev)
+    try:
+        return run_slabs(args, config, particles, output, DistComm(device), device)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_slabs(args, config, particles, output, comm, device) -> int:
+    """The frames of a `--multichip` run on one rank: the capacity-recovery
+    loop (snapshots every `--ckpt-every` frames; dropped work grows the
+    capacities from the observed demand and resumes from the last snapshot,
+    at most 8 attempts), the motion phase, the stats block, the gathered
+    mesh and the export.  Every rank takes the same decisions from the
+    gathered per-rank counters; rank 0 alone prints and writes."""
+    import dataclasses as _dc
+
+    from pbf_sph_tpu_torch.core.types import ColouredMesh, Result
+    from pbf_sph_tpu_torch.models.torch_solver import dyn_params_of
+    from pbf_sph_tpu_torch.parallel import sharded
+    from pbf_sph_tpu_torch.parallel.comm import gather_rank_values
+
+    say = print if comm.rank == 0 else _silent
+    n_dev = comm.size
+    cap_local = 0
+    ghost_cap = 0
+    migrate_cap = None
+    surface_over = {}
+
+    def build_spec():
+        spec = sharded.ShardSpec.create(
+            config, n_dev, len(particles), config.h, gather=args.impl == "gather",
+            rebalance=args.rebalance, cap_local=cap_local, ghost_cap=ghost_cap)
+        if migrate_cap is not None:
+            spec = _dc.replace(spec, migrate_cap=min(int(migrate_cap), spec.cap_local))
+        if surface_over and spec.surface is not None:
+            spec = _dc.replace(spec, surface=_dc.replace(spec.surface, **surface_over))
+        return spec
+
+    # dropped work in any frame corrupts the physics, so the run resumes
+    # from the last snapshot under a spec grown from the observed demand.
+    # Deferral is self-recovering (retried next frame), so it triggers a
+    # re-run only when the backlog has not drained by the end of the window.
+    HARD_KEYS = ("migrate_dropped", "ghost_dropped", "mc_emit_overflow")
+    DROP_KEYS = HARD_KEYS + ("migrate_deferred",)
+    warm = args.warmup
+    total_frames = warm + args.iterations
+    ckpt_every = max(1, args.ckpt_every)
+
+    # snapshot = state before global frame ckpt_frame
+    ckpt_frame = 0
+    ckpt_soa = particles
+    ckpt_bounds = None
+    frame_times: List[float] = []
+    per = {}
+
+    for _attempt in range(8):
+        spec = build_spec()
+        if args.rebalance:
+            bounds = (np.asarray(ckpt_bounds, np.int32) if ckpt_bounds is not None
+                      else spec.initial_bounds(ckpt_soa))
+        else:
+            bounds = None
+        state = sharded.local_state(sharded.distribute_particles(ckpt_soa, spec, bounds=bounds),
+                                    comm.rank, spec, device)
+        step = sharded.build_sharded_step(spec, comm)
+        say(f"Multichip: {n_dev} devices ({device.type}), "
+            f"{'rebalancing' if args.rebalance else 'fixed'} x-slabs, "
+            f"cap_local={spec.cap_local}"
+            + (f" (resuming at frame {ckpt_frame}/{total_frames})" if ckpt_frame else ""))
+        keys = ["alive_count", "extent_ok", "ghost_peak", *DROP_KEYS]
+        if spec.surface is None:
+            keys = [k for k in keys if k != "mc_emit_overflow"]
+        else:
+            keys.append("tri_count")
+
+        def one(g, state, bounds):
+            # motion phase: warmup counts 0..warm-1, the timed loop restarts
+            # at 0 (reference `src/benchmark.cpp:43-47`)
+            frame = g if g < warm else g - warm
+            dyn = dyn_params_of(apply_motion_sin_x_cos_z(config, frame), np.float32, device)
+            if spec.rebalance:
+                state, stats, bounds = step(state, dyn, bounds=bounds)
+            else:
+                state, stats = step(state, dyn)
+            return state, stats, bounds
+
+        totals = {k: 0 for k in DROP_KEYS}
+        ghost_peak = tri_peak = occ_need = deferred_last = 0
+        extent_bad = hard_fail = False
+
+        def track(stats):
+            """The frame's per-rank counters on every rank (one collective,
+            read back to the host: the frame is complete)."""
+            nonlocal per, ghost_peak, tri_peak, occ_need, deferred_last, extent_bad
+            vals = gather_rank_values(comm, [stats[k] for k in keys]).cpu().numpy()
+            per = dict(zip(keys, vals))
+            frame_hard = False
+            for k in DROP_KEYS:
+                if k in per:
+                    v = int(per[k].sum())
+                    totals[k] += v
+                    frame_hard |= bool(v) and k in HARD_KEYS
+            deferred_last = int(per["migrate_deferred"].sum())
+            ghost_peak = max(ghost_peak, int(per["ghost_peak"].max()))
+            occ_need = max(occ_need, int((per["alive_count"] + per["migrate_dropped"]).max()))
+            if spec.surface is not None:
+                tri_peak = max(tri_peak, int(per["tri_count"].max()))
+            extent_bad |= not per["extent_ok"].all()
+            return frame_hard
+
+        # replay: timed-frame stats measured beyond the snapshot are invalid
+        del frame_times[max(ckpt_frame - warm, 0):]
+        g = ckpt_frame
+        while g < total_frames:
+            t0 = time.perf_counter()
+            state, stats, bounds = one(g, state, bounds)
+            frame_hard = track(stats)
+            if g >= warm:
+                frame_times.append((time.perf_counter() - t0) * 1000.0)
+            if frame_hard or extent_bad:
+                hard_fail = True
+                break
+            g += 1
+            if g % ckpt_every == 0 and g < total_frames:
+                ckpt_soa = sharded.all_gather_soa(comm, state)
+                ckpt_bounds = (bounds.cpu().numpy() if torch.is_tensor(bounds) else bounds)
+                ckpt_frame = g
+
+        if extent_bad:
+            # not a capacity: the bounds outgrew the grid sized from the
+            # initial bounds
+            say("ERROR: dynamic bounds outgrew the compiled grid extent "
+                "(extent_ok=0) — results are not trustworthy; rebuild for "
+                "the larger domain", file=sys.stderr)
+            return 1
+        grown = False
+        if totals["ghost_dropped"] > 0:
+            ghost_cap = -(-max(int(ghost_peak * 1.25), spec.ghost_cap + 128) // 128) * 128
+            grown = True
+        if totals["migrate_dropped"] > 0:
+            # grow from the observed demand: peak occupancy plus the refused
+            # immigrants
+            cap_local = -(-max(int(occ_need * 5 // 4), spec.cap_local + 128) // 128) * 128
+            grown = True
+        if totals["migrate_deferred"] > 0 and deferred_last > 0:
+            # a backlog that had not drained by the final frame
+            migrate_cap = -(-(spec.migrate_cap + deferred_last) * 5 // 4 // 128) * 128
+            grown = True
+        if spec.surface is not None:
+            if totals["mc_emit_overflow"] > 0 and spec.surface.cube_cap > 0:
+                vol = int(np.prod([s - 1 for s in spec.surface.sample]))
+                surface_over["cube_cap"] = min(
+                    -(-(spec.surface.cube_cap + totals["mc_emit_overflow"]) * 5 // 4
+                      // 128) * 128, vol)
+                grown = True
+            if tri_peak > spec.surface.tri_capacity:
+                surface_over["tri_capacity"] = -(-int(tri_peak * 3 // 2) // 1024) * 1024
+                grown = True
+        if not grown and not hard_fail:
+            if totals["migrate_deferred"] > 0:
+                say(f"# note: {totals['migrate_deferred']} transient migration "
+                    "deferrals (drained by the final frame; peak backlog is "
+                    "self-recovering)", file=sys.stderr)
+            break
+        if not grown:
+            raise RuntimeError(
+                f"hard failure at frame {g} without a growable capacity: {totals}")
+        cap_local = max(cap_local, ghost_cap, spec.cap_local)
+        say(f"# dropped/deferred work {totals} at frame {g} (ghost_peak={ghost_peak}, "
+            f"occ_need={occ_need}, tri_peak={tri_peak}) — growing capacities and "
+            f"resuming from the frame-{ckpt_frame} snapshot ({g - ckpt_frame + 1} of "
+            f"{total_frames} frames replayed)", file=sys.stderr)
+    else:
+        raise RuntimeError(f"multichip capacity growth did not converge: {totals}")
+    elapsed = sum(frame_times) / 1000.0
+
+    lo, hi, mean, _, std = summary_stats(frame_times)
+    counts = per["alive_count"]
+    tri_total = int(per["tri_count"].sum()) if spec.surface is not None else 0
+    say(
+        f"Benchmark completed after {args.iterations} frames:\n"
+        f"Runtime              : {elapsed:.4g} s\n"
+        f"Framerate            : {args.iterations / elapsed:.4g} fps\n"
+        f"Frame-time min       : {lo:.4g} ms\n"
+        f"Frame-time max       : {hi:.4g} ms\n"
+        f"Frame-time mean       : {mean:.4g} ms\n"
+        f"Frame-time stdDev     : {std:.4g} ms\n"
+        f"Final Vertex count   : {tri_total * 3}\n"
+        f"Final Particle count : {int(counts.sum())} \n"
+        f"Per-device particles : {counts.tolist()}"
+    )
+    xs = sharded.all_gather_soa(comm, state)
+    result = Result()
+    if spec.surface is not None:
+        vs, ns, cs = sharded.all_gather_mesh(comm, stats)
+        result = Result(mesh=ColouredMesh(vs=vs, ns=ns, cs=cs))
+    if comm.rank == 0:
+        from pbf_sph_tpu_torch.utils.export import save
+
+        save(result, xs, output)
+        print("Results flushed.")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.list:
@@ -160,8 +459,11 @@ def main(argv=None) -> int:
         # mirror the reference's explicit fp64 rejection (benchmark.cpp:140-141)
         print(f"FP64 is not supported for the {args.impl} backend!", file=sys.stderr)
         return 1
+    if args.multichip and args.fp64:
+        print("--multichip is fp32-only", file=sys.stderr)
+        return 1
 
-    device = choose_device(args.devices, args.verbose)
+    device = None if args.multichip else choose_device(args.devices, args.verbose)
 
     if args.count and args.workload.startswith("bench"):
         from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -180,6 +482,14 @@ def main(argv=None) -> int:
 
     output = rendered_output_name(args.output or "./out_{impl}_{type}_{iter}",
                                   args.impl, args.fp64, args.iterations)
+    if args.multichip:
+        print(f"Using {output} for output")
+        print(f"Workload {args.workload}: {len(particles)} particles, "
+              f"{config.iteration} iterations, "
+              f"surface={'on' if config.surface else 'off'}")
+        sys.stdout.flush()  # before the worker processes print
+        return run_multichip(args, config, particles, output)
+
     solver = make_solver(args.impl, h=config.h, dtype=dtype, device=device)
     print(f"Using {output} for output")
     print(f"Workload {args.workload}: {len(particles)} particles, "

@@ -169,9 +169,16 @@ def dyn_params_of(config: SphParams, dtype=np.float32, device="cuda") -> Tensors
 # ---------------------------------------------------------------------------
 
 
-def _apply_sources(state: FluidState, scn: Tensors, spec: StepSpec):
+def _apply_sources(state: FluidState, scn: Tensors, spec: StepSpec, accept=None,
+                   slot_limit=None):
     """Spawn particles into dead slots (reference `src/omp/ompsph.hpp:93-105`);
-    the reference's emplace_back becomes mask-set on a fixed-capacity array."""
+    the reference's emplace_back becomes mask-set on a fixed-capacity array.
+
+    `accept` (optional): callable spawn_pos (3, total) -> (total,) bool; the
+    sharded step passes it so that only the rank owning a source's x-slab
+    spawns.  `slot_limit`: candidate dead slots only in [0, slot_limit) (the
+    sharded step's owned region, not the ghost tail); the slots beyond sort
+    last.  `jax_solver.py:150-214`."""
     sc = spec.scene
     total = sc.total_spawn
     if total == 0:
@@ -202,8 +209,16 @@ def _apply_sources(state: FluidState, scn: Tensors, spec: StepSpec):
     spawn_tag = torch.cat(tag_parts)
 
     # dead slots first (stable sort of the alive mask)
-    slots = torch.argsort(state.alive.to(torch.int32), stable=True)[:total]
+    eligible = state.alive.to(torch.int32)
+    if slot_limit is not None:
+        eligible = torch.where(torch.arange(eligible.shape[0], device=dev) < slot_limit,
+                               eligible, 2)
+    slots = torch.argsort(eligible, stable=True)[:total]
     can = ~state.alive[slots]
+    if slot_limit is not None:
+        can = can & (slots < slot_limit)
+    if accept is not None:
+        can = can & accept(spawn_pos)
     dropped = total - can.sum()
 
     def put(arr, new):
@@ -351,17 +366,24 @@ def advect_and_sort(spec: StepSpec, state: FluidState, dyn: Tensors,
 
 def neighbour_phases(phases: Optional[PbfPhases], spec: StepSpec, index: CellIndex,
                      colour, pstar, mass, ptype, alive,
-                     dt, scale, min_bound, max_bound, mark: Mark = None):
+                     dt, scale, min_bound, max_bound, mark: Mark = None,
+                     refresh_lam=None, refresh_pstar=None):
     """Colour diffusion, then `spec.iteration` rounds of lambda and delta
-    (`jax_solver.py:310-352`), through the kernel backend's `phases` or, when
-    `phases` is None, the gather backend's K-capped gathers.  Returns
-    (colour, pstar)."""
+    (`jax_solver.py:306-352`), through the kernel backend's `phases` or, when
+    `phases` is None, the gather backend's K-capped gathers.
+
+    `refresh_lam` ((C,) -> (C,)) and `refresh_pstar` ((3, C) -> (3, C)) are
+    the slab engine's halo hooks: applied to lambda right after each lambda
+    phase and to pStar right after each delta phase and its clamp, so that
+    ghost rows carry their owners' values into the next use.  The
+    single-chip step passes None.  Returns (colour, pstar)."""
     mark = mark or _no_mark
     if phases is not None:
         colour = phases.diffuse(index, colour, ptype, alive, dt)
         mark("diffuse")
         pstar = phases.solve(index, pstar, mass, ptype, alive, spec.iteration,
-                             scale, min_bound, max_bound, mark)
+                             scale, min_bound, max_bound, mark,
+                             refresh_lam=refresh_lam, refresh_pstar=refresh_pstar)
         return colour, pstar
     cells, member = decode_key(index.key, spec.grid)
     ranges = stencil_ranges(cells, member, index.table, spec.grid)
@@ -370,9 +392,13 @@ def neighbour_phases(phases: Optional[PbfPhases], spec: StepSpec, index: CellInd
     mark("diffuse")
     for _ in range(spec.iteration):
         lam = pbf.lambda_phase(pstar, mass, ptype, alive, ranges, K, spec.h)
+        if refresh_lam is not None:
+            lam = refresh_lam(lam)
         mark("lambda")
         pstar = pbf.delta_phase(pstar, lam, ptype, alive, ranges, K, spec.h,
                                 scale, min_bound, max_bound)
+        if refresh_pstar is not None:
+            pstar = refresh_pstar(pstar)
         mark("delta")
     return colour, pstar
 

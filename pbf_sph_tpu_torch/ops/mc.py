@@ -20,9 +20,15 @@ scatter gives the same order.  Nothing here reads a value back to the host.
 Layout as in the JAX package: lattice normals (3, L), colours (4, L), corner
 values (8, M), output mesh (3, 3T) / (4, 3T).
 
-Not ported: the blocked two-stage emission (`emit_block`/`emit_cap`) and the
-multi-chip hooks (`node_offset`, `cell_offset`, `quirk_grid`, `cube_x_hi`,
-`cube_y_hi`).
+The slab engine's hooks (`parallel/sharded.py`; `mc.py:122-196,266-292,
+367-405,477-561`): `mc_field` takes `node_offset`, `cell_offset` and
+`quirk_grid`, `mc_extract` takes `node_offset` and `cube_x_hi` with the
+global `extent`.  An offset is an int or a 0-d int tensor on the lattice's
+device (under rebalancing it follows the slab bounds, and nothing of it is
+read back to the host); the lattice itself stays sized by the spec.
+
+Not ported: the blocked two-stage emission (`emit_block`/`emit_cap`) and
+`cube_y_hi`, which only the 2D tile engine passes.
 """
 
 from __future__ import annotations
@@ -97,9 +103,17 @@ def _node_grid(spec: McSpec, device):
     return x, y, rem - y * nz
 
 
+def _offset(value, device) -> torch.Tensor:
+    """An int or 0-d tensor offset as a 0-d int32 tensor on `device`."""
+    if torch.is_tensor(value):
+        return value.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(value), dtype=torch.int32, device=device)
+
+
 def mc_field(position, colour, ptype, alive, cell_table, grid, min_extent,
              extent, spec: McSpec, cap: int, h: float, scale,
-             particle_size, particle_influence):
+             particle_size, particle_influence,
+             node_offset=None, cell_offset=None, quirk_grid=None):
     """Metaball lattice field of the gather backend (reference
     `src/omp/ompsph.hpp:288-356`; `pbf_sph_tpu/ops/mc.py:122-244`, single-chip
     arguments).
@@ -120,12 +134,25 @@ def mc_field(position, colour, ptype, alive, cell_table, grid, min_extent,
     their empty sums give (v 0, n and c NaN): the same bits, ~30x sooner on
     the 2-cube scene's lattice, where most nodes see no particle.
 
+    Slab mode (`parallel/sharded.py`): `spec.sample` covers the local node
+    range; `node_offset` (3 offsets) maps local node indices to global ones
+    for world positions, clamps and the far-corner skip, `cell_offset` maps
+    global cell coords to the local grid's (cells outside the local grid
+    contribute nothing), and `quirk_grid` supplies the global grid's Morton
+    guard.  Nodes past the global sample (the last slab's padding) are
+    skipped.
+
     `position` (3,C), `colour` (4,C); `scale`, `particle_size` and
     `particle_influence` 0-d tensors.  Returns (lat_v (L,), lat_n (3,L),
     lat_c (4,L))."""
     dtype, dev = position.dtype, position.device
     node = _node_grid(spec, dev)
     L = node[0].shape[0]
+    pad_skip = None
+    if node_offset is not None:
+        node = tuple(node[a] + _offset(node_offset[a], dev) for a in range(3))
+        gs = [int(np.floor(extent[a] * spec.resolution)) + 1 for a in range(3)]
+        pad_skip = (node[0] >= gs[0]) | (node[1] >= gs[1]) | (node[2] >= gs[2])
     res = scalar(spec.resolution, position)
     step = scalar(h, position) / res
     a_world = torch.stack([(min_extent[a] + node[a].to(dtype) * step) * scale
@@ -133,6 +160,8 @@ def mc_field(position, colour, ptype, alive, cell_table, grid, min_extent,
     node_cell = [torch.trunc(node[a].to(dtype) / res).to(torch.int32) for a in range(3)]
     skip = ((node_cell[0] == extent[0]) & (node_cell[1] == extent[1])
             & (node_cell[2] == extent[2]))  # the single far-corner node
+    if pad_skip is not None:
+        skip = skip | pad_skip
 
     choices = []
     for a in range(3):
@@ -140,6 +169,8 @@ def mc_field(position, colour, ptype, alive, cell_table, grid, min_extent,
         hi = torch.clamp(node_cell[a] + 1, 0, extent[a] - 1)
         choices.append((lo, node_cell[a], hi))
 
+    maxz = (quirk_grid or grid).maxz
+    cell_off = None if cell_offset is None else [_offset(c, dev) for c in cell_offset]
     gx, gy, gz = grid.dims
     ranges = []
     for ck in (0, 1, 2):  # z choice
@@ -148,7 +179,13 @@ def mc_field(position, colour, ptype, alive, cell_table, grid, min_extent,
                 sc = (choices[0][ci_], choices[1][cj], choices[2][ck])
                 zc = morton_encode3(sc[0], sc[1], sc[2])
                 # reference skip + end-rule (`src/sph.hpp:207-208`)
-                ok = (~skip) & (zc < grid.maxz) & (zc + 1 < grid.maxz)
+                ok = (~skip) & (zc < maxz) & (zc + 1 < maxz)
+                if cell_off is not None:
+                    sc = tuple(sc[a] + cell_off[a] for a in range(3))
+                    # cells outside the local grid contribute nothing (a
+                    # clipped index would alias them onto its last cell)
+                    ok = (ok & (sc[0] >= 0) & (sc[0] < gx) & (sc[1] >= 0) & (sc[1] < gy)
+                          & (sc[2] >= 0) & (sc[2] < gz))
                 lin = torch.where(ok, (sc[0] * gy + sc[1]) * gz + sc[2], 0)
                 lin = torch.clamp(lin, 0, gx * gy * gz - 1).long()
                 ranges.append((torch.where(ok, cell_table[lin], 0),
@@ -294,8 +331,34 @@ def _emit(ntris, offs, tri15, payload, cap3: int):
     return out[:, :cap3]
 
 
+def _in_volume(cube, spec: McSpec, extent, node_offset, cube_x_hi):
+    """Slab mode: cubes whose global min corner lies inside the global march
+    volume and, with `cube_x_hi`, below that global x (the right
+    neighbour's cubes under rebalancing), for cube ids `cube` (K,)."""
+    dev = cube.device
+    _, my, mz = (s - 1 for s in spec.sample)
+    cx = cube // (my * mz)
+    rem = cube - cx * (my * mz)
+    cy = rem // mz
+    ok = None
+    for a, c in enumerate((cx, cy, rem - cy * mz)):
+        g = c + _offset(node_offset[a], dev)
+        m = g < int(np.floor(extent[a] * spec.resolution))
+        if a == 0 and cube_x_hi is not None:
+            m = m & (g < _offset(cube_x_hi, dev))
+        ok = m if ok is None else ok & m
+    return ok
+
+
+def _global_corners(corners, node_offset):
+    """(8, 3, K) local corner node coords shifted by `node_offset`."""
+    dev = corners.device
+    off = torch.stack([_offset(o, dev) for o in node_offset]).to(corners.dtype)
+    return corners + off[None, :, None]
+
+
 def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
-               scale, isolevel):
+               scale, isolevel, node_offset=None, cube_x_hi=None, extent=None):
     """Case classification, triangle cumsum and emission of one lattice.
 
     `lat_v` (L,), `lat_n` (3, L), `lat_c` (4, L) in lattice order;
@@ -304,6 +367,11 @@ def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
     `cube_cap` rows by a cumsum-scatter of their ids (no host read, no
     `nonzero`); their order is cube order, so the mesh is the one every cube
     would emit.  `emit_overflow` = live cubes beyond the cap (mesh INVALID).
+
+    Slab mode (`parallel/sharded.py`): `node_offset` maps local cube and
+    node coords to global ones for the vertex positions, and cubes outside
+    the global march volume of `extent` (the grid extent) or, with
+    `cube_x_hi`, at global x >= cube_x_hi emit nothing.
 
     Returns (vs (3, 3T), ns (3, 3T), cs (4, 3T), total, emit_overflow) with
     T = `spec.tri_capacity`; `total` may exceed T, and then the buffer holds
@@ -318,6 +386,8 @@ def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
     idx = torch.arange(M, device=dev)
     vals = _corner_slices(lat_v, spec.sample)  # (8, M)
     ci, ntris = _classify(vals, isolevel, tables)
+    if node_offset is not None:
+        ntris = torch.where(_in_volume(idx, spec, extent, node_offset, cube_x_hi), ntris, 0)
     total = ntris.sum()
     if spec.cube_cap > 0:
         K = min(int(spec.cube_cap), M)
@@ -341,6 +411,8 @@ def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
         corners = _corners(idx, spec, tables)
         cnrm = _corner_slices(lat_n, spec.sample)  # (8, 3, M)
         ccol = _corner_slices(lat_c, spec.sample)  # (8, 4, M)
+    if node_offset is not None:
+        corners = _global_corners(corners, node_offset)
     offs = torch.cumsum(ntris, 0) - ntris  # exclusive
     tri15, payload = _edge_payload(ci, vals, cnrm, ccol, corners, min_extent,
                                    step, scale, isolevel, tables)

@@ -411,20 +411,34 @@ class PbfPhases:
         return clamp_to_bounds(pstar, dp, ptype, alive, scale, min_bound, max_bound)
 
     def solve(self, index: CellIndex, pstar, mass, ptype, alive, iteration: int,
-              scale, min_bound, max_bound, mark=None):
+              scale, min_bound, max_bound, mark=None, refresh_lam=None,
+              refresh_pstar=None):
         """pstar (3, C) after `iteration` rounds of lambda, then delta and the
         bounds clamp (`jax_solver.py:328-339`); `mark(name)` after each
         stage.  With the defaults the rounds run on two (C, 4) packs made
-        once ("packs") through the kernels of `ops/cells.py`, with nothing
-        between the launches; the tiled variants take the rounds phase by
-        phase."""
+        once ("packs") through the kernels of `ops/cells.py`; the tiled
+        variants take the rounds phase by phase.
+
+        `refresh_lam` ((C,) -> (C,)) and `refresh_pstar` ((3, C) -> (3, C))
+        are the slab engine's halo hooks (`jax_solver.py:318-350`).  On the
+        packs λ writes pack B = (xyz, λ) and Δp writes the clamped pStar into
+        pack A's xyz, so `refresh_lam` applies to B's λ column after each λ
+        launch and `refresh_pstar` to A's xyz after each Δp launch; nothing
+        else moves between the launches.  A ghost row is fluid and alive, so
+        λ writes it a value from its partial neighbourhood, which the refresh
+        overwrites before Δp reads it.  With both None the launches follow
+        each other with nothing between them."""
         mark = mark or (lambda name: None)
         if self.plan is not None:
             for _ in range(iteration):
                 lam = self.lambda_phase(index, pstar, mass, ptype, alive)
+                if refresh_lam is not None:
+                    lam = refresh_lam(lam)
                 mark("lambda")
                 pstar = self.delta_phase(index, pstar, lam, ptype, alive,
                                          scale, min_bound, max_bound)
+                if refresh_pstar is not None:
+                    pstar = refresh_pstar(pstar)
                 mark("delta")
             return pstar
         from pbf_sph_tpu_torch.ops import cells
@@ -441,12 +455,16 @@ class PbfPhases:
             else:
                 cells.lambda_cells_kernel(index, self.h, pack_a, fluid, pack_b)
                 self.launches["lambda_cells"] += 1
+            if refresh_lam is not None:
+                pack_b[:, 3] = refresh_lam(pack_b[:, 3])
             mark("lambda")
             if cpu:
                 cells.delta_cells_plain(index, self.h, pack_b, fluid, *bounds, pack_a)
             else:
                 cells.delta_cells_kernel(index, self.h, pack_b, fluid, *bounds, pack_a)
                 self.launches["delta_cells"] += 1
+            if refresh_pstar is not None:
+                pack_a[:, :3] = refresh_pstar(pack_a[:, :3].T).T
             mark("delta")
         return pack_a[:, :3].T
 

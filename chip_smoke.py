@@ -281,7 +281,28 @@ with a non-zero exit and no result line:
    world size 1), fixed and `--rebalance`: rc 0, the stats block with
    `Per-device particles`, the particle count the input's, both files
    written and read back; `--multichip 2` on this one card fails with its
-   message.  Phase 9's launches are printed on a line of their own.
+   message.  Phase 9's launches are printed on a line of their own;
+9e-9h. the 2D tile engine (`pbf_sph_tpu_torch/parallel/sharded2d.py`) the
+   same way, its 2x2 ranks (x-major) ThreadComm threads on cuda:0:
+9e. dam_break(20_000, 3) at 2x2, fixed cuts, 2 frames: ghost_peak > 0 on
+   every tile every frame, no dropped or deferred particle; the busiest
+   tile's first-frame diffuse, λ and Δp kernels against their plain
+   versions on its inputs (3l's and 3m's tolerances); the particles against
+   the same run on the CPU (phase 4's tolerances) and against
+   TorchSolver(device="cuda") (9a's); every rank 1 + 1 + 3 + 3 launches a
+   frame; two runs, the same bits;
+9f. dam1m at 2x2, rebalance=True, sloshing bounds, 2 warmup and 4 timed
+   frames from cuts one column and one row past the equal-count ones:
+   particles conserved, no dropped particle or ghost, no deferral at the
+   end, the cuts moved on both axes; ms/frame on the host clock beside
+   phase 5's and 9b's; 2 more frames under torch.profiler (busy share, the
+   largest kernels);
+9g. mc128k with its surface at 2x2, rebalance=True, 2 frames: triangles
+   within 1% of TorchSolver(gather=True), the gathered mesh 3 rows a
+   triangle, finite and within h*scale of the bounds;
+9h. the CLI with `--multichip 1x1` on bench20k (NCCL at world size 1), fixed
+   and `--rebalance`: rc 0, `Per-tile particles`, both files read back;
+   `--multichip 2x2` on this one card fails with its message.
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
@@ -2376,23 +2397,28 @@ def slab_probe_phases(h):
 
 
 def slab_run(spec, cfg, xs, device, frames: int, motion: bool = False, probe: bool = False,
-             timed_from=None, start=None, frame0: int = 0):
-    """`frames` frames of the slab engine from `xs` (or from `start`, the
-    ranks of an earlier run: their states and bounds) on `spec.n_dev`
-    ThreadComm ranks on `device`; with `motion` the sloshing bounds of
-    frames frame0... The launch counts are set to 0 just before the first
-    frame and read just after the last.  With `timed_from`, rank 0 reads the
-    host clock around frames timed_from.. (each end after every rank has
-    enqueued its frames and the card has finished them).  Returns the
-    ranks' dicts in rank order."""
+             timed_from=None, start=None, frame0: int = 0, bounds0=None):
+    """`frames` frames of the slab engine (a `ShardSpec`) or the tile engine
+    (a `Shard2DSpec`) from `xs` (or from `start`, the ranks of an earlier
+    run: their states and bounds) on ThreadComm ranks on `device`; with
+    `motion` the sloshing bounds of frames frame0...  `bounds0` replaces the
+    spec's first bounds (a rebalancing run).  The launch counts are set to 0
+    just before the first frame and read just after the last.  With
+    `timed_from`, rank 0 reads the host clock around frames timed_from..
+    (each end after every rank has enqueued its frames and the card has
+    finished them).  Returns the ranks' dicts in rank order."""
     from pbf_sph_tpu_torch.core.scene import apply_motion_sin_x_cos_z
     from pbf_sph_tpu_torch.models.torch_solver import dyn_params_of
-    from pbf_sph_tpu_torch.parallel import sharded
+    from pbf_sph_tpu_torch.parallel import sharded, sharded2d
     from pbf_sph_tpu_torch.parallel.comm import run_ranks
 
+    tiles = isinstance(spec, sharded2d.Shard2DSpec)
+    n_ranks = spec.nx * spec.ny if tiles else spec.n_dev
     if start is None:
-        bounds0 = spec.initial_bounds(xs)
-        whole = sharded.distribute_particles(xs, spec, bounds=bounds0)
+        if bounds0 is None:
+            bounds0 = spec.initial_bounds() if tiles else spec.initial_bounds(xs)
+        whole = (sharded2d.distribute_particles_2d(xs, spec, bounds=bounds0) if tiles
+                 else sharded.distribute_particles(xs, spec, bounds=bounds0))
 
     def settle(comm):
         comm.all_reduce_sum(torch.zeros(1, device=device))  # every rank enqueued
@@ -2405,7 +2431,8 @@ def slab_run(spec, cfg, xs, device, frames: int, motion: bool = False, probe: bo
             state, b = sharded.local_state(whole, comm.rank, spec, device), bounds0
         else:
             state, b = start[comm.rank]["state"], start[comm.rank]["last_bounds"]
-        step = sharded.build_sharded_step(spec, comm)
+        step = (sharded2d.build_sharded2d_step if tiles else sharded.build_sharded_step)(
+            spec, comm)
         if probe:
             step.phases = slab_probe_phases(spec.h)
         stats, bounds, t0 = [], [], None
@@ -2418,7 +2445,7 @@ def slab_run(spec, cfg, xs, device, frames: int, motion: bool = False, probe: bo
                                 np.float32, device)
             if spec.rebalance:
                 state, s, b = step(state, dyn, bounds=b)
-                bounds.append(b.cpu().numpy())
+                bounds.append(tuple(v.cpu().numpy() for v in b) if tiles else b.cpu().numpy())
             else:
                 state, s = step(state, dyn)
             stats.append(s)
@@ -2426,7 +2453,7 @@ def slab_run(spec, cfg, xs, device, frames: int, motion: bool = False, probe: bo
         return dict(state=state, stats=stats, bounds=bounds, last_bounds=b,
                     launches=step.launches, phases=step.phases, wall=wall)
 
-    return run_ranks(spec.n_dev, rank, device)
+    return run_ranks(n_ranks, rank, device)
 
 
 def slab_profile(spec, cfg, ranks, frames: int, frame0: int):
@@ -2476,9 +2503,9 @@ def check_slab_launches(ranks, frames: int, iteration: int, what: str) -> dict:
     return {k: sum(g[k] for g in got) for k in want}
 
 
-def check_slab_kernels(ranks) -> None:
-    """The kernels of the busiest rank's first slab frame against their
-    plain versions on its inputs, on the card: the diffuse pair with
+def check_slab_kernels(ranks, what: str = "slab frame") -> None:
+    """The kernels of the busiest rank's first slab (or tile) frame against
+    their plain versions on its inputs, on the card: the diffuse pair with
     torch.equal, λ (atol 1e-6, rtol 1e-5) and pStar after Δp and the clamp
     (atol 1e-5) as 3l holds them.  Direct kernel calls: no wrapper counts
     them."""
@@ -2494,7 +2521,7 @@ def check_slab_kernels(ranks) -> None:
     mix_k = dc.diffuse_cells_kernel(index, sums_p, colour, ptype, alive, dt)
     mix_p = dc.diffuse_cells_plain(index, sums_p, colour, ptype, alive, dt)
     check(torch.equal(sums_k, sums_p) and torch.equal(mix_k, mix_p),
-          f"slab frame (rank with {int(alive.sum())} rows alive, capacity "
+          f"{what} (rank with {int(alive.sum())} rows alive, capacity "
           f"{alive.shape[0]}, local grid {index.grid.dims}): diffuse_cell_sums and "
           "diffuse_cells bit for bit their plain versions")
     index, pstar, mass, ptype, alive, *bounds = ph.kept_solve
@@ -2505,13 +2532,13 @@ def check_slab_kernels(ranks) -> None:
     cells.lambda_cells_plain(index, ph.h, pack_a, fluid, b_p)
     lam_err = float((b_k - b_p).abs().max())
     check(torch.allclose(b_k, b_p, atol=1e-6, rtol=1e-5),
-          f"slab frame: lambda_cells max abs err {lam_err:.3e} (atol 1e-6, rtol 1e-5)")
+          f"{what}: lambda_cells max abs err {lam_err:.3e} (atol 1e-6, rtol 1e-5)")
     a_k, a_p = pack_a.clone(), pack_a.clone()
     cells.delta_cells_kernel(index, ph.h, b_p, fluid, *bounds, a_k)
     cells.delta_cells_plain(index, ph.h, b_p, fluid, *bounds, a_p)
     d_err = float((a_k - a_p).abs().max())
     check(d_err <= 1e-5 and bool(torch.isfinite(a_k).all()),
-          f"slab frame: delta_cells pStar max abs err {d_err:.3e} <= 1e-5, finite")
+          f"{what}: delta_cells pStar max abs err {d_err:.3e} <= 1e-5, finite")
 
 
 def phase_slabs_parity() -> dict:
@@ -2562,8 +2589,8 @@ def phase_slabs_parity() -> dict:
     return totals
 
 
-def phase_slabs_dam1m(single_ms: float) -> dict:
-    """9b; returns the launches summed over ranks."""
+def phase_slabs_dam1m(single_ms: float):
+    """9b; returns the launches summed over ranks and the ms a frame."""
     print(f"== 9b. dam1m at D=4 with rebalance=True on the one card, sloshing bounds: "
           f"{SLAB_WARMUP} warmup + {SLAB_FRAMES} timed frames")
     from pbf_sph_tpu_torch.core.configs import WORKLOADS
@@ -2602,7 +2629,7 @@ def phase_slabs_dam1m(single_ms: float) -> dict:
           f"{busy:.4f}, kernels {sum(k[0] for k in kernels):.3f} ms a frame in "
           f"{sum(k[1] for k in kernels)} launches; the largest (ms a frame, launches a frame, "
           "name): " + "; ".join(f"{ms_:.3f} {n} {name}" for ms_, n, name in kernels[:8]))
-    return totals
+    return totals, ms
 
 
 def phase_slabs_surface() -> dict:
@@ -2681,6 +2708,177 @@ def phase_slabs_cli() -> None:
           f"cli --multichip 2 on one card: rc {rc}, {err.getvalue().strip()!r}")
 
 
+def tile_moves(ranks, b0) -> tuple:
+    """Frames in which the x-cuts and the y-cuts moved (rank 0's record)."""
+    seq = [b0] + ranks[0]["bounds"]
+    return tuple(sum(not np.array_equal(b[a], prev[a]) for prev, b in zip(seq, seq[1:]))
+                 for a in range(2))
+
+
+def phase_tiles_parity() -> dict:
+    """9e; returns the launches of its card runs summed over ranks."""
+    print("== 9e. the tile engine (parallel/sharded2d.py), 2x2 ThreadComm ranks on cuda:0: "
+          "dam_break(20_000, 3), fixed cuts, 2 frames")
+    from pbf_sph_tpu_torch.core.configs import dam_break
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+    from pbf_sph_tpu_torch.parallel import sharded2d
+
+    mc, cfg, xs = dam_break(20_000, solver_iter=3)
+    single = TorchSolver(h=cfg.h, device="cuda")
+    x = xs
+    for _ in range(2):
+        _, x = single.advance(cfg, Scene(), x)
+    x = x.order_by_id()
+    card = torch.device("cuda", 0)
+    spec = sharded2d.Shard2DSpec.create(cfg, 2, 2, xs, cfg.h, gather=False)
+    ranks = slab_run(spec, cfg, xs, card, 2, probe=True)
+    peaks = [[int(s["ghost_peak"][0]) for s in r["stats"]] for r in ranks]
+    alive = [int(r["stats"][-1]["alive_count"][0]) for r in ranks]
+    print(f"cuts xb {spec.xb}, yb {spec.yb}; capacity {spec.cap_total} a rank (ghost_x "
+          f"{spec.ghost_x}, ghost_y {spec.ghost_y}), local grid {spec.grid_local.dims} of "
+          f"{spec.grid_global.dims}; alive_count {alive}, ghost_peak a frame {peaks}")
+    check(all(p > 0 for pk in peaks for p in pk), "ghost_peak > 0 on every tile, every frame")
+    for k in ("migrate_dropped", "ghost_dropped", "migrate_deferred"):
+        check(all(int(s[k][0]) == 0 for r in ranks for s in r["stats"]),
+              f"2x2: {k} 0 every frame")
+    check_slab_kernels(ranks, "tile frame")
+    totals = check_slab_launches(ranks, 2, cfg.iteration, "2x2")
+    got = slab_soa(ranks)
+    check(len(got) == len(xs), f"2x2: {len(got)} particles of {len(xs)}")
+    cpu = slab_soa(slab_run(spec, cfg, xs, torch.device("cpu"), 2))
+    check_soa_close(got, cpu, SLAB_TOLS, "2x2 card against the CPU (plain versions)")
+    check_soa_close(got, x, SLAB_SINGLE_TOLS, "2x2 against TorchSolver(device='cuda')")
+    again = slab_soa(slab_run(spec, cfg, xs, card, 2))
+    check(all(np.array_equal(getattr(got, k), getattr(again, k))
+              for k in ("pid", "position", "velocity", "colour")), "2x2 twice: the same bits")
+    return totals
+
+
+def phase_tiles_dam1m(single_ms: float, slab_ms: float) -> dict:
+    """9f; returns the launches summed over ranks."""
+    print(f"== 9f. dam1m at 2x2 with rebalance=True on the one card, sloshing bounds: "
+          f"{SLAB_WARMUP} warmup + {SLAB_FRAMES} timed frames, from cuts one column and "
+          "one row past the equal-count ones")
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.parallel import sharded, sharded2d
+
+    mc, cfg, xs = WORKLOADS["dam1m"]()
+    spec = sharded2d.Shard2DSpec.create(cfg, 2, 2, xs, cfg.h, gather=False, rebalance=True)
+    b0 = tuple(b.copy() for b in spec.initial_bounds())
+    for b in b0:
+        b[1:-1] += 1
+    frames = SLAB_WARMUP + SLAB_FRAMES
+    print(f"{len(xs)} particles; cap_local {spec.cap_local}, ghost_x {spec.ghost_x}, ghost_y "
+          f"{spec.ghost_y}, capacity {spec.cap_total} a rank; local grid "
+          f"{spec.grid_local.dims}; equal-count cuts {spec.xb}, {spec.yb}; first cuts "
+          f"{[b.tolist() for b in b0]}")
+    ranks = slab_run(spec, cfg, xs, torch.device("cuda", 0), frames, motion=True,
+                     timed_from=SLAB_WARMUP, bounds0=b0)
+    stats = [sharded.assemble_stats([r["stats"][f] for r in ranks]) for f in range(frames)]
+    for f, st in enumerate(stats):
+        print(f"  frame {f}: cuts {[b.tolist() for b in ranks[0]['bounds'][f]]}, alive_count "
+              f"{st['alive_count'].tolist()}, ghost_peak {st['ghost_peak'].tolist()}, "
+              f"migrate_deferred {st['migrate_deferred'].tolist()}")
+    check(all(int(st["alive_count"].sum()) == len(xs) for st in stats),
+          f"{len(xs)} particles every frame")
+    check(all(int(st[k].sum()) == 0 for st in stats for k in ("migrate_dropped", "ghost_dropped"))
+          and int(stats[-1]["migrate_deferred"].sum()) == 0,
+          "migrate_dropped and ghost_dropped 0 every frame, migrate_deferred 0 at the end")
+    check(all(st["extent_ok"].all() for st in stats), "extent_ok every frame")
+    mx, my = tile_moves(ranks, b0)
+    check(mx >= 1 and my >= 1, f"the x-cuts moved in {mx} and the y-cuts in {my} of {frames} "
+          "frames")
+    totals = check_slab_launches(ranks, frames, cfg.iteration, "dam1m 2x2")
+    ms = 1e3 * ranks[0]["wall"] / SLAB_FRAMES
+    print(f"{card_line()}: tile engine dam1m, 2x2 ThreadComm ranks sharing this one card "
+          f"(not a multi-card speed): {ms:.3f} ms/frame over {SLAB_FRAMES} frames (host "
+          f"clock); phase 5's single-chip dam1m {single_ms:.3f} ms/step, 9b's slabs "
+          f"{slab_ms:.3f} ms/frame")
+    busy, kernels = slab_profile(spec, cfg, ranks, SLAB_PROFILED, frames)
+    print(f"  {SLAB_PROFILED} more frames under torch.profiler: device busy share "
+          f"{busy:.4f}, kernels {sum(k[0] for k in kernels):.3f} ms a frame in "
+          f"{sum(k[1] for k in kernels)} launches; the largest (ms a frame, launches a frame, "
+          "name): " + "; ".join(f"{ms_:.3f} {n} {name}" for ms_, n, name in kernels[:8]))
+    return totals
+
+
+def phase_tiles_surface() -> dict:
+    """9g; returns the launches summed over ranks."""
+    print("== 9g. mc128k with its surface at 2x2, rebalance=True, 2 frames")
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+    from pbf_sph_tpu_torch.parallel import sharded2d
+
+    mc, cfg, xs = WORKLOADS["mc128k"]()
+    spec = sharded2d.Shard2DSpec.create(cfg, 2, 2, xs, cfg.h, gather=False, rebalance=True)
+    print(f"local lattice {spec.surface.sample} a tile, tri_capacity "
+          f"{spec.surface.tri_capacity}, cube_cap {spec.surface.cube_cap}")
+    ranks = slab_run(spec, cfg, xs, torch.device("cuda", 0), 2)
+    last = [r["stats"][-1] for r in ranks]
+    check(all(int(s[k][0]) == 0 for s in last for k in ("mc_emit_overflow", "migrate_dropped",
+                                                         "ghost_dropped")),
+          "no emit overflow, no dropped particle or ghost")
+    tris = [int(s["tri_count"][0]) for s in last]
+    check(all(t <= spec.surface.tri_capacity for t in tris),
+          f"tri_count {tris} <= tri_capacity {spec.surface.tri_capacity} a tile")
+    vs, ns, cs = sharded2d.gather_mesh(last)
+    check(len(vs) == 3 * sum(tris) == len(ns) == len(cs),
+          f"gather_mesh: {len(vs)} rows = 3 x {sum(tris)} triangles")
+    reach = cfg.h * spec.scale
+    lo, hi = np.asarray(cfg.min_bound) - reach, np.asarray(cfg.max_bound) + reach
+    check(np.isfinite(vs).all() and ((vs >= lo) & (vs <= hi)).all(),
+          f"{len(vs)} vertices finite and within h*scale = {reach:.3f} of the bounds")
+    single = TorchSolver(h=cfg.h, gather=True, device="cuda")
+    x, res = xs, None
+    for _ in range(2):
+        res, x = single.advance(cfg, Scene(), x)
+    t1 = len(res.mesh) // 3
+    check(t1 > 0 and abs(sum(tris) - t1) <= 0.01 * t1,
+          f"{sum(tris)} triangles over the tiles, {t1} from TorchSolver(gather=True) "
+          "(within 1%)")
+    check_soa_close(slab_soa(ranks), x.order_by_id(), SLAB_SINGLE_TOLS,
+                    "mc128k 2x2 against TorchSolver(gather=True)")
+    return check_slab_launches(ranks, 2, cfg.iteration, "mc128k 2x2")
+
+
+def phase_tiles_cli() -> None:
+    print("== 9h. the CLI's --multichip NXxNY on bench20k: real NCCL at world size 1")
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+
+    n = len(WORKLOADS["bench20k"]()[2])
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in ([], ["--rebalance"]):
+            out = Path(tmp) / f"t{len(extra)}"
+            argv = ["--multichip", "1x1", *extra, "--warmup", "2", "--iter", "3",
+                    "--output", str(out)]
+            rc, stats, text = run_cli(argv)
+            check(rc == 0 and "Results flushed." in text and "Multichip 2D: 1x1 tiles" in text
+                  and stats.get("Per-tile particles") == f"[{n}]",
+                  f"cli {' '.join(argv)}: rc 0, the stats block, Per-tile particles [{n}]")
+            count, verts = int(stats["Final Particle count"]), int(stats["Final Vertex count"])
+            ply = (out / "cloud.ply").read_text().splitlines()
+            obj = (out / "mesh.obj").read_text().splitlines()
+            check(count == n and verts > 0 and f"element vertex {n}" in ply
+                  and len(ply) - ply.index("end_header") - 1 == n
+                  and sum(1 for line in obj if line.startswith("v ")) == verts,
+                  f"{count} particles of {n}, {verts} vertices; cloud.ply and mesh.obj "
+                  "read back")
+            print(f"{card_line()}: cli --multichip 1x1{' --rebalance' if extra else ''}: "
+                  f"frame-time mean {stats['Frame-time mean']}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, _, _ = run_cli(["--multichip", "2x2", "--warmup", "0", "--iter", "1"])
+    check(rc != 0 and "needs 4 CUDA devices" in err.getvalue(),
+          f"cli --multichip 2x2 on one card: rc {rc}, {err.getvalue().strip()!r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2753,12 +2951,21 @@ def main() -> int:
           "phase 8 ran the main path's kernels")
     print(f"visualise launches (phase 8, its card runs): {json.dumps(vis_launches)}")
     slab_launches = phase_slabs_parity()
-    for part in (phase_slabs_dam1m(main_ms), phase_slabs_surface()):
+    slab_dam1m, slab_ms = phase_slabs_dam1m(main_ms)
+    for part in (slab_dam1m, phase_slabs_surface()):
         for k, v in part.items():
             slab_launches[k] += v
     phase_slabs_cli()
     print(f"slab engine launches (phase 9a-9c, its card runs, all ranks): "
           f"{json.dumps(slab_launches)}")
+    engine2d_9e = phase_tiles_parity()
+    engine2d = dict(engine2d_9e)
+    for part in (phase_tiles_dam1m(main_ms, slab_ms), phase_tiles_surface()):
+        for k, v in part.items():
+            engine2d[k] += v
+    phase_tiles_cli()
+    print(f"tile engine launches (phase 9e, its card runs, all ranks, 2 frames): "
+          f"{json.dumps(engine2d_9e)}; 9e-9g: {json.dumps(engine2d)}")
     launches["mc_field_cells"] = surface["mc_field_cells"]
     launches["mc_field"] += surface["mc_field"]  # row 4: both paths, each held at 0
     launches.update(staged_launches)

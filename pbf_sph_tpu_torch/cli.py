@@ -9,12 +9,13 @@ reference benchmark's flags and output (reference `src/args.hpp:38-56`,
                           gather path on plain torch ops (fp32 or fp64)
   --list --verbose --devices --iter --warmup --fp64 --output
 plus --workload, --count, --no-surface and --phase-timings, and the JAX
-CLI's multi-device flags for the 1D slab engine (`parallel/sharded.py`):
-  --multichip N [--rebalance] [--ckpt-every K]
-which runs N processes, one rank each, over `torch.distributed`: rank r on
-`cuda:r` with NCCL, or on the CPU with gloo under `--devices cpu`.  It needs
-N cards; unlike the JAX CLI it never falls back to a virtual CPU mesh.  The
-2D tile engine (`--multichip NXxNY`) is not ported yet.
+CLI's multi-device flags for the 1D slab engine (`parallel/sharded.py`) and
+the 2D tile engine (`parallel/sharded2d.py`):
+  --multichip N|NXxNY [--rebalance] [--ckpt-every K]
+which runs N (or NX*NY, ranks x-major) processes, one rank each, over
+`torch.distributed`: rank r on `cuda:r` with NCCL, or on the CPU with gloo
+under `--devices cpu`.  It needs a card a rank; unlike the JAX CLI it never
+falls back to a virtual CPU mesh.
 
 Default workload is the reference benchmark: 20k particles (two cubes),
 6 constraint iterations, scale 500, surface on, oscillating bounds, 200 warmup
@@ -78,11 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the workload across N devices (x-slab domain "
                         "decomposition + halo exchange over torch.distributed: "
                         "one process a rank, NCCL on cuda:0..N-1, or gloo with "
-                        "--devices cpu).  Needs N cards; no fallback.  NXxNY, "
-                        "the 2D tile mesh, is not ported yet")
+                        "--devices cpu), or across an NXxNY mesh of (x, y) "
+                        "tiles.  Needs a card a rank; no fallback")
     p.add_argument("--rebalance", action="store_true",
                    help="dynamic equal-count re-partitioning from the "
-                        "particle CDF (multichip: slab widths in 1D)")
+                        "particle CDF (multichip: slab widths in 1D, "
+                        "tensor-product tile cuts in 2D)")
     p.add_argument("--ckpt-every", type=int, default=50, metavar="K",
                    help="multichip: snapshot the state every K frames so a "
                         "capacity recovery replays only the frames after the "
@@ -174,35 +176,37 @@ def _silent(*args, **kwargs) -> None:
     pass
 
 
-def run_multichip(args, config, particles, output) -> int:
-    """Benchmark the workload over N ranks of the slab engine (the 1D half of
-    the JAX CLI's `run_multichip`, `pbf_sph_tpu/cli.py:126-402`): N worker
-    processes, or this one for N = 1, over a file store in a temporary
-    directory."""
-    text = str(args.multichip).strip().lower()
-    if "x" in text:
-        print(f"--multichip {args.multichip}: the 2D tile engine (NXxNY) is not "
-              "ported yet (ROADMAP.md queue 1, item 5); pass N for the 1D slab "
-              "engine", file=sys.stderr)
-        return 1
+def parse_mesh(text: str):
+    """`N` -> (N,), `NXxNY` -> (NX, NY); None unless every count is >= 1."""
     try:
-        n_dev = int(text)
+        mesh = tuple(int(v) for v in str(text).strip().lower().split("x"))
     except ValueError:
-        n_dev = 0
-    if n_dev < 1:
-        print(f"--multichip {args.multichip}: want a device count N >= 1",
-              file=sys.stderr)
+        return None
+    return mesh if len(mesh) in (1, 2) and min(mesh) >= 1 else None
+
+
+def run_multichip(args, config, particles, output) -> int:
+    """Benchmark the workload over N ranks of the slab engine or NX x NY
+    ranks of the tile engine (the JAX CLI's `run_multichip` and
+    `run_multichip2d`, `pbf_sph_tpu/cli.py:126-594`): a worker process a
+    rank, or this one for a single rank, over a file store in a temporary
+    directory."""
+    mesh = parse_mesh(args.multichip)
+    if mesh is None:
+        print(f"--multichip {args.multichip}: want a device count N >= 1 or a tile mesh "
+              "NXxNY with NX, NY >= 1", file=sys.stderr)
         return 1
+    n_dev = int(np.prod(mesh))
     cpu = any(s.strip().lower() == "cpu" for s in args.devices)
     if not cpu:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if have < n_dev:
-            print(f"--multichip {n_dev} needs {n_dev} CUDA devices, one a rank; this "
-                  f"machine has {have} (pass --devices cpu to run the ranks on the "
+            print(f"--multichip {args.multichip} needs {n_dev} CUDA devices, one a rank; "
+                  f"this machine has {have} (pass --devices cpu to run the ranks on the "
                   "CPU)", file=sys.stderr)
             return 1
     store = tempfile.mkdtemp(prefix="pbf_multichip_")
-    work = (n_dev, cpu, store, args, config, particles, output)
+    work = (mesh, cpu, store, args, config, particles, output)
     try:
         if n_dev == 1:
             return multichip_rank(0, *work)
@@ -212,7 +216,7 @@ def run_multichip(args, config, particles, output) -> int:
             mp.start_processes(_multichip_worker, args=work, nprocs=n_dev, join=True,
                                start_method="spawn")
         except mp.ProcessException as e:
-            print(f"--multichip {n_dev}: {e}", file=sys.stderr)
+            print(f"--multichip {args.multichip}: {e}", file=sys.stderr)
             return 1
         return 0
     finally:
@@ -225,14 +229,16 @@ def _multichip_worker(rank: int, *work) -> None:
         raise SystemExit(rc)
 
 
-def multichip_rank(rank: int, n_dev: int, cpu: bool, store: str, args, config,
-                   particles, output) -> int:
-    """Rank `rank` of a `--multichip` run: joins the process group (gloo on
-    the CPU, NCCL on `cuda:rank`) and runs the frames."""
+def multichip_rank(rank: int, mesh, cpu: bool, store: str, args, config, particles,
+                   output) -> int:
+    """Rank `rank` of a `--multichip` run over `mesh` ((N,) slabs or (NX, NY)
+    tiles): joins the process group (gloo on the CPU, NCCL on `cuda:rank`)
+    and runs the frames."""
     import torch.distributed as dist
 
     from pbf_sph_tpu_torch.parallel.comm import DistComm
 
+    n_dev = int(np.prod(mesh))
     if cpu:
         device = torch.device("cpu")
         # the ranks share the cores: at most a share each, and never more
@@ -246,12 +252,118 @@ def multichip_rank(rank: int, n_dev: int, cpu: bool, store: str, args, config,
                             store=dist.FileStore(os.path.join(store, "store"), n_dev),
                             rank=rank, world_size=n_dev)
     try:
-        return run_slabs(args, config, particles, output, DistComm(device), device)
+        engine = SlabEngine(*mesh) if len(mesh) == 1 else TileEngine(*mesh)
+        return run_frames(engine, args, config, particles, output, DistComm(device), device)
     finally:
         dist.destroy_process_group()
 
 
-def run_slabs(args, config, particles, output, comm, device) -> int:
+def _ceil128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+class SlabEngine:
+    """What `run_frames` asks of the slab engine: the spec from the grown
+    capacities, the bounds, the rank's state, the step and the banner."""
+
+    label = "Per-device particles"
+
+    def __init__(self, n_dev: int):
+        self.n_dev = n_dev
+        self.ghost_cap = 0
+
+    def spec(self, args, config, particles, soa, cap_local: int):
+        from pbf_sph_tpu_torch.parallel import sharded
+
+        return sharded.ShardSpec.create(
+            config, self.n_dev, len(particles), config.h, gather=args.impl == "gather",
+            rebalance=args.rebalance, cap_local=cap_local, ghost_cap=self.ghost_cap)
+
+    def bounds(self, spec, soa, ckpt_bounds):
+        if ckpt_bounds is not None:
+            return np.asarray(ckpt_bounds, np.int32)
+        return spec.initial_bounds(soa)
+
+    def state(self, spec, soa, bounds, rank: int, device):
+        from pbf_sph_tpu_torch.parallel import sharded
+
+        return sharded.local_state(sharded.distribute_particles(soa, spec, bounds=bounds),
+                                   rank, spec, device)
+
+    def step(self, spec, comm):
+        from pbf_sph_tpu_torch.parallel import sharded
+
+        return sharded.build_sharded_step(spec, comm)
+
+    def banner(self, spec, bounds, rebalance: bool, device) -> str:
+        return (f"Multichip: {self.n_dev} devices ({device.type}), "
+                f"{'rebalancing' if rebalance else 'fixed'} x-slabs, cap_local={spec.cap_local}")
+
+    def host_bounds(self, bounds):
+        return bounds.cpu().numpy() if torch.is_tensor(bounds) else bounds
+
+    def grow_ghosts(self, spec, ghost_peak: int) -> None:
+        self.ghost_cap = _ceil128(max(int(ghost_peak * 1.25), spec.ghost_cap + 128))
+
+    def cap_floor(self, spec, cap_local: int) -> int:
+        # a slab's ghosts fit in its owned capacity (`create` clamps them)
+        return max(cap_local, self.ghost_cap, spec.cap_local)
+
+
+class TileEngine:
+    """`SlabEngine`'s counterpart for the tile engine, with the JAX 2D
+    runner's rules: the spec (and so the cuts) made anew from the snapshot,
+    both ghost capacities grown together."""
+
+    label = "Per-tile particles  "
+
+    def __init__(self, nx: int, ny: int):
+        self.nx, self.ny = nx, ny
+        self.ghost = (0, 0)
+
+    def spec(self, args, config, particles, soa, cap_local: int):
+        from pbf_sph_tpu_torch.parallel import sharded2d
+
+        return sharded2d.Shard2DSpec.create(
+            config, self.nx, self.ny, soa, config.h, gather=args.impl == "gather",
+            cap_local=cap_local, rebalance=args.rebalance, ghost_x=self.ghost[0],
+            ghost_y=self.ghost[1])
+
+    def bounds(self, spec, soa, ckpt_bounds):
+        return ckpt_bounds if ckpt_bounds is not None else spec.initial_bounds()
+
+    def state(self, spec, soa, bounds, rank: int, device):
+        from pbf_sph_tpu_torch.parallel import sharded2d
+
+        return sharded2d.local_state(
+            sharded2d.distribute_particles_2d(soa, spec, bounds=bounds), rank, spec, device)
+
+    def step(self, spec, comm):
+        from pbf_sph_tpu_torch.parallel import sharded2d
+
+        return sharded2d.build_sharded2d_step(spec, comm)
+
+    def banner(self, spec, bounds, rebalance: bool, device) -> str:
+        # the cuts the run uses: a resumed rebalancing run's, not the spec's
+        xb, yb = bounds if bounds is not None else (spec.xb, spec.yb)
+        return (f"Multichip 2D: {self.nx}x{self.ny} tiles ({device.type}), "
+                f"{'rebalancing' if rebalance else 'static'} cuts, "
+                f"cap_local={spec.cap_local}, xb={tuple(int(v) for v in xb)}, "
+                f"yb={tuple(int(v) for v in yb)}")
+
+    def host_bounds(self, bounds):
+        return tuple(b.cpu().numpy() for b in bounds)
+
+    def grow_ghosts(self, spec, ghost_peak: int) -> None:
+        g = _ceil128(max(int(ghost_peak * 1.25), 128))
+        self.ghost = (max(g, spec.ghost_x + 128), max(g, spec.ghost_y + 128))
+
+    def cap_floor(self, spec, cap_local: int) -> int:
+        # a y-ghost row spans many columns: the ghosts may outgrow cap_local
+        return cap_local
+
+
+def run_frames(engine, args, config, particles, output, comm, device) -> int:
     """The frames of a `--multichip` run on one rank: the capacity-recovery
     loop (snapshots every `--ckpt-every` frames; dropped work grows the
     capacities from the observed demand and resumes from the last snapshot,
@@ -266,17 +378,14 @@ def run_slabs(args, config, particles, output, comm, device) -> int:
     from pbf_sph_tpu_torch.parallel.comm import gather_rank_values
 
     say = print if comm.rank == 0 else _silent
-    n_dev = comm.size
     cap_local = 0
-    ghost_cap = 0
     migrate_cap = None
     surface_over = {}
 
-    def build_spec():
-        spec = sharded.ShardSpec.create(
-            config, n_dev, len(particles), config.h, gather=args.impl == "gather",
-            rebalance=args.rebalance, cap_local=cap_local, ghost_cap=ghost_cap)
+    def build_spec(soa):
+        spec = engine.spec(args, config, particles, soa, cap_local)
         if migrate_cap is not None:
+            # never past cap_local: a merge takes at most cap_local slots
             spec = _dc.replace(spec, migrate_cap=min(int(migrate_cap), spec.cap_local))
         if surface_over and spec.surface is not None:
             spec = _dc.replace(spec, surface=_dc.replace(spec.surface, **surface_over))
@@ -300,18 +409,11 @@ def run_slabs(args, config, particles, output, comm, device) -> int:
     per = {}
 
     for _attempt in range(8):
-        spec = build_spec()
-        if args.rebalance:
-            bounds = (np.asarray(ckpt_bounds, np.int32) if ckpt_bounds is not None
-                      else spec.initial_bounds(ckpt_soa))
-        else:
-            bounds = None
-        state = sharded.local_state(sharded.distribute_particles(ckpt_soa, spec, bounds=bounds),
-                                    comm.rank, spec, device)
-        step = sharded.build_sharded_step(spec, comm)
-        say(f"Multichip: {n_dev} devices ({device.type}), "
-            f"{'rebalancing' if args.rebalance else 'fixed'} x-slabs, "
-            f"cap_local={spec.cap_local}"
+        spec = build_spec(ckpt_soa)
+        bounds = engine.bounds(spec, ckpt_soa, ckpt_bounds) if args.rebalance else None
+        state = engine.state(spec, ckpt_soa, bounds, comm.rank, device)
+        step = engine.step(spec, comm)
+        say(engine.banner(spec, bounds, args.rebalance, device)
             + (f" (resuming at frame {ckpt_frame}/{total_frames})" if ckpt_frame else ""))
         keys = ["alive_count", "extent_ok", "ghost_peak", *DROP_KEYS]
         if spec.surface is None:
@@ -369,7 +471,7 @@ def run_slabs(args, config, particles, output, comm, device) -> int:
             g += 1
             if g % ckpt_every == 0 and g < total_frames:
                 ckpt_soa = sharded.all_gather_soa(comm, state)
-                ckpt_bounds = (bounds.cpu().numpy() if torch.is_tensor(bounds) else bounds)
+                ckpt_bounds = engine.host_bounds(bounds) if bounds is not None else None
                 ckpt_frame = g
 
         if extent_bad:
@@ -381,12 +483,12 @@ def run_slabs(args, config, particles, output, comm, device) -> int:
             return 1
         grown = False
         if totals["ghost_dropped"] > 0:
-            ghost_cap = -(-max(int(ghost_peak * 1.25), spec.ghost_cap + 128) // 128) * 128
+            engine.grow_ghosts(spec, ghost_peak)
             grown = True
         if totals["migrate_dropped"] > 0:
             # grow from the observed demand: peak occupancy plus the refused
             # immigrants
-            cap_local = -(-max(int(occ_need * 5 // 4), spec.cap_local + 128) // 128) * 128
+            cap_local = _ceil128(max(int(occ_need * 5 // 4), spec.cap_local + 128))
             grown = True
         if totals["migrate_deferred"] > 0 and deferred_last > 0:
             # a backlog that had not drained by the final frame
@@ -411,7 +513,7 @@ def run_slabs(args, config, particles, output, comm, device) -> int:
         if not grown:
             raise RuntimeError(
                 f"hard failure at frame {g} without a growable capacity: {totals}")
-        cap_local = max(cap_local, ghost_cap, spec.cap_local)
+        cap_local = engine.cap_floor(spec, cap_local)
         say(f"# dropped/deferred work {totals} at frame {g} (ghost_peak={ghost_peak}, "
             f"occ_need={occ_need}, tri_peak={tri_peak}) — growing capacities and "
             f"resuming from the frame-{ckpt_frame} snapshot ({g - ckpt_frame + 1} of "
@@ -433,7 +535,7 @@ def run_slabs(args, config, particles, output, comm, device) -> int:
         f"Frame-time stdDev     : {std:.4g} ms\n"
         f"Final Vertex count   : {tri_total * 3}\n"
         f"Final Particle count : {int(counts.sum())} \n"
-        f"Per-device particles : {counts.tolist()}"
+        f"{engine.label} : {counts.tolist()}"
     )
     xs = sharded.all_gather_soa(comm, state)
     result = Result()

@@ -20,15 +20,15 @@ scatter gives the same order.  Nothing here reads a value back to the host.
 Layout as in the JAX package: lattice normals (3, L), colours (4, L), corner
 values (8, M), output mesh (3, 3T) / (4, 3T).
 
-The slab engine's hooks (`parallel/sharded.py`; `mc.py:122-196,266-292,
-367-405,477-561`): `mc_field` takes `node_offset`, `cell_offset` and
-`quirk_grid`, `mc_extract` takes `node_offset` and `cube_x_hi` with the
-global `extent`.  An offset is an int or a 0-d int tensor on the lattice's
-device (under rebalancing it follows the slab bounds, and nothing of it is
-read back to the host); the lattice itself stays sized by the spec.
+The slab and tile engines' hooks (`parallel/sharded.py`,
+`parallel/sharded2d.py`; `mc.py:122-196,266-297,367-405,477-561`):
+`mc_field` takes `node_offset`, `cell_offset` and `quirk_grid`, `mc_extract`
+takes `node_offset`, `cube_x_hi` and `cube_y_hi` with the global `extent`.
+An offset or a bound is an int or a 0-d int tensor on the lattice's device
+(under rebalancing it follows the slab bounds or tile cuts, and nothing of
+it is read back to the host); the lattice itself stays sized by the spec.
 
-Not ported: the blocked two-stage emission (`emit_block`/`emit_cap`) and
-`cube_y_hi`, which only the 2D tile engine passes.
+Not ported: the blocked two-stage emission (`emit_block`/`emit_cap`).
 """
 
 from __future__ import annotations
@@ -331,21 +331,22 @@ def _emit(ntris, offs, tri15, payload, cap3: int):
     return out[:, :cap3]
 
 
-def _in_volume(cube, spec: McSpec, extent, node_offset, cube_x_hi):
-    """Slab mode: cubes whose global min corner lies inside the global march
-    volume and, with `cube_x_hi`, below that global x (the right
-    neighbour's cubes under rebalancing), for cube ids `cube` (K,)."""
+def _in_volume(cube, spec: McSpec, extent, node_offset, cube_x_hi, cube_y_hi):
+    """Slab and tile mode: cubes whose global min corner lies inside the
+    global march volume and, with `cube_x_hi` / `cube_y_hi`, below that
+    global x / y (the next slab's or tile's cubes), for cube ids `cube`
+    (K,)."""
     dev = cube.device
     _, my, mz = (s - 1 for s in spec.sample)
     cx = cube // (my * mz)
     rem = cube - cx * (my * mz)
     cy = rem // mz
     ok = None
-    for a, c in enumerate((cx, cy, rem - cy * mz)):
+    for a, (c, hi) in enumerate(zip((cx, cy, rem - cy * mz), (cube_x_hi, cube_y_hi, None))):
         g = c + _offset(node_offset[a], dev)
         m = g < int(np.floor(extent[a] * spec.resolution))
-        if a == 0 and cube_x_hi is not None:
-            m = m & (g < _offset(cube_x_hi, dev))
+        if hi is not None:
+            m = m & (g < _offset(hi, dev))
         ok = m if ok is None else ok & m
     return ok
 
@@ -358,7 +359,8 @@ def _global_corners(corners, node_offset):
 
 
 def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
-               scale, isolevel, node_offset=None, cube_x_hi=None, extent=None):
+               scale, isolevel, node_offset=None, cube_x_hi=None, extent=None,
+               cube_y_hi=None):
     """Case classification, triangle cumsum and emission of one lattice.
 
     `lat_v` (L,), `lat_n` (3, L), `lat_c` (4, L) in lattice order;
@@ -368,10 +370,11 @@ def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
     `nonzero`); their order is cube order, so the mesh is the one every cube
     would emit.  `emit_overflow` = live cubes beyond the cap (mesh INVALID).
 
-    Slab mode (`parallel/sharded.py`): `node_offset` maps local cube and
-    node coords to global ones for the vertex positions, and cubes outside
-    the global march volume of `extent` (the grid extent) or, with
-    `cube_x_hi`, at global x >= cube_x_hi emit nothing.
+    Slab and tile mode (`parallel/sharded.py`, `parallel/sharded2d.py`):
+    `node_offset` maps local cube and node coords to global ones for the
+    vertex positions, and cubes outside the global march volume of `extent`
+    (the grid extent) or, with `cube_x_hi` / `cube_y_hi`, at global x >=
+    cube_x_hi / y >= cube_y_hi emit nothing.
 
     Returns (vs (3, 3T), ns (3, 3T), cs (4, 3T), total, emit_overflow) with
     T = `spec.tri_capacity`; `total` may exceed T, and then the buffer holds
@@ -387,7 +390,8 @@ def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
     vals = _corner_slices(lat_v, spec.sample)  # (8, M)
     ci, ntris = _classify(vals, isolevel, tables)
     if node_offset is not None:
-        ntris = torch.where(_in_volume(idx, spec, extent, node_offset, cube_x_hi), ntris, 0)
+        ntris = torch.where(_in_volume(idx, spec, extent, node_offset, cube_x_hi, cube_y_hi),
+                            ntris, 0)
     total = ntris.sum()
     if spec.cube_cap > 0:
         K = min(int(spec.cube_cap), M)

@@ -1,18 +1,31 @@
-"""The transport of the slab engine: what its step asks of the device mesh.
+"""The transport of the slab and tile engines: what their steps ask of the
+device mesh.
 
-The JAX package's sharded step runs under `shard_map` and reaches its
-neighbours through `ppermute` and `psum` (`pbf_sph_tpu/parallel/sharded.py`).
-The port's step holds a communicator of one rank instead, with this
-interface:
+The JAX package's sharded steps run under `shard_map` and reach their
+neighbours through `ppermute` and `psum` (`pbf_sph_tpu/parallel/sharded.py`,
+`sharded2d.py`).  The port's step holds a communicator of one rank instead,
+with this interface:
 
 * `rank`, `size`;
-* `exchange(to_left, to_right) -> (from_left, from_right)`: each argument a
-  dict of tensors, with the same keys, shapes and dtypes on every rank and in
-  both arguments.  It is not periodic: a rank with no neighbour on a side
-  receives zeros of the same shapes and dtypes from that side (`valid` False
-  included), which is `ppermute`'s fill for a device that no pair targets;
+* `exchange_peers(lo, hi, to_lo, to_hi) -> (from_lo, from_hi)`: `lo` and
+  `hi` are ranks or None; `to_lo` goes to `lo`, `to_hi` to `hi`, and
+  `from_lo` is what `lo` sent to its `hi` (this rank), `from_hi` what `hi`
+  sent to its `lo`.  Each payload is a dict of tensors, with the same keys,
+  shapes and dtypes on every rank and in both arguments.  A side with no
+  peer (None) receives zeros of the same shapes and dtypes (`valid` False
+  included), which is `ppermute`'s fill for a device that no pair targets.
+  Every rank of the group calls it together, with or without peers;
+* `exchange(to_left, to_right) -> (from_left, from_right)`: its rank +- 1
+  case, not periodic (the slab engine's neighbours);
 * `all_reduce_sum(t)`: the sum of `t` over the ranks, the same bits on
   every rank.
+
+`MeshAxis` is one axis of an NX x NY mesh numbered x-major (rank = mx*NY +
+my, as the JAX package's `make_mesh2d`): its `rank`/`size` along the axis,
+its `exchange` with the neighbours along it (r +- NY along x, r +- 1 along y
+within one mesh column), and `all_reduce_sum` over the whole group.  It
+takes the place of `ppermute(..., "x"|"y", ...)` and of `psum(..., ("x",
+"y"))`.
 
 Two implementations:
 
@@ -23,13 +36,13 @@ Two implementations:
   bool).
 * `ThreadComm`: `size` ranks as threads of one process on one device
   (`run_ranks`), with barriers and shared slots; the port's counterpart of
-  the JAX tests' virtual CPU mesh, and the way to run the engine at D > 1 on
-  one card.  Every rank enqueues on the device's current stream, which
-  orders a sender's writes before the reads a receiver enqueues after the
-  barrier, so no event is needed; a second barrier keeps a sender's buffers
-  alive until every receiver has enqueued its copy.  A rank that raises
-  aborts the barrier, and `run_ranks` re-raises its exception: a failing
-  rank fails the call and never hangs it.
+  the JAX tests' virtual CPU mesh, and the way to run the engines at more
+  than one rank on one card.  Every rank enqueues on the device's current
+  stream, which orders a sender's writes before the reads a receiver
+  enqueues after the barrier, so no event is needed; a second barrier keeps
+  a sender's buffers alive until every receiver has enqueued its copy.  A
+  rank that raises aborts the barrier, and `run_ranks` re-raises its
+  exception: a failing rank fails the call and never hangs it.
 
 `all_gather_fixed` and `all_gather_cat` gather a tensor from every rank over
 `all_reduce_sum` alone (each rank's bits in its own slot, zeros elsewhere,
@@ -64,6 +77,51 @@ def _check_like(got: Tensors, template: Tensors) -> None:
         if v.shape != t.shape or v.dtype != t.dtype:
             raise ValueError(f"exchange {k}: {v.dtype} {tuple(v.shape)} != "
                              f"{t.dtype} {tuple(t.shape)}")
+
+
+def _line_peers(index: int, size: int, stride: int,
+                base: int = 0) -> Tuple[Optional[int], Optional[int]]:
+    """The ranks beside position `index` of a line of `size` positions,
+    position i being rank base + i * stride; None past an end."""
+    lo = base + (index - 1) * stride if index > 0 else None
+    hi = base + (index + 1) * stride if index + 1 < size else None
+    return lo, hi
+
+
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device} needs a CUDA device, but torch.cuda.is_available() "
+                           "is False (pass device='cpu' to run on the CPU)")
+    return device
+
+
+class MeshAxis:
+    """One axis of an NX x NY mesh of `comm`'s ranks, numbered x-major:
+    `axis` 0 pairs rank r with r +- NY, axis 1 with r +- 1 inside r's mesh
+    column.  `rank`/`size` are along the axis; `all_reduce_sum` is over the
+    whole group."""
+
+    def __init__(self, comm, shape: Tuple[int, int], axis: int):
+        nx, ny = shape
+        if comm.size != nx * ny:
+            raise ValueError(f"a {nx}x{ny} mesh needs {nx * ny} ranks, the group has "
+                             f"{comm.size}")
+        mx, my = divmod(comm.rank, ny)
+        self.comm = comm
+        if axis == 0:
+            self.rank, self.size = mx, nx
+            self.peers = _line_peers(mx, nx, ny, my)
+        else:
+            self.rank, self.size = my, ny
+            self.peers = _line_peers(my, ny, 1, mx * ny)
+
+    def exchange(self, to_lo: Tensors, to_hi: Tensors) -> Tuple[Tensors, Tensors]:
+        return self.comm.exchange_peers(*self.peers, to_lo, to_hi)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.comm.all_reduce_sum(t)
 
 
 # ---------------------------------------------------------------------------
@@ -104,24 +162,32 @@ class ThreadComm:
         self._s.barrier.wait()
         return self._s.slots
 
-    def exchange(self, to_left: Tensors, to_right: Tensors) -> Tuple[Tensors, Tensors]:
-        self._check(list(to_left.values()) + list(to_right.values()))
-        _check_like(to_left, to_right)
-        slots = self._post((to_left, to_right))
-        out = []
-        # from the left: what the left neighbour sent right; from the right:
-        # what the right neighbour sent left
-        for nbr, side, template in ((self.rank - 1, 1, to_right),
-                                    (self.rank + 1, 0, to_left)):
-            if 0 <= nbr < self.size:
-                sent = slots[nbr][side]
+    def exchange_peers(self, lo: Optional[int], hi: Optional[int], to_lo: Tensors,
+                       to_hi: Tensors) -> Tuple[Tensors, Tensors]:
+        self._check(list(to_lo.values()) + list(to_hi.values()))
+        _check_like(to_lo, to_hi)
+        slots = self._post((lo, hi, to_lo, to_hi))
+        out, err = [], None
+        # from lo: what lo sent to its hi; from hi: what hi sent to its lo
+        for peer, side, template in ((lo, 1, to_hi), (hi, 0, to_lo)):
+            if peer is None:
+                out.append(_zeros_like(template))
+            elif slots[peer][side] != self.rank:
+                err = ValueError(f"rank {self.rank} pairs with {peer}, which pairs with "
+                                 f"{slots[peer][side]}")
+            else:
+                sent = slots[peer][2 + side]
                 _check_like(sent, template)
                 out.append({k: v.clone() for k, v in sent.items()})
-            else:
-                out.append(_zeros_like(template))
-        # the senders' buffers stay alive until every copy is enqueued
+        # the senders' buffers stay alive until every copy is enqueued (a
+        # refused pairing waits too, so that the other ranks do not)
         self._s.barrier.wait()
+        if err is not None:
+            raise err
         return out[0], out[1]
+
+    def exchange(self, to_left: Tensors, to_right: Tensors) -> Tuple[Tensors, Tensors]:
+        return self.exchange_peers(*_line_peers(self.rank, self.size, 1), to_left, to_right)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         self._check([t])
@@ -133,13 +199,14 @@ class ThreadComm:
         return total
 
 
-def run_ranks(n: int, fn: Callable[[ThreadComm], Any], device="cpu",
+def run_ranks(n: int, fn: Callable[[ThreadComm], Any], device="cuda",
               timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
-    """Run `fn(comm)` for ranks 0..n-1 as threads on `device`; returns their
-    results in rank order.  Every barrier wait is bounded by `timeout`
-    seconds.  If a rank raises, the barrier is aborted so that no rank waits
-    for it, and its exception is raised here."""
-    device = torch.device(device)
+    """Run `fn(comm)` for ranks 0..n-1 as threads on `device` (the card
+    unless the caller asks for the CPU; without a card a CUDA device
+    raises); returns their results in rank order.  Every barrier wait is
+    bounded by `timeout` seconds.  If a rank raises, the barrier is aborted
+    so that no rank waits for it, and its exception is raised here."""
+    device = require_device(device)
     shared = _Shared(n, device, timeout)
     stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
     results: List[Any] = [None] * n
@@ -223,14 +290,15 @@ class DistComm:
                 raise ValueError(f"DistComm rank {self.rank} is on {self.device}; "
                                  f"got a tensor on {t.device}")
 
-    def exchange(self, to_left: Tensors, to_right: Tensors) -> Tuple[Tensors, Tensors]:
+    def exchange_peers(self, lo: Optional[int], hi: Optional[int], to_lo: Tensors,
+                       to_hi: Tensors) -> Tuple[Tensors, Tensors]:
         dist = self._dist
-        self._check(list(to_left.values()) + list(to_right.values()))
-        _check_like(to_left, to_right)
+        self._check(list(to_lo.values()) + list(to_hi.values()))
+        _check_like(to_lo, to_hi)
         ops, recvs = [], []
-        for peer, send, template in ((self.rank - 1, to_left, to_right),
-                                     (self.rank + 1, to_right, to_left)):
-            if not 0 <= peer < self.size:
+        for peer, send, template in ((lo, to_lo, to_hi), (hi, to_hi, to_lo)):
+            if peer is None:
+                recvs.append(None)
                 continue
             bufs = []
             for tag, (wire, keys) in enumerate(_groups(template)):
@@ -240,23 +308,27 @@ class DistComm:
                 ops.append(dist.P2POp(dist.isend, sbuf, peer, self.group, tag))
                 ops.append(dist.P2POp(dist.irecv, rbuf, peer, self.group, tag))
                 bufs.append((keys, rbuf))
-            recvs.append((peer, template, bufs))
+            recvs.append((template, bufs))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        got = {}
-        for peer, template, bufs in recvs:
+        got = []
+        for recv, template in zip(recvs, (to_hi, to_lo)):
+            if recv is None:
+                got.append(_zeros_like(template))
+                continue
             out = {}
-            for keys, rbuf in bufs:
+            for keys, rbuf in recv[1]:
                 off = 0
                 for k in keys:
                     t = template[k]
                     out[k] = rbuf[off:off + t.numel()].reshape(t.shape).to(t.dtype)
                     off += t.numel()
-            got[peer] = {k: out[k] for k in template}
-        from_left = got.get(self.rank - 1) or _zeros_like(to_right)
-        from_right = got.get(self.rank + 1) or _zeros_like(to_left)
-        return from_left, from_right
+            got.append({k: out[k] for k in template})
+        return got[0], got[1]
+
+    def exchange(self, to_left: Tensors, to_right: Tensors) -> Tuple[Tensors, Tensors]:
+        return self.exchange_peers(*_line_peers(self.rank, self.size, 1), to_left, to_right)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         self._check([t])

@@ -63,7 +63,7 @@ from pbf_sph_tpu_torch.ops.mc import McSpec, default_cube_cap, mc_extract
 from pbf_sph_tpu_torch.ops.mc import mc_field as gather_mc_field
 from pbf_sph_tpu_torch.ops.pbf import scalar
 from pbf_sph_tpu_torch.ops.phases import CellIndex, PbfPhases
-from pbf_sph_tpu_torch.parallel.comm import all_gather_cat
+from pbf_sph_tpu_torch.parallel.comm import all_gather_cat, require_device
 
 # stats of one value a rank, (n_dev,) once assembled
 PER_RANK_STATS = ("alive_count", "extent_ok", "migrate_dropped", "migrate_deferred",
@@ -275,39 +275,37 @@ def _column(x_sim, min_extent_x, h):
     return torch.trunc(torch.nan_to_num(c, nan=2e9)).to(torch.int32)
 
 
-def _sharded_queries(spec: ShardSpec, comm, scn, b_me, bounds, pid, ptype, alive,
-                     table, min_extent):
+def _centre_cell_queries(scene: SceneSpec, grid_local: GridSpec, grid_global: GridSpec,
+                         comm, scn, locate, pid, ptype, alive, table, min_extent, h, scale):
     """Point queries over the owning rank's centre cell (reference
     `src/omp/ompsph.hpp:167-186` with the Morton guard), merged over the
     ranks by one sum: the owner contributes id + 1, the others 0, and an
-    empty slot decodes back to -1.  Returns replicated (n_queries, qcap) ids
-    and (n_queries,) counts, and the overflow."""
-    sc = spec.scene
-    qcap = sc.query_capacity
+    empty slot decodes back to -1.  `locate(cell)` gives, for a query's
+    global (3,) cell, whether this rank owns it and its local (x, y, z)
+    cell.  Returns replicated (n_queries, qcap) ids and (n_queries,)
+    counts, and the overflow."""
+    qcap = scene.query_capacity
     dev = pid.device
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    if sc.n_queries == 0:
+    if scene.n_queries == 0:
         return (torch.zeros((0, qcap), dtype=torch.int32, device=dev),
                 torch.zeros((0,), dtype=torch.int32, device=dev), overflow)
-    _, lny, lnz = spec.grid_local.dims
-    gdims = spec.grid_global.dims
-    gmaxz = spec.grid_global.maxz
-    h = scalar(spec.h, min_extent)
-    scale = scalar(spec.scale, min_extent)
+    _, lny, lnz = grid_local.dims
+    gdims = grid_global.dims
+    gmaxz = grid_global.maxz
     steps = torch.arange(qcap, dtype=torch.int32, device=dev)
     rows = []
-    for qi in range(sc.n_queries):
+    for qi in range(scene.n_queries):
         qcell = torch.trunc((scn["q_point"][qi] / scale - min_extent) / h).to(torch.int32)
         in_range = torch.stack(
             [(qcell[a] >= 0) & (qcell[a] < n) for a, n in enumerate(gdims)]).all()
         safe = torch.where(in_range, qcell, 0)
         zq = morton_encode3(safe[0], safe[1], safe[2])
         ok = in_range & (zq < gmaxz) & (zq + 1 < gmaxz)
-        owner = _owner_of_col(bounds, safe[:1], spec.n_dev)[0]
-        mine = ok & (owner == comm.rank)
-        lx = safe[0] - b_me + 1  # owned local columns 1..w_me
+        owned, (lx, ly, lz) = locate(safe)
+        mine = ok & owned
         # 1-element gathers: indexing by a 0-d tensor would read it to the host
-        lin = torch.where(mine, (lx * lny + safe[1]) * lnz + safe[2], 0).reshape(1).long()
+        lin = torch.where(mine, (lx * lny + ly) * lnz + lz, 0).reshape(1).long()
         start = torch.where(mine, table[lin], 0)
         end = torch.where(mine, table[lin + 1], 0)
         idx = start + steps
@@ -320,6 +318,70 @@ def _sharded_queries(spec: ShardSpec, comm, scn, b_me, bounds, pid, ptype, alive
                                  torch.where(mine, (end - start) - qcap, 0).reshape(()))
     merged = comm.all_reduce_sum(torch.stack(rows))
     return merged[:, :qcap] - 1, merged[:, qcap], torch.clamp(overflow, min=0)
+
+
+def _sharded_queries(spec: ShardSpec, comm, scn, b_me, bounds, pid, ptype, alive,
+                     table, min_extent):
+    """`_centre_cell_queries` over the slabs: the owner by x-column, owned
+    local columns 1..w_me."""
+    def locate(cell):
+        owner = _owner_of_col(bounds, cell[:1], spec.n_dev)[0]
+        return owner == comm.rank, (cell[0] - b_me + 1, cell[1], cell[2])
+
+    return _centre_cell_queries(spec.scene, spec.grid_local, spec.grid_global, comm, scn,
+                                locate, pid, ptype, alive, table, min_extent,
+                                scalar(spec.h, min_extent), scalar(spec.scale, min_extent))
+
+
+def _pack_migrants(fields, flag, cap: int, capacity: int):
+    """The first `cap` rows where `flag` holds, as a payload of every field
+    and `valid`, and the (capacity,) mask of the rows sent."""
+    idx, valid = _compact_first(flag, cap)
+    buf = {k: torch.where(valid, v[idx], 0) for k, v in fields.items()}
+    buf["valid"] = valid
+    sent = torch.zeros(capacity, dtype=torch.bool, device=flag.device)
+    sent[idx] = valid
+    return buf, sent
+
+
+def _merge_migrants(fields, alive, recv, cap_local: int, cap: int):
+    """`recv`'s immigrants into the first `cap` dead owned slots (`fields`
+    updated in place); returns the new alive mask and the count refused."""
+    slots, _ = _compact_first(~alive[:cap_local], cap)
+    can = ~alive[slots] & recv["valid"]
+    for k, v in fields.items():
+        v[slots] = torch.where(can, recv[k].to(v.dtype), v[slots])
+    alive = alive.clone()
+    alive[slots] = alive[slots] | can
+    return alive, recv["valid"].sum() - can.sum()
+
+
+def _ghost_payload(idx, valid, rows):
+    """Ghost rows `idx` of `rows` (pstar, position, mass, ptype, colour):
+    positions 1e9 and the rest 0 where not `valid`."""
+    pstar, position, mass, ptype, colour = rows
+    far = dict(px=pstar[0], py=pstar[1], pz=pstar[2],
+               posx=position[0], posy=position[1], posz=position[2])
+    near = dict(mass=mass, ptype=ptype, cr=colour[0], cg=colour[1], cb=colour[2],
+                ca=colour[3])
+    g = {k: torch.where(valid, v[idx], 1e9) for k, v in far.items()}
+    g.update({k: torch.where(valid, v[idx], 0) for k, v in near.items()})
+    g["valid"] = valid
+    return g
+
+
+def _install_ghosts(g, lo: int, n: int, rows, alive) -> None:
+    """A ghost payload into slots [lo, lo + n) of `rows` and `alive`, in place."""
+    pstar, position, mass, ptype, colour = rows
+    sl = slice(lo, lo + n)
+    for a, ax in enumerate("xyz"):
+        pstar[a, sl] = g["p" + ax]
+        position[a, sl] = g["pos" + ax]
+    mass[sl] = g["mass"].to(mass.dtype)
+    ptype[sl] = g["ptype"]
+    for a, c in enumerate(("cr", "cg", "cb", "ca")):
+        colour[a, sl] = g[c]
+    alive[sl] = g["valid"]
 
 
 class ShardedStep:
@@ -432,16 +494,8 @@ class ShardedStep:
             cr=state.colour[0], cg=state.colour[1], cb=state.colour[2], ca=state.colour[3],
         )
 
-        def pack(flag, cap):
-            idx, valid = _compact_first(flag, cap)
-            buf = {k: torch.where(valid, v[idx], 0) for k, v in fields.items()}
-            buf["valid"] = valid
-            sent = torch.zeros(CT, dtype=torch.bool, device=dev)
-            sent[idx] = valid
-            return buf, sent
-
-        send_l, sent_l = pack(go_left, M)
-        send_r, sent_r = pack(go_right, M)
+        send_l, sent_l = _pack_migrants(fields, go_left, M, CT)
+        send_r, sent_r = _pack_migrants(fields, go_right, M, CT)
         # emigrants beyond the send capacity stay alive here, deferred to the
         # next frame (outside the local grid for one frame) and counted
         unsent = (go_left & ~sent_l) | (go_right & ~sent_r)
@@ -451,18 +505,8 @@ class ShardedStep:
 
         # merge immigrants into dead owned slots
         fields = {k: v.clone() for k, v in fields.items()}
-
-        def merge(alive, recv):
-            slots, _ = _compact_first(~alive[:CL], M)
-            can = ~alive[slots] & recv["valid"]
-            for k, v in fields.items():
-                v[slots] = torch.where(can, recv[k].to(v.dtype), v[slots])
-            alive = alive.clone()
-            alive[slots] = alive[slots] | can
-            return alive, recv["valid"].sum() - can.sum()
-
-        alive, drop_r = merge(alive, recv_from_r)
-        alive, drop_l = merge(alive, recv_from_l)
+        alive, drop_r = _merge_migrants(fields, alive, recv_from_r, CL, M)
+        alive, drop_l = _merge_migrants(fields, alive, recv_from_l, CL, M)
 
         # rebuild after the merge; immigrants recompute pStar from v and x
         position = torch.stack([fields["px"], fields["py"], fields["pz"]])
@@ -481,31 +525,14 @@ class ShardedStep:
         idx_bl, val_bl = _compact_first(bl, H)
         idx_br, val_br = _compact_first(br, H)
 
-        def ghost_pack(idx, valid):
-            far = dict(px=pstar[0], py=pstar[1], pz=pstar[2],
-                       posx=position[0], posy=position[1], posz=position[2])
-            near = dict(mass=mass, ptype=ptype, cr=colour[0], cg=colour[1], cb=colour[2],
-                        ca=colour[3])
-            g = {k: torch.where(valid, v[idx], 1e9) for k, v in far.items()}
-            g.update({k: torch.where(valid, v[idx], 0) for k, v in near.items()})
-            g["valid"] = valid
-            return g
-
         # what comes from the left is the left neighbour's right boundary
-        ghost_from_l, ghost_from_r = comm.exchange(ghost_pack(idx_bl, val_bl),
-                                                   ghost_pack(idx_br, val_br))
+        rows = (pstar, position, mass, ptype, colour)
+        ghost_from_l, ghost_from_r = comm.exchange(_ghost_payload(idx_bl, val_bl, rows),
+                                                   _ghost_payload(idx_br, val_br, rows))
 
         # install the ghosts in the tail slots [CL, CL+2H)
-        for g, lo in ((ghost_from_l, CL), (ghost_from_r, CL + H)):
-            sl = slice(lo, lo + H)
-            for a, ax in enumerate("xyz"):
-                pstar[a, sl] = g["p" + ax]
-                position[a, sl] = g["pos" + ax]
-            mass[sl] = g["mass"].to(mass.dtype)
-            ptype[sl] = g["ptype"]
-            for a, c in enumerate(("cr", "cg", "cb", "ca")):
-                colour[a, sl] = g[c]
-            alive[sl] = g["valid"]
+        _install_ghosts(ghost_from_l, CL, H, rows, alive)
+        _install_ghosts(ghost_from_r, CL + H, H, rows, alive)
 
         # 4. local sort over the local grid (owned + ghost columns)
         cells_g = cell_coords(pstar, min_extent, spec.h)
@@ -716,7 +743,10 @@ def distribute_particles(soa, spec: ShardSpec, dtype=np.float32, bounds=None) ->
 
 def local_state(global_state: FluidState, rank: int, spec: ShardSpec, device="cuda") -> FluidState:
     """Rank `rank`'s block of a rank-major state (`distribute_particles`) on
-    `device`: the port's counterpart of placing the state on the mesh."""
+    `device` (the card unless the caller asks for the CPU; without a card a
+    CUDA device raises): the port's counterpart of placing the state on the
+    mesh.  The tile engine's blocks (`cap_total` each, x-major) too."""
+    device = require_device(device)
     sl = slice(rank * spec.cap_total, (rank + 1) * spec.cap_total)
     return FluidState(**{
         f.name: getattr(global_state, f.name)[..., sl].contiguous().to(device)

@@ -15,6 +15,8 @@ from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
+from pbf_sph_tpu_torch.parallel import sharded2d
+from pbf_sph_tpu_torch.parallel.comm import run_ranks
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_phases
 from pbf_sph_tpu_torch.tools import micro_chunk as mch
@@ -73,8 +75,9 @@ def test_cuda_solver_raises_without_a_card(monkeypatch):
 
 
 def test_default_device_is_cuda(monkeypatch):
-    """Without a device the solver asks for CUDA, and without a card it
-    raises; it never picks the CPU by itself."""
+    """Without a device the solver, the engines' ThreadComm ranks and a
+    rank's state ask for CUDA, and without a card they raise; nothing picks
+    the CPU by itself."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchSolver()
@@ -83,6 +86,15 @@ def test_default_device_is_cuda(monkeypatch):
             make_solver(impl)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_solver("gather", dtype="float64")
+    # the engines' entries: ThreadComm ranks and a rank's state, slab or tile
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_ranks(1, lambda comm: comm.rank)
+    mc, cfg, xs = dam_break(1200, solver_iter=2)
+    spec = sharded2d.Shard2DSpec.create(cfg, 2, 2, xs, cfg.h)
+    whole = sharded2d.distribute_particles_2d(xs, spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded2d.local_state(whole, 0, spec)
+    assert run_ranks(1, lambda comm: comm.rank, "cpu") == [0]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert TorchSolver().device == torch.device("cuda")
     assert make_solver("gather").device == torch.device("cuda")

@@ -26,7 +26,8 @@
   single-chip soup, rebalancing under motion, and two runs bit for bit;
 * the transport: `ThreadComm`'s exchange, sums and gathers, a failing rank
   that fails the call, and `DistComm` over gloo in 2 spawned processes
-  giving `ThreadComm`'s bits;
+  giving `ThreadComm`'s bits, with the tile engine's `MeshAxis` views
+  (2x1 and 1x2) over the same group;
 * the CLI's `--multichip` with `--devices cpu`, and its refusals.
 
 Every ThreadComm barrier waits at most `WAIT` seconds, every spawned process
@@ -579,7 +580,7 @@ DIST_RANK = textwrap.dedent("""
     from pbf_sph_tpu_torch.core.scene import apply_motion_sin_x_cos_z
     from pbf_sph_tpu_torch.models.torch_solver import dyn_params_of
     from pbf_sph_tpu_torch.parallel import sharded
-    from pbf_sph_tpu_torch.parallel.comm import DistComm
+    from pbf_sph_tpu_torch.parallel.comm import DistComm, MeshAxis
     rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
     mc, cfg, xs = dam_break(1200, solver_iter=2)
@@ -588,12 +589,23 @@ DIST_RANK = textwrap.dedent("""
     b0 = spec.initial_bounds(xs)
     state = sharded.local_state(sharded.distribute_particles(xs, spec, bounds=b0), rank,
                                 spec, "cpu")
-    step = sharded.build_sharded_step(spec, DistComm("cpu"))
+    comm = DistComm("cpu")
+    step = sharded.build_sharded_step(spec, comm)
     state, stats, b = step(state, dyn_params_of(apply_motion_sin_x_cos_z(cfg, 0),
                                                 np.float32, "cpu"), bounds=b0)
+    # the tile engine's mesh axes over the same group: 2x1 and 1x2
+    axes = {}
+    for shape in ((2, 1), (1, 2)):
+        for a in range(2):
+            lo, hi = MeshAxis(comm, shape, a).exchange(
+                {"v": torch.tensor([rank, 0, a]), "valid": torch.ones(2, dtype=torch.bool)},
+                {"v": torch.tensor([rank, 1, a]), "valid": torch.ones(2, dtype=torch.bool)})
+            for side, got in (("lo", lo), ("hi", hi)):
+                for k, v in got.items():
+                    axes[f"axis_{shape[0]}x{shape[1]}_{a}_{side}_{k}"] = v.numpy()
     np.savez(out, bounds=b.numpy(), **{k: getattr(state, k).numpy() for k in
              ("pid", "ptype", "mass", "position", "velocity", "colour", "alive")},
-             **{"stat_" + k: v.numpy() for k, v in stats.items()})
+             **{"stat_" + k: v.numpy() for k, v in stats.items()}, **axes)
     dist.destroy_process_group()
 """)
 
@@ -622,6 +634,18 @@ def test_dist_comm_over_gloo_matches_thread_comm(tmp_path):
             np.testing.assert_array_equal(got[f], getattr(final[r], f).numpy(), f)
         for k, v in last[r].items():
             np.testing.assert_array_equal(got["stat_" + k], v.numpy(), k)
+        # MeshAxis over DistComm: rank-tagged payloads along the axis of
+        # size 2, zeros along the axis of size 1
+        for shape in ((2, 1), (1, 2)):
+            for a in range(2):
+                pre = f"axis_{shape[0]}x{shape[1]}_{a}_"
+                paired = shape[a] == 2
+                want_lo = [r - 1, 1, a] if paired and r == 1 else [0, 0, 0]
+                want_hi = [r + 1, 0, a] if paired and r == 0 else [0, 0, 0]
+                assert got[pre + "lo_v"].tolist() == want_lo, (pre, r)
+                assert got[pre + "hi_v"].tolist() == want_hi, (pre, r)
+                assert got[pre + "lo_valid"].all() == (want_lo != [0, 0, 0])
+                assert got[pre + "hi_valid"].all() == (want_hi != [0, 0, 0])
 
 
 # ---------------------------------------------------------------------------
@@ -663,7 +687,8 @@ def test_cli_multichip_on_cpu(tmp_path, run):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--multichip", "2x2"], "2D tile engine"),
+    (["--multichip", "2x2"], "needs 4 CUDA devices"),
+    (["--multichip", "2x0", "--devices", "cpu"], "NXxNY with NX, NY >= 1"),
     (["--multichip", "2"], "needs 2 CUDA devices"),
     (["--multichip", "0", "--devices", "cpu"], "N >= 1"),
     (["--multichip", "2", "--devices", "cpu", "--fp64", "--impl", "gather"], "fp32-only"),

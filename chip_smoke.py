@@ -303,6 +303,23 @@ with a non-zero exit and no result line:
 9h. the CLI with `--multichip 1x1` on bench20k (NCCL at world size 1), fixed
    and `--rebalance`: rc 0, `Per-tile particles`, both files read back;
    `--multichip 2x2` on this one card fails with its message.
+10. the blocked emission, the dry run and the study tools:
+10a. mc128k's first frame with cube_cap 0, emit_block 1024 and emit_cap 128
+   through `TorchSolver.advance`: its first attempt overflows on the card,
+   the growth re-runs it, and the mesh equals the one-stage scatter's
+   (emit_block 0, cube_cap 0) bit for bit, with the triangle count of the
+   production spec (cube compaction); each kernel of the surface path
+   launched in the advance, counts set to 0 just before it;
+10b. `parallel.dryrun.dryrun_multichip(4)` on the card: 4 ThreadComm ranks,
+   the 2-cube scene with a surface, a source, a drain, a well and a query:
+   every overflow 0, a mesh, the alive count the gathered one, and each
+   rank's kernels launched (counts set to 0 when its step is built);
+10c. each new study tool's `main` once at a small size: bench_mc_split
+   (bench20k), micro_extract (bench20k, B 1024 and 4096: every emission's
+   mesh the production one's), roofline (32k), precision_centered,
+   load_balance (32k, 4 slabs, 20 frames, rebalancing) and multichip_model
+   (32k; its exchange census equal to the byte model); rc 0 and the last
+   line JSON.
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
@@ -350,6 +367,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -2879,6 +2897,112 @@ def phase_tiles_cli() -> None:
           f"cli --multichip 2x2 on one card: rc {rc}, {err.getvalue().strip()!r}")
 
 
+def phase_blocked_emission() -> dict:
+    print("== 10a. blocked emission: mc128k's first frame, cube_cap 0, emit_block 1024, "
+          "emit_cap 128, through TorchSolver.advance")
+    from pbf_sph_tpu_torch.core.configs import WORKLOADS
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
+
+    class Emit(TorchSolver):
+        """TorchSolver whose surface spec takes `fields`."""
+
+        def __init__(self, h, **fields):
+            super().__init__(h=h, device="cuda")
+            self.fields = fields
+
+        def make_spec(self, *a, **kw):
+            spec = super().make_spec(*a, **kw)
+            return dataclasses.replace(spec, surface=dataclasses.replace(
+                spec.surface, **self.fields))
+
+    mc, cfg, xs = WORKLOADS["mc128k"]()
+    tiny = Emit(cfg.h, cube_cap=0, emit_block=1024, emit_cap=128)
+    spec, state, scn = tiny.prepare(cfg, Scene(), xs)
+    _, out = tiny.step_device(spec, state, dyn_params_of(cfg, device="cuda"), scn)
+    ovf = int(out["mc_emit_overflow"])
+    check(ovf > 0, f"the first attempt overflows its staging rows: emit_overflow {ovf}")
+    tiny.reset_launches()
+    res, _ = tiny.advance(cfg, Scene(), xs)
+    launches = dict(tiny.launches)
+    flat, _ = Emit(cfg.h, cube_cap=0, emit_block=0, emit_cap=0).advance(cfg, Scene(), xs)
+    prod, _ = TorchSolver(h=cfg.h, device="cuda").advance(cfg, Scene(), xs)
+    ntri = len(res.mesh.vs) // 3
+    check(ntri > 0 and all(np.array_equal(getattr(res.mesh, k), getattr(flat.mesh, k),
+                                          equal_nan=True) for k in ("vs", "ns", "cs")),
+          f"after the growth the mesh equals the one-stage scatter's bit for bit "
+          f"({ntri} triangles)")
+    check(len(prod.mesh.vs) == len(res.mesh.vs),
+          f"the production spec (cube compaction) gives the same {ntri} triangles")
+    for k in ("mc_field_cells", "lambda_cells", "delta_cells", "diffuse_cell_sums",
+              "diffuse_cells"):
+        check(launches[k] > 0, f"the advance launched {k} ({launches[k]})")
+    return launches
+
+
+def phase_dryrun() -> dict:
+    print("== 10b. dryrun_multichip(4) on the card")
+    from pbf_sph_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(4)
+    print(json.dumps(out))
+    check(all(out[k] == 0 for k in ("migrate_dropped", "migrate_deferred", "ghost_dropped",
+                                    "spawn_dropped", "query_overflow", "mc_emit_overflow")),
+          "no overflow")
+    check(out["tri_count"] > 0 and out["alive_count"] == out["gathered"]
+          and 0 < out["alive_count"] <= out["particles"] + out["spawned"],
+          f"a mesh ({out['tri_count']} triangles), {out['alive_count']} alive of "
+          f"{out['particles']} + {out['spawned']} spawned, all gathered")
+    launches = out["launches"]
+    for k in ("lambda_cells", "delta_cells", "diffuse_cell_sums", "diffuse_cells"):
+        check(launches[k] > 0, f"the ranks launched {k} ({launches[k]})")
+    return launches
+
+
+def phase_study_tools() -> None:
+    print("== 10c. the study tools' mains at small sizes")
+    import contextlib
+    import io
+    import os
+
+    from pbf_sph_tpu_torch.tools import (bench_mc_split, load_balance, micro_extract,
+                                         multichip_model, precision_centered, roofline)
+
+    runs = [
+        (bench_mc_split, ["bench20k", "2"]),
+        (micro_extract, ["bench20k", "1024", "4096"]),
+        (roofline, ["32000", "3"]),
+        (precision_centered, []),
+        (load_balance, ["32000", "4", "20"]),
+        (multichip_model, ["32000"]),
+    ]
+    os.environ["PBF_LB_REBALANCE"] = "1"
+    for module, argv in runs:
+        name = module.__name__.rsplit(".", 1)[1]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(argv)
+        text = buf.getvalue()
+        last = json.loads(text.strip().splitlines()[-1])
+        print(f"-- {name} {' '.join(argv)}: rc {rc} in {time.perf_counter() - t0:.1f} s")
+        print("\n".join(text.strip().splitlines()[:-1][-14:]))
+        check(rc == 0 and last.get("card") == card_line(),
+              f"{name}: rc 0, its JSON line names the card")
+        if name == "micro_extract":
+            check(last["live_rows"] > 0 and all(
+                p["max_diff"] == 0.0 and not p["emit_overflow"]
+                for p in last["parity"].values()),
+                f"micro_extract: every emission's mesh is the production mesh "
+                f"({last['live_rows']} live rows)")
+        if name == "multichip_model":
+            check(all(c["exchanges"] == c["model_exchanges"]
+                      and c["exchange_bytes"] == c["model_bytes"]
+                      for c in last["census"].values()),
+                  "multichip_model: the exchange census equals the byte model")
+    del os.environ["PBF_LB_REBALANCE"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2966,6 +3090,11 @@ def main() -> int:
     phase_tiles_cli()
     print(f"tile engine launches (phase 9e, its card runs, all ranks, 2 frames): "
           f"{json.dumps(engine2d_9e)}; 9e-9g: {json.dumps(engine2d)}")
+    emit_launches = phase_blocked_emission()
+    dry_launches = phase_dryrun()
+    phase_study_tools()
+    print(f"phase 10 launches: 10a {json.dumps(emit_launches)}; 10b (all ranks) "
+          f"{json.dumps(dry_launches)}")
     launches["mc_field_cells"] = surface["mc_field_cells"]
     launches["mc_field"] += surface["mc_field"]  # row 4: both paths, each held at 0
     launches.update(staged_launches)

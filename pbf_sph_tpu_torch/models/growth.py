@@ -1,7 +1,7 @@
 """Shared capacity-growth policy.
 
-Port of the cell-capacity, triangle-capacity, cube-compaction and
-query-capacity branches of `pbf_sph_tpu/models/growth.py`.  One frame's
+Port of the cell-capacity, triangle-capacity, cube-compaction,
+blocked-emission and query-capacity branches of `pbf_sph_tpu/models/growth.py`.  One frame's
 outputs report the static capacities the step depends on; when one
 overflows, the frame is suspect and must be re-run under a larger spec.
 Consumed by `TorchSolver.advance` (re-run the same frame) and by `bench.py`
@@ -12,8 +12,7 @@ gathers truncated a cell's candidates: the frame is re-run under the larger
 K.  The kernel backend walks exact cell ranges, so there its cell branch
 only keeps the specs and warmups of both backends alike.  Neither backend
 has a strip buffer, so there is no strip-capacity branch: `strip_overflow`
-is always 0, and so is `mc_strip_overflow`; the blocked emission
-(`emit_block`) is not ported.
+is always 0, and so is `mc_strip_overflow`.
 """
 
 from __future__ import annotations
@@ -22,6 +21,8 @@ import dataclasses
 from typing import Any, Dict
 
 import numpy as np
+
+from pbf_sph_tpu_torch.ops.mc import EMIT_CAP_DEFAULT
 
 
 def growth_changes(spec, out) -> Dict[str, Any]:
@@ -53,6 +54,17 @@ def growth_changes(spec, out) -> Dict[str, Any]:
             vol = int(np.prod([s - 1 for s in sur.sample]))
             new_cap = -(-(sur.cube_cap + eovf) * 5 // 4 // 128) * 128
             changes["surface"] = dataclasses.replace(sur, cube_cap=min(new_cap, vol))
+        # a block's live rows beyond its staging rows -> surface.emit_cap; a
+        # block denser than 15 * emit_block / (5/4) rows falls back to the
+        # one-stage emission (emit_block 0), which holds any density
+        elif eovf > 0 and spec.surface.emit_block > 0:
+            sur = changes.get("surface", spec.surface)
+            cur = max(128, sur.emit_cap or EMIT_CAP_DEFAULT)
+            new_cap = -(-(cur + eovf) * 5 // 4 // 128) * 128
+            if new_cap >= 15 * sur.emit_block:
+                changes["surface"] = dataclasses.replace(sur, emit_block=0, emit_cap=0)
+            else:
+                changes["surface"] = dataclasses.replace(sur, emit_cap=new_cap)
 
     # query-cell population -> scene.query_capacity (reference semantics are
     # unbounded)

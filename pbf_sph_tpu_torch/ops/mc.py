@@ -28,7 +28,12 @@ An offset or a bound is an int or a 0-d int tensor on the lattice's device
 (under rebalancing it follows the slab bounds or tile cuts, and nothing of
 it is read back to the host); the lattice itself stays sized by the spec.
 
-Not ported: the blocked two-stage emission (`emit_block`/`emit_cap`).
+The blocked two-stage emission (`McSpec.emit_block`/`emit_cap`,
+`mc.py:70-78,411-434`), on the uncompacted path only: the JAX package sorts
+each block's slots and then merges the staged rows with a short global sort;
+the port scatters twice, each block's live slots to their rank inside the
+block in a staging buffer of `smax` columns a block, then the staged rows to
+their destinations.
 """
 
 from __future__ import annotations
@@ -44,6 +49,10 @@ from pbf_sph_tpu_torch.core.types import OBSTACLE
 from pbf_sph_tpu_torch.ops import mc_tables as mct
 from pbf_sph_tpu_torch.ops.curves import morton_encode3
 from pbf_sph_tpu_torch.ops.pbf import scalar
+
+# Initial staged rows a block of the blocked emission (`mc.py:28-37`); the
+# growth policy grows `emit_cap` from it on `emit_overflow`.
+EMIT_CAP_DEFAULT = 1280
 
 # Below this march volume the lattice is small enough that emitting from every
 # cube is cheap; above it, live cubes are compacted first (`cube_cap`).
@@ -74,6 +83,14 @@ class McSpec:
     # report `emit_overflow` (the mesh is then INVALID and the growth policy
     # grows the cap).  0 emits from every cube.
     cube_cap: int = 0
+    # Blocked two-stage emission, taken only with cube_cap 0: each
+    # `emit_block`-cube block stages its live vertex slots in
+    # max(128, emit_cap or EMIT_CAP_DEFAULT) rows before the global scatter;
+    # a block with more live rows reports `emit_overflow` (mesh INVALID; the
+    # growth policy grows emit_cap, then falls back to emit_block 0).
+    # emit_block 0 scatters every slot straight to its destination.
+    emit_block: int = 0
+    emit_cap: int = 0
 
     @staticmethod
     def from_extent(extent, resolution: float, tri_capacity: int = 0,
@@ -315,20 +332,65 @@ def _edge_payload(ci, vals, cnrm, ccol, corners, min_extent, step, scale,
     return tables.tri15[ci].T, payload
 
 
-def _emit(ntris, offs, tri15, payload, cap3: int):
-    """Scatter the live vertex slots of K cubes to their destinations
-    `(offs + k//3)*3 + k%3` in a zeroed (10, cap3) buffer.  Dead slots and
-    slots past the capacity go to one extra column, which is dropped."""
-    dev = ntris.device
-    k = torch.arange(3 * mct.MAX_TRIS_PER_CUBE, device=dev)[:, None]  # (15, 1)
-    dest = (offs[None, :] + k // 3) * 3 + k % 3  # (15, K)
-    dest = torch.where(((k // 3) < ntris[None, :]) & (dest < cap3), dest, cap3)
+def slot_rows(ntris, offs, tri15, payload):
+    """The 15 vertex slots of each of K cubes: (dest (15, K) int64, the
+    destination `(offs + k//3)*3 + k%3` of slot k; live (15, K), slot k
+    holds a vertex; vals (10, 15, K), its position, normal and colour)."""
+    k = torch.arange(3 * mct.MAX_TRIS_PER_CUBE, device=ntris.device)[:, None]  # (15, 1)
+    dest = (offs[None, :] + k // 3) * 3 + k % 3
     e = torch.clamp(tri15, min=0)
     nval, _, kc = payload.shape
-    vals = torch.gather(payload, 1, e[None].expand(nval, -1, kc))  # (10, 15, K)
-    out = torch.zeros((nval, cap3 + 1), dtype=payload.dtype, device=dev)
+    vals = torch.gather(payload, 1, e[None].expand(nval, -1, kc))
+    return dest, (k // 3) < ntris[None, :], vals
+
+
+def _emit(ntris, offs, tri15, payload, cap3: int):
+    """Scatter the live vertex slots of K cubes to their destinations in a
+    zeroed (10, cap3) buffer.  Dead slots and slots past the capacity go to
+    one extra column, which is dropped."""
+    dest, live, vals = slot_rows(ntris, offs, tri15, payload)
+    dest = torch.where(live & (dest < cap3), dest, cap3)
+    nval = vals.shape[0]
+    out = torch.zeros((nval, cap3 + 1), dtype=payload.dtype, device=ntris.device)
     out.index_copy_(1, dest.reshape(-1), vals.reshape(nval, -1))
     return out[:, :cap3]
+
+
+def _emit_blocked(ntris, offs, tri15, payload, cap3: int, block: int, emit_cap: int):
+    """`_emit` in two stages, for M cubes in blocks of `block`: stage 1
+    scatters each block's live vertex slots to their rank inside the block
+    (destination minus the block's first destination: a block's
+    destinations are consecutive) in a (10, nblk * scut) staging buffer,
+    scut = min(smax, 15 * block); stage 2 scatters the staged rows to the
+    block's first destination plus their rank.  A block with more than smax
+    live rows drops the rest.  Returns (out (10, cap3), emit_overflow =
+    max(max_b live_b - smax, 0))."""
+    dev = ntris.device
+    M = ntris.shape[0]
+    nblk = -(-M // block)
+    smax = max(128, emit_cap or EMIT_CAP_DEFAULT)
+    scut = min(smax, 15 * block)
+    blk = torch.arange(nblk, device=dev)
+    first = offs[blk * block] * 3  # each block's first destination
+    ends = torch.clamp((blk + 1) * block, max=M) - 1
+    live_b = (offs[ends] + ntris[ends]) * 3 - first  # (nblk,)
+    emit_ovf = torch.clamp(live_b.max() - smax, min=0)
+
+    dest, live, vals = slot_rows(ntris, offs, tri15, payload)
+    cube_blk = torch.arange(M, device=dev) // block
+    rank = dest - first[cube_blk][None, :]  # (15, M)
+    nstage = nblk * scut
+    stage = torch.where(live & (rank < scut), cube_blk[None, :] * scut + rank, nstage)
+    nval = vals.shape[0]
+    staged = torch.zeros((nval, nstage + 1), dtype=payload.dtype, device=dev)
+    staged.index_copy_(1, stage.reshape(-1), vals.reshape(nval, -1))
+
+    j = torch.arange(scut, device=dev)[None, :]
+    dest = first[:, None] + j  # (nblk, scut)
+    dest = torch.where((j < live_b[:, None]) & (dest < cap3), dest, cap3)
+    out = torch.zeros((nval, cap3 + 1), dtype=payload.dtype, device=dev)
+    out.index_copy_(1, dest.reshape(-1), staged[:, :nstage])
+    return out[:, :cap3], emit_ovf
 
 
 def _in_volume(cube, spec: McSpec, extent, node_offset, cube_x_hi, cube_y_hi):
@@ -358,27 +420,13 @@ def _global_corners(corners, node_offset):
     return corners + off[None, :, None]
 
 
-def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
-               scale, isolevel, node_offset=None, cube_x_hi=None, extent=None,
-               cube_y_hi=None):
-    """Case classification, triangle cumsum and emission of one lattice.
-
-    `lat_v` (L,), `lat_n` (3, L), `lat_c` (4, L) in lattice order;
-    `min_extent` (3,), `scale` and `isolevel` are tensors or floats.
-    With `spec.cube_cap > 0` the live cubes are first compacted to a fixed
-    `cube_cap` rows by a cumsum-scatter of their ids (no host read, no
-    `nonzero`); their order is cube order, so the mesh is the one every cube
-    would emit.  `emit_overflow` = live cubes beyond the cap (mesh INVALID).
-
-    Slab and tile mode (`parallel/sharded.py`, `parallel/sharded2d.py`):
-    `node_offset` maps local cube and node coords to global ones for the
-    vertex positions, and cubes outside the global march volume of `extent`
-    (the grid extent) or, with `cube_x_hi` / `cube_y_hi`, at global x >=
-    cube_x_hi / y >= cube_y_hi emit nothing.
-
-    Returns (vs (3, 3T), ns (3, 3T), cs (4, 3T), total, emit_overflow) with
-    T = `spec.tri_capacity`; `total` may exceed T, and then the buffer holds
-    the first T triangles."""
+def emission_inputs(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
+                    scale, isolevel, node_offset=None, cube_x_hi=None, extent=None,
+                    cube_y_hi=None):
+    """`mc_extract` up to the emission, the same arguments: (ntris (K,),
+    offs (K,) exclusive, total, tri15 (15, K), payload (10, 12, K),
+    emit_overflow) of the K = M cubes, or of the `cube_cap` compacted ones
+    (and then emit_overflow = live cubes beyond the cap)."""
     dev, dtype = lat_v.device, lat_v.dtype
     nx, ny, nz = spec.sample
     M = (nx - 1) * (ny - 1) * (nz - 1)
@@ -420,6 +468,42 @@ def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
     offs = torch.cumsum(ntris, 0) - ntris  # exclusive
     tri15, payload = _edge_payload(ci, vals, cnrm, ccol, corners, min_extent,
                                    step, scale, isolevel, tables)
-    out = _emit(ntris, offs, tri15, payload, spec.tri_capacity * 3)
+    return ntris, offs, total, tri15, payload, emit_ovf
+
+
+def mc_extract(lat_v, lat_n, lat_c, min_extent, spec: McSpec, h: float,
+               scale, isolevel, node_offset=None, cube_x_hi=None, extent=None,
+               cube_y_hi=None):
+    """Case classification, triangle cumsum and emission of one lattice.
+
+    `lat_v` (L,), `lat_n` (3, L), `lat_c` (4, L) in lattice order;
+    `min_extent` (3,), `scale` and `isolevel` are tensors or floats.
+    With `spec.cube_cap > 0` the live cubes are first compacted to a fixed
+    `cube_cap` rows by a cumsum-scatter of their ids (no host read, no
+    `nonzero`); their order is cube order, so the mesh is the one every cube
+    would emit.  `emit_overflow` = live cubes beyond the cap (mesh INVALID).
+    Otherwise, with `spec.emit_block > 0`, the slots are emitted in two
+    stages (`_emit_blocked`): the mesh equals the one-stage scatter's bit for
+    bit while no block holds more live rows than its staging rows, and
+    `emit_overflow` = the most live rows of a block beyond them (mesh
+    INVALID: rows were dropped).
+
+    Slab and tile mode (`parallel/sharded.py`, `parallel/sharded2d.py`):
+    `node_offset` maps local cube and node coords to global ones for the
+    vertex positions, and cubes outside the global march volume of `extent`
+    (the grid extent) or, with `cube_x_hi` / `cube_y_hi`, at global x >=
+    cube_x_hi / y >= cube_y_hi emit nothing.
+
+    Returns (vs (3, 3T), ns (3, 3T), cs (4, 3T), total, emit_overflow) with
+    T = `spec.tri_capacity`; `total` may exceed T, and then the buffer holds
+    the first T triangles."""
+    ntris, offs, total, tri15, payload, emit_ovf = emission_inputs(
+        lat_v, lat_n, lat_c, min_extent, spec, h, scale, isolevel, node_offset,
+        cube_x_hi, extent, cube_y_hi)
+    if spec.cube_cap <= 0 and spec.emit_block > 0:
+        out, emit_ovf = _emit_blocked(ntris, offs, tri15, payload, spec.tri_capacity * 3,
+                                      spec.emit_block, spec.emit_cap)
+    else:
+        out = _emit(ntris, offs, tri15, payload, spec.tri_capacity * 3)
     return (out[0:3], out[3:6], out[6:10], total.to(torch.int32),
             emit_ovf.to(torch.int32))

@@ -30,6 +30,17 @@ from pbf_sph_tpu_torch.tools import anchor_rate as ar
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_anchor():
     spec = importlib.util.spec_from_file_location(

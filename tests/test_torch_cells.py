@@ -43,6 +43,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def synthetic_index(counts, extent=(3, 3, 9), capacity=None):
     """A CellIndex with counts[(x, y, z)] rows in each listed cell, sorted
     by linear id, and non-member rows (key ncells) to the capacity."""

@@ -48,6 +48,17 @@ CASES = {
 VARIANTS = ("scene", "mixed")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def frame(request):
     mc, cfg, xs = simple_config_with_2_cubes(*CASES[request.param])

@@ -22,6 +22,17 @@ H = 0.1
 SCALE = 500.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grids(quirks=True):
     jspec = jgrid.GridSpec.from_bounds((0.0, 0.0, 0.0), (1000.0, 1000.0, 1000.0), SCALE, H)
     tspec = tgrid.GridSpec.from_bounds((0.0, 0.0, 0.0), (1000.0, 1000.0, 1000.0), SCALE, H)

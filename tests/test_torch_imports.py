@@ -15,7 +15,7 @@ from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
-from pbf_sph_tpu_torch.parallel import sharded2d
+from pbf_sph_tpu_torch.parallel import dryrun, sharded2d
 from pbf_sph_tpu_torch.parallel.comm import run_ranks
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_phases
@@ -47,7 +47,13 @@ assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases
         "pbf_sph_tpu_torch.cli", "pbf_sph_tpu_torch.utils.stopwatch",
         "pbf_sph_tpu_torch.utils.export", "pbf_sph_tpu_torch.utils.render",
         "pbf_sph_tpu_torch.visualise", "pbf_sph_tpu_torch.parallel",
-        "pbf_sph_tpu_torch.parallel.comm", "pbf_sph_tpu_torch.parallel.sharded"} <= set(names)
+        "pbf_sph_tpu_torch.parallel.comm", "pbf_sph_tpu_torch.parallel.sharded",
+        "pbf_sph_tpu_torch.parallel.sharded2d", "pbf_sph_tpu_torch.parallel.dryrun",
+        "pbf_sph_tpu_torch.tools.study", "pbf_sph_tpu_torch.tools.bench_mc_split",
+        "pbf_sph_tpu_torch.tools.micro_extract", "pbf_sph_tpu_torch.tools.roofline",
+        "pbf_sph_tpu_torch.tools.precision_centered",
+        "pbf_sph_tpu_torch.tools.load_balance",
+        "pbf_sph_tpu_torch.tools.multichip_model"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -59,11 +65,22 @@ print(len(names))
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 47  # every module of the package
+    assert int(res.stdout.split()[-1]) >= 55  # every module of the package
 
 
 def test_cuda_solver_raises_without_a_card(monkeypatch):
@@ -404,3 +421,22 @@ def test_micro_vpu_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         mv.main(["1"])
+
+
+@pytest.mark.parametrize("tool", ["bench_mc_split", "micro_extract", "roofline",
+                                  "precision_centered", "load_balance", "multichip_model"])
+def test_study_tools_need_a_card_unless_asked_for_cpu(monkeypatch, tool):
+    """The study tools run on the card unless `--devices cpu` asks for the
+    CPU; they never fall back to it."""
+    import importlib
+
+    module = importlib.import_module(f"pbf_sph_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        module.main([])
+
+
+def test_dryrun_needs_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.dryrun_multichip(2)

@@ -43,6 +43,17 @@ from pbf_sph_tpu_torch.ops.grid import GridSpec, build_cell_table, decode_key
 from test_mc_emit import _sphere_lattice
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_tables_equal_jax():
     for name in ("CUBE_OFFSETS", "EDGE_CORNERS", "EDGE_TABLE", "TRI_TABLE",
                  "NUM_VERTS_TABLE"):

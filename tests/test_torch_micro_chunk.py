@@ -16,6 +16,11 @@ and launch nothing.
   non-negative terms; torch and XLA round the pair terms in other orders).
 * `fma_ceiling(streams)` at 1, 2, 4 and 8 streams over its 16384 trips:
   bit for bit (`torch.addcmul` fuses c*1.000001 + x as XLA does here).
+  Its kernel runs through Pallas's generic interpreter (`interpret=True`,
+  the kernel body as plain XLA ops) on a second copy of the tool whose `pl`
+  is a stand-in that passes `interpret=True` to `pallas_call`: the TPU
+  interpreter took ~10 min for the 8-stream case under the tier's load, the
+  generic one ~1 s, with the same bits.
 * The plain version against a float64 evaluation of the same sums on
   seeded inputs, both bodies at interleave 1, 2 and 4: rtol 1e-5 (every
   term non-negative, so no sum cancels; 4e-6 at most here).
@@ -28,6 +33,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from pbf_sph_tpu_torch.tools import micro_chunk as mc
@@ -38,6 +44,17 @@ SEED = 3
 CASES = [(body, il) for body in mc.BODIES for il in mc.INTERLEAVES]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_tool():
     spec = importlib.util.spec_from_file_location(
@@ -45,6 +62,29 @@ def jax_tool():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     module.CHUNKS = CHUNKS
+    return module
+
+
+class GenericInterpreter:
+    """`pl` with `pallas_call(..., interpret=True)`: Pallas's generic
+    interpreter runs the kernel body as plain XLA ops."""
+
+    def __getattr__(self, name):
+        return getattr(pl, name)
+
+    @staticmethod
+    def pallas_call(*args, **kwargs):
+        return pl.pallas_call(*args, **{**kwargs, "interpret": True})
+
+
+@functools.lru_cache(maxsize=None)
+def jax_tool_generic():
+    """A second copy of the tool, its `pl` the generic interpreter's."""
+    spec = importlib.util.spec_from_file_location(
+        "micro_chunk_reference_generic", REPO / "tools" / "micro_chunk.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.pl = GenericInterpreter()
     return module
 
 
@@ -64,7 +104,7 @@ def jax_bench(body, interleave, case):
 @functools.lru_cache(maxsize=None)
 def jax_fma(streams):
     """The interpreted `fma_ceiling(streams)` kernel's output (64, 128)."""
-    tool = jax_tool()
+    tool = jax_tool_generic()
     kept = []
 
     def keep(fn, *args, reps=5):
@@ -72,8 +112,7 @@ def jax_fma(streams):
         return 1.0
 
     tool.timed = keep
-    with pltpu.force_tpu_interpret_mode():
-        tool.fma_ceiling(streams)
+    tool.fma_ceiling(streams)
     return kept[0]
 
 

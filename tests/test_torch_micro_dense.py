@@ -55,6 +55,17 @@ MXU_SEEDED_SHARE = 2e-3
 LABELS = list(md.BODIES)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def seeded():
     return md.random_inputs(SEED, NSUB, NCH)
 

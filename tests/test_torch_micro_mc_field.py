@@ -48,6 +48,17 @@ REPO = Path(__file__).resolve().parent.parent
 SCENES = sorted(FIELD_SCENES)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def jax_tool():
     """tools/micro_mc_field.py, its Pallas calls interpreted.  Loading it sets

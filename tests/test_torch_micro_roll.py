@@ -44,6 +44,17 @@ LAM_ATOL_SHARE = 1e-7
 LABELS = ("a", "b", "c", "d", "e", "f")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def load_tool(name: str, source=None):
     path = REPO / "tools" / f"{name}.py"
     if source is None:

@@ -21,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from pbf_sph_tpu_torch.ops.phases import PairConstants
@@ -28,6 +29,17 @@ from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import micro_window as mw
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,6 +14,7 @@ on CPU.
 
 import numpy as np
 import pytest
+import torch
 
 import pbf_sph_tpu.core.types as jtypes
 from pbf_sph_tpu.utils import export as jexport
@@ -24,6 +25,17 @@ from pbf_sph_tpu_torch.utils import render
 
 W, H = 64, 48
 PACKAGES = {"jax": (jrender, jtypes), "port": (render, ttypes)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mesh(types, rng, ntri=40, spread=0.08):

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import pbf_sph_tpu.core.types as jtypes
 from pbf_sph_tpu.core.configs import dam_break as jax_dam_break
@@ -32,6 +33,17 @@ WORKLOADS = {
     "2cubes700": lambda: jax_2cubes(700, 2, 500.0),
     "dam4096": lambda: jax_dam_break(4096, solver_iter=2),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _close(a, b, pos_atol=1e-3):

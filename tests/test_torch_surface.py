@@ -14,6 +14,7 @@ bounds clamp keeps empty, so the meshes agree.
 
 import numpy as np
 import pytest
+import torch
 
 import pbf_sph_tpu.core.types as jtypes
 from pbf_sph_tpu.core.configs import dam_break as jax_dam_break
@@ -22,6 +23,17 @@ from pbf_sph_tpu.models.jax_solver import JaxSolver
 from pbf_sph_tpu_torch.core import types as ttypes
 from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
 from test_torch_step import _close, _to_port
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _with_surface(tup):

@@ -42,6 +42,17 @@ CASES = {
 SWEEP = [(sub, mxu) for sub in (16, 32, 64) for mxu in (False, True)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: the tier runs several test
+    processes at once, and torch's default pool in each of them
+    oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def frame(case: str):
     mc, cfg, xs = simple_config_with_2_cubes(*CASES[case])

@@ -320,6 +320,31 @@ with a non-zero exit and no result line:
    load_balance (32k, 4 slabs, 20 frames, rebalancing) and multichip_model
    (32k; its exchange census equal to the byte model); rc 0 and the last
    line JSON.
+11. the host oracles and the last tools:
+11a. `TorchSolver(device="cuda")` (the kernel backend) against the port's
+   C++/OpenMP oracle (`models/cpp_solver.py`, built with g++ here) from the
+   same particles, under `tests/test_jax_vs_oracle.py`'s criteria: one
+   frame of simple_config_with_2_cubes(ORACLE_COUNT = 14000, 3, 500),
+   the largest whose cubes stay inside the 1000 bound, position and
+   velocity atol 0.02, colour 1e-3; its surface frame, triangle counts
+   within max(3, 1%) and centroid IoU > 0.95; one frame's SPH densities (a
+   NumPy poly6 over a k-d tree's pairs) rtol 2e-3; the
+   well/source/drain/query scene at 14000 particles, position and velocity
+   0.05 and the query's neighbour set equal; three frames with motion at
+   2000, 0.2, 0.5 and 5e-3 (at 14000 printed as a reading beside the
+   oracle's fp64 frames, which part from its fp32 ones by more than that).
+   One frame of bench20k (simple_config_with_2_cubes(20000, 6, 500)) with
+   its surface is printed as a reading beside the oracle's own fp64 frame,
+   which is run twice and must repeat bit for bit: the criteria do not hold
+   there between the oracle and itself;
+11b. the CLI through the oracles on bench20k: `--impl cpp --warmup 1
+   --iter 2`, `--impl cpp --fp64 --phase-timings` (its 12 phases) and
+   `--impl numpy --count 2000 --iter 1` (each at warmup 1): rc 0, the stats
+   block, both files read back; `--impl cpp --multichip 2` returns 1; the
+   oracles' frame-time means on the host clock beside the host CPU's model
+   and OpenMP's thread count;
+11c. the last three tools' mains: analyze_wcap (dam1m), micro_plan
+   (dam1m) and analyze_mc_windows (mc128k); rc 0 and the last line JSON.
 
 Then one JSON line of kernels (launches from the main path that runs each:
 phase 5 for diffuse (`diffuse_cell_sums`, `diffuse_cells`, whose line holds
@@ -369,6 +394,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -587,6 +613,9 @@ def phase_toolchain() -> None:
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  driver {drv}")
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout
+    print(f"g++: {gxx.strip().splitlines()[0]} (the C++ oracle's compiler, with OpenMP)")
 
 
 def phase_build() -> None:
@@ -2959,12 +2988,29 @@ def phase_dryrun() -> dict:
     return launches
 
 
-def phase_study_tools() -> None:
-    print("== 10c. the study tools' mains at small sizes")
+def run_tool(module, argv) -> dict:
+    """A tool's `main(argv)` with its standard output captured; prints the
+    last 14 lines before its JSON, checks rc 0 and that the JSON line names
+    the card, and returns that JSON."""
     import contextlib
     import io
-    import os
 
+    name = module.__name__.rsplit(".", 1)[1]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    text = buf.getvalue()
+    last = json.loads(text.strip().splitlines()[-1])
+    print(f"-- {name} {' '.join(argv)}: rc {rc} in {time.perf_counter() - t0:.1f} s")
+    print("\n".join(text.strip().splitlines()[:-1][-14:]))
+    check(rc == 0 and last.get("card") == card_line(),
+          f"{name}: rc 0, its JSON line names the card")
+    return last
+
+
+def phase_study_tools() -> None:
+    print("== 10c. the study tools' mains at small sizes")
     from pbf_sph_tpu_torch.tools import (bench_mc_split, load_balance, micro_extract,
                                          multichip_model, precision_centered, roofline)
 
@@ -2979,16 +3025,7 @@ def phase_study_tools() -> None:
     os.environ["PBF_LB_REBALANCE"] = "1"
     for module, argv in runs:
         name = module.__name__.rsplit(".", 1)[1]
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = module.main(argv)
-        text = buf.getvalue()
-        last = json.loads(text.strip().splitlines()[-1])
-        print(f"-- {name} {' '.join(argv)}: rc {rc} in {time.perf_counter() - t0:.1f} s")
-        print("\n".join(text.strip().splitlines()[:-1][-14:]))
-        check(rc == 0 and last.get("card") == card_line(),
-              f"{name}: rc 0, its JSON line names the card")
+        last = run_tool(module, argv)
         if name == "micro_extract":
             check(last["live_rows"] > 0 and all(
                 p["max_diff"] == 0.0 and not p["emit_overflow"]
@@ -3001,6 +3038,300 @@ def phase_study_tools() -> None:
                       for c in last["census"].values()),
                   "multichip_model: the exchange census equals the byte model")
     del os.environ["PBF_LB_REBALANCE"]
+
+
+# phase 11a: `tests/test_jax_vs_oracle.py`'s criteria, (position, velocity,
+# colour) atol
+ORACLE_ONE_FRAME = (0.02, 0.02, 1e-3)
+ORACLE_THREE_FRAMES = (0.2, 0.5, 5e-3)
+ORACLE_SCENE = (0.05, 0.05, 1e-3)
+DENSITY_RTOL = 2e-3
+# the 2-cube scene's particle count for one frame, its surface and its
+# densities, and the well/source/drain/query scene's: 14000 (13,718
+# particles), the largest at which the second cube stays inside the 1000
+# bound; the criteria hold there on the card (PERF.md §6).  Three frames
+# with motion are checked at 2000: from 3000 up the oracle's fp32 frames
+# part from its own fp64 ones by more than the criterion (the reading below)
+ORACLE_COUNT = 14000
+ORACLE_SCENE_COUNT = 14000
+ORACLE_THREE_FRAME_COUNT = 2000
+
+
+def state_errors(a, b, what: str, atols) -> dict:
+    """Max abs differences of position, velocity and colour of two states in
+    the same particle order, each checked against its atol."""
+    check(np.array_equal(a.pid, b.pid) and np.array_equal(a.ptype, b.ptype),
+          f"{what}: the same {len(a)} particle ids and types")
+    errs = {}
+    for name, atol in zip(("position", "velocity", "colour"), atols):
+        err = float(np.abs(getattr(a, name) - getattr(b, name)).max())
+        check(err <= atol, f"{what}: {name} max abs err {err:.4e} <= {atol}")
+        errs[name] = err
+    return errs
+
+
+def mesh_errors(a, b, what: str) -> dict:
+    """Triangle counts within max(3, 1%) and centroid IoU > 0.95 at 0.1
+    (`test_jax_vs_oracle.py:129-148`)."""
+    ta, tb = len(a.vs) // 3, len(b.vs) // 3
+
+    def centroids(mesh):
+        c = mesh.vs.reshape(-1, 3, 3).mean(axis=1)
+        return {tuple(v) for v in np.round(c, 1).tolist()}
+
+    ca, cb = centroids(a), centroids(b)
+    iou = len(ca & cb) / max(1, len(ca | cb))
+    check(tb > 0 and abs(ta - tb) <= max(3, 0.01 * tb),
+          f"{what}: {ta} triangles on the card, {tb} through the oracle "
+          f"(within max(3, 1%))")
+    check(iou > 0.95, f"{what}: centroid IoU {iou:.4f} > 0.95")
+    return dict(triangles=ta, oracle_triangles=tb, iou=iou)
+
+
+def sph_density(xs, cfg) -> np.ndarray:
+    """Per-particle SPH density of a state, the self term included, by one
+    NumPy evaluator over a k-d tree's pairs within h
+    (`test_jax_vs_oracle.py:71-85`)."""
+    from scipy.spatial import cKDTree
+
+    from pbf_sph_tpu_torch.ops.kernels import poly6, poly6_factor
+
+    f = np.float32
+    h = f(cfg.h)
+    pos = xs.position / f(cfg.scale)
+    pairs = cKDTree(pos).query_pairs(float(h), output_type="ndarray")
+    p6f = f(poly6_factor(cfg.h))
+    rho = np.full(len(xs), p6f * h**6, np.float64)
+    d = np.linalg.norm(pos[pairs[:, 0]] - pos[pairs[:, 1]], axis=1).astype(f)
+    w = poly6(d, h, p6f, np)
+    np.add.at(rho, pairs[:, 0], w)
+    np.add.at(rho, pairs[:, 1], w)
+    return rho * xs.mass
+
+
+def density_rel(a, b, cfg) -> float:
+    """The largest relative difference of two states' SPH densities."""
+    rho_a, rho_b = sph_density(a, cfg), sph_density(b, cfg)
+    return float(np.max(np.abs(rho_a - rho_b) / np.abs(rho_b)))
+
+
+def oracle_pair(cfg, scene, xs, frames: int, motion: bool = True):
+    """[(result, state)] after `frames` frames through the kernel backend on
+    the card and through the C++ oracle, from the same particles."""
+    from pbf_sph_tpu_torch.core.scene import apply_motion_sin_x_cos_z
+    from pbf_sph_tpu_torch.models.cpp_solver import CppSolver
+    from pbf_sph_tpu_torch.models.torch_solver import TorchSolver
+
+    out = []
+    for solver in (TorchSolver(h=cfg.h, device="cuda"), CppSolver(h=cfg.h)):
+        x = xs
+        for f in range(frames):
+            res, x = solver.advance(apply_motion_sin_x_cos_z(cfg, f) if motion else cfg,
+                                    scene, x)
+        out.append((res, x))
+    return out
+
+
+def oracle_scene(count: int):
+    """`test_jax_vs_oracle.py:98-124`'s scene (a well, a source, a drain and a
+    query) over simple_config_with_2_cubes(count, 3, 500)."""
+    from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
+    from pbf_sph_tpu_torch.core.types import Drain, Query, Scene, Source, Well
+
+    _, cfg, xs = simple_config_with_2_cubes(count, 3, 500.0)
+    return cfg, xs, Scene(
+        wells=[Well(tag=0, centre=(150.0, 30.0, 150.0), force=200.0)],
+        sources=[Source(tag=777, centre=(500, 400, 500), velocity=(0, 1, 0),
+                        colour=(1, 0, 0, 1), rate=9)],
+        drains=[Drain(tag=0, centre=(650, 60, 650), width=80.0)],
+        queries=[Query(id=3, point=(150, 30, 150))],
+    )
+
+
+def phase_oracles(count: int = ORACLE_COUNT, scene_count: int = ORACLE_SCENE_COUNT,
+                  three_count: int = ORACLE_THREE_FRAME_COUNT) -> dict:
+    print(f"== 11a. the kernel backend on the card against the C++/OpenMP oracle at {count} "
+          f"particles (three frames at {three_count}, the scene at {scene_count})")
+    from pbf_sph_tpu_torch.core.scene import (apply_motion_sin_x_cos_z,
+                                              simple_config_with_2_cubes)
+    from pbf_sph_tpu_torch.core.types import ParticleSoA, Scene
+    from pbf_sph_tpu_torch.models.cpp_solver import CppSolver
+
+    t0 = time.perf_counter()
+    CppSolver(h=0.1)
+    print(f"C++ oracle built and bound in {time.perf_counter() - t0:.2f} s")
+    report = {"count": count, "three_count": three_count, "scene_count": scene_count}
+
+    def oracle_fp64_gap(cfg, xs, o) -> float:
+        """The oracle's three fp64 frames against its fp32 ones `o`."""
+        x, solver = xs, CppSolver(h=cfg.h, dtype="float64")
+        for f in range(3):
+            x = solver.advance(apply_motion_sin_x_cos_z(cfg, f), Scene(), x)[1]
+        return float(np.abs(x.order_by_id().position - o.order_by_id().position).max())
+
+    _, cfg3, xs3 = simple_config_with_2_cubes(three_count, 3, 500.0)
+    (_, g), (_, o) = oracle_pair(cfg3, Scene(), xs3, 3)
+    report["three_frames"] = state_errors(g.order_by_id(), o.order_by_id(),
+                                          f"{three_count}, three frames", ORACLE_THREE_FRAMES)
+    report["three_frames"]["oracle_fp64_position"] = oracle_fp64_gap(cfg3, xs3, o)
+    mc, cfg, xs = simple_config_with_2_cubes(count, 3, 500.0)
+    (_, g), (_, o) = oracle_pair(cfg, Scene(), xs, 1)
+    report["one_frame"] = state_errors(g.order_by_id(), o.order_by_id(),
+                                       f"{count}, one frame", ORACLE_ONE_FRAME)
+    # a reading: three frames at `count`, the card's and the oracle's fp64
+    # positions each against the oracle's fp32
+    (_, g), (_, o) = oracle_pair(cfg, Scene(), xs, 3)
+    report["three_frames_at_count"] = dict(
+        position=float(np.abs(g.order_by_id().position - o.order_by_id().position).max()),
+        oracle_fp64_position=oracle_fp64_gap(cfg, xs, o))
+    (gr, _), (orr, _) = oracle_pair(cfg.replace(surface=mc), Scene(), xs, 1)
+    report["surface"] = mesh_errors(gr.mesh, orr.mesh, f"{count}, surface frame")
+    # test_density_parity: one frame, no surface
+    (_, g), (_, o) = oracle_pair(cfg, Scene(), xs, 1, motion=False)
+    rel = density_rel(g.order_by_id(), o.order_by_id(), cfg)
+    check(rel <= DENSITY_RTOL, f"{count}: density max rel err {rel:.4e} <= {DENSITY_RTOL}")
+    report["density"] = rel
+
+    cfg1, xs1, scene = oracle_scene(scene_count)
+    (gr, g), (orr, o) = oracle_pair(cfg1, scene, xs1, 1, motion=False)
+
+    def canon(x):
+        # spawned particles share one tag: order by (id, rounded position)
+        r = np.round(x.position, 1)
+        i = np.lexsort((r[:, 2], r[:, 1], r[:, 0], x.pid))
+        return ParticleSoA(x.pid[i], x.ptype[i], x.mass[i], x.position[i], x.velocity[i],
+                           x.colour[i])
+
+    check(len(g) == len(o), f"scene: {len(g)} particles on both")
+    report["scene"] = state_errors(canon(g), canon(o), f"{scene_count}, the scene",
+                                   ORACLE_SCENE)
+    qg, qo = (set(r.queries[0].neighbours.tolist()) for r in (gr, orr))
+    check(len(gr.queries) == len(orr.queries) == 1 and qg == qo and len(qg) > 0,
+          f"scene: the query's {len(qg)} neighbours equal")
+    print(f"{card_line()}: 11a largest differences {json.dumps(report)}")
+    return report
+
+
+def phase_bench20k_reading() -> dict:
+    """One bench20k frame with its surface through the card and the oracle,
+    a reading and not a check: its second cube spans 600..1040, past the
+    1000 bound, and the constraint solve amplifies rounding there until the
+    oracle parts from itself in fp64 (PERF.md §6).  The fp64 frame runs
+    twice and must give the same bits."""
+    print("== 11a. bench20k, one frame (a reading) and the fp64 oracle twice")
+    from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
+    from pbf_sph_tpu_torch.core.types import Scene
+    from pbf_sph_tpu_torch.models.cpp_solver import CppSolver
+    from pbf_sph_tpu_torch.native import build
+
+    mc20, cfg20, xs20 = simple_config_with_2_cubes(20000, 6, 500.0)
+    cfg20 = cfg20.replace(surface=mc20)
+    (gr, g), (orr, o) = oracle_pair(cfg20, Scene(), xs20, 1, motion=False)
+    (r64, o64), (r64b, o64b) = (CppSolver(h=cfg20.h, dtype="float64").advance(
+        cfg20, Scene(), xs20) for _ in range(2))
+    same = all(np.array_equal(getattr(o64, k), getattr(o64b, k))
+               for k in ("pid", "ptype", "mass", "position", "velocity", "colour")) and all(
+        np.array_equal(getattr(r64.mesh, k), getattr(r64b.mesh, k), equal_nan=True)
+        for k in ("vs", "ns", "cs"))
+    check(same, "bench20k: the fp64 oracle's frame, run twice in one process, bit for bit")
+    g, o, o64 = g.order_by_id(), o.order_by_id(), o64.order_by_id()
+    reading = dict(
+        outside=int((xs20.position > 1000).any(1).sum()),
+        position=float(np.abs(g.position - o.position).max()),
+        density_rel=density_rel(g, o, cfg20),
+        triangles=len(gr.mesh.vs) // 3, oracle_triangles=len(orr.mesh.vs) // 3,
+        oracle_fp64_position=float(np.abs(o64.position - o.position).max()),
+        oracle_fp64_density_rel=density_rel(o64, o, cfg20), oracle_fp64_repeats=same,
+        # named by a hash of the host CPU's flags among others: a differing
+        # name on the same checkout means another -march=native build
+        oracle_library=build.library_path(build.tables_header()).name)
+    print(f"bench20k, one frame (a reading; {host_cpu()}): {json.dumps(reading)}")
+    return reading
+
+
+def omp_threads() -> int:
+    """OpenMP's thread count in this process (libgomp's omp_get_max_threads)."""
+    import ctypes
+
+    return int(ctypes.CDLL("libgomp.so.1").omp_get_max_threads())
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name, or, where a
+    virtual machine reports that as unknown, its vendor, family and model
+    numbers; with the core count."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            info.setdefault(key.strip(), val.strip())
+    name = info.get("model name", "unknown")
+    if name in ("", "unknown"):
+        name = (f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')} "
+                f"model {info.get('model', '?')}")
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def phase_oracle_cli() -> None:
+    print("== 11b. the CLI through the host oracles")
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from pbf_sph_tpu_torch import cli
+    from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
+    from pbf_sph_tpu_torch.models.cpp_solver import PHASES
+
+    means = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl, extra, fp64, count in (("cpp", ["--iter", "2"], False, 20000),
+                                         ("cpp", ["--fp64", "--phase-timings", "--iter", "2"],
+                                          True, 20000),
+                                         ("numpy", ["--count", "2000", "--iter", "1"], False,
+                                          2000)):
+            argv = ["--impl", impl, *extra, "--warmup", "1",
+                    "--output", f"{tmp}/out_{{impl}}_{{type}}_{{iter}}"]
+            rc, stats, text = run_cli(argv)
+            check(rc == 0 and "Results flushed." in text, f"cli {' '.join(argv)}: rc 0")
+            n = len(simple_config_with_2_cubes(count, 6, 500.0)[2])
+            got, verts = int(stats["Final Particle count"]), int(stats["Final Vertex count"])
+            check(got == n and verts > 0 and "Frame-time mean" in stats,
+                  f"{impl}: the stats block, {got} particles of {n}, {verts} vertices")
+            iters = int(extra[extra.index("--iter") + 1])
+            out = Path(tmp) / cli.rendered_output_name("out_{impl}_{type}_{iter}", impl, fp64,
+                                                       iters)
+            ply = (out / "cloud.ply").read_text().splitlines()
+            obj = (out / "mesh.obj").read_text().splitlines()
+            check(f"element vertex {n}" in ply and len(ply) - ply.index("end_header") - 1 == n
+                  and sum(1 for line in obj if line.startswith("v ")) == verts,
+                  f"{impl}: {out.name}/cloud.ply holds {n} points, mesh.obj {verts} vertices")
+            if "--phase-timings" in extra:
+                check(text.count("Stopwatch[ advance]") == iters
+                      and all(f"`{p}`" in text for p in PHASES),
+                      f"cpp --fp64 --phase-timings: a table of its {len(PHASES)} phases a "
+                      f"frame")
+            means[f"{impl} {'fp64' if fp64 else 'fp32'} {count}"] = stats["Frame-time mean"]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, _, _ = run_cli(["--impl", "cpp", "--multichip", "2", "--warmup", "0", "--iter", "1"])
+    check(rc == 1 and "--multichip requires --impl torch or gather" in err.getvalue(),
+          f"cli --impl cpp --multichip 2: rc {rc}, {err.getvalue().strip()!r}")
+    print(f"oracle frame-time means (host clock; {host_cpu()}, {omp_threads()} OpenMP "
+          f"threads, {torch.get_num_threads()} torch threads): "
+          + ", ".join(f"{k}: {v}" for k, v in means.items()))
+    print(card_line())
+
+
+def phase_last_tools() -> None:
+    print("== 11c. analyze_wcap, micro_plan and analyze_mc_windows")
+    from pbf_sph_tpu_torch.tools import analyze_mc_windows, analyze_wcap, micro_plan
+
+    run_tool(analyze_wcap, [])
+    run_tool(micro_plan, [])
+    last = run_tool(analyze_mc_windows, [])
+    check(last["nodes"]["pairs"] > 0, f"analyze_mc_windows: {last['nodes']['pairs']} "
+                                      f"node-candidate pairs")
 
 
 def main() -> int:
@@ -3095,6 +3426,10 @@ def main() -> int:
     phase_study_tools()
     print(f"phase 10 launches: 10a {json.dumps(emit_launches)}; 10b (all ranks) "
           f"{json.dumps(dry_launches)}")
+    phase_oracles()
+    phase_bench20k_reading()
+    phase_oracle_cli()
+    phase_last_tools()
     launches["mc_field_cells"] = surface["mc_field_cells"]
     launches["mc_field"] += surface["mc_field"]  # row 4: both paths, each held at 0
     launches.update(staged_launches)

@@ -1,12 +1,14 @@
 """Benchmark CLI of the port, the headless entry point.
 
-    python -m pbf_sph_tpu_torch.cli [--impl torch|gather] [--fp64] ...
+    python -m pbf_sph_tpu_torch.cli [--impl torch|gather|cpp|numpy] [--fp64] ...
 
 Port of the single-chip path of `pbf_sph_tpu/cli.py`, which mirrors the
 reference benchmark's flags and output (reference `src/args.hpp:38-56`,
 `src/args.cpp:7-75`, `src/benchmark.cpp:77-175`):
-  --impl {torch,gather}   the CUDA kernels (fp32), or the JAX package's XLA
-                          gather path on plain torch ops (fp32 or fp64)
+  --impl {torch,gather,cpp,numpy}
+                          the CUDA kernels (fp32), the JAX package's XLA
+                          gather path on plain torch ops (fp32 or fp64), or
+                          a host oracle: C++/OpenMP or NumPy (fp32 or fp64)
   --list --verbose --devices --iter --warmup --fp64 --output
 plus --workload, --count, --no-surface and --phase-timings, and the JAX
 CLI's multi-device flags for the 1D slab engine (`parallel/sharded.py`) and
@@ -21,9 +23,10 @@ Default workload is the reference benchmark: 20k particles (two cubes),
 6 constraint iterations, scale 500, surface on, oscillating bounds, 200 warmup
 + 200 timed frames (reference `src/benchmark.cpp:23-29,78`).
 
-The CLI runs on `cuda:0` unless `--devices` picks another CUDA device by
-index or by name; `--devices cpu` is the one way to run on the CPU.  Without
-a CUDA device it fails.
+The device backends (`torch`, `gather`) run on `cuda:0` unless `--devices`
+picks another CUDA device by index or by name; `--devices cpu` is the one
+way to run them on the CPU, and without a CUDA device they fail.  The
+oracles run on the host and take no device, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import torch
 from pbf_sph_tpu_torch.core.configs import WORKLOADS
 from pbf_sph_tpu_torch.core.scene import apply_motion_sin_x_cos_z
 from pbf_sph_tpu_torch.core.types import Scene
-from pbf_sph_tpu_torch.models import BACKENDS, make_solver
+from pbf_sph_tpu_torch.models import BACKENDS, DEVICE_BACKENDS, make_solver
 from pbf_sph_tpu_torch.utils.stopwatch import Stopwatch
 
 DEFAULT_ITER = 200
@@ -65,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="timed frames (default 200)")
     p.add_argument("--warmup", type=int, default=DEFAULT_WARMUP,
                    help="warmup frames (default 200)")
-    p.add_argument("--fp64", action="store_true", help="use fp64 (gather backend)")
+    p.add_argument("--fp64", action="store_true",
+                   help="use fp64 (gather, cpp and numpy backends)")
     p.add_argument("--output", default="",
                    help="output dir template, expands {impl} {type} {iter}")
     p.add_argument("--workload", default="bench20k", choices=sorted(WORKLOADS),
@@ -558,14 +562,22 @@ def main(argv=None) -> int:
 
     dtype = "float64" if args.fp64 else "float32"
     if args.impl == "torch" and args.fp64:
-        # mirror the reference's explicit fp64 rejection (benchmark.cpp:140-141)
+        # mirror the reference's explicit fp64 rejection (benchmark.cpp:140-141);
+        # gather, numpy and cpp honour --fp64 (cpp through pbf_advance_f64,
+        # reference benchmark.cpp:159-165)
         print(f"FP64 is not supported for the {args.impl} backend!", file=sys.stderr)
+        return 1
+    if args.multichip and args.impl not in DEVICE_BACKENDS:
+        print("--multichip requires --impl torch or gather", file=sys.stderr)
         return 1
     if args.multichip and args.fp64:
         print("--multichip is fp32-only", file=sys.stderr)
         return 1
 
-    device = None if args.multichip else choose_device(args.devices, args.verbose)
+    # --devices applies to the device backends; an oracle takes no device
+    device = None
+    if not args.multichip and args.impl in DEVICE_BACKENDS:
+        device = choose_device(args.devices, args.verbose)
 
     if args.count and args.workload.startswith("bench"):
         from pbf_sph_tpu_torch.core.scene import simple_config_with_2_cubes
@@ -614,15 +626,18 @@ def main(argv=None) -> int:
         f_start = time.perf_counter()
         try:
             cfg_f = apply_motion_sin_x_cos_z(config, frame)
-            if args.phase_timings:
+            if args.phase_timings and args.impl in DEVICE_BACKENDS:
                 result, xs, watch = timed_advance(solver, cfg_f, xs)
             else:
                 result, xs = solver.advance(cfg_f, Scene(), xs)
+                # an oracle times its phases itself (the reference OMP
+                # backend prints its Stopwatch a frame, src/omp/ompsph.hpp:482)
+                watch = getattr(solver, "last_watch", None)
         except Exception as e:
             print(f"Caught exception at benchmark frame {frame}:\n{e}")
             raise
         frame_times.append((time.perf_counter() - f_start) * 1000.0)
-        if args.phase_timings:
+        if args.phase_timings and watch is not None:
             print(watch)
     elapsed = time.perf_counter() - start
 

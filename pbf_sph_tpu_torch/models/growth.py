@@ -10,9 +10,16 @@ Consumed by `TorchSolver.advance` (re-run the same frame) and by `bench.py`
 On the gather backend, `max_occupancy > cell_capacity` means that the (K, C)
 gathers truncated a cell's candidates: the frame is re-run under the larger
 K.  The kernel backend walks exact cell ranges, so there its cell branch
-only keeps the specs and warmups of both backends alike.  Neither backend
-has a strip buffer, so there is no strip-capacity branch: `strip_overflow`
-is always 0, and so is `mc_strip_overflow`.
+only keeps the specs and warmups of both backends alike.
+
+The JAX policy's two strip branches are not carried, by the port's ground
+rule of porting what a kernel computes and not how the TPU lays it out.
+`strip_capacity` sizes the VMEM strips of the Pallas λ/Δp kernels, and
+`mc_strip_capacity` those of the Pallas MC field, with its fall-back to the
+XLA field (`mc_pallas=False`) when a strip outgrows VMEM
+(`growth.py:79-92`).  The port's kernels and fields read the cell table
+directly and hold no strip, so no strip can overflow: `strip_overflow` and
+`mc_strip_overflow` are always 0, and there is nothing to fall back from.
 """
 
 from __future__ import annotations

@@ -108,7 +108,9 @@ def _exclusive_cummax(x: torch.Tensor) -> torch.Tensor:
 def plan_compact(sorted_key, cell_table, grid: GridSpec, capacity: int,
                  smax: int, wcap: int) -> Tuple[Wins, Dict[str, torch.Tensor]]:
     """Per-frame compaction plan, op for op as `pallas_pbf2.py:127-300`, on
-    the device of `sorted_key` with no host reads.
+    the device of `sorted_key` with no host reads: `plan_pieces`, then
+    `plan_intervals`, then `plan_chunks` (the stages `tools/micro_plan.py`
+    times one by one).
 
     Returns (wins, overflows):
       wins = dict(
@@ -126,6 +128,24 @@ def plan_compact(sorted_key, cell_table, grid: GridSpec, capacity: int,
     stable in JAX) a stable one.  Where two intervals share a `lo`, the strip
     a chunk is read through may differ from JAX's; the absolute source chunk
     of every slot and `nchunk` do not (`source_columns`)."""
+    pieces = plan_pieces(sorted_key, cell_table, grid, capacity, smax)
+    lo, hi, strip_of = plan_intervals(pieces, cell_table, grid)
+    wins, wcap_overflow = plan_chunks(lo, hi, strip_of, pieces["sstart"], smax, wcap)
+    i32 = torch.int32
+    overflows = dict(strip_overflow=pieces["strip_overflow"].to(i32),
+                     wcap_overflow=wcap_overflow.to(i32))
+    return wins, overflows
+
+
+def plan_pieces(sorted_key, cell_table, grid: GridSpec, capacity: int,
+                smax: int) -> Dict[str, torch.Tensor]:
+    """The plan's first stage: the rows' cells (the tail of non-members
+    given the last member's), the per-block per-dx strip starts and the
+    strip overflow, and each sub-block's cell range gap-split into NPIECES
+    pieces at its top NPIECES-1 cell-id gaps larger than GAP_MIN.  Returns
+    dict(pmin, pmax (nsub, NPIECES) int64: the pieces' first and last cells,
+    sstart (nblocks, 3) int64: 128-aligned strip starts, strip_overflow
+    0-d)."""
     C = capacity
     assert C % BLK == 0
     nblocks = C // BLK
@@ -162,26 +182,49 @@ def plan_compact(sorted_key, cell_table, grid: GridSpec, capacity: int,
     gidx = torch.sort(torch.where(gval > GAP_MIN, gidx, SUB - 1), dim=1).values
     starts = F.pad(torch.clamp(gidx + 1, max=SUB - 1), (1, 0))  # (nsub, NPIECES)
     ends = F.pad(gidx, (0, 1), value=SUB - 1)
-    pmin = linr.gather(1, starts)
-    pmax = linr.gather(1, ends)
+    return dict(pmin=linr.gather(1, starts), pmax=linr.gather(1, ends), sstart=sstart_al,
+                strip_overflow=strip_overflow)
 
-    # NIV raw intervals per sub-block (stencil offset outer, piece inner)
-    offs = torch.tensor([dx * nynz + dy * nz for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
-                        device=dev)[None, :, None]              # (1, 9, 1)
+
+def interval_bounds(pieces: Dict[str, torch.Tensor], cell_table, grid: GridSpec
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi), each (nsub, NIV) int64: the NIV raw intervals of each
+    sub-block (stencil offset outer, piece inner) gathered from the table."""
+    ncells = grid.ncells
+    _, ny, nz = grid.dims
+    pmin, pmax = pieces["pmin"], pieces["pmax"]
+    nsub = pmin.shape[0]
+    table = cell_table.long()
+    offs = torch.tensor([dx * ny * nz + dy * nz for dx in (-1, 0, 1) for dy in (-1, 0, 1)],
+                        device=pmin.device)[None, :, None]     # (1, 9, 1)
     lo = table[torch.clamp(pmin[:, None, :] + offs - 1, 0, ncells).reshape(nsub, NIV)]
     hi = table[torch.clamp(pmax[:, None, :] + offs + 2, 0, ncells).reshape(nsub, NIV)]
-    strip_of = (torch.arange(NIV, device=dev) // (3 * NPIECES)).expand(nsub, NIV)
+    return lo, hi
 
-    # sort by lo, then a running-max clip makes the intervals disjoint
+
+def plan_intervals(pieces: Dict[str, torch.Tensor], cell_table, grid: GridSpec
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plan's second stage: `interval_bounds`, with each interval's dx
+    strip, sorted by lo.  Returns (lo, hi, strip_of), each (nsub, NIV)."""
+    lo, hi = interval_bounds(pieces, cell_table, grid)
+    strip_of = (torch.arange(NIV, device=lo.device) // (3 * NPIECES)).expand(lo.shape)
     lo, order = torch.sort(lo, dim=1, stable=True)
-    hi = hi.gather(1, order)
-    strip_of = strip_of.gather(1, order)
+    return lo, hi.gather(1, order), strip_of.gather(1, order)
+
+
+def plan_chunks(lo, hi, strip_of, sstart_al, smax: int, wcap: int
+                ) -> Tuple[Wins, torch.Tensor]:
+    """The plan's third stage: the sorted intervals made disjoint by a
+    running max, each as the 128-aligned source chunks covering it (chunks
+    shared with an earlier interval dropped by the same running max), their
+    chains of slab chunks and the owner of each slab chunk by one scatter.
+    Returns (wins, wcap_overflow 0-d)."""
+    dev = lo.device
+    nsub = lo.shape[0]
     ilo = torch.maximum(lo, _exclusive_cummax(hi))
     ilen = torch.clamp(hi - ilo, min=0)
     live = ilen > 0
 
-    # each interval as the 128-aligned source chunks covering it, chunks
-    # shared with an earlier interval dropped by the same running max
     a = ilo // WCOL
     bnd = torch.where(live, (ilo + ilen - 1) // WCOL + 1, a)
     srcc0_abs = torch.maximum(a, _exclusive_cummax(torch.where(live, bnd, 0)))
@@ -214,9 +257,7 @@ def plan_compact(sorted_key, cell_table, grid: GridSpec, capacity: int,
     i32 = torch.int32
     wins = dict(meta=(strip_j * 8192 + src_chunk).to(i32), nchunk=nchunk.to(i32),
                 nchunkp=nchunkp.to(i32), sstart=sstart_al.to(i32))
-    overflows = dict(strip_overflow=strip_overflow.to(i32),
-                     wcap_overflow=wcap_overflow.to(i32))
-    return wins, overflows
+    return wins, wcap_overflow
 
 
 def source_columns(wins: Wins) -> torch.Tensor:

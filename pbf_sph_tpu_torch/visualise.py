@@ -1,6 +1,6 @@
 """Visualisation pipeline — headless frame export.
 
-    python -m pbf_sph_tpu_torch.visualise [--impl torch|gather] [--devices cpu] ...
+    python -m pbf_sph_tpu_torch.visualise [--impl torch|gather|cpp|numpy] [--devices cpu] ...
 
 Port of `pbf_sph_tpu/visualise.py`, the counterpart of the reference's
 `visualise` binary, which drives a Polyscope GUI with ImGui sliders
@@ -15,12 +15,14 @@ MC resolution takes a new step from `TorchSolver`'s per-spec cache on the
 next frame.
 
 The JAX module's flags and defaults, but for three: `--impl` takes the
-port's backends (`torch`, the CUDA kernels, or `gather`); `--devices` is the
-port CLI's (`cuda:0` unless it picks another CUDA device; `cpu` is the one
-way onto the CPU, and without a card the run fails); and `--precompile` /
-`--precompile-ladder` are parsed but do nothing, as for the JAX module's
-`--impl numpy`: `TorchSolver` builds a step in microseconds and has no
-`warm`.
+port's backends (`torch`, the CUDA kernels, the default; `gather`; and the
+host oracles `cpp` and `numpy`, as the JAX module takes its own); `--devices`
+is the port CLI's for `torch` and `gather` (`cuda:0` unless it picks another
+CUDA device; `cpu` is the one way onto the CPU, and without a card the run
+fails), while an oracle runs on the host and takes no device; and
+`--precompile` / `--precompile-ladder` are parsed but do nothing, as for the
+JAX module's `--impl numpy`: `TorchSolver` builds a step in microseconds and
+has no `warm`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 from pbf_sph_tpu_torch.cli import choose_device
 from pbf_sph_tpu_torch.core.scene import apply_motion_sin_x_cos_z, simple_config_with_2_cubes
 from pbf_sph_tpu_torch.core.types import McParams, Scene
-from pbf_sph_tpu_torch.models import BACKENDS, make_solver
+from pbf_sph_tpu_torch.models import BACKENDS, DEVICE_BACKENDS, make_solver
 from pbf_sph_tpu_torch.utils.export import (
     load_checkpoint, save_checkpoint, save_obj_mesh, save_ply_points)
 from pbf_sph_tpu_torch.utils.render import render_frame
@@ -43,10 +45,11 @@ from pbf_sph_tpu_torch.utils.render import render_frame
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pbf-sph-tpu-torch-visualise")
     p.add_argument("--impl", choices=BACKENDS, default="torch",
-                   help="solver backend (default torch: the CUDA kernels)")
+                   help="solver backend (default torch: the CUDA kernels; cpp "
+                        "and numpy are the host oracles)")
     p.add_argument("--devices", action="append", default=[],
-                   help="CUDA device index or name substring, or cpu "
-                        "(repeatable; default cuda:0, and no CPU fallback)")
+                   help="torch/gather: CUDA device index or name substring, or "
+                        "cpu (repeatable; default cuda:0, and no CPU fallback)")
     p.add_argument("--workload", choices=("2cubes", "dam"), default="2cubes",
                    help="2cubes = the reference GUI scene "
                         "(src/visualise.cpp:44-47); dam = dam-break column")
@@ -184,7 +187,8 @@ def precompile_plan(config, live_sets, ladder: int = 0):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = choose_device(args.devices)
+    # an oracle runs on the host: it is built without a device
+    device = choose_device(args.devices) if args.impl in DEVICE_BACKENDS else None
     if args.workload == "dam":
         from pbf_sph_tpu_torch.core.configs import dam_break
 

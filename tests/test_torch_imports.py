@@ -10,7 +10,7 @@ import torch
 from pbf_sph_tpu_torch.core.configs import dam_break
 from pbf_sph_tpu_torch.core.types import Scene
 from pbf_sph_tpu_torch import bench
-from pbf_sph_tpu_torch.models import BACKENDS, make_solver
+from pbf_sph_tpu_torch.models import BACKENDS, DEVICE_BACKENDS, make_solver
 from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, dyn_params_of
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
@@ -53,7 +53,11 @@ assert {"pbf_sph_tpu_torch.tools.phases2", "pbf_sph_tpu_torch.tools.bench_phases
         "pbf_sph_tpu_torch.tools.micro_extract", "pbf_sph_tpu_torch.tools.roofline",
         "pbf_sph_tpu_torch.tools.precision_centered",
         "pbf_sph_tpu_torch.tools.load_balance",
-        "pbf_sph_tpu_torch.tools.multichip_model"} <= set(names)
+        "pbf_sph_tpu_torch.tools.multichip_model",
+        "pbf_sph_tpu_torch.models.numpy_solver", "pbf_sph_tpu_torch.models.cpp_solver",
+        "pbf_sph_tpu_torch.native.build", "pbf_sph_tpu_torch.tools.analyze_wcap",
+        "pbf_sph_tpu_torch.tools.micro_plan",
+        "pbf_sph_tpu_torch.tools.analyze_mc_windows"} <= set(names)
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -94,11 +98,12 @@ def test_cuda_solver_raises_without_a_card(monkeypatch):
 def test_default_device_is_cuda(monkeypatch):
     """Without a device the solver, the engines' ThreadComm ranks and a
     rank's state ask for CUDA, and without a card they raise; nothing picks
-    the CPU by itself."""
+    the CPU by itself.  The host oracles are the other backends: they take
+    no device."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchSolver()
-    for impl in BACKENDS:
+    for impl in DEVICE_BACKENDS:
         with pytest.raises(RuntimeError, match="CUDA"):
             make_solver(impl)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -115,7 +120,8 @@ def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert TorchSolver().device == torch.device("cuda")
     assert make_solver("gather").device == torch.device("cuda")
-    assert BACKENDS == ("torch", "gather")
+    assert DEVICE_BACKENDS == ("torch", "gather")
+    assert BACKENDS == ("torch", "gather", "cpp", "numpy")
 
 
 @pytest.mark.parametrize("env", [{}, {"PBF_BENCH_IMPL": "gather"},

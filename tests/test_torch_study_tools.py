@@ -28,6 +28,14 @@ their own, their free variables given.
   at its caps; `project` equal to the JAX tool's `project` (its census and
   byte model given the port's, the same rates, rest and link) at every N
   both run, to 1e-12 relative.
+* analyze_wcap: the printed census at every gap split G equal to the JAX
+  tool's on dam_break(1500)'s frame-0 cells.
+* micro_plan: on the dam_break(1500, 2) frame its stages' pieces run in
+  order, the gather-only stage gives the intervals the sort then orders,
+  and the chunk stage gives `plan_compact`'s wins (by construction: the
+  plan composes the same stages).
+* analyze_mc_windows: its node-candidate pairs equal a brute count of the
+  members in each node's 27 cells on a 2-cube surface frame, node by node.
 * `dryrun_multichip(4)` on the CPU: every overflow 0, a mesh, the alive
   count equal to the particles gathered from the ranks and to the
   single-chip solver's after the same frame and scene.
@@ -56,13 +64,18 @@ from pbf_sph_tpu_torch.core.types import Scene
 from pbf_sph_tpu_torch.models.torch_solver import TorchSolver, advect_and_sort, dyn_params_of
 from pbf_sph_tpu_torch.parallel import dryrun
 from pbf_sph_tpu_torch.tools import (
+    analyze_mc_windows,
+    analyze_wcap,
     bench_mc_split,
     load_balance,
     micro_extract,
+    micro_plan,
     multichip_model,
     precision_centered,
     roofline,
+    study,
 )
+from pbf_sph_tpu_torch.tools import phases2 as p2
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -292,6 +305,67 @@ def test_projection_matches_jax(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# analyze_wcap, micro_plan, analyze_mc_windows
+# ---------------------------------------------------------------------------
+
+
+def test_wcap_census_matches_jax(monkeypatch, capsys):
+    monkeypatch.setattr("sys.argv", ["analyze_wcap.py", "1500"])
+    jax_tool("analyze_wcap").main()
+    want = [line for line in capsys.readouterr().out.splitlines() if line.startswith("G=")]
+    assert analyze_wcap.main(["1500", "--devices", "cpu"]) == 0
+    got = [line.split("  <-")[0] for line in capsys.readouterr().out.splitlines()
+           if line.startswith("G=")]
+    assert len(want) == len(analyze_wcap.SPLITS) and got == want
+
+
+def test_micro_plan_stages():
+    """The timed stages on the dam_break(1500, 2) frame: s1's pieces run in
+    order over each sub-block's cells, s2a gives the intervals s2 orders, and
+    s3 gives the whole plan's wins (`plan_compact` composes the same three
+    stages, so that last holds by construction; the plan's own check is
+    against JAX, in test_torch_phases2.py)."""
+    spec, fr = frame()
+    key, table = fr.index.key, fr.index.table
+    calls = micro_plan.stages(key, table, spec.grid, spec.capacity)
+    pieces = calls["s1 lin+topk+pieces"]()
+    pmin, pmax = pieces["pmin"], pieces["pmax"]
+    assert bool((pmin <= pmax).all()) and bool((pmax[:, :-1] <= pmin[:, 1:]).all())
+    lin = torch.clamp(key.long(), max=spec.grid.ncells - 1)[: pmin.shape[0] * p2.SUB]
+    assert int(pmax.max()) <= int(lin.max()) and int(pmin.min()) >= int(lin.min())
+    lo, hi = calls["s2a gather only"]()
+    slo, shi, strip_of = calls["s2 gather+sort"]()
+    assert torch.equal(torch.sort(lo, dim=1).values, slo)
+    assert torch.equal(torch.sort(hi, dim=1).values, torch.sort(shi, dim=1).values)
+    assert bool((strip_of >= 0).all()) and bool((strip_of < 3).all())
+    wins, _ = calls["s3 chains+scatter"]()
+    whole, _ = calls["full plan_compact"]()
+    assert all(torch.equal(wins[k], whole[k]) for k in whole)
+    assert int(whole["nchunk"].sum()) > 0
+
+
+def test_mc_windows_pairs_match_brute_count():
+    _, spec, state, dyn, scn, _ = study.settled(study.workload_of("cubes:800"), "cpu", 1)
+    fr = advect_and_sort(spec, state, dyn, scn)
+    got = analyze_mc_windows.census(fr.index, spec.surface)
+    # brute: per node, the members whose cell lies within one of the node's
+    # cell on every axis
+    from pbf_sph_tpu_torch.ops import mc_field as mf
+
+    _, cell, skip = mf.lattice_nodes(spec.surface, spec.grid.extent, "cpu")
+    _, ny, nz = spec.grid.dims
+    key = fr.index.key.long()
+    lin = key[key < spec.grid.ncells]
+    pc = torch.stack([lin // (ny * nz), lin // nz % ny, lin % nz])     # (3, members)
+    near = ((cell.long()[:, :, None] - pc[:, None, :]).abs() <= 1).all(0)
+    per_node = (near.sum(1) * ~skip).numpy()
+    assert got["nodes"]["pairs"] == int(per_node.sum()) > 0
+    assert got["nodes"]["live"] == int((per_node > 0).sum())
+    assert got["nodes"]["per_live"]["max"] == int(per_node.max())
+    assert got["nodes"]["live"] + got["nodes"]["vacuum"] == got["nodes"]["nodes"]
+
+
+# ---------------------------------------------------------------------------
 # the dry run and the tools' mains
 # ---------------------------------------------------------------------------
 
@@ -313,8 +387,11 @@ def test_dryrun_multichip_4_conserves_and_meshes():
 
 
 MAINS = {
+    "analyze_mc_windows": (analyze_mc_windows, ["cubes:800", "1"], "nodes"),
+    "analyze_wcap": (analyze_wcap, ["1500"], "census"),
     "bench_mc_split": (bench_mc_split, ["cubes:600", "1"], "ms"),
     "micro_extract": (micro_extract, ["cubes:800", "64"], "parity"),
+    "micro_plan": (micro_plan, ["1500", "1"], "overflows"),
     "roofline": (roofline, ["600", "1"], "census"),
     "precision_centered": (precision_centered, [], "errors"),
     "load_balance": (load_balance, ["600", "4", "2"], "peak_frac"),
@@ -331,3 +408,5 @@ def test_main_runs_on_cpu(name, capsys):
     if name == "micro_extract":
         assert last["live_rows"] > 0
         assert all(p["max_diff"] == 0.0 for p in last["parity"].values())
+    if name == "micro_plan":
+        assert len(last["ms"]) == 5 and last["overflows"]["wcap_overflow"] == 0

@@ -30,17 +30,20 @@ with a non-zero exit and no result line:
    second and the bound.  No solver path runs these kernels, so their
    launches are counted over this phase;
 3d. the v2 compacted-candidate kernels (`csrc/pbf_phases2.cu`) on the same
-   two states: the chain once through its `PbfPhases2` wrappers, with the
-   plan grown until it has no overflow, then each kernel against its plain
-   version: the compaction of the pStar and lambda packs bit for bit on every
-   column below nchunkp*128, lambda2 atol 1e-6 / rtol 1e-5, pStar after
-   delta2 and the clamp atol 1e-5, diffuse2 count exact and sums atol 1e-6;
-   with CUDA-event times, slab pairs per second, the bound (for the dense
-   three, over the per-row pairs of the phase whose result they give), the
-   slab roofline and, for the compaction, the time of `index_select` over
-   the plan's column map.  No
-   solver path runs these kernels either: their launches are counted over
-   this phase;
+   two states: the chain once through its `PbfPhases2` wrappers (λ2 and Δp2
+   on the cull kernels), with the plan grown until it has no overflow, and
+   the dense λ2 and Δp2 once through `DensePhases2`; then each kernel
+   against its plain version: the compaction of the pStar and lambda packs
+   bit for bit on every column below nchunkp*128, lambda2 atol 1e-6 / rtol
+   1e-5, pStar after delta2 and the clamp atol 1e-5, diffuse2 count exact
+   and sums atol 1e-6; the cull λ2 and Δp2 bit for bit the dense ones on
+   every member row and to the same tolerances of the plain versions there;
+   with CUDA-event times, slab pairs and kept pairs (counted by the plain
+   mirror of the cull, `cull_keep_plain`, on the card) per second, the bound (for
+   the dense three and the cull two, over the per-row pairs of the phase
+   whose result they give), the slab roofline and, for the compaction, the
+   time of `index_select` over the plan's column map.  No solver path runs
+   these kernels either: their launches are counted over this phase;
 3e. the rate-anchor kernels (`csrc/anchor_rate.cu`, the kernels of
    `tools/anchor_rate.py`): the SASS of each (cuobjdump: every issue
    instantiation's loop holds nstreams*unroll instructions of its op, the
@@ -446,6 +449,10 @@ KERNELS = {
     "compact": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:323"),
     "lambda2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:474"),
     "delta2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:547"),
+    # lambda2 and delta2 redesigned: only the slab columns that can
+    # contribute (the kernels PbfPhases2 launches)
+    "lambda2_cull": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:474"),
+    "delta2_cull": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:547"),
     "diffuse2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:612"),
     # the rate anchor of tools/anchor_rate.py: build_issue, build_body, build_subfix
     "anchor_issue": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:116"),
@@ -540,7 +547,8 @@ MC_FLOP_PER_HIT = 14
 # the bound, reads the slab once and pays only the test that rejects a lane
 # on every slab pair (3 differences, r2 as 3 products and 2 adds, the
 # compare; diffuse2: the band test's 8 and the compare)
-V2_PHASE = {"lambda2": "lambda", "delta2": "delta", "diffuse2": "diffuse"}
+V2_PHASE = {"lambda2": "lambda", "delta2": "delta", "diffuse2": "diffuse",
+            "lambda2_cull": "lambda", "delta2_cull": "delta"}
 SLAB_TEST_FLOP = 9
 # csrc/anchor_rate.cu: the issue kernels' operations are per round in
 # anchor_rate.FLOP_PER_ROUND (an FMA two); the bodies' are the phase kernels'
@@ -793,11 +801,13 @@ def phase_tiles(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
 
 def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     """3d: the v2 chain (plan, compact pStar, lambda2, compact lambda, delta2,
-    diffuse2) once through the `PbfPhases2` wrappers (the launches counted
-    for its kernels), then each kernel against its plain version on the same
-    inputs; `report` gets the compact/lambda2/delta2/diffuse2 entries (the
+    diffuse2) once through the `PbfPhases2` wrappers and the dense lambda2
+    and delta2 once through `DensePhases2` (the launches counted for their
+    kernels), then each kernel against its plain version on the same inputs
+    and the cull kernels against the dense ones; `report` gets the
+    compact/lambda2/delta2/diffuse2/lambda2_cull/delta2_cull entries (the
     largest error over both states, this state's times) and "launches_v2"
-    the wrappers' counts."""
+    the wrappers' counts under those names."""
     print(f"== 3d. v2 compacted-candidate kernels against their plain PyTorch "
           f"versions, capacity {spec.capacity}")
     from pbf_sph_tpu_torch.ops import phases as ph
@@ -825,10 +835,19 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     phases.delta_phase(wins, cands, lamc, fr.pstar, lam, member, st.ptype, st.alive,
                        *bounds)
     phases.diffuse(wins, st.colour, cells, member, st.ptype, st.alive, dyn["dt"])
+    rows_l = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], st.mass], dim=1)
+    rows_d = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], lam], dim=1)
+    dense = p2.DensePhases2(h)
+    lam_k = dense.lambda_raw(nchunkp, rows_l, cands)
+    dp_k = dense.delta_raw(nchunkp, rows_d, cands, lamc)
     torch.cuda.synchronize()
-    launches = report.setdefault("launches_v2", dict.fromkeys(phases.launches, 0))
+    # PbfPhases2 counts its cull kernels as lambda2/delta2
+    counts = {"compact": phases.launches["compact"], "diffuse2": phases.launches["diffuse2"],
+              "lambda2_cull": phases.launches["lambda2"],
+              "delta2_cull": phases.launches["delta2"], **dense.launches}
+    launches = report.setdefault("launches_v2", dict.fromkeys(counts, 0))
     for name in launches:
-        launches[name] += phases.launches[name]
+        launches[name] += counts[name]
 
     # the compaction, for the 4-field pStar pack and the 1-field lambda pack
     packs = {"pStar": p2.pstar_pack(fr.pstar, member), "lambda": lam.reshape(1, -1)}
@@ -838,20 +857,37 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
         check(same, f"compact {name} ({packed.shape[0]} fields) bit for bit on the "
                     f"{ncols} columns below nchunkp*128")
 
-    rows_l = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], st.mass], dim=1)
-    lam_k = p2.lambda2_kernel(nchunkp, rows_l, cands, h)
     lam_p = p2.lambda2_plain(nchunkp, rows_l, cands, h)
     err_l = float((lam_k - lam_p).abs().max())
     check(torch.allclose(lam_k, lam_p, atol=1e-6, rtol=1e-5),
           f"lambda2 max abs err {err_l:.3e} (atol 1e-6, rtol 1e-5)")
 
-    rows_d = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], lam], dim=1)
-    moved = [ph.clamp_to_bounds(fr.pstar, delta(nchunkp, rows_d, cands, lamc, h),
-                                st.ptype, st.alive & member, *bounds)
-             for delta in (p2.delta2_kernel, p2.delta2_plain)]
+    dp_p = p2.delta2_plain(nchunkp, rows_d, cands, lamc, h)
+    moved = [ph.clamp_to_bounds(fr.pstar, dp, st.ptype, st.alive & member, *bounds)
+             for dp in (dp_k, dp_p)]
     err_p = float((moved[0] - moved[1]).abs().max())
     check(err_p <= 1e-5 and bool(torch.isfinite(moved[0]).all()),
           f"pStar after delta2 and the clamp max abs err {err_p:.3e} <= 1e-5, finite")
+
+    # the cull kernels: the dense kernels' raw values on every member row, bit
+    # for bit, and their plain versions' there (non-member rows are masked)
+    nmember = int(member.sum())
+    lam_c = p2.lambda2_cull_kernel(nchunkp, rows_l, cands, member, h)
+    check(torch.equal(lam_c[member], lam_k[member]),
+          f"lambda2_cull bit for bit lambda2 on {nmember} member rows")
+    err_lc = float((lam_c - lam_p)[member].abs().max())
+    check(torch.allclose(lam_c[member], lam_p[member], atol=1e-6, rtol=1e-5),
+          f"lambda2_cull max abs err {err_lc:.3e} on member rows (atol 1e-6, rtol 1e-5)")
+    dp_c = p2.delta2_cull_kernel(nchunkp, rows_d, cands, lamc, member, h)
+    check(torch.equal(dp_c[:, member], dp_k[:, member]),
+          f"delta2_cull bit for bit delta2 on {nmember} member rows")
+    moved_c = ph.clamp_to_bounds(fr.pstar, dp_c, st.ptype, st.alive & member, *bounds)
+    err_pc = float((moved_c - moved[1]).abs().max())
+    check(err_pc <= 1e-5 and bool(torch.isfinite(moved_c).all()),
+          f"pStar after delta2_cull and the clamp max abs err {err_pc:.3e} <= 1e-5, finite")
+    kept = p2.kept_pairs(nchunkp, rows_l, member, cands, h)
+    print(f"  kept pairs (cull_keep_plain) {kept} ({kept / spairs:.4f} of the {spairs} slab pairs, "
+          f"{kept / pairs:.3f}x the {pairs} per-row pairs)")
 
     dims = spec.grid.dims
     cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, dims)
@@ -891,6 +927,14 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
                    lambda: p2.delta2_plain(nchunkp, rows_d, cands, lamc, h), err_p,
                    nbytes(rows_d, moved[0]) + plan_bytes,
                    nbytes(rows_d, nchunkp, moved[0]) + 4 * col_bytes, None),
+        # the same plain versions as lambda2/delta2, timed once there
+        "lambda2_cull": (lambda: p2.lambda2_cull_kernel(nchunkp, rows_l, cands, member, h),
+                         None, err_lc, nbytes(rows_l, member, lam_c) + plan_bytes,
+                         nbytes(rows_l, member, nchunkp, lam_c) + 3 * col_bytes, None),
+        "delta2_cull": (lambda: p2.delta2_cull_kernel(nchunkp, rows_d, cands, lamc, member,
+                                                      h),
+                        None, err_pc, nbytes(rows_d, member, moved_c) + plan_bytes,
+                        nbytes(rows_d, member, nchunkp, moved_c) + 4 * col_bytes, None),
         "diffuse2": (lambda: p2.diffuse2_kernel(nchunkp, cl, cands_c, cands_w, dims),
                      lambda: p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims), err_d,
                      nbytes(cl, st.colour, wpack, sk) + plan_bytes,
@@ -898,7 +942,8 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     }
     for name, (kern, plain, err, io_bytes, slab_bytes, library) in timings.items():
         ms = device_ms(kern, reps[0])
-        plain_ms = device_ms(plain, 1)
+        plain_ms = (device_ms(plain, 1) if plain is not None
+                    else report[name.removesuffix("_cull")]["plain_ms"])
         library_ms = device_ms(library, reps[0]) if library is not None else None
         if name == "compact":
             bound_ms, bound_by = bound(io_bytes, 0)
@@ -908,6 +953,10 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
             slab_ms, slab_by = bound(slab_bytes, spairs * SLAB_TEST_FLOP)
             rate = (f"{spairs / ms / 1e6:.3f} G slab pairs/s, {pairs / ms / 1e6:.3f} G "
                     f"per-row pairs/s; slab roofline {slab_ms:.4f} ms by {slab_by}")
+            if name.endswith("_cull"):
+                kept_ms, kept_by = bound(slab_bytes, kept * FLOP_PER_PAIR[V2_PHASE[name]])
+                rate += (f"; {kept / ms / 1e6:.3f} G kept pairs/s, the slab read and the "
+                         f"kept pairs' chain {kept_ms:.4f} ms by {kept_by}")
         lib = f", index_select {library_ms:.4f} ms" if library_ms is not None else ""
         print(f"  {name}: kernel {ms:.4f} ms ({rate}), plain {plain_ms:.4f} ms{lib}, "
               f"bound {bound_ms:.4f} ms by {bound_by}")

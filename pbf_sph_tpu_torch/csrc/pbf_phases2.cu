@@ -5,6 +5,9 @@
 //   pbf_lambda2   <- make_lambda2_call  (:474, on _dense_phase :422)
 //   pbf_delta2    <- make_delta2_call   (:547)
 //   pbf_diffuse2  <- make_diffuse2_call (:612)
+// and redesigns two of them (the kernels PbfPhases2 launches):
+//   pbf_lambda2_cull <- make_lambda2_call (:474)  lambda2 over the kept pairs
+//   pbf_delta2_cull  <- make_delta2_call  (:547)  delta2 over the kept pairs
 // Each computes what its Pallas kernel computes from the same plan
 // (pbf_sph_tpu_torch/tools/phases2.py: plan_compact) and slabs; the masks,
 // clamp and mix of the Pallas wrappers stay in the Python wrappers
@@ -28,9 +31,10 @@
 // shared memory with coalesced float4 loads (four per lane per field), then
 // every lane walks the group, reading the same address as the other lanes
 // (broadcast, no bank conflicts).  Bound by operations: every row meets
-// every slab column, ~15x the pairs of the per-row kernels of
-// pbf_phases.cu at the 1M dam break, for 26 (lambda2), 34 (delta2) and 19
-// (diffuse2) fp32 operations a pair as written below.
+// every slab column, 9.8x the pairs of the per-row kernels of
+// pbf_phases.cu at the settled 1M dam break (tools/bench_phases.py), for 26
+// (lambda2), 34 (delta2) and 19 (diffuse2) fp32 operations a pair as
+// written below.
 //
 // Every launcher runs on the given stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError().
@@ -109,6 +113,20 @@ struct Lambda2Pair {
   }
 };
 
+// A row's raw lambda from its pair sums, each operation rounded as written
+// (the contractions the compiler chose for the dense kernel, pinned), so
+// lambda2_kernel and lambda2_cull_kernel agree bit for bit.
+__device__ __forceinline__ float lambda_of(const Lambda2Pair& p, float mass, float p6f,
+                                           float c_grad, float rho_recip, float cfm) {
+  const float rho = __fmul_rn(mass, __fmul_rn(p.p6s, p6f));
+  const float cx = __fmul_rn(p.gx, c_grad);
+  const float cy = __fmul_rn(p.gy, c_grad);
+  const float cz = __fmul_rn(p.gz, c_grad);
+  const float norm2 = __fmaf_rn(cz, cz, __fmaf_rn(cy, cy, __fmul_rn(cx, cx)));
+  const float ci = __fmaf_rn(rho, rho_recip, -1.0f);
+  return __fdiv_rn(-ci, __fadd_rn(norm2, cfm));
+}
+
 __global__ void __launch_bounds__(kDenseWarps * kWarp)
     lambda2_kernel(const float4* __restrict__ rows,  // (C,) x, y, z, mass
                    const float* __restrict__ cands,  // (4, S) 1, x, y, z
@@ -141,11 +159,7 @@ __global__ void __launch_bounds__(kDenseWarps * kWarp)
     }
     __syncwarp();
   }
-  const float rho = a.w * (p.p6s * p6f);
-  const float cx = p.gx * c_grad, cy = p.gy * c_grad, cz = p.gz * c_grad;
-  const float norm2 = cx * cx + cy * cy + cz * cz;
-  const float ci = rho * rho_recip - 1.0f;
-  lam[t * kWarp + lane] = -ci / (norm2 + cfm);
+  lam[t * kWarp + lane] = lambda_of(p, a.w, p6f, c_grad, rho_recip, cfm);
 }
 
 struct Delta2Pair {
@@ -285,6 +299,284 @@ __global__ void __launch_bounds__(kDenseWarps * kWarp)
 
 inline int dense_blocks(int nsub) { return (nsub + kDenseWarps - 1) / kDenseWarps; }
 
+// ---------------------------------------------------------------------------
+// pbf_lambda2_cull / pbf_delta2_cull: lambda2 and delta2 over the slab pairs
+// that can contribute.
+//
+// The dense kernels above spend their time on pairs whose terms are exact
+// zeros: at the 1M dam break ~11% of the slab columns lie within h of some
+// row of their sub-block.  These kernels give the same raw lambda and delta
+// on every member row, bit for bit, by skipping only pairs whose terms are
+// +-0 and summing the rest in the dense kernels' order with the same pair
+// structs.  Per warp (one sub-block, one lane a row):
+//   1. the AABB of the warp's member rows, by shuffles (no member: empty);
+//   2. the group test: a group is the 4 columns of one staged float4 slot, a
+//      lane's own; the warp ballots each slot's AABB against the row AABB
+//      and skips, warp-uniform, the slots whose squared gap is >= hh_keep.
+//      SENTINEL columns (x = 1e9) and the spilled interval lanes drop out;
+//   3. the vote: in a kept slot, each column's squared distance to every
+//      member row and one __any_sync; only a column some member row has
+//      within hh_keep runs the pair chain;
+//   4. the slab is staged 256 columns at a time by 16-byte cp.async into two
+//      shared buffers, the next stage in flight while one is walked; delta
+//      stages the lambda slab of a stage only for its kept slots.
+// The tests' squared distances are three products and two sums rounded in
+// PTX (`test_r2`): never contracted and sharing no product with the pair
+// chain, whose contractions stay those of the dense kernels.  The gap is <=
+// |dx|, |dy|, |dz| component by component, so a column the vote keeps is
+// never in a skipped slot, and `cull_keep_plain` (tools/phases2.py) repeats
+// the keep mask.  Groups of 1, 8, 16 and 32 columns were no faster at the 1M
+// dam break (PERF.md): a slot's AABB comes from the float4s the lane loads,
+// with no shuffle and one ballot for 4 columns.
+//
+// Why a skipped pair's terms are zero: hh_keep = hh (1 + 2^-19), rounded up.
+// The test's r2 and the chain's (any contraction) are both within 3 roundings
+// of |d|^2, so a skipped pair has chain r2 >= hh (1 + 2^-19) (1 - 6u), u =
+// 2^-24: tt = max(hh - r2, 0) = 0.  With rsqrtf within 2 ulp (2^-22) and one
+// more rounding of r2 * u, r2 * rsqrtf(r2) >= sqrt(r2) (1 - 1.25 * 2^-22),
+// and hh is f32(h*h) >= h^2 (1 - 3u) of the fp32 h: the spiky factor
+// max(h - r2 * u, 0) is 0 too.  A zero spiky factor makes the lambda gradient
+// terms and the delta term +-0 (lambda and the lambda slab are finite), and
+// adding +-0 to a sum that starts at +0 changes no bit.
+//
+// Bound: the slab read (3 fields, 4 for delta) and ~11 instructions a
+// column for the vote in the kept slots; the pair chain runs on the voted
+// ~11%.
+
+constexpr int kStage = 2 * kChunk;          // columns a stage copies
+constexpr int kStage4 = kStage / 4;         // float4s of a field in a stage
+constexpr int kStageK = kStage4 / kWarp;    // float4s of a field a lane copies
+constexpr int kCullWarps = 4;               // sub-blocks per CTA
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One stage of the x, y, z slab fields into shared memory (no wait).
+__device__ __forceinline__ void stage_xyz(float4 (*dst)[kStage4], const float* fx,
+                                          const float* fy, const float* fz, int g,
+                                          int lane) {
+#pragma unroll
+  for (int k = 0; k < kStageK; ++k) {
+    const int i = k * kWarp + lane;
+    cp_async16(&dst[0][i], fx + g + 4 * i);
+    cp_async16(&dst[1][i], fy + g + 4 * i);
+    cp_async16(&dst[2][i], fz + g + 4 * i);
+  }
+}
+
+// The keep tests' squared distance (dx^2 + dy^2) + dz^2, each operation
+// rounded to nearest in PTX: the compiler neither contracts it nor shares a
+// product with the pair chain.  Monotone in |dx|, |dy|, |dz|.
+__device__ __forceinline__ float test_r2(float dx, float dy, float dz) {
+  float r;
+  asm("{\n\t.reg .f32 x2, y2, z2;\n\t"
+      "mul.rn.f32 x2, %1, %1;\n\t"
+      "mul.rn.f32 y2, %2, %2;\n\t"
+      "mul.rn.f32 z2, %3, %3;\n\t"
+      "add.rn.f32 x2, x2, y2;\n\t"
+      "add.rn.f32 %0, x2, z2;\n\t}"
+      : "=f"(r)
+      : "f"(dx), "f"(dy), "f"(dz));
+  return r;
+}
+
+struct Box {
+  float lx, ly, lz, hx, hy, hz;
+};
+
+// The AABB of the warp's member rows; empty (+inf, -inf) with none.
+__device__ __forceinline__ Box row_box(float4 a, bool in) {
+  const float inf = __int_as_float(0x7f800000);
+  Box b{in ? a.x : inf, in ? a.y : inf, in ? a.z : inf,
+        in ? a.x : -inf, in ? a.y : -inf, in ? a.z : -inf};
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    b.lx = fminf(b.lx, __shfl_xor_sync(kFull, b.lx, o));
+    b.ly = fminf(b.ly, __shfl_xor_sync(kFull, b.ly, o));
+    b.lz = fminf(b.lz, __shfl_xor_sync(kFull, b.lz, o));
+    b.hx = fmaxf(b.hx, __shfl_xor_sync(kFull, b.hx, o));
+    b.hy = fmaxf(b.hy, __shfl_xor_sync(kFull, b.hy, o));
+    b.hz = fmaxf(b.hz, __shfl_xor_sync(kFull, b.hz, o));
+  }
+  return b;
+}
+
+__device__ __forceinline__ float gap(float glo, float ghi, float rlo, float rhi) {
+  return fmaxf(fmaxf(glo - rhi, rlo - ghi), 0.f);
+}
+
+__device__ __forceinline__ bool box_near(const Box& g, const Box& r, float hh_keep) {
+  return test_r2(gap(g.lx, g.hx, r.lx, r.hx), gap(g.ly, g.hy, r.ly, r.hy),
+                 gap(g.lz, g.hz, r.lz, r.hz)) < hh_keep;
+}
+
+// The group test over one stage (buf: its x, y, z fields), warp-uniform:
+// bit `lane` of keep[k] is set when float4 slot k*32 + lane is kept.
+__device__ __forceinline__ void stage_masks(float4 (*buf)[kStage4], int lane,
+                                            const Box& r, float hh_keep,
+                                            unsigned (&keep)[kStageK]) {
+#pragma unroll
+  for (int k = 0; k < kStageK; ++k) {
+    const int i = k * kWarp + lane;
+    const float4 x = buf[0][i], y = buf[1][i], z = buf[2][i];
+    const Box g{fminf(fminf(x.x, x.y), fminf(x.z, x.w)),
+                fminf(fminf(y.x, y.y), fminf(y.z, y.w)),
+                fminf(fminf(z.x, z.y), fminf(z.z, z.w)),
+                fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)),
+                fmaxf(fmaxf(y.x, y.y), fmaxf(y.z, y.w)),
+                fmaxf(fmaxf(z.x, z.y), fmaxf(z.z, z.w))};
+    keep[k] = __ballot_sync(kFull, box_near(g, r, hh_keep));
+  }
+}
+
+// Whether this lane's row is a member within hh_keep of the column.
+__device__ __forceinline__ bool near(float4 a, bool in, float bx, float by, float bz,
+                                     float hh_keep) {
+  return in && test_r2(a.x - bx, a.y - by, a.z - bz) < hh_keep;
+}
+
+// The vote: visit(c, x, y, z) for every column c of the kept slots of a
+// stage that some member row of the warp has within hh_keep, in column
+// order, with the column's coordinates.  Warp-uniform.
+template <class Visit>
+__device__ __forceinline__ void walk(float4 (*buf)[kStage4], const unsigned (&keep)[kStageK],
+                                     float4 a, bool in, float hh_keep, Visit visit) {
+#pragma unroll
+  for (int k = 0; k < kStageK; ++k) {
+    for (unsigned b = keep[k]; b; b &= b - 1) {
+      const int i = k * kWarp + __ffs(b) - 1;
+      const float4 x = buf[0][i], y = buf[1][i], z = buf[2][i];
+      if (__any_sync(kFull, near(a, in, x.x, y.x, z.x, hh_keep)))
+        visit(4 * i, x.x, y.x, z.x);
+      if (__any_sync(kFull, near(a, in, x.y, y.y, z.y, hh_keep)))
+        visit(4 * i + 1, x.y, y.y, z.y);
+      if (__any_sync(kFull, near(a, in, x.z, y.z, z.z, hh_keep)))
+        visit(4 * i + 2, x.z, y.z, z.z);
+      if (__any_sync(kFull, near(a, in, x.w, y.w, z.w, hh_keep)))
+        visit(4 * i + 3, x.w, y.w, z.w);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kCullWarps * kWarp)
+    lambda2_cull_kernel(const float4* __restrict__ rows,   // (C,) x, y, z, mass
+                        const float* __restrict__ cands,   // (4, S) 1, x, y, z
+                        const unsigned char* __restrict__ member,  // (C,)
+                        const int* __restrict__ nchunkp, int nsub, int wcap, float h,
+                        float hh, float hh_keep, float eps2, float p6f, float c_grad,
+                        float rho_recip, float cfm, float* __restrict__ lam) {
+  __shared__ float4 buf[kCullWarps][2][3][kStage4];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int t = blockIdx.x * kCullWarps + warp;
+  if (t >= nsub) return;  // whole warps only; the kernel has no block barrier
+  const long long slab = (long long)nsub * wcap;
+  const float* fx = cands + slab + (long long)t * wcap;
+  const float* fy = fx + slab;
+  const float* fz = fy + slab;
+  const float4 a = rows[t * kWarp + lane];
+  const bool in = member[t * kWarp + lane] != 0;
+  const Box box = row_box(a, in);
+  Lambda2Pair p{a.x, a.y, a.z, h, hh, eps2};
+  const int nst = nchunkp[t] * kChunk / kStage;
+  if (nst > 0) {
+    stage_xyz(buf[warp][0], fx, fy, fz, 0, lane);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<0>();
+    __syncwarp();
+    if (s + 1 < nst) {
+      stage_xyz(buf[warp][(s + 1) & 1], fx, fy, fz, (s + 1) * kStage, lane);
+      cp_async_commit();
+    }
+    unsigned keep[kStageK];
+    stage_masks(buf[warp][s & 1], lane, box, hh_keep, keep);
+    walk(buf[warp][s & 1], keep, a, in, hh_keep,
+         [&](int, float bx, float by, float bz) { p(bx, by, bz); });
+    __syncwarp();
+  }
+  lam[t * kWarp + lane] = lambda_of(p, a.w, p6f, c_grad, rho_recip, cfm);
+}
+
+__global__ void __launch_bounds__(kCullWarps * kWarp)
+    delta2_cull_kernel(const float4* __restrict__ rows,   // (C,) x, y, z, lambda
+                       const float* __restrict__ cands,   // (4, S) 1, x, y, z
+                       const float* __restrict__ lamc,    // (1, S)
+                       const unsigned char* __restrict__ member,  // (C,)
+                       const int* __restrict__ nchunkp, int nsub, int wcap, float h,
+                       float hh, float hh_keep, float eps2, float skf, float xqf,
+                       float corr_k, float rho_recip, float* __restrict__ dp) {
+  __shared__ float4 buf[kCullWarps][2][3][kStage4];
+  __shared__ float4 lbuf[kCullWarps][kStage4];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int t = blockIdx.x * kCullWarps + warp;
+  if (t >= nsub) return;
+  const long long slab = (long long)nsub * wcap;
+  const float* fl = lamc + (long long)t * wcap;
+  const float* fx = cands + slab + (long long)t * wcap;
+  const float* fy = fx + slab;
+  const float* fz = fy + slab;
+  const float4 a = rows[t * kWarp + lane];
+  const bool in = member[t * kWarp + lane] != 0;
+  const Box box = row_box(a, in);
+  Delta2Pair p{a.x, a.y, a.z, a.w, h, hh, eps2, skf, xqf, corr_k, rho_recip};
+  const float* sl = reinterpret_cast<const float*>(lbuf[warp]);
+  const int nst = nchunkp[t] * kChunk / kStage;
+  if (nst > 0) {
+    stage_xyz(buf[warp][0], fx, fy, fz, 0, lane);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<0>();
+    __syncwarp();
+    unsigned keep[kStageK];
+    stage_masks(buf[warp][s & 1], lane, box, hh_keep, keep);
+    // this lane's float4s of the lambda slab, where the slot is kept
+#pragma unroll
+    for (int k = 0; k < kStageK; ++k) {
+      if ((keep[k] >> lane) & 1u) {
+        const int i = k * kWarp + lane;
+        cp_async16(&lbuf[warp][i], fl + s * kStage + 4 * i);
+      }
+    }
+    cp_async_commit();
+    if (s + 1 < nst) {
+      stage_xyz(buf[warp][(s + 1) & 1], fx, fy, fz, (s + 1) * kStage, lane);
+      cp_async_commit();
+      cp_async_wait<1>();  // the lambda slab of this stage, not the next stage
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    walk(buf[warp][s & 1], keep, a, in, hh_keep,
+         [&](int c, float bx, float by, float bz) { p(bx, by, bz, sl[c]); });
+    __syncwarp();
+  }
+  const long long n = (long long)nsub * kWarp;
+  const int i = t * kWarp + lane;
+  dp[i] = p.sx;
+  dp[n + i] = p.sy;
+  dp[2 * n + i] = p.sz;
+}
+
+inline int cull_blocks(int nsub) { return (nsub + kCullWarps - 1) / kCullWarps; }
+
 }  // namespace
 
 extern "C" {
@@ -325,6 +617,34 @@ int pbf_delta2(const void* rows, const void* cands, const void* lamc,
         (const float4*)rows, (const float*)cands, (const float*)lamc,
         (const int*)nchunkp, nsub, wcap, h, hh, eps2, skf, xqf, corr_k,
         rho_recip, (float*)dp);
+  }
+  return (int)cudaGetLastError();
+}
+
+int pbf_lambda2_cull(const void* rows, const void* cands, const void* member,
+                     const void* nchunkp, int nsub, int wcap, float h, float hh,
+                     float hh_keep, float eps2, float p6f, float c_grad,
+                     float rho_recip, float cfm, void* lam, void* stream) {
+  if (nsub > 0) {
+    lambda2_cull_kernel<<<cull_blocks(nsub), kCullWarps * kWarp, 0,
+                          (cudaStream_t)stream>>>(
+        (const float4*)rows, (const float*)cands, (const unsigned char*)member,
+        (const int*)nchunkp, nsub, wcap, h, hh, hh_keep, eps2, p6f, c_grad, rho_recip,
+        cfm, (float*)lam);
+  }
+  return (int)cudaGetLastError();
+}
+
+int pbf_delta2_cull(const void* rows, const void* cands, const void* lamc,
+                    const void* member, const void* nchunkp, int nsub, int wcap,
+                    float h, float hh, float hh_keep, float eps2, float skf, float xqf,
+                    float corr_k, float rho_recip, void* dp, void* stream) {
+  if (nsub > 0) {
+    delta2_cull_kernel<<<cull_blocks(nsub), kCullWarps * kWarp, 0,
+                         (cudaStream_t)stream>>>(
+        (const float4*)rows, (const float*)cands, (const float*)lamc,
+        (const unsigned char*)member, (const int*)nchunkp, nsub, wcap, h, hh, hh_keep,
+        eps2, skf, xqf, corr_k, rho_recip, (float*)dp);
   }
   return (int)cudaGetLastError();
 }

@@ -12,18 +12,24 @@ times (CUDA events over `reps` calls after a warm one, default 10):
   `advect_and_sort`, the counterpart of the JAX 16-operand `lax.sort`) and
   the cell table;
 * v2 (`tools/phases2.py` `PbfPhases2`): the plan, compact pStar, lambda2,
-  compact lambda, delta2 and diffuse2 (its two compactions included).  smax
-  and wcap start where `tools/bench_phases.py` starts them and grow by
+  compact lambda, delta2 and diffuse2 (its two compactions included), with
+  lambda2 and delta2 on the cull kernels.  smax and wcap start where
+  `tools/bench_phases.py` starts them and grow by
   `grown_strip_capacity`/`grown_wcap` until the plan reports no overflow;
   the run fails if one is left at STRIP_MAX/WCAP_MAX;
+* the raw lambda2 and delta2 kernels alone: the dense ones (`DensePhases2`)
+  and the cull ones, with the share of the slab columns the cull kernels'
+  group test passes to the vote;
 * v1 (`ops/phases.py` `PbfPhases`): lambda, delta and diffuse (the per-row
   `diffuse_rows`).
 
 Then the parity of v2 against v1 on member rows (max |dlambda|, max
 |dpStar| after one delta phase and the clamp, each chain with its own
-lambda, max |dcolour| and the largest diffuse count difference), and the
-pairs each evaluates: v2 every slab column of its sub-block,
-sum nchunkp*128*32; v1 the per-row candidate ranges.
+lambda, max |dcolour| and the largest diffuse count difference), the cull
+kernels' largest difference from the dense ones on member rows (0 when bit
+for bit), and the pairs each evaluates: the dense v2 kernels every slab
+column of its sub-block, sum nchunkp*128*32; the cull kernels the kept
+columns times 32 (`kept_pairs`); v1 the per-row candidate ranges.
 
 The first line is the card's name and power limit, the last one JSON object.
 There is no CPU fallback: without a CUDA device the tool fails.  (The JAX
@@ -140,6 +146,29 @@ def main(argv=None) -> int:
     colour2 = dif2_fn()
     times["diffuse2"] = device_ms(dif2_fn, reps)
 
+    # the raw lambda2 / delta2 kernels: dense and cull
+    nchunkp = wins["nchunkp"]
+    rows_l = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], st.mass], dim=1)
+    rows_d = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], lam2], dim=1)
+    dense = p2.DensePhases2(h)
+    lam_d = dense.lambda_raw(nchunkp, rows_l, cands)
+    dp_d = dense.delta_raw(nchunkp, rows_d, cands, lamc)
+    times["lambda2_dense"] = device_ms(lambda: dense.lambda_raw(nchunkp, rows_l, cands),
+                                       reps)
+    times["delta2_dense"] = device_ms(
+        lambda: dense.delta_raw(nchunkp, rows_d, cands, lamc), reps)
+    lam_c = p2.lambda2_cull_kernel(nchunkp, rows_l, cands, member, h)
+    dp_c = p2.delta2_cull_kernel(nchunkp, rows_d, cands, lamc, member, h)
+    cull_diff = max(float((lam_c - lam_d)[member].abs().max()),
+                    float((dp_c - dp_d)[:, member].abs().max()))
+    times["lambda2_cull"] = device_ms(
+        lambda: p2.lambda2_cull_kernel(nchunkp, rows_l, cands, member, h), reps)
+    times["delta2_cull"] = device_ms(
+        lambda: p2.delta2_cull_kernel(nchunkp, rows_d, cands, lamc, member, h), reps)
+    group_share = (int(p2.cull_keep_plain(nchunkp, rows_l, member, cands, h, vote=False).sum())
+                   / (int(nchunkp.long().sum()) * p2.WCOL))
+    kept = p2.kept_pairs(nchunkp, rows_l, member, cands, h)
+
     # v1
     phases1 = ph.PbfPhases(h)
     lam1_fn = lambda: phases1.lambda_phase(  # noqa: E731
@@ -168,26 +197,42 @@ def main(argv=None) -> int:
     lo, hi = ph.neighbour_ranges(idx)
     row_pairs = int((hi - lo).sum())
     slab_pairs = p2.slab_pairs(wins)
-    nchunkp = wins["nchunkp"].float()
+    nchunkp = nchunkp.float()
+    # PbfPhases2 counts its cull kernels as lambda2/delta2; named here as in
+    # the kernels line of chip_smoke.py, the dense ones under their own names
+    launches = {"compact": phases2.launches["compact"],
+                "lambda2_cull": phases2.launches["lambda2"],
+                "delta2_cull": phases2.launches["delta2"],
+                "diffuse2": phases2.launches["diffuse2"], **dense.launches}
 
     print(f"== shared: sort {times['sort']:.4f} ms, table {times['table']:.4f} ms")
     print(f"== v2 (smax {smax}, wcap {wcap}, {replans} replans; nchunkp mean "
           f"{float(nchunkp.mean()):.2f}, max {int(nchunkp.max())}): plan "
           f"{times['plan2']:.4f}, compact pStar {times['compact_pstar']:.4f}, lambda2 "
           f"{times['lambda2']:.4f}, compact lambda {times['compact_lam']:.4f}, delta2 "
-          f"{times['delta2']:.4f}, diffuse2 {times['diffuse2']:.4f} ms")
+          f"{times['delta2']:.4f}, diffuse2 {times['diffuse2']:.4f} ms (lambda2 and delta2 "
+          f"cull)")
+    print(f"== v2 raw kernels: dense lambda2 {times['lambda2_dense']:.4f}, delta2 "
+          f"{times['delta2_dense']:.4f} ms; cull lambda2 {times['lambda2_cull']:.4f}, delta2 "
+          f"{times['delta2_cull']:.4f} ms, the group test passes {group_share:.4f} of the "
+          f"columns")
     print(f"== v1: lambda {times['lambda1']:.4f}, delta {times['delta1']:.4f}, "
           f"diffuse {times['diffuse1']:.4f} ms")
-    print(f"== pairs: v2 {slab_pairs} slab pairs ({slab_pairs / row_pairs:.2f}x), "
-          f"v1 {row_pairs} per-row pairs; lambda2 {slab_pairs / times['lambda2'] / 1e6:.1f} "
-          f"G slab pairs/s, lambda1 {row_pairs / times['lambda1'] / 1e6:.1f} G pairs/s")
+    print(f"== pairs: v2 {slab_pairs} slab pairs ({slab_pairs / row_pairs:.2f}x), cull "
+          f"{kept} kept pairs ({kept / slab_pairs:.4f} of the slab, "
+          f"{kept / row_pairs:.3f}x), v1 {row_pairs} per-row pairs; lambda2 dense "
+          f"{slab_pairs / times['lambda2_dense'] / 1e6:.1f} G slab pairs/s, lambda2 "
+          f"{slab_pairs / times['lambda2'] / 1e6:.1f} G slab pairs/s, lambda1 "
+          f"{row_pairs / times['lambda1'] / 1e6:.1f} G pairs/s")
     print("== parity v2 - v1 on member rows: " + ", ".join(
-        f"{k} {v:.3e}" for k, v in parity.items()))
+        f"{k} {v:.3e}" for k, v in parity.items())
+        + f"; cull - dense raw lambda2/delta2: {cull_diff:.3e}")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0),
                       "count": len(xs), "capacity": spec.capacity, "reps": reps,
                       "smax": smax, "wcap": wcap, "times_ms": times, "parity": parity,
-                      "slab_pairs": slab_pairs, "row_pairs": row_pairs,
-                      "launches": dict(phases2.launches)}))
+                      "cull_vs_dense": cull_diff, "group_share": group_share,
+                      "slab_pairs": slab_pairs, "kept_pairs": kept, "row_pairs": row_pairs,
+                      "launches": launches}))
     return 0
 
 

@@ -24,6 +24,13 @@ As in `ops/phases.py` each kernel has a launcher (`compact_kernel`,
 `PbfPhases2` picks between them by the device of its tensors alone and
 counts kernel launches.  A launcher raises on a tensor it does not take.
 
+On the card `PbfPhases2` runs lambda2 and delta2 as `lambda2_cull_kernel`
+and `delta2_cull_kernel`: the same raw values on every member row, bit for
+bit, over only the slab columns that can contribute (`cull_keep_plain`, the
+keep mask of their group and vote tests, in plain torch).  Their plain
+versions are `lambda2_plain` and `delta2_plain`.  The dense kernels that walk
+every column stay as launchers, counted through `DensePhases2`.
+
 Pair math as in Pallas: r2 clamped to EPSILON^2 from below, the rsqrt form
 of the spiky gradient, no per-pair mask.  The one deliberate difference:
 the Pallas diffuse2 reduces its colour sums with a default-precision matmul
@@ -61,6 +68,10 @@ GAP_MIN = 6         # split only at cell-id gaps larger than this
 WCAP_MAX = 5120
 STRIP_MAX = 24576
 SENTINEL = np.float32(1.0e9)
+# the cull kernels: the columns of a group their group test takes (one
+# float4 slot of a lane), and the relative margin on h^2 of their keep tests
+CULL_GROUP = 4
+KEEP_MARGIN = 2.0 ** -19
 
 Wins = Dict[str, torch.Tensor]
 
@@ -275,6 +286,58 @@ def slab_pairs(wins: Wins) -> int:
     return int(wins["nchunkp"].long().sum()) * WCOL * SUB
 
 
+def keep_hh(h: float) -> float:
+    """The cull kernels' keep threshold: hh (1 + KEEP_MARGIN) rounded up to
+    fp32.  A pair whose tests' squared distance is at or above it has zero
+    poly6 and spiky factors in the pair math (`csrc/pbf_phases2.cu`)."""
+    want = PairConstants.of(h).hh * (1.0 + KEEP_MARGIN)
+    keep = np.float32(want)
+    if float(keep) < want:
+        keep = np.nextafter(keep, np.float32(np.inf))
+    return float(keep)
+
+
+def _test_r2(dx, dy, dz):
+    """The keep tests' squared distance: three fp32 products and two sums, in
+    the kernels' order (`test_r2`, never contracted)."""
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def cull_keep_plain(nchunkp, rows, member, cands, h: float, vote: bool = True):
+    """(nsub, wcap) bool: the slab columns the cull kernels walk the pair
+    chain for.  A column is kept when its group of CULL_GROUP columns has an
+    AABB within `keep_hh` of the AABB of its sub-block's member rows (the
+    group test; alone with vote=False), and some member row has it within
+    `keep_hh` (the vote); columns >= nchunkp*128 never.  Plain torch
+    arithmetic, not a kernel: the kernels' two tests repeated, for the
+    tests and for counting kept pairs."""
+    hk = keep_hh(h)
+    nsub = nchunkp.shape[0]
+    a = rows.reshape(nsub, SUB, 4)[..., :3]
+    inside = member.reshape(nsub, SUB)
+    inf = float("inf")
+    lo = torch.where(inside[..., None], a, inf).amin(1).T[..., None]    # (3, nsub, 1)
+    hi = torch.where(inside[..., None], a, -inf).amax(1).T[..., None]
+    keep = []
+    for tb, (pc,) in _slab_blocks(nchunkp, (cands,)):
+        c = pc[1:4]                                                   # (3, B, wcap)
+        cg = c.reshape(3, c.shape[1], -1, CULL_GROUP)
+        gap = torch.clamp(torch.maximum(cg.amin(-1) - hi[:, tb], lo[:, tb] - cg.amax(-1)),
+                          min=0.0)
+        kept = (_test_r2(*gap) < hk).repeat_interleave(CULL_GROUP, dim=-1)
+        if vote:
+            d = _row_diffs(a, tb, c)
+            kept &= ((_test_r2(*d) < hk) & inside[tb, :, None]).any(1)
+        keep.append(kept)
+    return torch.cat(keep)
+
+
+def kept_pairs(nchunkp, rows, member, cands, h: float) -> int:
+    """Row-candidate pairs the cull kernels run the pair chain for: the kept
+    columns times the 32 rows of a sub-block."""
+    return int(cull_keep_plain(nchunkp, rows, member, cands, h).sum()) * SUB
+
+
 def pstar_pack(pstar, member):
     """The (4, C) pack [1, x|SENTINEL, y, z] whose compaction is the
     lambda2/delta2 candidate slab: non-member slots are blanked in x, so they
@@ -331,15 +394,17 @@ def _slab_blocks(nchunkp, slabs: Sequence[torch.Tensor], max_pairs: int = 1 << 2
 
 
 def _row_diffs(rows, tb: slice, cand):
-    """(3, B, SUB, wcap) row minus candidate: rows (nsub, SUB, 4), cand the
-    x, y, z slab rows (3, B, wcap)."""
+    """(3, B, SUB, wcap) row minus candidate: rows (nsub, SUB, >= 3), cand
+    the x, y, z slab rows (3, B, wcap)."""
     return rows[tb, :, :3].permute(2, 0, 1)[..., None] - cand[:, :, None, :]
 
 
-def lambda2_plain(nchunkp, rows, cands, h: float):
+def lambda2_plain(nchunkp, rows, cands, h: float, keep=None):
     """Raw lambda (C,) before the mask; what `lambda2_kernel` computes
-    (`pallas_pbf2.py:498-540`).  rows (C, 4) [x, y, z, mass]; cands the
-    (4, nsub*wcap) pStar slab [1, x|SENTINEL, y, z]."""
+    (`pallas_pbf2.py:498-540`), and `lambda2_cull_kernel` on member rows.
+    rows (C, 4) [x, y, z, mass]; cands the (4, nsub*wcap) pStar slab
+    [1, x|SENTINEL, y, z].  keep, an (nsub, wcap) bool mask such as
+    `cull_keep_plain`'s, sets the terms of the other columns to 0."""
     c = PairConstants.of(h)
     nsub = nchunkp.shape[0]
     a = rows.reshape(nsub, SUB, 4)
@@ -350,19 +415,24 @@ def lambda2_plain(nchunkp, rows, cands, h: float):
         r2 = torch.clamp(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], min=c.eps2)
         u = torch.rsqrt(r2)
         tt = torch.clamp(c.hh - r2, min=0.0)
-        p6s[tb] = (tt * tt * tt).sum(-1)
         t2 = torch.clamp(c.h - r2 * u, min=0.0)
-        g[:, tb] = (d * (t2 * t2 * u)).sum(-1)
+        p6, gt = tt * tt * tt, d * (t2 * t2 * u)
+        if keep is not None:
+            kb = keep[tb, None, :]
+            p6, gt = torch.where(kb, p6, 0.0), torch.where(kb, gt, 0.0)
+        p6s[tb] = p6.sum(-1)
+        g[:, tb] = gt.sum(-1)
     rho = a[..., 3] * (p6s * c.p6f)
     gc = g * c.c_grad
     norm2 = gc[0] * gc[0] + gc[1] * gc[1] + gc[2] * gc[2]
     return (-(rho * c.rho_recip - 1.0) / (norm2 + c.cfm)).reshape(-1)
 
 
-def delta2_plain(nchunkp, rows, cands, lamc, h: float):
+def delta2_plain(nchunkp, rows, cands, lamc, h: float, keep=None):
     """Raw position correction (3, C) before the clamp; what `delta2_kernel`
-    computes (`pallas_pbf2.py:566-605`).  rows (C, 4) [x, y, z, lambda];
-    cands the pStar slab, lamc the (1, nsub*wcap) lambda slab."""
+    computes (`pallas_pbf2.py:566-605`), and `delta2_cull_kernel` on member
+    rows.  rows (C, 4) [x, y, z, lambda]; cands the pStar slab, lamc the
+    (1, nsub*wcap) lambda slab; keep as in `lambda2_plain`."""
     c = PairConstants.of(h)
     nsub = nchunkp.shape[0]
     a = rows.reshape(nsub, SUB, 4)
@@ -377,7 +447,10 @@ def delta2_plain(nchunkp, rows, cands, lamc, h: float):
         factor = (a[tb, :, 3:4] + lc[0][:, None, :] + c.corr_k * (x2 * x2)) * c.rho_recip
         t2 = torch.clamp(c.h - r2 * u, min=0.0)
         sg = (t2 * t2 * u) * c.skf * factor
-        dp[:, tb] = (d * sg).sum(-1)
+        dt = d * sg
+        if keep is not None:
+            dt = torch.where(keep[tb, None, :], dt, 0.0)
+        dp[:, tb] = dt.sum(-1)
     return dp.reshape(3, -1)
 
 
@@ -500,6 +573,49 @@ def delta2_kernel(nchunkp, rows, cands, lamc, h: float):
     return dp
 
 
+def lambda2_cull_kernel(nchunkp, rows, cands, member, h: float):
+    """Raw lambda (C,) from `pbf_lambda2_cull` (redesigns `make_lambda2_call`):
+    `lambda2_kernel`'s values on every member row, over the slab columns
+    `cull_keep_plain` keeps."""
+    nsub, wcap = _slab_shape(nchunkp, cands)
+    n = nsub * SUB
+    _check(nchunkp=(nchunkp, torch.int32, (nsub,)), rows=(rows, torch.float32, (n, 4)),
+           cands=(cands, torch.float32, (4, nsub * wcap)),
+           member=(member, torch.bool, (n,)))
+    c = PairConstants.of(h)
+    lam = torch.empty(n, dtype=rows.dtype, device=rows.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(rows.device):
+        err = lib.pbf_lambda2_cull(
+            rows.data_ptr(), cands.data_ptr(), member.data_ptr(), nchunkp.data_ptr(), nsub,
+            wcap, c.h, c.hh, keep_hh(h), c.eps2, c.p6f, c.c_grad, c.rho_recip, c.cfm,
+            lam.data_ptr(), _stream(rows.device))
+    cuda_build.check("pbf_lambda2_cull", err)
+    return lam
+
+
+def delta2_cull_kernel(nchunkp, rows, cands, lamc, member, h: float):
+    """Raw position correction (3, C) from `pbf_delta2_cull` (redesigns
+    `make_delta2_call`): `delta2_kernel`'s values on every member row, over
+    the slab columns `cull_keep_plain` keeps."""
+    nsub, wcap = _slab_shape(nchunkp, cands)
+    n = nsub * SUB
+    _check(nchunkp=(nchunkp, torch.int32, (nsub,)), rows=(rows, torch.float32, (n, 4)),
+           cands=(cands, torch.float32, (4, nsub * wcap)),
+           lamc=(lamc, torch.float32, (1, nsub * wcap)),
+           member=(member, torch.bool, (n,)))
+    c = PairConstants.of(h)
+    dp = torch.empty((3, n), dtype=rows.dtype, device=rows.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(rows.device):
+        err = lib.pbf_delta2_cull(
+            rows.data_ptr(), cands.data_ptr(), lamc.data_ptr(), member.data_ptr(),
+            nchunkp.data_ptr(), nsub, wcap, c.h, c.hh, keep_hh(h), c.eps2, c.skf, c.xqf,
+            c.corr_k, c.rho_recip, dp.data_ptr(), _stream(rows.device))
+    cuda_build.check("pbf_delta2_cull", err)
+    return dp
+
+
 def diffuse2_kernel(nchunkp, acl, cands_c, cands_w, dims: Sequence[int]):
     """(5, C) colour sums and count from `pbf_diffuse2` (replaces
     `make_diffuse2_call`)."""
@@ -525,11 +641,33 @@ def diffuse2_kernel(nchunkp, acl, cands_c, cands_w, dims: Sequence[int]):
 # ---------------------------------------------------------------------------
 
 
+class DensePhases2:
+    """The dense lambda2 and delta2 kernels (`lambda2_kernel`,
+    `delta2_kernel`: every row against every slab column), which
+    `PbfPhases2` no longer launches, counted as "lambda2" and "delta2":
+    raw values, before the wrappers' mask and clamp.  CUDA tensors only."""
+
+    def __init__(self, h: float):
+        self.h = float(h)
+        self.launches = {"lambda2": 0, "delta2": 0}
+
+    def lambda_raw(self, nchunkp, rows, cands):
+        lam = lambda2_kernel(nchunkp, rows, cands, self.h)
+        self.launches["lambda2"] += 1
+        return lam
+
+    def delta_raw(self, nchunkp, rows, cands, lamc):
+        dp = delta2_kernel(nchunkp, rows, cands, lamc, self.h)
+        self.launches["delta2"] += 1
+        return dp
+
+
 class PbfPhases2:
     """The compacted-candidate pipeline for one static spec
     (`PallasPhases2`, `pallas_pbf2.py:675-793`), with a launch counter per
     kernel: `launches[name]` grows by one each time a wrapper launches its
-    CUDA kernel, and at no other time.
+    CUDA kernel, and at no other time.  lambda2 and delta2 launch the cull
+    kernels (counted as "lambda2" and "delta2").
 
     Per frame:
         wins, ovf = phases.plan_frame(key, cell_table)
@@ -586,7 +724,7 @@ class PbfPhases2:
         if rows.device.type == "cpu":
             lam = lambda2_plain(wins["nchunkp"], rows, cands, self.h)
         else:
-            lam = lambda2_kernel(wins["nchunkp"], rows, cands, self.h)
+            lam = lambda2_cull_kernel(wins["nchunkp"], rows, cands, member, self.h)
             self.launches["lambda2"] += 1
         return torch.where((ptype == FLUID) & alive & member, lam, 0.0)
 
@@ -598,7 +736,7 @@ class PbfPhases2:
         if rows.device.type == "cpu":
             dp = delta2_plain(wins["nchunkp"], rows, cands, lamc, self.h)
         else:
-            dp = delta2_kernel(wins["nchunkp"], rows, cands, lamc, self.h)
+            dp = delta2_cull_kernel(wins["nchunkp"], rows, cands, lamc, member, self.h)
             self.launches["delta2"] += 1
         return clamp_to_bounds(pstar, dp, ptype, alive & member, scale, min_bound, max_bound)
 

@@ -324,6 +324,101 @@ def test_phases2_wrappers_count_kernel_launches(card_frame, card_v2):
     assert phases.launches == {"compact": 4, "lambda2": 1, "delta2": 1, "diffuse2": 1}
 
 
+def test_cull_kernels_equal_dense_kernels(card_frame, card_v2):
+    """The cull kernels give the dense kernels' raw λ and Δp bit for bit on
+    every member row, and their plain versions' at 3d's tolerances."""
+    spec, dyn, fr = card_frame
+    phases, wins, cands, cells, member = card_v2
+    st, nchunkp = fr.state, wins["nchunkp"]
+    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], st.mass], dim=1)
+    lam = p2.lambda2_cull_kernel(nchunkp, rows, cands, member, spec.h)
+    assert torch.equal(lam[member], p2.lambda2_kernel(nchunkp, rows, cands, spec.h)[member])
+    want = p2.lambda2_plain(nchunkp, rows, cands, spec.h)
+    torch.testing.assert_close(lam[member], want[member], atol=1e-6, rtol=1e-5)
+    lam = torch.where((st.ptype == FLUID) & st.alive & member, lam, 0.0)
+    lamc = p2.compact_kernel(wins, lam.reshape(1, -1))
+    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], lam], dim=1)
+    dp = p2.delta2_cull_kernel(nchunkp, rows, cands, lamc, member, spec.h)
+    dense = p2.delta2_kernel(nchunkp, rows, cands, lamc, spec.h)
+    assert torch.equal(dp[:, member], dense[:, member])
+    want = p2.delta2_plain(nchunkp, rows, cands, lamc, spec.h)
+    torch.testing.assert_close(dp[:, member], want[:, member], atol=1e-5, rtol=0)
+
+
+def adversarial_slab(h: float, seed: int):
+    """Two sub-blocks of 32 rows (a few non-members, parked far away) and a
+    512-column slab each: candidates at r^2 = h^2 (1 +- k 2^-23), k <= 8,
+    from a member row, and at the keep threshold h^2 (1 + KEEP_MARGIN)
+    +- k 2^-23, in seeded directions; columns inside h; non-member slots
+    (x = SENTINEL) and SENTINEL fill.  Returns (nchunkp, rows, member,
+    cands, lamc) on the CPU."""
+    rng = np.random.default_rng(seed)
+    nsub, wcap = 2, 512
+    n = nsub * p2.SUB
+    pos = rng.uniform(0.0, 2.0 * h, (n, 3))
+    member = np.ones(n, bool)
+    member[[5, 31, 40, 63]] = False
+    pos[~member] = 50.0 * h
+    rows = np.concatenate([pos, rng.uniform(0.5, 1.5, (n, 1))], axis=1).astype(np.float32)
+    ks = np.arange(-8, 9) * 2.0 ** -23
+    scales = np.concatenate([1.0 + ks, 1.0 + p2.KEEP_MARGIN + ks])
+    cands = np.empty((4, nsub, wcap), np.float32)
+    cands[0] = 1.0
+    for t in range(nsub):
+        owners = np.flatnonzero(member[t * p2.SUB:(t + 1) * p2.SUB]) + t * p2.SUB
+        v = rng.normal(size=(wcap, 3))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        r = h * np.sqrt(rng.choice(scales, wcap))
+        r[:32] = rng.uniform(0.0, h, 32)                   # inside h
+        x = rows[rng.choice(owners, wcap), :3].astype(np.float64) + v * r[:, None]
+        cands[1:, t] = x.T.astype(np.float32)
+    cands[1, :, 40:48] = p2.SENTINEL                       # non-member slots
+    cands[1:, :, 448:] = p2.SENTINEL                       # the fill
+    lamc = rng.uniform(-2.0, 0.0, (1, nsub * wcap)).astype(np.float32)
+    rows[:, 3] = np.where(member, rows[:, 3], 0.0)
+    return (torch.full((nsub,), wcap // p2.WCOL, dtype=torch.int32), torch.from_numpy(rows),
+            torch.from_numpy(member), torch.from_numpy(cands.reshape(4, -1)),
+            torch.from_numpy(lamc))
+
+
+ADVERSARIAL_SEEDS = range(8)
+
+
+@pytest.mark.parametrize("seed", ADVERSARIAL_SEEDS)
+def test_cull_kernels_at_the_keep_boundary(seed):
+    """On `adversarial_slab`, whose columns straddle r^2 = h^2 and the keep
+    threshold: the cull kernels equal the dense kernels bit for bit on every
+    member row, and the plain versions masked with `cull_keep_plain` (λ
+    atol 1e-6, rtol 1e-5; Δp rtol 1e-5 with atol 1e-6 x max|Δp|: sums of
+    mixed-sign terms in the kernels' order against torch's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h = float(np.float32(1.3))
+    nchunkp, rows, member, cands, lamc = (t.cuda() for t in adversarial_slab(h, seed))
+    keep = p2.cull_keep_plain(nchunkp, rows, member, cands, h)
+    lam = p2.lambda2_cull_kernel(nchunkp, rows, cands, member, h)
+    assert torch.equal(lam[member], p2.lambda2_kernel(nchunkp, rows, cands, h)[member])
+    want = p2.lambda2_plain(nchunkp, rows, cands, h, keep=keep)
+    torch.testing.assert_close(lam[member], want[member], atol=1e-6, rtol=1e-5)
+    dp = p2.delta2_cull_kernel(nchunkp, rows, cands, lamc, member, h)
+    assert torch.equal(dp[:, member], p2.delta2_kernel(nchunkp, rows, cands, lamc, h)[:, member])
+    want = p2.delta2_plain(nchunkp, rows, cands, lamc, h, keep=keep)[:, member]
+    scale = float(want.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(dp[:, member], want, atol=1e-6 * scale, rtol=1e-5)
+
+
+def test_dense_phases2_count_kernel_launches(card_frame, card_v2):
+    spec, dyn, fr = card_frame
+    phases, wins, cands, cells, member = card_v2
+    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], fr.state.mass], dim=1)
+    dense = p2.DensePhases2(spec.h)
+    lam = dense.lambda_raw(wins["nchunkp"], rows, cands)
+    dense.delta_raw(wins["nchunkp"], rows, cands, p2.compact_kernel(wins, lam.reshape(1, -1)))
+    torch.cuda.synchronize()
+    assert dense.launches == {"lambda2": 1, "delta2": 1}
+
+
 @pytest.fixture(scope="module")
 def card_surface_frame():
     """The sort-time index and the finalised state of one dam-break frame

@@ -39,6 +39,7 @@ from pbf_sph_tpu_torch.models.torch_solver import (
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops.grid import decode_key
 from pbf_sph_tpu_torch.tools import phases2 as p2
+from test_torch_cuda import ADVERSARIAL_SEEDS, adversarial_slab
 
 REPO = Path(__file__).resolve().parent.parent
 CASES = {
@@ -310,3 +311,117 @@ def test_phases2_spec_is_checked():
         p2.PbfPhases2(spec.capacity, spec.grid, spec.h, 8192, 1000)
     with pytest.raises(ValueError, match="exceeds"):
         p2.PbfPhases2(1024, spec.grid, spec.h, 2048, 512)
+
+
+# ---------------------------------------------------------------------------
+# The cull kernels' keep mask (`cull_keep_plain`): every pair it drops has
+# zero terms, so the masked plain versions are the plain versions bit for bit
+# on member rows.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def slabs(case: str):
+    """(nchunkp, lambda rows, delta rows, pStar slab, lambda slab, member) of
+    `port(case)`, the delta side fed the JAX lambda as there."""
+    spec, dyn, fr, _, member, cells, _ = frame(case)
+    got = port(case)
+    jlam = torch.from_numpy(pallas(case)["lam"].copy())
+    rows_l = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], fr.state.mass], dim=1)
+    rows_d = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], jlam], dim=1)
+    return got["wins"]["nchunkp"], rows_l, rows_d, got["cands"], got["lamc"], member
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_culled_plain_equals_plain(case):
+    spec = frame(case)[0]
+    nchunkp, rows_l, rows_d, cands, lamc, member = slabs(case)
+    keep = p2.cull_keep_plain(nchunkp, rows_l, member, cands, spec.h)
+    assert keep.shape == (nchunkp.shape[0], WCAP)
+    defined = torch.from_numpy(defined_columns(nchunkp.numpy())).reshape(keep.shape)
+    assert not bool((keep & ~defined).any())
+    assert 0 < int(keep.sum()) < int(defined.sum())
+    lam = p2.lambda2_plain(nchunkp, rows_l, cands, spec.h)
+    lam_c = p2.lambda2_plain(nchunkp, rows_l, cands, spec.h, keep=keep)
+    assert torch.equal(lam_c[member], lam[member])
+    dp = p2.delta2_plain(nchunkp, rows_d, cands, lamc, spec.h)
+    dp_c = p2.delta2_plain(nchunkp, rows_d, cands, lamc, spec.h, keep=keep)
+    assert torch.equal(dp_c[:, member], dp[:, member])
+    assert float(dp[:, member].abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_culled_plain_matches_jax(case):
+    spec, dyn, fr, _, member, *_ = frame(case)
+    st, want = fr.state, pallas(case)
+    nchunkp, rows_l, rows_d, cands, lamc, _ = slabs(case)
+    keep = p2.cull_keep_plain(nchunkp, rows_l, member, cands, spec.h)
+    lam = p2.lambda2_plain(nchunkp, rows_l, cands, spec.h, keep=keep)
+    lam = torch.where((st.ptype == p2.FLUID) & st.alive & member, lam, 0.0)
+    np.testing.assert_allclose(lam.numpy(), want["lam"], atol=1e-6, rtol=1e-5)
+    dp = p2.delta2_plain(nchunkp, rows_d, cands, lamc, spec.h, keep=keep)
+    moved = ph.clamp_to_bounds(fr.pstar, dp, st.ptype, st.alive & member,
+                               torch.tensor(spec.scale, dtype=torch.float32),
+                               dyn["min_bound"], dyn["max_bound"])
+    np.testing.assert_allclose(moved.numpy(), want["moved"], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("seed", ADVERSARIAL_SEEDS)
+def test_cull_keeps_every_nonzero_pair(seed):
+    """On `adversarial_slab`, every (member row, column) pair with a nonzero
+    lambda or delta term is kept, and every dropped pair has zero terms even
+    under the kernels' worst rounding: r2 from any contraction (3 roundings
+    of |d|^2), rsqrtf 2 ulp low and the product rounded once more."""
+    h = float(np.float32(1.3))
+    c = p2.PairConstants.of(h)
+    nchunkp, rows, member, cands, lamc = adversarial_slab(h, seed)
+    keep = p2.cull_keep_plain(nchunkp, rows, member, cands, h)
+    nsub, wcap = keep.shape
+    d = p2._row_diffs(rows.reshape(nsub, p2.SUB, 4), slice(0, nsub),
+                      cands[1:].reshape(3, nsub, wcap))
+    r2 = torch.clamp(d[0] * d[0] + d[1] * d[1] + d[2] * d[2], min=c.eps2)
+    u = torch.rsqrt(r2)
+    tt = torch.clamp(c.hh - r2, min=0.0)
+    t2 = torch.clamp(c.h - r2 * u, min=0.0)
+    xq = (tt * tt * tt) * c.xqf
+    lam_a = rows[:, 3].reshape(nsub, p2.SUB, 1)
+    factor = (lam_a + lamc.reshape(nsub, 1, wcap) + c.corr_k * (xq * xq) ** 2) * c.rho_recip
+    terms = [tt, t2, (t2 * t2 * u) * c.skf * factor]
+    pairs = member.reshape(nsub, p2.SUB, 1) & torch.ones_like(keep)[:, None, :]
+    kept = keep[:, None, :].expand_as(pairs)
+    for term in terms:
+        assert not bool((pairs & ~kept & (term != 0)).any())
+    d64 = d.double()
+    low = (d64 * d64).sum(0) * (1.0 - 2.0 ** -24) ** 3
+    dropped = pairs & ~kept
+    assert bool((low[dropped] >= c.hh).all())
+    assert bool((low[dropped].sqrt() * (1 - 2.0 ** -22) * (1 - 2.0 ** -24) >= c.h).all())
+    # the seeded columns straddle both the cut-off and the keep threshold
+    rel = r2 / c.hh - 1.0
+    near = (rel.abs() < 2.0 ** -18) & pairs
+    assert bool((near & dropped).any()) and bool((near & kept & (tt == 0)).any())
+    assert bool((pairs & kept & (tt > 0) & (rel > -2.0 ** -19)).any())
+    assert not bool(keep[:, 448:].any())
+
+
+def test_kept_pairs_at_dam32k():
+    """At dam_break(32_000, 3)'s sort-time state, the cull kernels run the
+    pair chain for no fewer pairs than lie within h and fewer than the
+    slab holds."""
+    from pbf_sph_tpu_torch.tools.bench_phases import grown_plan
+
+    spec, fr, _ = dam32k()
+    cells, member = decode_key(fr.index.key, spec.grid)
+    phases, wins, *_ = grown_plan(spec, fr.index)
+    nchunkp = wins["nchunkp"]
+    cands = phases.compact_pstar(wins, fr.pstar, member)
+    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], fr.state.mass], dim=1)
+    hh = p2.PairConstants.of(spec.h).hh
+    a = rows.reshape(-1, p2.SUB, 4)
+    within = 0
+    for tb, (pc,) in p2._slab_blocks(nchunkp, (cands,)):
+        d = p2._row_diffs(a, tb, pc[1:4])
+        near = (d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) < hh
+        within += int((near & member.reshape(-1, p2.SUB)[tb, :, None]).sum())
+    spairs = p2.slab_pairs(wins)
+    assert 0 < within <= p2.kept_pairs(nchunkp, rows, member, cands, spec.h) < spairs

@@ -22,13 +22,16 @@ with a non-zero exit and no result line:
    1e-4 / atol 1e-3, the post-passed v, n and c as `tests/test_pallas_mc.py`
    holds them, the skip node 0; with CUDA-event times and node-candidate
    pairs per second, and its launches in this phase (`ROW4_LAUNCHES`);
-3c. each tiled kernel (`csrc/pbf_tiles.cu`, the Pallas sub/mxu variants)
-   through its `PbfPhases(h, sub, mxu)` wrapper against its tile plain
-   version, for every instantiated sub (8, 16, 32, 64) and both r2 routes,
-   on the same two states: lambda atol 1e-6 / rtol 1e-5, pStar after one
-   delta phase and the clamp atol 1e-5; with CUDA-event times, pairs per
-   second and the bound.  No solver path runs these kernels, so their
-   launches are counted over this phase;
+3c. the tiled kernels (`csrc/pbf_tiles.cu`, the Pallas sub/mxu variants),
+   for every instantiated sub (8, 16, 32, 64) and both r2 routes, on the
+   same two states: the cull kernels through their `PbfPhases(h, sub, mxu)`
+   wrappers and the dense ones through `DenseTiles`; the cull kernels bit
+   for bit the dense ones on every member row; each against its tile plain
+   version (the cull kernels' masked by `tile_keep_plain`): lambda atol
+   1e-6 / rtol 1e-5, pStar after one delta phase and the clamp atol 1e-5;
+   with CUDA-event times, the kept pairs (counted by `tile_keep_plain` on
+   the card), tile pairs, per-row pairs and the bound.  No solver path runs
+   these kernels, so their launches are counted over this phase;
 3d. the v2 compacted-candidate kernels (`csrc/pbf_phases2.cu`) on the same
    two states: the chain once through its `PbfPhases2` wrappers (λ2 and Δp2
    on the cull kernels), with the plan grown until it has no overflow, and
@@ -359,7 +362,7 @@ times at the 1M state as the direct walk's does, phase 6 for the MC field
 (`mc_field_cells`, whose ms is 3n's median in a CUDA graph at mc128k; row
 4's `mc_field`, read 0 on phases 5 and 6, with 3b's numbers and 3b's launches
 as `phase_launches`), 3c for the tiled
-kernels, whose line holds sub 64 with the tensor-core r2, 3d for the v2
+kernels, dense and cull, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
 kernel at the larger of their two sizes, 3f for the window kernels, whose
@@ -445,6 +448,12 @@ KERNELS = {
                     "pbf_sph_tpu/ops/pallas_pbf.py:391"),
     "delta_tile": ("pbf_sph_tpu_torch/csrc/pbf_tiles.cu",
                    "pbf_sph_tpu/ops/pallas_pbf.py:491"),
+    # the same redesigned: only the 8 x 8 row-candidate blocks that can
+    # contribute (the kernels PbfPhases(h, sub, mxu) launches)
+    "lambda_tile_cull": ("pbf_sph_tpu_torch/csrc/pbf_tiles.cu",
+                         "pbf_sph_tpu/ops/pallas_pbf.py:391"),
+    "delta_tile_cull": ("pbf_sph_tpu_torch/csrc/pbf_tiles.cu",
+                        "pbf_sph_tpu/ops/pallas_pbf.py:491"),
     # the v2 compacted-candidate phases (the dense three on _dense_phase :422)
     "compact": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:323"),
     "lambda2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:474"),
@@ -731,10 +740,14 @@ def phase_kernels() -> dict:
 
 
 def phase_tiles(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
-    """3c: every tiled variant through its wrapper (the launches counted for
-    the tiled kernels) against its tile plain version; `report` gets the
-    lambda_tile/delta_tile entries, the largest error over all variants and
-    the times of TILE_REPORTED, and "launches_tile" the wrappers' counts."""
+    """3c: every tiled variant through its wrapper (`PbfPhases`: the cull
+    kernels) and the dense kernels through `DenseTiles` (the launches
+    counted for their kernels); the cull kernels bit for bit the dense ones
+    on member rows; each kernel against its tile plain version (the cull
+    kernels' masked by `tile_keep_plain`).  `report` gets the
+    lambda_tile/delta_tile/lambda_tile_cull/delta_tile_cull entries, the
+    largest error over all variants and the times of TILE_REPORTED, and
+    "launches_tile" the counts under those names."""
     print(f"== 3c. tiled kernels against their plain PyTorch versions, "
           f"capacity {spec.capacity}")
     from pbf_sph_tpu_torch.core.types import FLUID
@@ -742,61 +755,112 @@ def phase_tiles(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     from pbf_sph_tpu_torch.ops import tiles as tl
 
     st, idx, h = fr.state, fr.index, spec.h
+    member = idx.key < idx.grid.ncells
+    nmember = int(member.sum())
     scale = torch.full((), spec.scale, device=st.mass.device)
     fluid = (st.ptype == FLUID) & st.alive
     bounds = (scale, dyn["min_bound"], dyn["max_bound"])
-    launches = report.setdefault("launches_tile", {"lambda_tile": 0, "delta_tile": 0})
+    launches = report.setdefault("launches_tile", dict.fromkeys(
+        ("lambda_tile", "delta_tile", "lambda_tile_cull", "delta_tile_cull"), 0))
     for sub in tl.TILE_SUBS:
         tiles = tl.plan_tiles(idx, sub)
         tpairs = tl.tile_pairs(tiles, sub)
         for mxu in (False, True):
+            tag = f"sub {sub} mxu {int(mxu)}"
+            args = (tiles, idx, h, fr.pstar)
             phases = ph.PbfPhases(h, sub=sub, mxu=mxu)
             lam_w = phases.lambda_phase(idx, fr.pstar, st.mass, st.ptype, st.alive)
             moved_w = phases.delta_phase(idx, fr.pstar, lam_w, st.ptype, st.alive, *bounds)
+            dense = tl.DenseTiles(h, sub, mxu)
+            lam_d = dense.lambda_raw(tiles, idx, fr.pstar, st.mass)
+            dp_d = dense.delta_raw(tiles, idx, fr.pstar, lam_w)
             torch.cuda.synchronize()
+            # PbfPhases counts its cull kernels as lambda_tile/delta_tile
+            counts = {"lambda_tile_cull": phases.launches["lambda_tile"],
+                      "delta_tile_cull": phases.launches["delta_tile"], **dense.launches}
             for name in launches:
-                launches[name] += phases.launches[name]
-            lam_p = tl.lambda_tile_plain(tiles, idx, h, fr.pstar, st.mass, sub, mxu)
-            lam_p = torch.where(fluid, lam_p, 0.0)
-            err_l = float((lam_w - lam_p).abs().max())
-            tag = f"sub {sub} mxu {int(mxu)}"
-            check(torch.allclose(lam_w, lam_p, atol=1e-6, rtol=1e-5),
-                  f"{tag}: lambda max abs err {err_l:.3e} (atol 1e-6, rtol 1e-5)")
-            dp_p = tl.delta_tile_plain(tiles, idx, h, fr.pstar, lam_w, sub, mxu)
-            moved_p = ph.clamp_to_bounds(fr.pstar, dp_p, st.ptype, st.alive, *bounds)
-            err_p = float((moved_w - moved_p).abs().max())
-            check(err_p <= 1e-5 and bool(torch.isfinite(moved_w).all()),
-                  f"{tag}: pStar after one delta max abs err {err_p:.3e} <= 1e-5, finite")
+                launches[name] += counts[name]
 
-            args = (tiles, idx, h, fr.pstar)
+            # the cull kernels: the dense kernels' raw values on every member
+            # row, bit for bit
+            lam_c = tl.lambda_tile_cull_kernel(*args, st.mass, sub, mxu)
+            check(torch.equal(lam_c[member], lam_d[member]),
+                  f"{tag}: lambda_tile_cull bit for bit lambda_tile on {nmember} member rows")
+            dp_c = tl.delta_tile_cull_kernel(*args, lam_w, sub, mxu)
+            check(torch.equal(dp_c[:, member], dp_d[:, member]),
+                  f"{tag}: delta_tile_cull bit for bit delta_tile on {nmember} member rows")
+
+            lam_p = tl.lambda_tile_plain(*args, st.mass, sub, mxu)
+            err_l = float((lam_d - lam_p).abs().max())
+            check(torch.allclose(lam_d, lam_p, atol=1e-6, rtol=1e-5),
+                  f"{tag}: lambda_tile max abs err {err_l:.3e} (atol 1e-6, rtol 1e-5)")
+            dp_p = tl.delta_tile_plain(*args, lam_w, sub, mxu)
+            moved_p = ph.clamp_to_bounds(fr.pstar, dp_p, st.ptype, st.alive, *bounds)
+            moved_d = ph.clamp_to_bounds(fr.pstar, dp_d, st.ptype, st.alive, *bounds)
+            err_p = float((moved_d - moved_p).abs().max())
+            check(err_p <= 1e-5 and bool(torch.isfinite(moved_d).all()),
+                  f"{tag}: pStar after delta_tile max abs err {err_p:.3e} <= 1e-5, finite")
+            keep = tl.tile_keep_plain(tiles, idx, fr.pstar, sub, mxu, h)
+            kept = tl.kept_tile_pairs(keep, tiles)
+            lam_pc = torch.where(fluid, tl.lambda_tile_plain(*args, st.mass, sub, mxu,
+                                                             keep=keep), 0.0)
+            err_lc = float((lam_w - lam_pc).abs().max())
+            check(torch.allclose(lam_w, lam_pc, atol=1e-6, rtol=1e-5),
+                  f"{tag}: lambda_tile_cull through PbfPhases max abs err {err_lc:.3e} "
+                  f"(atol 1e-6, rtol 1e-5)")
+            dp_pc = tl.delta_tile_plain(*args, lam_w, sub, mxu, keep=keep)
+            moved_pc = ph.clamp_to_bounds(fr.pstar, dp_pc, st.ptype, st.alive, *bounds)
+            err_pc = float((moved_w - moved_pc).abs().max())
+            check(err_pc <= 1e-5 and bool(torch.isfinite(moved_w).all()),
+                  f"{tag}: pStar after delta_tile_cull through PbfPhases max abs err "
+                  f"{err_pc:.3e} <= 1e-5, finite")
+            print(f"  {tag}: kept pairs (tile_keep_plain) {kept} ({kept / pairs:.3f}x the "
+                  f"{pairs} per-row pairs, {kept / tpairs:.4f} of the {tpairs} tile pairs, "
+                  f"{tpairs / pairs:.3f}x)")
+
+            def culled_plain(w, phase):
+                return phase(*args, w, sub, mxu,
+                             keep=tl.tile_keep_plain(tiles, idx, fr.pstar, sub, mxu, h))
+
+            io = {"lambda": nbytes(fr.pstar, st.mass, lam_w),
+                  "delta": nbytes(fr.pstar, lam_w, fr.pstar)}
             times = {
-                "lambda": (lambda: tl.lambda_tile_kernel(*args, st.mass, sub, mxu),
-                           lambda: tl.lambda_tile_plain(*args, st.mass, sub, mxu),
-                           err_l, nbytes(fr.pstar, st.mass, lam_w)),
-                "delta": (lambda: tl.delta_tile_kernel(*args, lam_w, sub, mxu),
-                          lambda: tl.delta_tile_plain(*args, lam_w, sub, mxu),
-                          err_p, nbytes(fr.pstar, lam_w, fr.pstar)),
+                "lambda_tile": (lambda: tl.lambda_tile_kernel(*args, st.mass, sub, mxu),
+                                lambda: tl.lambda_tile_plain(*args, st.mass, sub, mxu),
+                                err_l, "lambda", tpairs),
+                "delta_tile": (lambda: tl.delta_tile_kernel(*args, lam_w, sub, mxu),
+                               lambda: tl.delta_tile_plain(*args, lam_w, sub, mxu),
+                               err_p, "delta", tpairs),
+                "lambda_tile_cull": (
+                    lambda: tl.lambda_tile_cull_kernel(*args, st.mass, sub, mxu),
+                    lambda: culled_plain(st.mass, tl.lambda_tile_plain), err_lc, "lambda",
+                    kept),
+                "delta_tile_cull": (
+                    lambda: tl.delta_tile_cull_kernel(*args, lam_w, sub, mxu),
+                    lambda: culled_plain(lam_w, tl.delta_tile_plain), err_pc, "delta", kept),
             }
-            for name, (kern, plain, err, io_bytes) in times.items():
+            for name, (kern, plain, err, phase, walked) in times.items():
                 ms = device_ms(kern, reps[0])
                 plain_ms = device_ms(plain, 1, warm=False)
-                bound_ms, bound_by = bound(nbytes(idx.key, tiles) + io_bytes,
-                                           pairs * FLOP_PER_PAIR_TILE[name, mxu])
-                print(f"  {name}_tile {tag}: kernel {ms:.4f} ms ({pairs / ms / 1e6:.3f} "
-                      f"G per-row pairs/s, {tpairs / ms / 1e6:.3f} G tile pairs/s; "
-                      f"{tpairs / pairs:.2f}x the per-row pairs), plain {plain_ms:.4f} ms, "
-                      f"bound {bound_ms:.4f} ms by {bound_by}")
-                key = f"{name}_tile"
-                entry = report.setdefault(key, dict(max_abs_err=0.0))
+                bound_ms, bound_by = bound(nbytes(idx.key, tiles) + io[phase],
+                                           pairs * FLOP_PER_PAIR_TILE[phase, mxu])
+                walked_ms, walked_by = bound(nbytes(idx.key, tiles) + io[phase],
+                                             walked * FLOP_PER_PAIR_TILE[phase, mxu])
+                print(f"  {name} {tag}: kernel {ms:.4f} ms ({pairs / ms / 1e6:.3f} G per-row "
+                      f"pairs/s, {walked / ms / 1e6:.3f} G walked pairs/s), plain "
+                      f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} (the walked "
+                      f"pairs' chain {walked_ms:.4f} ms by {walked_by})")
+                entry = report.setdefault(name, dict(max_abs_err=0.0))
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
                 if (sub, mxu) == TILE_REPORTED:
                     # no single PyTorch call computes a cell-list neighbour sum
                     entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, library_ms=None)
-            del phases, lam_w, moved_w, lam_p, dp_p, moved_p
+            del phases, dense, lam_w, moved_w, lam_d, dp_d, lam_c, dp_c, lam_p, dp_p
+            del moved_p, moved_d, keep, lam_pc, dp_pc, moved_pc
         del tiles
         torch.cuda.empty_cache()
-    print(f"  tiled wrapper launches so far: {launches}")
+    print(f"  tiled launches so far: {launches}")
 
 
 def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
@@ -3400,7 +3464,8 @@ def main() -> int:
           f"phase 3 launched the per-row diffuse, λ and Δp kernels {row_launches}")
     tile_launches = report.pop("launches_tile")
     check(all(v > 0 for v in tile_launches.values()),
-          f"phase 3c launched every tiled kernel {tile_launches}")
+          f"phase 3c launched every tiled kernel (the cull kernels through PbfPhases, the "
+          f"dense ones through DenseTiles) {tile_launches}")
     v2_launches = report.pop("launches_v2")
     check(all(v > 0 for v in v2_launches.values()),
           f"phase 3d launched every v2 kernel {v2_launches}")

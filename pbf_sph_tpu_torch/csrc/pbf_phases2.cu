@@ -41,6 +41,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cull.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -349,22 +351,6 @@ constexpr int kStageK = kStage4 / kWarp;    // float4s of a field a lane copies
 constexpr int kCullWarps = 4;               // sub-blocks per CTA
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void cp_async16(float4* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // One stage of the x, y, z slab fields into shared memory (no wait).
 __device__ __forceinline__ void stage_xyz(float4 (*dst)[kStage4], const float* fx,
                                           const float* fy, const float* fz, int g,
@@ -377,26 +363,6 @@ __device__ __forceinline__ void stage_xyz(float4 (*dst)[kStage4], const float* f
     cp_async16(&dst[2][i], fz + g + 4 * i);
   }
 }
-
-// The keep tests' squared distance (dx^2 + dy^2) + dz^2, each operation
-// rounded to nearest in PTX: the compiler neither contracts it nor shares a
-// product with the pair chain.  Monotone in |dx|, |dy|, |dz|.
-__device__ __forceinline__ float test_r2(float dx, float dy, float dz) {
-  float r;
-  asm("{\n\t.reg .f32 x2, y2, z2;\n\t"
-      "mul.rn.f32 x2, %1, %1;\n\t"
-      "mul.rn.f32 y2, %2, %2;\n\t"
-      "mul.rn.f32 z2, %3, %3;\n\t"
-      "add.rn.f32 x2, x2, y2;\n\t"
-      "add.rn.f32 %0, x2, z2;\n\t}"
-      : "=f"(r)
-      : "f"(dx), "f"(dy), "f"(dz));
-  return r;
-}
-
-struct Box {
-  float lx, ly, lz, hx, hy, hz;
-};
 
 // The AABB of the warp's member rows; empty (+inf, -inf) with none.
 __device__ __forceinline__ Box row_box(float4 a, bool in) {
@@ -413,15 +379,6 @@ __device__ __forceinline__ Box row_box(float4 a, bool in) {
     b.hz = fmaxf(b.hz, __shfl_xor_sync(kFull, b.hz, o));
   }
   return b;
-}
-
-__device__ __forceinline__ float gap(float glo, float ghi, float rlo, float rhi) {
-  return fmaxf(fmaxf(glo - rhi, rlo - ghi), 0.f);
-}
-
-__device__ __forceinline__ bool box_near(const Box& g, const Box& r, float hh_keep) {
-  return test_r2(gap(g.lx, g.hx, r.lx, r.hx), gap(g.ly, g.hy, r.ly, r.hy),
-                 gap(g.lz, g.hz, r.lz, r.hz)) < hh_keep;
 }
 
 // The group test over one stage (buf: its x, y, z fields), warp-uniform:

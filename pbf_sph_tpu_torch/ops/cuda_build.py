@@ -51,6 +51,9 @@ SIGNATURES = {
     # csrc/pbf_tiles.cu
     "pbf_lambda_tile": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_delta_tile": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    **dict.fromkeys(
+        ("pbf_lambda_tile_cull", "pbf_delta_tile_cull"),
+        [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P]),
     # csrc/mc_field.cu: the production body and the three bisection bodies
     **dict.fromkeys(
         ("mc_field", "mc_field_noop", "mc_field_rows", "mc_field_loops"),

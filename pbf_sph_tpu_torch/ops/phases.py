@@ -19,7 +19,8 @@ kernels of `ops/cells.py`, which take the mask and the clamp in, and
 `ops/diffuse_cells.py`, which take the mix in; the per-row kernels here stay
 as the anchors' subject (`lambda_phase`, `delta_phase`, `diffuse_rows`).
 `PbfPhases(h, sub, mxu)` runs lambda and delta through the tiled kernels of
-`ops/tiles.py` instead (the Pallas `sub`/`mxu` variants).
+`ops/tiles.py` instead (the Pallas `sub`/`mxu` variants): the cull kernels
+on the card, the dense plain versions on the CPU.
 
 In place of the Pallas window plan (`wins`) every phase takes the frame's
 `CellIndex`: the sorted keys and the dense cell table.  A row walks the nine
@@ -84,6 +85,29 @@ class PairConstants:
             xqf=float(f(p6f / p6dq)), corr_k=float(f(-K.CORR_K)),
             rho_recip=float(rr), cfm=float(f(K.CFM_EPSILON)),
         )
+
+
+# The cull kernels' keep tests (csrc/pbf_phases2.cu, csrc/pbf_tiles.cu):
+# the relative margin on h^2 of their threshold
+KEEP_MARGIN = 2.0 ** -19
+
+
+def keep_hh(h: float) -> float:
+    """The cull kernels' keep threshold: hh (1 + KEEP_MARGIN) rounded up to
+    fp32.  A pair whose tests' squared distance is at or above it has zero
+    poly6 and spiky factors in the pair math (`csrc/pbf_phases2.cu`,
+    `csrc/pbf_tiles.cu`)."""
+    want = PairConstants.of(h).hh * (1.0 + KEEP_MARGIN)
+    keep = np.float32(want)
+    if float(keep) < want:
+        keep = np.nextafter(keep, np.float32(np.inf))
+    return float(keep)
+
+
+def keep_r2(dx, dy, dz):
+    """The keep tests' squared distance: three fp32 products and two sums, in
+    the kernels' order (`test_r2` of `csrc/cull.cuh`, never contracted)."""
+    return (dx * dx + dy * dy) + dz * dz
 
 
 # ---------------------------------------------------------------------------
@@ -349,9 +373,9 @@ class PbfPhases:
     iterated solve through the kernels of `ops/cells.py` ("lambda_cells",
     "delta_cells"), and
     `lambda_phase`/`delta_phase` run the per-row kernels above; any other
-    setting runs both through the tiled kernels of `ops/tiles.py` (`sub` 64
-    when only `mxu` is given), counted under "lambda_tile" and
-    "delta_tile"."""
+    setting runs both through the tiled cull kernels of `ops/tiles.py`
+    (`sub` 64 when only `mxu` is given), counted under "lambda_tile" and
+    "delta_tile" (`tiles.DenseTiles` launches the dense tile kernels)."""
 
     def __init__(self, h: float, sub=None, mxu: bool = False):
         from pbf_sph_tpu_torch.ops import tiles
@@ -381,7 +405,7 @@ class PbfPhases:
             if cpu:
                 lam = tiles.lambda_tile_plain(*args)
             else:
-                lam = tiles.lambda_tile_kernel(*args)
+                lam = tiles.lambda_tile_cull_kernel(*args)
                 self.launches["lambda_tile"] += 1
         elif cpu:
             lam = lambda_plain(index, self.h, pstar, mass)
@@ -401,7 +425,7 @@ class PbfPhases:
             if cpu:
                 dp = tiles.delta_tile_plain(*args)
             else:
-                dp = tiles.delta_tile_kernel(*args)
+                dp = tiles.delta_tile_cull_kernel(*args)
                 self.launches["delta_tile"] += 1
         elif cpu:
             dp = delta_plain(index, self.h, pstar, lam)

@@ -52,6 +52,8 @@ from pbf_sph_tpu_torch.ops.phases import (
     PairConstants,
     _stream,
     clamp_to_bounds,
+    keep_hh,
+    keep_r2,
     mix_colour,
 )
 
@@ -69,9 +71,8 @@ WCAP_MAX = 5120
 STRIP_MAX = 24576
 SENTINEL = np.float32(1.0e9)
 # the cull kernels: the columns of a group their group test takes (one
-# float4 slot of a lane), and the relative margin on h^2 of their keep tests
+# float4 slot of a lane); their keep threshold is ops/phases.py keep_hh
 CULL_GROUP = 4
-KEEP_MARGIN = 2.0 ** -19
 
 Wins = Dict[str, torch.Tensor]
 
@@ -286,23 +287,6 @@ def slab_pairs(wins: Wins) -> int:
     return int(wins["nchunkp"].long().sum()) * WCOL * SUB
 
 
-def keep_hh(h: float) -> float:
-    """The cull kernels' keep threshold: hh (1 + KEEP_MARGIN) rounded up to
-    fp32.  A pair whose tests' squared distance is at or above it has zero
-    poly6 and spiky factors in the pair math (`csrc/pbf_phases2.cu`)."""
-    want = PairConstants.of(h).hh * (1.0 + KEEP_MARGIN)
-    keep = np.float32(want)
-    if float(keep) < want:
-        keep = np.nextafter(keep, np.float32(np.inf))
-    return float(keep)
-
-
-def _test_r2(dx, dy, dz):
-    """The keep tests' squared distance: three fp32 products and two sums, in
-    the kernels' order (`test_r2`, never contracted)."""
-    return (dx * dx + dy * dy) + dz * dz
-
-
 def cull_keep_plain(nchunkp, rows, member, cands, h: float, vote: bool = True):
     """(nsub, wcap) bool: the slab columns the cull kernels walk the pair
     chain for.  A column is kept when its group of CULL_GROUP columns has an
@@ -324,10 +308,10 @@ def cull_keep_plain(nchunkp, rows, member, cands, h: float, vote: bool = True):
         cg = c.reshape(3, c.shape[1], -1, CULL_GROUP)
         gap = torch.clamp(torch.maximum(cg.amin(-1) - hi[:, tb], lo[:, tb] - cg.amax(-1)),
                           min=0.0)
-        kept = (_test_r2(*gap) < hk).repeat_interleave(CULL_GROUP, dim=-1)
+        kept = (keep_r2(*gap) < hk).repeat_interleave(CULL_GROUP, dim=-1)
         if vote:
             d = _row_diffs(a, tb, c)
-            kept &= ((_test_r2(*d) < hk) & inside[tb, :, None]).any(1)
+            kept &= ((keep_r2(*d) < hk) & inside[tb, :, None]).any(1)
         keep.append(kept)
     return torch.cat(keep)
 

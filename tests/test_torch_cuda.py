@@ -70,7 +70,7 @@ from pbf_sph_tpu_torch.ops import diffuse_cells as dc
 from pbf_sph_tpu_torch.ops import mc_field as mf
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
-from pbf_sph_tpu_torch.ops.grid import decode_key
+from pbf_sph_tpu_torch.ops.grid import GridSpec, decode_key
 from pbf_sph_tpu_torch.tools import anchor_rate as ar
 from pbf_sph_tpu_torch.tools import bench_cells as bc
 from pbf_sph_tpu_torch.tools import micro_chunk as mch
@@ -361,7 +361,7 @@ def adversarial_slab(h: float, seed: int):
     pos[~member] = 50.0 * h
     rows = np.concatenate([pos, rng.uniform(0.5, 1.5, (n, 1))], axis=1).astype(np.float32)
     ks = np.arange(-8, 9) * 2.0 ** -23
-    scales = np.concatenate([1.0 + ks, 1.0 + p2.KEEP_MARGIN + ks])
+    scales = np.concatenate([1.0 + ks, 1.0 + ph.KEEP_MARGIN + ks])
     cands = np.empty((4, nsub, wcap), np.float32)
     cands[0] = 1.0
     for t in range(nsub):
@@ -382,6 +382,84 @@ def adversarial_slab(h: float, seed: int):
 
 
 ADVERSARIAL_SEEDS = range(8)
+
+
+def adversarial_tiles(h: float, seed: int):
+    """A synthetic frame for the tile cull kernels: 120 members in one cell
+    of a 3^3 grid, so that every tile's nine windows hold all of them in row
+    order, and 8 non-members parked far away at the tail.  The members come
+    in 15 groups of 8 consecutive rows, which are both a row block and a
+    column block of every tile; a group is one point, or (every fourth) 8
+    points 0.05 h / 7 apart on a seeded line, the first at its centre.
+    Each group after the first sits from an earlier one in a seeded
+    direction, with k a seeded integer in [1, 8] and u = 2^-23:
+      4, 8, 12: from a seeded earlier group, 0.2-0.9 h away;
+      2, 10 / 6, 14: from a seeded earlier group, at r^2 = h^2 (1 - k u) /
+        h^2 (1 + k u), just inside / outside the cut-off;
+      1, 5, 9, 13: from the group before (a line), at the keep threshold
+        h^2 (1 + KEEP_MARGIN) +- k u;
+      3, 7, 11: from the group before (a point), at h^2 (1 + KEEP_MARGIN)
+        + (k + 1) u, where the block test, at the pairs' own distance,
+        drops them.
+    Returns (index, pstar (3, 128), mass, lam) on the CPU."""
+    rng = np.random.default_rng(seed)
+    n, groups, u = 128, 15, 2.0 ** -23
+    centres = [rng.uniform(0.0, 2.0 * h, 3)]
+    for i in range(1, groups):
+        v = rng.normal(size=3)
+        k = rng.integers(1, 9)
+        r2 = {0: rng.uniform(0.2, 0.9) ** 2, 1: 1.0 + ph.KEEP_MARGIN + rng.choice([-k, k]) * u,
+              2: 1.0 + (k if i % 8 == 6 else -k) * u,
+              3: 1.0 + ph.KEEP_MARGIN + (k + 1) * u}[i % 4]
+        parent = i - 1 if i % 2 else rng.integers(i)
+        centres.append(centres[parent] + v / np.linalg.norm(v) * h * np.sqrt(r2))
+    e = rng.normal(size=(groups, 3))
+    e *= ((np.arange(groups) % 4 == 0) * 0.05 * h / 7 / np.linalg.norm(e, axis=1))[:, None]
+    pos = np.asarray(centres)[:, None, :] + np.arange(8)[None, :, None] * e[:, None, :]
+    pos = pos.reshape(-1, 3).astype(np.float32)
+    pos = np.concatenate([pos, np.full((n - 8 * groups, 3), 50.0 * h, np.float32)])
+    grid = GridSpec(extent=(2, 2, 2), maxz=0)
+    key = np.full(n, 13, np.int32)                      # the centre cell
+    key[8 * groups:] = grid.ncells + np.arange(n - 8 * groups)
+    table = np.where(np.arange(grid.ncells + 1) <= 13, 0, 8 * groups).astype(np.int32)
+    index = ph.CellIndex(grid, torch.from_numpy(key), torch.from_numpy(table))
+    member = key < grid.ncells
+    mass = np.where(member, rng.uniform(0.5, 1.5, n), 0.0).astype(np.float32)
+    lam = np.where(member, rng.uniform(-2.0, 0.0, n), 0.0).astype(np.float32)
+    return (index, torch.from_numpy(np.ascontiguousarray(pos.T)), torch.from_numpy(mass),
+            torch.from_numpy(lam))
+
+
+@pytest.mark.parametrize("seed", ADVERSARIAL_SEEDS)
+def test_tile_cull_kernels_at_the_keep_boundary(seed):
+    """On `adversarial_tiles`, whose blocks straddle r^2 = h^2 and the keep
+    threshold: the tile cull kernels equal the dense ones bit for bit on
+    every row (λ 1/CFM and Δp 0 on the non-members), at every sub on both
+    r^2 routes, and the plain versions masked with `tile_keep_plain` (λ atol
+    1e-6, rtol 1e-5; Δp rtol 1e-5 with atol 1e-6 x max|Δp|, as the v2 cull
+    kernels' test)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h = float(np.float32(1.3))
+    index, pstar, mass, lam = adversarial_tiles(h, seed)
+    index = ph.CellIndex(index.grid, index.key.cuda(), index.table.cuda())
+    pstar, mass, lam = pstar.cuda(), mass.cuda(), lam.cuda()
+    member = index.key < index.grid.ncells
+    for sub in tl.TILE_SUBS:
+        tiles = tl.plan_tiles(index, sub)
+        for mxu in (False, True):
+            args = (tiles, index, h, pstar)
+            keep = tl.tile_keep_plain(tiles, index, pstar, sub, mxu, h)
+            got = tl.lambda_tile_cull_kernel(*args, mass, sub, mxu)
+            assert torch.equal(got, tl.lambda_tile_kernel(*args, mass, sub, mxu))
+            want = tl.lambda_tile_plain(*args, mass, sub, mxu, keep=keep)
+            torch.testing.assert_close(got[member], want[member], atol=1e-6, rtol=1e-5)
+            got = tl.delta_tile_cull_kernel(*args, lam, sub, mxu)
+            assert torch.equal(got, tl.delta_tile_kernel(*args, lam, sub, mxu))
+            want = tl.delta_tile_plain(*args, lam, sub, mxu, keep=keep)[:, member]
+            scale = float(want.abs().max())
+            assert scale > 0
+            torch.testing.assert_close(got[:, member], want, atol=1e-6 * scale, rtol=1e-5)
 
 
 @pytest.mark.parametrize("seed", ADVERSARIAL_SEEDS)

@@ -191,6 +191,12 @@ def test_tile_launchers_refuse_cpu_tensors():
         tl.lambda_tile_kernel(tiles, index, spec.h, state.position, state.mass, 32, True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tl.delta_tile_kernel(tiles, index, spec.h, state.position, state.mass, 32, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tl.lambda_tile_cull_kernel(tiles, index, spec.h, state.position, state.mass, 32, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tl.delta_tile_cull_kernel(tiles, index, spec.h, state.position, state.mass, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tl.DenseTiles(spec.h, 32).lambda_raw(tiles, index, state.position, state.mass)
 
 
 def test_phases2_launchers_refuse_cpu_tensors():

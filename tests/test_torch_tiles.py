@@ -5,6 +5,11 @@ Pallas `sub`/`mxu` variants in interpret mode on the CPU; the port's
 `PbfPhases(h, sub, mxu)` runs the tile plain versions there.  Both get the
 sort-time state of `test_torch_phases.py`'s two cases.
 
+The tile cull kernels' keep mask (`tile_keep_plain`): the plain versions
+masked with it equal the unmasked ones bit for bit on member rows and match
+the Pallas variants; on the adversarial tiles of `test_torch_cuda.py` no
+pair it drops has a nonzero term, under the kernels' worst rounding.
+
 Tolerances as in `test_torch_phases.py`: lambda atol 1e-6, rtol 1e-5
 (`test_pallas_interpret.py` holds the Pallas lambda to its per-pair oracle
 so); pStar after one delta phase and the clamp atol 1e-5 in simulation units
@@ -31,6 +36,7 @@ from pbf_sph_tpu_torch.models.torch_solver import (
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops import tiles as tl
 from pbf_sph_tpu_torch.ops.grid import decode_key
+from test_torch_cuda import ADVERSARIAL_SEEDS, adversarial_tiles
 
 CASES = {
     # the end-to-end parity scene, capacity 1024
@@ -221,3 +227,103 @@ def test_centred_r2_precision(variant):
     else:
         # the uncentred fp32 product loses two more digits
         assert e_rho > 1e-3 and e_grad > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The tile cull kernels' keep mask (`tile_keep_plain`): every block it drops
+# has zero terms, so the masked plain versions are the plain versions bit for
+# bit on member rows.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+@pytest.mark.parametrize("sub", tl.TILE_SUBS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_culled_plain_equals_plain(case, sub, mxu):
+    spec, dyn, fr, _ = frame(case)
+    st, idx, h = fr.state, fr.index, spec.h
+    member = idx.key < idx.grid.ncells
+    tiles = tl.plan_tiles(idx, sub)
+    keep = tl.tile_keep_plain(tiles, idx, fr.pstar, sub, mxu, h)
+    assert keep.shape[:2] == (spec.capacity // sub, sub // 8)
+    assert 0 < int(keep.sum()) < keep.numel()
+    kept, tpairs = tl.kept_tile_pairs(keep, tiles), tl.tile_pairs(tiles, sub)
+    assert 0 < kept <= tpairs
+    if sub >= 16:
+        assert kept < tpairs
+    args = (tiles, idx, h, fr.pstar)
+    lam = tl.lambda_tile_plain(*args, st.mass, sub, mxu)
+    lam_c = tl.lambda_tile_plain(*args, st.mass, sub, mxu, keep=keep)
+    assert torch.equal(lam_c[member], lam[member])
+    dp = tl.delta_tile_plain(*args, lam, sub, mxu)
+    dp_c = tl.delta_tile_plain(*args, lam, sub, mxu, keep=keep)
+    assert torch.equal(dp_c[:, member], dp[:, member])
+    assert float(dp[:, member].abs().max()) > 0
+
+
+@pytest.mark.parametrize("sub,mxu", SWEEP)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_culled_plain_matches_pallas_variant(case, sub, mxu):
+    spec, dyn, fr, _ = frame(case)
+    st, idx, h = fr.state, fr.index, spec.h
+    want_lam, want = pallas(case, sub, mxu)
+    tiles = tl.plan_tiles(idx, sub)
+    keep = tl.tile_keep_plain(tiles, idx, fr.pstar, sub, mxu, h)
+    args = (tiles, idx, h, fr.pstar)
+    lam = tl.lambda_tile_plain(*args, st.mass, sub, mxu, keep=keep)
+    lam = torch.where((st.ptype == ph.FLUID) & st.alive, lam, 0.0)
+    np.testing.assert_allclose(lam.numpy(), want_lam, atol=1e-6, rtol=1e-5)
+    dp = tl.delta_tile_plain(*args, torch.from_numpy(want_lam.copy()), sub, mxu, keep=keep)
+    moved = ph.clamp_to_bounds(fr.pstar, dp, st.ptype, st.alive,
+                               torch.tensor(spec.scale, dtype=torch.float32),
+                               dyn["min_bound"], dyn["max_bound"])
+    np.testing.assert_allclose(moved.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("seed", ADVERSARIAL_SEEDS)
+def test_tile_cull_drops_only_zero_terms(seed):
+    """On `adversarial_tiles`, at every sub on both r^2 routes: every
+    (member row, candidate) pair with a nonzero λ or Δp term is in a kept
+    block, and every dropped pair has zero terms even under the kernels'
+    worst rounding: the exact squared distance of its fp32 coordinates (the
+    centred ones with mxu) 6 roundings low, rsqrtf 2 ulp low (the FMA takes
+    the exact product)."""
+    h = float(np.float32(1.3))
+    c = ph.PairConstants.of(h)
+    index, pstar, mass, lam = adversarial_tiles(h, seed)
+    member = index.key < index.grid.ncells
+    m = int(member.sum())
+    near_dropped = near_kept = inside_kept = 0
+    for sub in tl.TILE_SUBS:
+        tiles = tl.plan_tiles(index, sub)
+        ntiles = pstar.shape[1] // sub
+        # every tile's candidate sequence is the members in row order
+        assert bool((tiles[..., 1] - tiles[..., 0]).sum(1).eq(m).all())
+        for mxu in (False, True):
+            keep = tl.tile_keep_plain(tiles, index, pstar, sub, mxu, h)
+            kept = keep.repeat_interleave(8, 1).repeat_interleave(8, 2)[..., :m]
+            a = pstar.reshape(3, ntiles, sub, 1)
+            b = pstar[:, None, None, :m]
+            if mxu:
+                centre = tl.tile_centres(pstar, sub)[:, :, None, None]
+                a, b = a - centre, b - centre
+            d = a - b                                            # fp32, as the chain
+            r2 = tl.centred_r2(a[..., 0], b[:, :, 0]) if mxu else (d * d).sum(0)
+            u = torch.rsqrt(torch.clamp(r2, min=c.eps2))
+            tt = torch.clamp(c.hh - r2, min=0.0)
+            t2 = torch.clamp(c.h - r2 * u, min=0.0)
+            pairs = member.reshape(ntiles, sub, 1).expand_as(kept)
+            dropped = pairs & ~kept
+            assert not bool((dropped & ((tt != 0) | (t2 != 0))).any())
+            e = ((a.double() - b.double()) ** 2).sum(0)
+            low = e * (1.0 - 2.0 ** -24) ** 6
+            assert bool((low[dropped] >= c.hh).all())
+            assert bool((low[dropped].sqrt() * (1.0 - 2.0 ** -22) >= c.h).all())
+            rel = e / c.hh - 1.0
+            near = (rel.abs() < 2.0 ** -18) & pairs
+            near_dropped += int((near & dropped).sum())
+            near_kept += int((near & kept & (tt == 0)).sum())
+            inside_kept += int((pairs & kept & (tt > 0) & (rel > -2.0 ** -19)).sum())
+            assert not bool(keep[-1, -1].any())  # the non-members' block
+    # the seeded groups straddle both the cut-off and the keep threshold
+    assert near_dropped > 0 and near_kept > 0 and inside_kept > 0

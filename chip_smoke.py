@@ -33,20 +33,25 @@ with a non-zero exit and no result line:
    the card), tile pairs, per-row pairs and the bound.  No solver path runs
    these kernels, so their launches are counted over this phase;
 3d. the v2 compacted-candidate kernels (`csrc/pbf_phases2.cu`) on the same
-   two states: the chain once through its `PbfPhases2` wrappers (λ2 and Δp2
-   on the cull kernels), with the plan grown until it has no overflow, and
-   the dense λ2 and Δp2 once through `DensePhases2`; then each kernel
-   against its plain version: the compaction of the pStar and lambda packs
-   bit for bit on every column below nchunkp*128, lambda2 atol 1e-6 / rtol
-   1e-5, pStar after delta2 and the clamp atol 1e-5, diffuse2 count exact
-   and sums atol 1e-6; the cull λ2 and Δp2 bit for bit the dense ones on
-   every member row and to the same tolerances of the plain versions there;
-   with CUDA-event times, slab pairs and kept pairs (counted by the plain
-   mirror of the cull, `cull_keep_plain`, on the card) per second, the bound (for
-   the dense three and the cull two, over the per-row pairs of the phase
-   whose result they give), the slab roofline and, for the compaction, the
-   time of `index_select` over the plan's column map.  No solver path runs
-   these kernels either: their launches are counted over this phase;
+   two states: the chain once through its `PbfPhases2` wrappers (λ2, Δp2
+   and diffuse2 on the cull kernels), with the plan grown until it has no
+   overflow, and the dense λ2, Δp2 and diffuse2 once through
+   `DensePhases2`; then each kernel against its plain version: the
+   compaction of the pStar and lambda packs bit for bit on every column
+   below nchunkp*128, lambda2 atol 1e-6 / rtol 1e-5, pStar after delta2 and
+   the clamp atol 1e-5, diffuse2 count exact and sums atol 1e-6; the cull
+   λ2, Δp2 and diffuse2 bit for bit the dense
+   ones on every member row and to the same tolerances of the plain
+   versions there (diffuse2's also of the plain version masked by
+   `diffuse_keep_plain`, on every row); with CUDA-event times, slab pairs
+   and kept pairs (counted by the plain mirrors of the cull,
+   `cull_keep_plain` and `diffuse_keep_plain`, on the card) per second, the
+   bound (for the dense three and the cull three, over the per-row pairs of
+   the phase whose result they give), the slab roofline (the cull diffuse2:
+   its kept read, [w, bcl] and the kept slots' colours) and, for the
+   compaction, the time of `index_select` over the plan's column map.  No
+   solver path runs these kernels either: their launches are counted over
+   this phase;
 3e. the rate-anchor kernels (`csrc/anchor_rate.cu`, the kernels of
    `tools/anchor_rate.py`): the SASS of each (cuobjdump: every issue
    instantiation's loop holds nstreams*unroll instructions of its op, the
@@ -463,6 +468,9 @@ KERNELS = {
     "lambda2_cull": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:474"),
     "delta2_cull": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:547"),
     "diffuse2": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:612"),
+    # diffuse2 redesigned: only the slab slots some member row's band can
+    # accept (the kernel PbfPhases2 launches)
+    "diffuse2_cull": ("pbf_sph_tpu_torch/csrc/pbf_phases2.cu", "tools/pallas_pbf2.py:612"),
     # the rate anchor of tools/anchor_rate.py: build_issue, build_body, build_subfix
     "anchor_issue": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:116"),
     "anchor_body": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:204"),
@@ -557,7 +565,7 @@ MC_FLOP_PER_HIT = 14
 # on every slab pair (3 differences, r2 as 3 products and 2 adds, the
 # compare; diffuse2: the band test's 8 and the compare)
 V2_PHASE = {"lambda2": "lambda", "delta2": "delta", "diffuse2": "diffuse",
-            "lambda2_cull": "lambda", "delta2_cull": "delta"}
+            "lambda2_cull": "lambda", "delta2_cull": "delta", "diffuse2_cull": "diffuse"}
 SLAB_TEST_FLOP = 9
 # csrc/anchor_rate.cu: the issue kernels' operations are per round in
 # anchor_rate.FLOP_PER_ROUND (an FMA two); the bodies' are the phase kernels'
@@ -865,11 +873,11 @@ def phase_tiles(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
 
 def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     """3d: the v2 chain (plan, compact pStar, lambda2, compact lambda, delta2,
-    diffuse2) once through the `PbfPhases2` wrappers and the dense lambda2
-    and delta2 once through `DensePhases2` (the launches counted for their
-    kernels), then each kernel against its plain version on the same inputs
-    and the cull kernels against the dense ones; `report` gets the
-    compact/lambda2/delta2/diffuse2/lambda2_cull/delta2_cull entries (the
+    diffuse2) once through the `PbfPhases2` wrappers and the dense lambda2,
+    delta2 and diffuse2 once through `DensePhases2` (the launches counted
+    for their kernels), then each kernel against its plain version on the
+    same inputs and the cull kernels against the dense ones; `report` gets
+    the compact/lambda2/delta2/diffuse2 entries and their _cull entries (the
     largest error over both states, this state's times) and "launches_v2"
     the wrappers' counts under those names."""
     print(f"== 3d. v2 compacted-candidate kernels against their plain PyTorch "
@@ -901,14 +909,20 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     phases.diffuse(wins, st.colour, cells, member, st.ptype, st.alive, dyn["dt"])
     rows_l = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], st.mass], dim=1)
     rows_d = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], lam], dim=1)
+    dims = spec.grid.dims
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, dims)
+    cands_c = p2.compact_kernel(wins, st.colour)
+    cands_w = p2.compact_kernel(wins, wpack)
     dense = p2.DensePhases2(h)
     lam_k = dense.lambda_raw(nchunkp, rows_l, cands)
     dp_k = dense.delta_raw(nchunkp, rows_d, cands, lamc)
+    sk = dense.diffuse_raw(nchunkp, cl, cands_c, cands_w, dims)
     torch.cuda.synchronize()
-    # PbfPhases2 counts its cull kernels as lambda2/delta2
-    counts = {"compact": phases.launches["compact"], "diffuse2": phases.launches["diffuse2"],
+    # PbfPhases2 counts its cull kernels as lambda2/delta2/diffuse2
+    counts = {"compact": phases.launches["compact"],
               "lambda2_cull": phases.launches["lambda2"],
-              "delta2_cull": phases.launches["delta2"], **dense.launches}
+              "delta2_cull": phases.launches["delta2"],
+              "diffuse2_cull": phases.launches["diffuse2"], **dense.launches}
     launches = report.setdefault("launches_v2", dict.fromkeys(counts, 0))
     for name in launches:
         launches[name] += counts[name]
@@ -953,15 +967,33 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
     print(f"  kept pairs (cull_keep_plain) {kept} ({kept / spairs:.4f} of the {spairs} slab pairs, "
           f"{kept / pairs:.3f}x the {pairs} per-row pairs)")
 
-    dims = spec.grid.dims
-    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, dims)
-    cands_c = p2.compact_kernel(wins, st.colour)
-    cands_w = p2.compact_kernel(wins, wpack)
-    sk = p2.diffuse2_kernel(nchunkp, cl, cands_c, cands_w, dims)
     sp = p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims)
     err_d = float((sk[:4] - sp[:4]).abs().max())
     check(torch.equal(sk[4], sp[4]), f"diffuse2 count exact (max {int(sk[4].max())})")
     check(err_d <= 1e-6, f"diffuse2 colour sums max abs err {err_d:.3e} <= 1e-6")
+
+    # the diffuse2 cull kernel: the dense sums on every member row bit for
+    # bit, the plain version's there, and the plain version masked by its
+    # keep mask on every row
+    sk_c = p2.diffuse2_cull_kernel(nchunkp, cl, cands_c, cands_w, member, dims)
+    check(torch.equal(sk_c[:, member], sk[:, member]),
+          f"diffuse2_cull bit for bit diffuse2 on {nmember} member rows")
+    err_dc = float((sk_c[:4] - sp[:4])[:, member].abs().max())
+    check(torch.equal(sk_c[4][member], sp[4][member]) and err_dc <= 1e-6,
+          f"diffuse2_cull count exact, colour sums max abs err {err_dc:.3e} <= 1e-6 on "
+          f"member rows")
+    keep = p2.diffuse_keep_plain(nchunkp, cl, member, cands_w, dims)
+    masked = p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims, keep=keep)
+    err_m = float((sk_c[:4] - masked[:4]).abs().max())
+    check(torch.equal(sk_c[4], masked[4]) and err_m <= 1e-6,
+          f"diffuse2_cull against diffuse2_plain masked by diffuse_keep_plain on every row: "
+          f"count exact, sums max abs err {err_m:.3e} <= 1e-6")
+    slot_cols = int(keep.sum())  # the slots the slot test passes, in columns
+    kept_d = slot_cols * p2.SUB
+    print(f"  diffuse2 kept pairs (diffuse_keep_plain) {kept_d} "
+          f"({kept_d / spairs:.4f} of the {spairs} slab pairs, "
+          f"{kept_d / pairs:.3f}x the {pairs} per-row pairs); the slot "
+          f"test passes {slot_cols / ncols:.4f} of the {ncols} columns")
 
     # the one PyTorch call that computes the pStar slab: index_select over the
     # plan's column map, with SENTINEL as one more column of the pack
@@ -1003,7 +1035,14 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
                      lambda: p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims), err_d,
                      nbytes(cl, st.colour, wpack, sk) + plan_bytes,
                      nbytes(cl, nchunkp, sk) + 6 * col_bytes, None),
+        # its slab read: [w, bcl] over the defined columns and the colours of
+        # the kept slots (the kept read)
+        "diffuse2_cull": (
+            lambda: p2.diffuse2_cull_kernel(nchunkp, cl, cands_c, cands_w, member, dims),
+            None, err_dc, nbytes(cl, member, st.colour, wpack, sk_c) + plan_bytes,
+            nbytes(cl, member, nchunkp, sk_c) + 2 * col_bytes + 16 * slot_cols, None),
     }
+    kept_of = {"lambda2_cull": kept, "delta2_cull": kept, "diffuse2_cull": kept_d}
     for name, (kern, plain, err, io_bytes, slab_bytes, library) in timings.items():
         ms = device_ms(kern, reps[0])
         plain_ms = (device_ms(plain, 1) if plain is not None
@@ -1018,8 +1057,10 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
             rate = (f"{spairs / ms / 1e6:.3f} G slab pairs/s, {pairs / ms / 1e6:.3f} G "
                     f"per-row pairs/s; slab roofline {slab_ms:.4f} ms by {slab_by}")
             if name.endswith("_cull"):
-                kept_ms, kept_by = bound(slab_bytes, kept * FLOP_PER_PAIR[V2_PHASE[name]])
-                rate += (f"; {kept / ms / 1e6:.3f} G kept pairs/s, the slab read and the "
+                k = kept_of[name]
+                kept_ms, kept_by = bound(slab_bytes, k * FLOP_PER_PAIR[V2_PHASE[name]])
+                read = ("the kept read" if name == "diffuse2_cull" else "the slab read")
+                rate += (f"; {k / ms / 1e6:.3f} G kept pairs/s, {read} and the "
                          f"kept pairs' chain {kept_ms:.4f} ms by {kept_by}")
         lib = f", index_select {library_ms:.4f} ms" if library_ms is not None else ""
         print(f"  {name}: kernel {ms:.4f} ms ({rate}), plain {plain_ms:.4f} ms{lib}, "

@@ -5,9 +5,10 @@
 //   pbf_lambda2   <- make_lambda2_call  (:474, on _dense_phase :422)
 //   pbf_delta2    <- make_delta2_call   (:547)
 //   pbf_diffuse2  <- make_diffuse2_call (:612)
-// and redesigns two of them (the kernels PbfPhases2 launches):
-//   pbf_lambda2_cull <- make_lambda2_call (:474)  lambda2 over the kept pairs
-//   pbf_delta2_cull  <- make_delta2_call  (:547)  delta2 over the kept pairs
+// and redesigns three of them (the kernels PbfPhases2 launches):
+//   pbf_lambda2_cull  <- make_lambda2_call  (:474)  lambda2 over the kept pairs
+//   pbf_delta2_cull   <- make_delta2_call   (:547)  delta2 over the kept pairs
+//   pbf_diffuse2_cull <- make_diffuse2_call (:612)  diffuse2 over the kept slots
 // Each computes what its Pallas kernel computes from the same plan
 // (pbf_sph_tpu_torch/tools/phases2.py: plan_compact) and slabs; the masks,
 // clamp and mix of the Pallas wrappers stay in the Python wrappers
@@ -38,6 +39,8 @@
 //
 // Every launcher runs on the given stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError().
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -237,18 +240,20 @@ struct Diffuse2Pair {
   float r = 0.f, g = 0.f, b = 0.f, a = 0.f, cnt = 0.f;
   // 19 operations: the band test e = |bcl - acl|, g1 = min(|e - nynz|, e),
   // g2 = min(|g1 - nz|, g1) (8), the compare and select (2), the count (1)
-  // and four weighted colour sums (8).  Exact on fp32 integers < 2^24.
+  // and four weighted colour sums (8).  Exact on fp32 integers < 2^24.  The
+  // sums round each operation as written (one fused multiply-add a colour),
+  // so diffuse2_kernel and diffuse2_cull_kernel agree bit for bit.
   __device__ __forceinline__ void operator()(float w, float bcl, float cr,
                                              float cg, float cb, float ca) {
     const float e = fabsf(bcl - acl);
     const float g1 = fminf(fabsf(e - nynz), e);
     const float g2 = fminf(fabsf(g1 - nz), g1);
     const float ww = g2 <= 1.f ? w : 0.f;
-    cnt += ww;
-    r += ww * cr;
-    g += ww * cg;
-    b += ww * cb;
-    a += ww * ca;
+    cnt = __fadd_rn(cnt, ww);
+    r = __fmaf_rn(ww, cr, r);
+    g = __fmaf_rn(ww, cg, g);
+    b = __fmaf_rn(ww, cb, b);
+    a = __fmaf_rn(ww, ca, a);
   }
 };
 
@@ -532,6 +537,175 @@ __global__ void __launch_bounds__(kCullWarps * kWarp)
   dp[2 * n + i] = p.sz;
 }
 
+// ---------------------------------------------------------------------------
+// pbf_diffuse2_cull: diffuse2 over the slab slots that can contribute.
+//
+// diffuse2_kernel runs the band test of every row against every slab
+// column, ~96% of its time issuing the 19 operations of pairs that add 0:
+// only a row's 27 cells count, ~10% of the slab pairs at the 1M dam break.
+// This kernel gives the same five sums on every member row, bit for bit, by
+// skipping only columns that add +0 to each member row's sums, and summing
+// the rest in the dense kernel's order with the same pair struct.  Per warp
+// (one sub-block, one lane a row):
+//   1. the row band [amin, amax] of the warp's member rows' cell ids, by
+//      shuffles; a warp with no member row walks nothing (its sums stay 0);
+//   2. the slot test: a slot is the 4 columns of one staged float4 of
+//      [w, bcl], a lane's own; it is kept when [bmin, bmax], the cell ids of
+//      its columns with w != 0, meets one of the nine intervals
+//      [amin + o - 1, amax + o + 1], o = dx*ny*nz + dy*nz (dx, dy in
+//      {-1, 0, 1}), tested in integers; the warp ballots the slots and walks
+//      the kept ones, warp-uniform, in column order;
+//   3. [w, bcl] is staged 256 columns at a time by 16-byte cp.async into two
+//      shared buffers, the next stage in flight while one is walked; the four
+//      colour fields of a stage are staged for its kept slots only.
+//
+// Why a skipped column adds nothing: with cell ids fp32 integers below 2^24
+// (and SENTINEL for non-members) the band test is exact, and it passes for
+// (a, b) iff b - a = o + d with o one of the nine offsets and d in {-1, 0,
+// 1}: g2 <= 1 means g1 within 1 of 0 or nz, and g1 is e or |e - ny*nz|.  A
+// member row a lies in [amin, amax], so a column it accepts lies in one of
+// the intervals, and a slot none of whose w != 0 columns does is skipped
+// only when every member row gives each of its columns ww = +0 (the test
+// fails, or w = 0).  Then each sum would take cnt + 0 and fma(+0, c, s) = s
+// for finite c: the same bits as not adding.  The sums are pinned
+// (`Diffuse2Pair`), so the kept columns add as in the dense kernel.
+// `diffuse_keep_plain` (tools/phases2.py) repeats the keep mask.
+//
+// Bound: the [w, bcl] read, the kept slots' colour read and the sums of the
+// kept slots' columns; at the 1M dam break the slot test keeps ~26% of the
+// slots.  A per-column warp vote in the kept slots would skip ~1% of their
+// columns and was measured slower, so the kernel has none (PERF.md).
+
+// The warp's member rows' band of cell ids and the nine band offsets.
+struct RowBand {
+  int amin, amax;
+  int off[9];
+};
+
+__device__ __forceinline__ RowBand row_band(float acl, bool in, float nynz, float nz) {
+  const int a = __float2int_rn(acl);
+  RowBand band{in ? a : INT_MAX, in ? a : INT_MIN, {}};
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    band.amin = min(band.amin, __shfl_xor_sync(kFull, band.amin, o));
+    band.amax = max(band.amax, __shfl_xor_sync(kFull, band.amax, o));
+  }
+  const int iynz = __float2int_rn(nynz), iz = __float2int_rn(nz);
+#pragma unroll
+  for (int dx = -1; dx <= 1; ++dx)
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) band.off[(dx + 1) * 3 + dy + 1] = dx * iynz + dy * iz;
+  return band;
+}
+
+// Whether a slot (its w and cell ids) has a column with w != 0 in one of the
+// band's nine intervals.  Call only for a warp with a member row.
+__device__ __forceinline__ bool slot_near(const RowBand& band, float4 w, float4 b) {
+  int bmin = INT_MAX, bmax = INT_MIN;
+  const float ws[4] = {w.x, w.y, w.z, w.w}, bs[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (ws[c] != 0.f) {
+      const int v = __float2int_rn(bs[c]);
+      bmin = min(bmin, v);
+      bmax = max(bmax, v);
+    }
+  }
+  if (bmin > bmax) return false;  // every w is 0
+  // [bmin, bmax] meets [amin + o - 1, amax + o + 1] iff lo <= o <= hi
+  const int lo = bmin - band.amax - 1;
+  const unsigned span = (unsigned)(bmax - band.amin + 1 - lo);
+  bool hit = false;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) hit |= (unsigned)(band.off[k] - lo) <= span;
+  return hit;
+}
+
+// One stage of the w and bcl slab fields into shared memory (no wait).
+__device__ __forceinline__ void stage_wb(float4 (*dst)[kStage4], const float* fw,
+                                         const float* fb, int g, int lane) {
+#pragma unroll
+  for (int k = 0; k < kStageK; ++k) {
+    const int i = k * kWarp + lane;
+    cp_async16(&dst[0][i], fw + g + 4 * i);
+    cp_async16(&dst[1][i], fb + g + 4 * i);
+  }
+}
+
+__global__ void __launch_bounds__(kCullWarps * kWarp)
+    diffuse2_cull_kernel(const float* __restrict__ acl,      // (C,) linear cell ids
+                         const float* __restrict__ cands_c,  // (4, S) r, g, b, a
+                         const float* __restrict__ cands_w,  // (2, S) w, bcl
+                         const unsigned char* __restrict__ member,  // (C,)
+                         const int* __restrict__ nchunkp, int nsub, int wcap,
+                         float nynz, float nz, float* __restrict__ out) {
+  __shared__ float4 wb[kCullWarps][2][2][kStage4];
+  __shared__ float4 cbuf[kCullWarps][4][kStage4];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int t = blockIdx.x * kCullWarps + warp;
+  if (t >= nsub) return;  // whole warps only; the kernel has no block barrier
+  const long long slab = (long long)nsub * wcap;
+  const float* fw = cands_w + (long long)t * wcap;
+  const float* fb = fw + slab;
+  const float* fc = cands_c + (long long)t * wcap;
+  const int i = t * kWarp + lane;
+  const bool in = member[i] != 0;
+  Diffuse2Pair p{acl[i], nynz, nz};
+  const RowBand band = row_band(p.acl, in, nynz, nz);
+  const int nst = __any_sync(kFull, in) ? nchunkp[t] * kChunk / kStage : 0;
+  if (nst > 0) {
+    stage_wb(wb[warp][0], fw, fb, 0, lane);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<0>();
+    __syncwarp();
+    float4 (*cur)[kStage4] = wb[warp][s & 1];
+    unsigned keep[kStageK];
+#pragma unroll
+    for (int k = 0; k < kStageK; ++k) {
+      const int j = k * kWarp + lane;
+      const bool near = slot_near(band, cur[0][j], cur[1][j]);
+      keep[k] = __ballot_sync(kFull, near);
+      if (near) {  // this lane's float4s of the colour slab
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          cp_async16(&cbuf[warp][f][j], fc + f * slab + s * kStage + 4 * j);
+      }
+    }
+    cp_async_commit();
+    if (s + 1 < nst) {
+      stage_wb(wb[warp][(s + 1) & 1], fw, fb, (s + 1) * kStage, lane);
+      cp_async_commit();
+      cp_async_wait<1>();  // the colours of this stage, not the next stage
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kStageK; ++k) {
+      for (unsigned bits = keep[k]; bits; bits &= bits - 1) {
+        const int j = k * kWarp + __ffs(bits) - 1;
+        const float4 w = cur[0][j], bcl = cur[1][j];
+        const float4 r = cbuf[warp][0][j], g = cbuf[warp][1][j];
+        const float4 b = cbuf[warp][2][j], al = cbuf[warp][3][j];
+        p(w.x, bcl.x, r.x, g.x, b.x, al.x);
+        p(w.y, bcl.y, r.y, g.y, b.y, al.y);
+        p(w.z, bcl.z, r.z, g.z, b.z, al.z);
+        p(w.w, bcl.w, r.w, g.w, b.w, al.w);
+      }
+    }
+    __syncwarp();
+  }
+  const long long n = (long long)nsub * kWarp;
+  out[i] = p.r;
+  out[n + i] = p.g;
+  out[2 * n + i] = p.b;
+  out[3 * n + i] = p.a;
+  out[4 * n + i] = p.cnt;
+}
+
 inline int cull_blocks(int nsub) { return (nsub + kCullWarps - 1) / kCullWarps; }
 
 }  // namespace
@@ -614,6 +788,19 @@ int pbf_diffuse2(const void* acl, const void* cands_c, const void* cands_w,
                       (cudaStream_t)stream>>>(
         (const float*)acl, (const float*)cands_c, (const float*)cands_w,
         (const int*)nchunkp, nsub, wcap, nynz, nz, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+int pbf_diffuse2_cull(const void* acl, const void* cands_c, const void* cands_w,
+                      const void* member, const void* nchunkp, int nsub, int wcap,
+                      float nynz, float nz, void* out, void* stream) {
+  if (nsub > 0) {
+    diffuse2_cull_kernel<<<cull_blocks(nsub), kCullWarps * kWarp, 0,
+                           (cudaStream_t)stream>>>(
+        (const float*)acl, (const float*)cands_c, (const float*)cands_w,
+        (const unsigned char*)member, (const int*)nchunkp, nsub, wcap, nynz, nz,
+        (float*)out);
   }
   return (int)cudaGetLastError();
 }

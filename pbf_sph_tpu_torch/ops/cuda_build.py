@@ -73,6 +73,7 @@ SIGNATURES = {
     "pbf_lambda2_cull": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_delta2_cull": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "pbf_diffuse2": [_P, _P, _P, _P, _I, _I, _F, _F, _P, _P],
+    "pbf_diffuse2_cull": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P],
     # csrc/anchor_rate.cu (anchor_fill_threads returns a thread count)
     "anchor_fill_threads": [_I, _I, _I, _I, _I],
     "anchor_issue": [_P, _I, _I, _I, _I, _I, _P, _P],

@@ -1,6 +1,7 @@
 """Sweep of the tiled lambda/delta variants on one CUDA card.
 
     python -m pbf_sph_tpu_torch.tools.bench_kernel_variants [count] [reps]
+    python -m pbf_sph_tpu_torch.tools.bench_kernel_variants --ptxas SOURCE
 
 Port of `tools/bench_kernel_variants.py`.  It settles dam_break(count, 6)
 (default 1M) with the growth warmup of `bench.warm_up` over 5 frames, takes
@@ -23,6 +24,9 @@ limit, then ptxas's registers, spills and shared memory of every kernel of
 of plan + 6 x (lambda + delta), one constraint solve of dam1m, cull and
 dense, follows the rows, and the last line is the table as one JSON
 object.
+With `--ptxas SOURCE` (a file of csrc/, e.g. pbf_phases2.cu) it only
+prints ptxas's registers, spills and shared memory of every kernel of that
+file (`ptxas_entries`), one line each, and needs nvcc but no card.
 There is no CPU fallback: without a CUDA device the tool fails.
 """
 
@@ -57,28 +61,41 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def ptxas_report() -> list:
-    """[{kernel, sub, mxu, pair, registers, spill_bytes, smem_bytes}] of every
-    kernel of csrc/pbf_tiles.cu, from `nvcc -Xptxas -v` with the library's
-    flags (one object, no link)."""
+def ptxas_entries(source: str) -> list:
+    """[{entry, registers, spill_bytes, smem_bytes}] of every kernel of
+    csrc/`source` (entry: its mangled name), from `nvcc -Xptxas -v` with the
+    library's flags (one object, no link)."""
     with tempfile.TemporaryDirectory() as tmp:
         res = subprocess.run(
             [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-             f"{tmp}/pbf_tiles.o", str(cuda_build.SRC_DIR / "pbf_tiles.cu")],
+             f"{tmp}/kernels.o", str(cuda_build.SRC_DIR / source)],
             capture_output=True, text=True, check=True)
     rows = []
     for line in (res.stdout + res.stderr).splitlines():
-        m = re.search(r"Compiling entry function '\S*?(tile_cull_kernel|tile_kernel)ILi(\d+)ELb"
-                      r"([01])ENS_\d+(Lambda|Delta)Pair", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            rows.append(dict(kernel=m.group(1), sub=int(m.group(2)), mxu=int(m.group(3)),
-                             pair=m.group(4)))
+            rows.append(dict(entry=m.group(1)))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and rows:
             rows[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m and rows:
-            rows[-1].update(registers=int(m.group(1)), smem_bytes=int(m.group(2)))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1].update(registers=int(m.group(1)),
+                            smem_bytes=int(smem.group(1)) if smem else 0)
+    return rows
+
+
+def ptxas_report() -> list:
+    """[{kernel, sub, mxu, pair, registers, spill_bytes, smem_bytes}] of every
+    kernel of csrc/pbf_tiles.cu (`ptxas_entries`)."""
+    rows = []
+    for r in ptxas_entries("pbf_tiles.cu"):
+        m = re.search(r"(tile_cull_kernel|tile_kernel)ILi(\d+)ELb([01])ENS_\d+(Lambda|Delta)Pair",
+                      r.pop("entry"))
+        if m:
+            rows.append(dict(kernel=m.group(1), sub=int(m.group(2)), mxu=int(m.group(3)),
+                             pair=m.group(4), **r))
     return sorted(rows, key=lambda r: (r["kernel"], r["pair"], r["sub"], r["mxu"]))
 
 
@@ -98,6 +115,11 @@ def device_ms(fn, reps: int) -> float:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ptxas"]:
+        for r in ptxas_entries(argv[1]):
+            print(f"ptxas {r['entry']}: {r.get('registers')} registers, "
+                  f"{r.get('spill_bytes')} bytes spilled, {r.get('smem_bytes')} bytes smem")
+        return 0
     count = int(argv[0]) if argv else 1_000_000
     reps = int(argv[1]) if len(argv) > 1 else 10
     if not torch.cuda.is_available():

@@ -1,5 +1,5 @@
-"""Per-phase times on one CUDA card: v1 (per-row kernels) against v2
-(compacted candidates).
+"""Per-phase times on one CUDA card: v1 (per-row kernels, and the main
+path's own) against v2 (compacted candidates).
 
     python -m pbf_sph_tpu_torch.tools.bench_phases [count] [reps]
 
@@ -13,15 +13,23 @@ times (CUDA events over `reps` calls after a warm one, default 10):
   the cell table;
 * v2 (`tools/phases2.py` `PbfPhases2`): the plan, compact pStar, lambda2,
   compact lambda, delta2 and diffuse2 (its two compactions included), with
-  lambda2 and delta2 on the cull kernels.  smax and wcap start where
-  `tools/bench_phases.py` starts them and grow by
+  lambda2, delta2 and diffuse2 on the cull kernels.  smax and wcap start
+  where `tools/bench_phases.py` starts them and grow by
   `grown_strip_capacity`/`grown_wcap` until the plan reports no overflow;
   the run fails if one is left at STRIP_MAX/WCAP_MAX;
-* the raw lambda2 and delta2 kernels alone: the dense ones (`DensePhases2`)
-  and the cull ones, with the share of the slab columns the cull kernels'
-  group test passes to the vote;
-* v1 (`ops/phases.py` `PbfPhases`): lambda, delta and diffuse (the per-row
-  `diffuse_rows`).
+* the raw lambda2, delta2 and diffuse2 kernels alone: the dense ones
+  (`DensePhases2`) and the cull ones, with the share of the slab columns
+  the cull kernels' group test passes to the vote and the share diffuse2's
+  slot test passes;
+* v1 (`ops/phases.py` `PbfPhases`): the per-row lambda, delta and diffuse
+  (`diffuse_rows`: rows 1-3), and the main path's own calls, `solve` for
+  one iteration (its (C, 4) packs and the kernels of `ops/cells.py`: rows
+  1b/2b) and `diffuse` (`ops/diffuse_cells.py`: rows 3b/3c).
+
+A round is one constraint iteration: v2 compact pStar, lambda2, compact
+lambda and delta2; v1 lambda and delta, per row or through `solve`.  The
+tool prints the v2 round against both v1 rounds, and diffuse2 against both
+v1 diffuse calls.
 
 Then the parity of v2 against v1 on member rows (max |dlambda|, max
 |dpStar| after one delta phase and the clamp, each chain with its own
@@ -29,9 +37,12 @@ lambda, max |dcolour| and the largest diffuse count difference), the cull
 kernels' largest difference from the dense ones on member rows (0 when bit
 for bit), and the pairs each evaluates: the dense v2 kernels every slab
 column of its sub-block, sum nchunkp*128*32; the cull kernels the kept
-columns times 32 (`kept_pairs`); v1 the per-row candidate ranges.
+columns times 32 (`kept_pairs`, `diffuse_kept_pairs`); v1 the per-row
+candidate ranges.
 
-The first line is the card's name and power limit, the last one JSON object.
+The first line is the card's name and power limit, the last one JSON
+object.  (ptxas's registers, spills and shared memory of the kernels come
+on demand from `bench_kernel_variants --ptxas pbf_phases2.cu`.)
 There is no CPU fallback: without a CUDA device the tool fails.  (The JAX
 tool reads a `wcap_overflow` output that its solver no longer returns; this
 one prints the plan's own overflows.)
@@ -165,9 +176,25 @@ def main(argv=None) -> int:
         lambda: p2.lambda2_cull_kernel(nchunkp, rows_l, cands, member, h), reps)
     times["delta2_cull"] = device_ms(
         lambda: p2.delta2_cull_kernel(nchunkp, rows_d, cands, lamc, member, h), reps)
+    ncols = int(nchunkp.long().sum()) * p2.WCOL
     group_share = (int(p2.cull_keep_plain(nchunkp, rows_l, member, cands, h, vote=False).sum())
-                   / (int(nchunkp.long().sum()) * p2.WCOL))
+                   / ncols)
     kept = p2.kept_pairs(nchunkp, rows_l, member, cands, h)
+
+    # the raw diffuse2 kernels: dense and cull
+    dims = spec.grid.dims
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, dims)
+    cands_c = p2.compact_kernel(wins, st.colour)
+    cands_w = p2.compact_kernel(wins, wpack)
+    sums_d = dense.diffuse_raw(nchunkp, cl, cands_c, cands_w, dims)
+    times["diffuse2_dense"] = device_ms(
+        lambda: dense.diffuse_raw(nchunkp, cl, cands_c, cands_w, dims), reps)
+    sums_c = p2.diffuse2_cull_kernel(nchunkp, cl, cands_c, cands_w, member, dims)
+    cull_diff = max(cull_diff, float((sums_c - sums_d)[:, member].abs().max()))
+    times["diffuse2_cull"] = device_ms(
+        lambda: p2.diffuse2_cull_kernel(nchunkp, cl, cands_c, cands_w, member, dims), reps)
+    diffuse_kept = p2.diffuse_kept_pairs(nchunkp, cl, member, cands_w, dims)
+    slot_share = diffuse_kept / p2.SUB / ncols
 
     # v1
     phases1 = ph.PbfPhases(h)
@@ -183,17 +210,31 @@ def main(argv=None) -> int:
         idx, st.colour, st.ptype, st.alive, dyn["dt"])
     colour1 = dif1_fn()
     times["diffuse1"] = device_ms(dif1_fn, reps)
+    # the main path's calls: one iteration of the solve on the (C, 4) packs
+    # (rows 1b/2b), and the cell-sum diffuse (rows 3b/3c)
+    solve_fn = lambda: phases1.solve(  # noqa: E731
+        idx, fr.pstar, st.mass, st.ptype, st.alive, 1, *bounds)
+    solve_fn()
+    times["solve1_main"] = device_ms(solve_fn, reps)
+    difm_fn = lambda: phases1.diffuse(  # noqa: E731
+        idx, st.colour, st.ptype, st.alive, dyn["dt"])
+    difm_fn()
+    times["diffuse1_main"] = device_ms(difm_fn, reps)
+    rounds = {"v2": times["compact_pstar"] + times["lambda2"] + times["compact_lam"]
+              + times["delta2"],
+              "v1_rows": times["lambda1"] + times["delta1"], "v1_main": times["solve1_main"]}
+    ratios = {"round_v2_v1_rows": rounds["v2"] / rounds["v1_rows"],
+              "round_v2_v1_main": rounds["v2"] / rounds["v1_main"],
+              "diffuse_v2_v1_rows": times["diffuse2"] / times["diffuse1"],
+              "diffuse_v2_v1_main": times["diffuse2"] / times["diffuse1_main"]}
 
     # parity on member rows, and the raw diffuse counts
-    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, spec.grid.dims)
-    sums2 = p2.diffuse2_kernel(wins["nchunkp"], cl, p2.compact_kernel(wins, st.colour),
-                               p2.compact_kernel(wins, wpack), spec.grid.dims)
     sums1 = ph.diffuse_kernel(idx, st.colour, ph.nonobstacle(st.ptype, st.alive))
     parity = dict(
         max_dlambda=float((lam2 - lam1)[member].abs().max()),
         max_dpstar=float((moved2 - moved1)[:, member].abs().max()),
         max_dcolour=float((colour2 - colour1)[:, member].abs().max()),
-        max_dcount=float((sums2[4] - sums1[4])[member].abs().max()))
+        max_dcount=float((sums_d[4] - sums1[4])[member].abs().max()))
     lo, hi = ph.neighbour_ranges(idx)
     row_pairs = int((hi - lo).sum())
     slab_pairs = p2.slab_pairs(wins)
@@ -203,36 +244,47 @@ def main(argv=None) -> int:
     launches = {"compact": phases2.launches["compact"],
                 "lambda2_cull": phases2.launches["lambda2"],
                 "delta2_cull": phases2.launches["delta2"],
-                "diffuse2": phases2.launches["diffuse2"], **dense.launches}
+                "diffuse2_cull": phases2.launches["diffuse2"], **dense.launches,
+                **{k: v for k, v in phases1.launches.items() if v}}
 
     print(f"== shared: sort {times['sort']:.4f} ms, table {times['table']:.4f} ms")
     print(f"== v2 (smax {smax}, wcap {wcap}, {replans} replans; nchunkp mean "
           f"{float(nchunkp.mean()):.2f}, max {int(nchunkp.max())}): plan "
           f"{times['plan2']:.4f}, compact pStar {times['compact_pstar']:.4f}, lambda2 "
           f"{times['lambda2']:.4f}, compact lambda {times['compact_lam']:.4f}, delta2 "
-          f"{times['delta2']:.4f}, diffuse2 {times['diffuse2']:.4f} ms (lambda2 and delta2 "
-          f"cull)")
+          f"{times['delta2']:.4f}, diffuse2 {times['diffuse2']:.4f} ms (lambda2, delta2 and "
+          f"diffuse2 cull)")
     print(f"== v2 raw kernels: dense lambda2 {times['lambda2_dense']:.4f}, delta2 "
           f"{times['delta2_dense']:.4f} ms; cull lambda2 {times['lambda2_cull']:.4f}, delta2 "
           f"{times['delta2_cull']:.4f} ms, the group test passes {group_share:.4f} of the "
+          f"columns; dense diffuse2 {times['diffuse2_dense']:.4f}, cull diffuse2 "
+          f"{times['diffuse2_cull']:.4f} ms, the slot test passes {slot_share:.4f} of the "
           f"columns")
     print(f"== v1: lambda {times['lambda1']:.4f}, delta {times['delta1']:.4f}, "
-          f"diffuse {times['diffuse1']:.4f} ms")
+          f"diffuse {times['diffuse1']:.4f} ms (per row); main path: solve, one iteration "
+          f"{times['solve1_main']:.4f}, diffuse {times['diffuse1_main']:.4f} ms")
+    print(f"== a round: v2 {rounds['v2']:.4f} ms, v1 per row {rounds['v1_rows']:.4f} "
+          f"({ratios['round_v2_v1_rows']:.2f}x), v1 main path {rounds['v1_main']:.4f} "
+          f"({ratios['round_v2_v1_main']:.2f}x); diffuse2 {ratios['diffuse_v2_v1_rows']:.2f}x "
+          f"the per-row diffuse, {ratios['diffuse_v2_v1_main']:.2f}x the main path's")
     print(f"== pairs: v2 {slab_pairs} slab pairs ({slab_pairs / row_pairs:.2f}x), cull "
           f"{kept} kept pairs ({kept / slab_pairs:.4f} of the slab, "
-          f"{kept / row_pairs:.3f}x), v1 {row_pairs} per-row pairs; lambda2 dense "
+          f"{kept / row_pairs:.3f}x), diffuse2 cull {diffuse_kept} kept pairs "
+          f"({diffuse_kept / slab_pairs:.4f}), v1 "
+          f"{row_pairs} per-row pairs; lambda2 dense "
           f"{slab_pairs / times['lambda2_dense'] / 1e6:.1f} G slab pairs/s, lambda2 "
           f"{slab_pairs / times['lambda2'] / 1e6:.1f} G slab pairs/s, lambda1 "
           f"{row_pairs / times['lambda1'] / 1e6:.1f} G pairs/s")
     print("== parity v2 - v1 on member rows: " + ", ".join(
         f"{k} {v:.3e}" for k, v in parity.items())
-        + f"; cull - dense raw lambda2/delta2: {cull_diff:.3e}")
+        + f"; cull - dense raw lambda2/delta2/diffuse2: {cull_diff:.3e}")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0),
                       "count": len(xs), "capacity": spec.capacity, "reps": reps,
                       "smax": smax, "wcap": wcap, "times_ms": times, "parity": parity,
                       "cull_vs_dense": cull_diff, "group_share": group_share,
-                      "slab_pairs": slab_pairs, "kept_pairs": kept, "row_pairs": row_pairs,
-                      "launches": launches}))
+                      "slot_share": slot_share, "slab_pairs": slab_pairs, "kept_pairs": kept,
+                      "diffuse_kept_pairs": diffuse_kept, "row_pairs": row_pairs,
+                      "rounds_ms": rounds, "ratios": ratios, "launches": launches}))
     return 0
 
 

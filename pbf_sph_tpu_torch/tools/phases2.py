@@ -28,8 +28,11 @@ On the card `PbfPhases2` runs lambda2 and delta2 as `lambda2_cull_kernel`
 and `delta2_cull_kernel`: the same raw values on every member row, bit for
 bit, over only the slab columns that can contribute (`cull_keep_plain`, the
 keep mask of their group and vote tests, in plain torch).  Their plain
-versions are `lambda2_plain` and `delta2_plain`.  The dense kernels that walk
-every column stay as launchers, counted through `DensePhases2`.
+versions are `lambda2_plain` and `delta2_plain`.  It runs diffuse2 as
+`diffuse2_cull_kernel`: the same sums on every member row, bit for bit, over
+only the slab slots some member row's 27-cell band can accept
+(`diffuse_keep_plain`), plain version `diffuse2_plain`.  The dense kernels
+that walk every column stay as launchers, counted through `DensePhases2`.
 
 Pair math as in Pallas: r2 clamped to EPSILON^2 from below, the rsqrt form
 of the spiky gradient, no per-pair mask.  The one deliberate difference:
@@ -322,6 +325,50 @@ def kept_pairs(nchunkp, rows, member, cands, h: float) -> int:
     return int(cull_keep_plain(nchunkp, rows, member, cands, h).sum()) * SUB
 
 
+def band_offsets(dims: Sequence[int]) -> List[int]:
+    """The nine signed cell-id offsets dx*ny*nz + dy*nz (dx, dy in -1, 0, 1)
+    of the 27-cell band: diffuse2's band test passes for cells a, b iff b - a
+    is one of them plus -1, 0 or 1."""
+    _, ny, nz = dims
+    return [dx * ny * nz + dy * nz for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+
+
+def diffuse_keep_plain(nchunkp, acl, member, cands_w, dims: Sequence[int]):
+    """(nsub, wcap) bool: the slab columns `diffuse2_cull_kernel` runs the
+    sums for.  A column is kept when its slot of CULL_GROUP columns has a
+    column with w != 0 whose cell id lies within 1 of [amin + o, amax + o]
+    for one of the `band_offsets` o, [amin, amax] the cell ids of its
+    sub-block's member rows (the slot test); columns >= nchunkp*128 never,
+    nor any column of a sub-block with no member row.  Plain torch
+    arithmetic, not a kernel: the kernel's test repeated, for the tests and
+    for counting kept pairs.  Cell ids are fp32 integers below 2^24 or
+    SENTINEL."""
+    nsub = nchunkp.shape[0]
+    inside = member.reshape(nsub, SUB)
+    a = acl.reshape(nsub, SUB).long()
+    big = 1 << 40
+    amin = torch.where(inside, a, big).amin(1)[:, None]                 # (nsub, 1)
+    amax = torch.where(inside, a, -big).amax(1)[:, None]
+    offs = torch.tensor(band_offsets(dims), device=acl.device)
+    keep = []
+    for tb, (wc,) in _slab_blocks(nchunkp, (cands_w,)):
+        w, b = wc[0], wc[1]                                             # (B, wcap)
+        live = (w != 0).reshape(w.shape[0], -1, CULL_GROUP)
+        bs = b.long().reshape(live.shape)
+        bmin = torch.where(live, bs, big).amin(-1)[..., None]          # (B, slots, 1)
+        bmax = torch.where(live, bs, -big).amax(-1)[..., None]
+        hit = ((offs >= bmin - amax[tb, :, None] - 1)
+               & (offs <= bmax - amin[tb, :, None] + 1)).any(-1)
+        keep.append((hit & live.any(-1)).repeat_interleave(CULL_GROUP, dim=-1))
+    return torch.cat(keep)
+
+
+def diffuse_kept_pairs(nchunkp, acl, member, cands_w, dims: Sequence[int]) -> int:
+    """Row-column pairs `diffuse2_cull_kernel` runs the sums for: the kept
+    columns of `diffuse_keep_plain` times the 32 rows of a sub-block."""
+    return int(diffuse_keep_plain(nchunkp, acl, member, cands_w, dims).sum()) * SUB
+
+
 def pstar_pack(pstar, member):
     """The (4, C) pack [1, x|SENTINEL, y, z] whose compaction is the
     lambda2/delta2 candidate slab: non-member slots are blanked in x, so they
@@ -438,9 +485,11 @@ def delta2_plain(nchunkp, rows, cands, lamc, h: float, keep=None):
     return dp.reshape(3, -1)
 
 
-def diffuse2_plain(nchunkp, acl, cands_c, cands_w, dims: Sequence[int]):
+def diffuse2_plain(nchunkp, acl, cands_c, cands_w, dims: Sequence[int], keep=None):
     """(5, C) [sum r, g, b, a, count] over the slab columns whose cell passes
-    the band test; what `diffuse2_kernel` computes (`pallas_pbf2.py:631-663`).
+    the band test; what `diffuse2_kernel` computes (`pallas_pbf2.py:631-663`),
+    and `diffuse2_cull_kernel` on member rows.  keep, an (nsub, wcap) bool
+    mask such as `diffuse_keep_plain`'s, makes the other columns add 0.
 
     acl (C,) the rows' linear cell ids as fp32; cands_c the (4, S) colour
     slab, cands_w the (2, S) slab [w, bcl|SENTINEL].  With e = |bcl - acl|,
@@ -463,7 +512,10 @@ def diffuse2_plain(nchunkp, acl, cands_c, cands_w, dims: Sequence[int]):
         g1 = torch.minimum(torch.abs(e - nynz), e)
         g2 = torch.minimum(torch.abs(g1 - nzf), g1)
         # columns >= nchunkp*128 are undefined in the kernel's slab: add 0
-        ww = torch.where((j < limit) & (g2 <= 1.0), wc[0, :, j, None], 0.0)
+        ok = (j < limit) & (g2 <= 1.0)
+        if keep is not None:
+            ok &= keep[:, j, None]
+        ww = torch.where(ok, wc[0, :, j, None], 0.0)
         out[:4] += torch.where(ww > 0, ww * cc[:, :, j, None], 0.0)
         out[4] += ww
     return out.reshape(5, -1)
@@ -620,20 +672,43 @@ def diffuse2_kernel(nchunkp, acl, cands_c, cands_w, dims: Sequence[int]):
     return out
 
 
+def diffuse2_cull_kernel(nchunkp, acl, cands_c, cands_w, member, dims: Sequence[int]):
+    """(5, C) colour sums and count from `pbf_diffuse2_cull` (redesigns
+    `make_diffuse2_call`): `diffuse2_kernel`'s sums on every member row, over
+    the slab columns `diffuse_keep_plain` keeps."""
+    nsub, wcap = _slab_shape(nchunkp, cands_c)
+    n = nsub * SUB
+    _check(nchunkp=(nchunkp, torch.int32, (nsub,)), acl=(acl, torch.float32, (n,)),
+           cands_c=(cands_c, torch.float32, (4, nsub * wcap)),
+           cands_w=(cands_w, torch.float32, (2, nsub * wcap)),
+           member=(member, torch.bool, (n,)))
+    _, ny, nz = dims
+    out = torch.empty((5, n), dtype=acl.dtype, device=acl.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(acl.device):
+        err = lib.pbf_diffuse2_cull(
+            acl.data_ptr(), cands_c.data_ptr(), cands_w.data_ptr(), member.data_ptr(),
+            nchunkp.data_ptr(), nsub, wcap, float(np.float32(ny * nz)),
+            float(np.float32(nz)), out.data_ptr(), _stream(acl.device))
+    cuda_build.check("pbf_diffuse2_cull", err)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase wrappers
 # ---------------------------------------------------------------------------
 
 
 class DensePhases2:
-    """The dense lambda2 and delta2 kernels (`lambda2_kernel`,
-    `delta2_kernel`: every row against every slab column), which
-    `PbfPhases2` no longer launches, counted as "lambda2" and "delta2":
-    raw values, before the wrappers' mask and clamp.  CUDA tensors only."""
+    """The dense lambda2, delta2 and diffuse2 kernels (`lambda2_kernel`,
+    `delta2_kernel`, `diffuse2_kernel`: every row against every slab
+    column), which `PbfPhases2` no longer launches, counted as "lambda2",
+    "delta2" and "diffuse2": raw values and sums, before the wrappers' mask,
+    clamp and mix.  CUDA tensors only."""
 
     def __init__(self, h: float):
         self.h = float(h)
-        self.launches = {"lambda2": 0, "delta2": 0}
+        self.launches = {"lambda2": 0, "delta2": 0, "diffuse2": 0}
 
     def lambda_raw(self, nchunkp, rows, cands):
         lam = lambda2_kernel(nchunkp, rows, cands, self.h)
@@ -645,13 +720,18 @@ class DensePhases2:
         self.launches["delta2"] += 1
         return dp
 
+    def diffuse_raw(self, nchunkp, acl, cands_c, cands_w, dims: Sequence[int]):
+        sums = diffuse2_kernel(nchunkp, acl, cands_c, cands_w, dims)
+        self.launches["diffuse2"] += 1
+        return sums
+
 
 class PbfPhases2:
     """The compacted-candidate pipeline for one static spec
     (`PallasPhases2`, `pallas_pbf2.py:675-793`), with a launch counter per
     kernel: `launches[name]` grows by one each time a wrapper launches its
-    CUDA kernel, and at no other time.  lambda2 and delta2 launch the cull
-    kernels (counted as "lambda2" and "delta2").
+    CUDA kernel, and at no other time.  lambda2, delta2 and diffuse2 launch
+    the cull kernels (counted as "lambda2", "delta2" and "diffuse2").
 
     Per frame:
         wins, ovf = phases.plan_frame(key, cell_table)
@@ -733,6 +813,7 @@ class PbfPhases2:
         if colour.device.type == "cpu":
             sums = diffuse2_plain(wins["nchunkp"], cl, cands_c, cands_w, self.grid.dims)
         else:
-            sums = diffuse2_kernel(wins["nchunkp"], cl, cands_c, cands_w, self.grid.dims)
+            sums = diffuse2_cull_kernel(wins["nchunkp"], cl, cands_c, cands_w, member,
+                                        self.grid.dims)
             self.launches["diffuse2"] += 1
         return mix_colour(colour, sums, ptype, alive & member, dt)

@@ -16,8 +16,9 @@ active nodes, c NaN on the same elements (`micro_mc_field.cells_agree`; the
 lanes of a node sum in another order than the plain version), and bit for
 bit over two launches.  The v2 phases: slabs
 bit for bit on the columns the compaction writes, lambda2 and delta2 as
-lambda and delta, diffuse2 count exact and sums atol 1e-6 (the plain
-version sums column by column in the kernel's order).  The rate anchor's
+lambda and delta, diffuse2 and its cull kernel count exact and sums atol
+1e-6 (the plain version sums column by column in the kernel's order; the
+cull kernel bit for bit the dense one on member rows).  The rate anchor's
 kernels: issue tiles and body sums rtol 1e-5, atol 1e-6 (the kernel fuses
 multiply-adds), rowfix λ atol 1e-9.  The window micro-benchmark's kernels:
 λ rtol 5e-4, atol 1e-12 (λ is ~1e-7 and prod's ci of 0.077 amplifies the
@@ -383,6 +384,92 @@ def adversarial_slab(h: float, seed: int):
 
 ADVERSARIAL_SEEDS = range(8)
 
+# the grid of `adversarial_diffuse_slab`: nz 9, ny*nz 63, 378 cells
+DIFFUSE_DIMS = (6, 7, 9)
+DIFFUSE_SENTINEL_SLOTS = slice(32, 40)   # its non-member slots
+DIFFUSE_ZERO_SLOTS = slice(0, 32)        # its in-band slots with w = 0 throughout
+
+
+def diffuse_band_edges(dims):
+    """(inside, outside): the cell-id distances |b - a| at the edges of the
+    27-cell band that diffuse2's band test passes (0, 1, nz +- 1, ny*nz +- 1,
+    ny*nz +- nz +- 1) and the ones just beyond them that it fails."""
+    _, ny, nz = dims
+    nynz = ny * nz
+    centres = [nz, nynz - nz, nynz, nynz + nz]
+    inside = [0, 1] + [c + d for c in centres for d in (-1, 1)]
+    outside = [2] + [c + d for c in centres for d in (-2, 2)]
+    return inside, outside
+
+
+def adversarial_diffuse_slab(seed: int):
+    """Four sub-blocks of 32 rows on `DIFFUSE_DIMS` and a 512-column
+    [w, bcl] and colour slab each, for the diffuse2 cull kernel's keep mask.
+    Rows (sorted cell ids, non-members at cell 0 as decoded): sub-block 0
+    from cell 0, 1 across an x boundary (cell 2*ny*nz, also a y boundary),
+    2 up to cell ncells - 1 with its last 6 rows non-members, 3 no member
+    row.  Columns: 0-31 in-band cells with w = 0 (all-zero slots), 32-39
+    non-member slots (w 0, SENTINEL), 40-77 a seeded member row's cell +- each
+    `diffuse_band_edges` distance, 78-447 seeded member cells + a band offset
+    + d, |d| <= 2, or (20%) a cell no member row of the sub-block accepts
+    (w 1 in 85%; sorted by cell id for odd seeds, as a slab is, so that
+    whole slots lie outside the band), 448-511 the SENTINEL fill; sub-block 0 holds
+    cell 0 and sub-block 2 cell ncells - 1 with w 1.  Returns (nchunkp,
+    acl, member, cands_c, cands_w) on the CPU."""
+    rng = np.random.default_rng(seed)
+    _, ny, nz = DIFFUSE_DIMS
+    ncells = int(np.prod(DIFFUSE_DIMS))
+    nsub, wcap, sub = 4, 512, p2.SUB
+    cells = np.zeros((nsub, sub), np.int64)
+    cells[0] = np.sort(rng.integers(0, 12, sub))
+    cells[0, 0] = 0
+    edge = 2 * ny * nz
+    cells[1] = np.sort(rng.integers(edge - 12, edge + 12, sub))
+    member = np.ones((nsub, sub), bool)
+    member[2, -6:] = False
+    member[3] = False
+    cells[2, :-6] = np.sort(rng.integers(ncells - 14, ncells, sub - 6))
+    cells[2, -7] = ncells - 1
+    cells[~member] = 0
+    offs = np.asarray(p2.band_offsets(DIFFUSE_DIMS))
+    inside, outside = diffuse_band_edges(DIFFUSE_DIMS)
+    dist = np.asarray(inside + outside)
+    b = np.empty((nsub, wcap), np.int64)
+    w = (rng.uniform(size=(nsub, wcap)) < 0.85).astype(np.float32)
+    for t in range(nsub):
+        rows = cells[t][member[t]] if member[t].any() else cells[t]
+        a = rng.choice(rows, wcap)
+        b[t] = a + offs[rng.integers(0, 9, wcap)] + rng.integers(-2, 3, wcap)
+        b[t, :32] = a[:32] + offs[rng.integers(0, 9, 32)] + rng.integers(-1, 2, 32)
+        e = np.concatenate([dist, dist])
+        sign = np.repeat([1, -1], len(dist))
+        up = a[40:40 + len(e)] + sign * e
+        b[t, 40:40 + len(e)] = np.where((up >= 0) & (up < ncells), up,
+                                        a[40:40 + len(e)] - sign * e)
+        w[t, 40:40 + len(e)] = 1.0
+        # cells no member row of the sub-block accepts
+        band = (rows[:, None, None] + offs[None, :, None] + np.arange(-1, 2)).ravel()
+        away = np.setdiff1d(np.arange(ncells), band)
+        far = rng.uniform(size=wcap) < 0.2
+        far[:40 + len(e)] = False
+        b[t, far] = rng.choice(away, int(far.sum()))
+    b = np.clip(b, 0, ncells - 1)
+    b[0, 100], b[2, 100] = 0, ncells - 1
+    w[0, 100] = w[2, 100] = 1.0
+    if seed % 2:
+        b[:, 78:448] = np.sort(b[:, 78:448], axis=1)
+    w[:, DIFFUSE_ZERO_SLOTS] = 0.0
+    bf = b.astype(np.float32)
+    w[:, DIFFUSE_SENTINEL_SLOTS] = 0.0
+    bf[:, DIFFUSE_SENTINEL_SLOTS] = p2.SENTINEL
+    colours = rng.uniform(0.0, 1.0, (4, nsub, wcap)).astype(np.float32)
+    w[:, 448:] = bf[:, 448:] = colours[:, :, 448:] = p2.SENTINEL
+    return (torch.full((nsub,), wcap // p2.WCOL, dtype=torch.int32),
+            torch.from_numpy(cells.reshape(-1).astype(np.float32)),
+            torch.from_numpy(member.reshape(-1)),
+            torch.from_numpy(colours.reshape(4, -1)),
+            torch.from_numpy(np.stack([w, bf]).reshape(2, -1)))
+
 
 def adversarial_tiles(h: float, seed: int):
     """A synthetic frame for the tile cull kernels: 120 members in one cell
@@ -489,12 +576,72 @@ def test_cull_kernels_at_the_keep_boundary(seed):
 def test_dense_phases2_count_kernel_launches(card_frame, card_v2):
     spec, dyn, fr = card_frame
     phases, wins, cands, cells, member = card_v2
-    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], fr.state.mass], dim=1)
+    st = fr.state
+    rows = torch.stack([fr.pstar[0], fr.pstar[1], fr.pstar[2], st.mass], dim=1)
     dense = p2.DensePhases2(spec.h)
     lam = dense.lambda_raw(wins["nchunkp"], rows, cands)
     dense.delta_raw(wins["nchunkp"], rows, cands, p2.compact_kernel(wins, lam.reshape(1, -1)))
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, spec.grid.dims)
+    dense.diffuse_raw(wins["nchunkp"], cl, p2.compact_kernel(wins, st.colour),
+                      p2.compact_kernel(wins, wpack), spec.grid.dims)
     torch.cuda.synchronize()
-    assert dense.launches == {"lambda2": 1, "delta2": 1}
+    assert dense.launches == {"lambda2": 1, "delta2": 1, "diffuse2": 1}
+
+
+@pytest.fixture(scope="module", params=[(32_000, 3), (1_000_000, 6)], ids=["32k", "1m"])
+def card_diffuse2(request):
+    """The diffuse2 slabs at the sort-time state of dam_break(count, iters),
+    the plan grown until it has no overflow: (dims, nchunkp, acl, member,
+    colour slab, [w, bcl] slab)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pbf_sph_tpu_torch.tools.bench_phases import grown_plan
+
+    count, iters = request.param
+    mc, cfg, xs = dam_break(count, solver_iter=iters)
+    solver = TorchSolver(h=cfg.h, device="cuda")
+    spec, state, scn = solver.prepare(cfg, Scene(), xs)
+    fr = advect_and_sort(spec, state, dyn_params_of(cfg, device="cuda"), scn)
+    st, dims = fr.state, spec.grid.dims
+    cells, member = decode_key(fr.index.key, spec.grid)
+    _, wins, *_ = grown_plan(spec, fr.index)
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, dims)
+    return (dims, wins["nchunkp"], cl, member, p2.compact_kernel(wins, st.colour),
+            p2.compact_kernel(wins, wpack))
+
+
+def test_diffuse2_cull_kernel_equals_dense_kernel(card_diffuse2):
+    """The diffuse2 cull kernel gives the dense kernel's sums bit for bit on
+    every member row, and the plain version's masked by `diffuse_keep_plain`
+    (count exact, sums atol 1e-6)."""
+    dims, nchunkp, cl, member, cands_c, cands_w = card_diffuse2
+    got = p2.diffuse2_cull_kernel(nchunkp, cl, cands_c, cands_w, member, dims)
+    dense = p2.diffuse2_kernel(nchunkp, cl, cands_c, cands_w, dims)
+    assert torch.equal(got[:, member], dense[:, member])
+    assert float(got[4][member].max()) > 1
+    keep = p2.diffuse_keep_plain(nchunkp, cl, member, cands_w, dims)
+    want = p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims, keep=keep)
+    assert torch.equal(got[4], want[4])
+    torch.testing.assert_close(got[:4], want[:4], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("seed", ADVERSARIAL_SEEDS)
+def test_diffuse2_cull_kernel_on_adversarial_slab(seed):
+    """On `adversarial_diffuse_slab` (the band's edges, the grid's end cells,
+    x and y boundaries, all-zero and non-member slots, a sub-block with no
+    member row): the cull kernel equals the dense one bit for bit on every
+    member row, and the plain version masked by
+    `diffuse_keep_plain` (count exact, sums atol 1e-6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    nchunkp, acl, member, cands_c, cands_w = (t.cuda() for t in adversarial_diffuse_slab(seed))
+    dense = p2.diffuse2_kernel(nchunkp, acl, cands_c, cands_w, DIFFUSE_DIMS)
+    got = p2.diffuse2_cull_kernel(nchunkp, acl, cands_c, cands_w, member, DIFFUSE_DIMS)
+    assert torch.equal(got[:, member], dense[:, member])
+    keep = p2.diffuse_keep_plain(nchunkp, acl, member, cands_w, DIFFUSE_DIMS)
+    want = p2.diffuse2_plain(nchunkp, acl, cands_c, cands_w, DIFFUSE_DIMS, keep=keep)
+    assert torch.equal(got[4], want[4])
+    torch.testing.assert_close(got[:4], want[:4], atol=1e-6, rtol=0)
 
 
 @pytest.fixture(scope="module")

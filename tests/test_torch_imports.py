@@ -225,12 +225,15 @@ def test_phases2_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         p2.delta2_cull_kernel(wins["nchunkp"], torch.zeros((n, 4)), slab, slab[:1], member,
                               spec.h)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        p2.diffuse2_cull_kernel(wins["nchunkp"], torch.zeros(n), slab, slab[:2], member,
+                                spec.grid.dims)
     assert phases.launches == {"compact": 0, "lambda2": 0, "delta2": 0, "diffuse2": 0}
 
 
 def test_dense_phases2_refuses_cpu_tensors():
-    """`DensePhases2`, the dense λ2/Δp2 kernels' counted wrapper, has no CPU
-    path: a CPU tensor raises and counts no launch."""
+    """`DensePhases2`, the dense λ2/Δp2/diffuse2 kernels' counted wrapper, has
+    no CPU path: a CPU tensor raises and counts no launch."""
     n = 64
     nchunkp = torch.full((n // p2.SUB,), 4, dtype=torch.int32)
     slab = torch.zeros((4, n // p2.SUB * 512))
@@ -239,7 +242,9 @@ def test_dense_phases2_refuses_cpu_tensors():
         dense.lambda_raw(nchunkp, torch.zeros((n, 4)), slab)
     with pytest.raises(ValueError, match="CUDA tensors"):
         dense.delta_raw(nchunkp, torch.zeros((n, 4)), slab, slab[:1])
-    assert dense.launches == {"lambda2": 0, "delta2": 0}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dense.diffuse_raw(nchunkp, torch.zeros(n), slab, slab[:2], (4, 4, 4))
+    assert dense.launches == {"lambda2": 0, "delta2": 0, "diffuse2": 0}
 
 
 def test_bench_phases_needs_a_card(monkeypatch):

@@ -39,7 +39,15 @@ from pbf_sph_tpu_torch.models.torch_solver import (
 from pbf_sph_tpu_torch.ops import phases as ph
 from pbf_sph_tpu_torch.ops.grid import decode_key
 from pbf_sph_tpu_torch.tools import phases2 as p2
-from test_torch_cuda import ADVERSARIAL_SEEDS, adversarial_slab
+from test_torch_cuda import (
+    ADVERSARIAL_SEEDS,
+    DIFFUSE_DIMS,
+    DIFFUSE_SENTINEL_SLOTS,
+    DIFFUSE_ZERO_SLOTS,
+    adversarial_diffuse_slab,
+    adversarial_slab,
+    diffuse_band_edges,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 CASES = {
@@ -425,3 +433,122 @@ def test_kept_pairs_at_dam32k():
         within += int((near & member.reshape(-1, p2.SUB)[tb, :, None]).sum())
     spairs = p2.slab_pairs(wins)
     assert 0 < within <= p2.kept_pairs(nchunkp, rows, member, cands, spec.h) < spairs
+
+
+# ---------------------------------------------------------------------------
+# The diffuse2 cull kernel's keep mask (`diffuse_keep_plain`): every column
+# it drops adds +0 to each member row's sums, so the masked plain version is
+# the plain version bit for bit on member rows.
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def diffuse_slabs(case: str):
+    """(nchunkp, acl, colour slab, [w, bcl] slab) of `port(case)`'s plan."""
+    spec, dyn, fr, _, member, cells, _ = frame(case)
+    st, wins = fr.state, port(case)["wins"]
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, spec.grid.dims)
+    return (wins["nchunkp"], cl, p2.compact_plain(wins, st.colour),
+            p2.compact_plain(wins, wpack))
+
+
+def band_accepts(nchunkp, acl, member, cands_w, dims):
+    """(nsub, SUB, wcap) bool: the (member row, defined column) pairs whose
+    band test passes with w != 0, from the cell ids in float64."""
+    _, ny, nz = dims
+    nsub = nchunkp.shape[0]
+    wcap = cands_w.shape[1] // nsub
+    w, b = cands_w.double().reshape(2, nsub, 1, wcap)
+    e = (b - acl.double().reshape(nsub, p2.SUB, 1)).abs()
+    g1 = torch.minimum((e - ny * nz).abs(), e)
+    g2 = torch.minimum((g1 - nz).abs(), g1)
+    defined = torch.arange(wcap) < nchunkp.long()[:, None, None] * p2.WCOL
+    return (g2 <= 1) & (w != 0) & defined & member.reshape(nsub, p2.SUB, 1)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_diffuse_culled_plain_equals_plain(case):
+    spec, _, _, _, member, *_ = frame(case)
+    nchunkp, cl, cands_c, cands_w = diffuse_slabs(case)
+    dims = spec.grid.dims
+    keep = p2.diffuse_keep_plain(nchunkp, cl, member, cands_w, dims)
+    assert keep.shape == (nchunkp.shape[0], WCAP)
+    defined = torch.from_numpy(defined_columns(nchunkp.numpy())).reshape(keep.shape)
+    assert not bool((keep & ~defined).any())
+    assert 0 < int(keep.sum()) < int(defined.sum())
+    accepted = band_accepts(nchunkp, cl, member, cands_w, dims).any(1)
+    assert not bool((accepted & ~keep).any())
+    sums = p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims)
+    culled = p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, dims, keep=keep)
+    assert torch.equal(culled[:, member], sums[:, member])
+    assert float(sums[4][member].max()) > 1
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_diffuse_culled_plain_matches_jax(case):
+    spec, dyn, fr, _, member, *_ = frame(case)
+    st, want = fr.state, pallas(case)
+    nchunkp, cl, cands_c, cands_w = diffuse_slabs(case)
+    keep = p2.diffuse_keep_plain(nchunkp, cl, member, cands_w, spec.grid.dims)
+    sums = p2.diffuse2_plain(nchunkp, cl, cands_c, cands_w, spec.grid.dims, keep=keep)
+    colour = ph.mix_colour(st.colour, sums, st.ptype, st.alive & member, dyn["dt"])
+    np.testing.assert_allclose(colour.numpy(), want["colour"], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("seed", ADVERSARIAL_SEEDS)
+def test_diffuse_keep_holds_every_accepted_column(seed):
+    """On `adversarial_diffuse_slab`: every column
+    that a member row's band test accepts with w != 0 is kept, at each edge
+    of the band, at cells 0 and ncells - 1, across the x and y boundaries;
+    all-zero slots, non-member slots, the fill and the sub-block with no
+    member row are dropped; the masked sums are the sums bit for bit on
+    member rows."""
+    nchunkp, acl, member, cands_c, cands_w = adversarial_diffuse_slab(seed)
+    nsub, wcap = nchunkp.shape[0], cands_w.shape[1] // nchunkp.shape[0]
+    accepted = band_accepts(nchunkp, acl, member, cands_w, DIFFUSE_DIMS)
+    # the slab reaches every edge of the band and the grid's two end cells
+    b = cands_w[1].reshape(nsub, 1, wcap)
+    dist = (b - acl.reshape(nsub, p2.SUB, 1)).abs()
+    inside, outside = diffuse_band_edges(DIFFUSE_DIMS)
+    for e in inside:
+        assert bool((accepted & (dist == e)).any()), e
+    w = cands_w[0].reshape(nsub, 1, wcap)
+    for e in outside:
+        assert bool(((dist == e) & (w == 1) & member.reshape(nsub, p2.SUB, 1)).any()), e
+        assert not bool((accepted & (dist == e)).any()), e
+    rows_at = acl.reshape(nsub, p2.SUB, 1).expand_as(accepted)
+    ncells = int(np.prod(DIFFUSE_DIMS))
+    assert bool(accepted[rows_at == 0].any()) and bool(accepted[rows_at == ncells - 1].any())
+    sums = p2.diffuse2_plain(nchunkp, acl, cands_c, cands_w, DIFFUSE_DIMS)
+    keep = p2.diffuse_keep_plain(nchunkp, acl, member, cands_w, DIFFUSE_DIMS)
+    assert not bool((accepted.any(1) & ~keep).any())
+    for dropped in (DIFFUSE_ZERO_SLOTS, DIFFUSE_SENTINEL_SLOTS, slice(448, wcap)):
+        assert not bool(keep[:, dropped].any())
+    assert not bool(keep[3].any())
+    culled = p2.diffuse2_plain(nchunkp, acl, cands_c, cands_w, DIFFUSE_DIMS, keep=keep)
+    assert torch.equal(culled[:, member], sums[:, member])
+    # the slot test drops columns with w != 0 too: whole slots outside the
+    # band when the columns are sorted
+    if seed % 2:
+        live = (cands_w[0].reshape(nsub, wcap) == 1)[:3, 40:448]
+        assert bool((live & ~keep[:3, 40:448]).any())
+    assert float(sums[4][member].max()) > 1
+
+
+def test_diffuse_kept_pairs_at_dam32k():
+    """At dam_break(32_000, 3)'s sort-time state, the diffuse2 cull kernel
+    runs the sums for no fewer pairs than its member rows count (the 27-cell
+    neighbours with w 1) and fewer than the slab holds."""
+    from pbf_sph_tpu_torch.tools.bench_phases import grown_plan
+
+    spec, fr, _ = dam32k()
+    st, dims = fr.state, spec.grid.dims
+    cells, member = decode_key(fr.index.key, spec.grid)
+    phases, wins, *_ = grown_plan(spec, fr.index)
+    nchunkp = wins["nchunkp"]
+    cl, wpack = p2.diffuse_packs(cells, member, st.ptype, st.alive, dims)
+    cands_w = p2.compact_plain(wins, wpack)
+    counted = int(ph.diffuse_plain(fr.index, st.colour, ph.nonobstacle(st.ptype, st.alive))
+                  [4][member].sum())
+    kept = p2.diffuse_kept_pairs(nchunkp, cl, member, cands_w, dims)
+    assert 0 < counted <= kept < p2.slab_pairs(wins)

@@ -56,12 +56,19 @@ with a non-zero exit and no result line:
    `tools/anchor_rate.py`): the SASS of each (cuobjdump: every issue
    instantiation's loop holds nstreams*unroll instructions of its op, the
    body loop one MUFU.RSQ and one LDS.128 a pair and the fp32 instructions a
-   pair of pbf_lambda's / pbf_delta's own loop, the row kernel pbf_lambda's
-   32-bit loads and pair loop), each against its plain version (every issue instantiation
-   and the λ/Δp bodies rtol 1e-5 / atol 1e-6, the row kernel atol 1e-9), then
-   one rate reading of each through the `Anchor` wrappers at the tool's
-   sizes (CUDA events, the marginal between two sizes, the SM clock
-   sampled); its launches are counted over this phase;
+   pair of pbf_lambda's / pbf_delta's own loop, the blocked body's loop
+   BLOCKED_ROWS MUFU.RSQ a LDS.128, the fp32 instructions a pair of
+   pbf_lambda_cells' / pbf_delta_cells' loop and no local memory, the row
+   kernel pbf_lambda's 32-bit loads and pair loop), each against its plain
+   version (every issue instantiation and the λ/Δp bodies rtol 1e-5 / atol
+   1e-6, the blocked bodies the same on seeds 0-1 at strides 1-2 and rtol
+   n eps = 4.88e-4 on the tool's inputs, whose 4096 like terms a row drift
+   one way in a running fp32 sum, and on each bit for bit the body kernel,
+   the row kernel atol 1e-9), then one rate reading of each through the
+   `Anchor` wrappers at the tool's sizes (CUDA events, the marginal between
+   two sizes, the SM clock sampled), and the blocked λ body at 7b's work
+   (the same threads, iterations / BLOCKED_ROWS) for its line; its launches
+   are counted over this phase, and its wall time printed;
 3f. the window micro-benchmark kernels (`csrc/micro_window.cu`, the kernels
    of `tools/micro_window.py`): the SASS of each body at W 128 and W 1
    (cuobjdump: one MUFU.RSQ a pair, pbf_lambda's fp32 instructions a pair
@@ -183,7 +190,8 @@ with a non-zero exit and no result line:
    through `cells_staged.StagedCells` on each state (its launches are
    counted here), then at the 1M state the device time of each
    (`anchor_rate.held_ms`) beside its plain version's, its bound and the
-   anchored ms;
+   anchored ms (the per-row pairs over the blocked anchor bodies' ceilings,
+   `bench_cells.CELLS_CEILING`);
 3m. the main path's diffuse kernels (`csrc/pbf_diffuse_cells.cu`,
    `pbf_diffuse_cell_sums` and `pbf_diffuse_cells`) against their plain
    versions bit for bit on the sort-time states of dam_break(32_000, 3),
@@ -370,7 +378,8 @@ as `phase_launches`), 3c for the tiled
 kernels, dense and cull, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
-kernel at the larger of their two sizes, 3f for the window kernels, whose
+kernel at the larger of their two sizes and the blocked λ body at the λ
+body's work, 3f for the window kernels, whose
 line holds scenario A at nblocks 1024, the flat kernel's split body, 3g for
 the MC-field bisection kernels, whose ms is the CUDA-graph reading at
 mc128k, but noop's and zero_fill's ms and library_ms (torch.zeros of the
@@ -474,6 +483,10 @@ KERNELS = {
     # the rate anchor of tools/anchor_rate.py: build_issue, build_body, build_subfix
     "anchor_issue": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:116"),
     "anchor_body": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:204"),
+    # build_body redesigned: R rows a thread on one candidate read, with the
+    # main path's pair terms
+    "anchor_body_blocked": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu",
+                            "tools/anchor_rate.py:204"),
     "anchor_rowfix": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:288"),
     # the window micro-benchmark of tools/micro_window.py: build_prod_structure,
     # build_guarded, build_flat (split and fused), build_static_fused
@@ -1077,30 +1090,47 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
 
 def phase_anchor():
     """3e: the rate-anchor kernels (csrc/anchor_rate.cu): the SASS of each
-    (cuobjdump), each against its plain version on the card (uncounted), then
-    one rate reading of each through `Anchor`'s wrappers at the tool's sizes
-    (the launches counted for these kernels).  Returns (report, launches)."""
+    (cuobjdump), each against its plain version on the card (uncounted; the
+    blocked body also bit for bit the body kernel), then one rate reading of
+    each through `Anchor`'s wrappers at the tool's sizes and the blocked λ
+    body at the λ body's work (the launches counted for these kernels).
+    Returns (report, launches)."""
     print("== 3e. rate-anchor kernels (csrc/anchor_rate.cu) against their plain PyTorch "
           "versions")
     from pbf_sph_tpu_torch.ops import cuda_build
     from pbf_sph_tpu_torch.tools import anchor_rate as ar
 
+    t0 = time.perf_counter()
     for name, r in ar.check_sass(cuda_build.library_path()).items():
         check(r["ok"], f"SASS {name}: " + ", ".join(
             f"{k} {v}" for k, v in r.items() if k != "ok"))
     device = torch.device("cuda", torch.cuda.current_device())
-    errs = {"anchor_issue": 0.0, "anchor_body": 0.0, "anchor_rowfix": 0.0}
+    errs = dict.fromkeys(ar.KERNELS, 0.0)
+    # the blocked bodies' rtol on each of their cases (n eps on the tool's inputs)
+    rtols = {f"body_blocked {which} {tag}": rtol for which in ("lambda", "delta")
+             for tag, _, _, rtol in ar.blocked_cases(device)}
     for label, (err, ok) in ar.card_parity(device).items():
-        tol = "atol 1e-9" if label.startswith("rowfix") else "rtol 1e-5, atol 1e-6"
+        if label.endswith("= anchor_body"):
+            check(ok and err == 0, f"{label}: max abs err {err:.3e} (bit for bit)")
+            continue
+        tol = ("atol 1e-9" if label.startswith("rowfix")
+               else f"rtol {rtols.get(label, 1e-5):.3g}, atol 1e-6")
         check(ok, f"{label}: max abs err {err:.3e} ({tol})")
         name = "anchor_" + label.split()[0]
         errs[name] = max(errs[name], err)
 
     anchor = ar.Anchor()
     rates = ar.read_rates(anchor, ar.DAM1M_DIMS, 5, device)
+    x, rows, strip, frows = ar.tool_inputs(device)
+    # the blocked λ body at the work of the λ body's larger size
+    lam = rates["body"]["lambda"]
+    n_lam, it_lam = lam["threads"], lam["iters"][1]
+    nunroll = ar.BODY_SHAPE["nunroll"]
+    n_blk, it_blk = ar.blocked_shape(n_lam, it_lam)
+    blocked_ms = ar.held_ms(
+        lambda: anchor.body_blocked(rows, strip, "lambda", nunroll, it_blk, 0, n_blk), 5)
     torch.cuda.synchronize()
     launches = dict(anchor.launches)
-    x, rows, strip, frows = ar.tool_inputs(device)
     index = ar.rowfix_index(frows)
     fma = rates["issue"]["fma 16x16"]
     print(f"  SM clock beside the rate runs (nvidia-smi, MHz): {rates['clocks_sm_mhz']}")
@@ -1109,24 +1139,30 @@ def phase_anchor():
         print(f"  issue {name}: {r['rate'] / 1e12:.3f} T ops/s ({r['rate'] / fma['rate']:.3f} "
               f"of fma){lat}")
     for which, r in rates["body"].items():
-        print(f"  body {which}: {r['rate'] / 1e9:.1f} G pair-slots/s")
+        blk = rates["blocked"][which]
+        print(f"  body {which}: {r['rate'] / 1e9:.1f} G pair-slots/s; blocked "
+              f"({ar.BLOCKED_ROWS} rows a thread, {blk['threads']} threads) "
+              f"{blk['rate'] / 1e9:.1f}, {blk['rate'] / r['rate']:.3f}x")
     print(f"  rowfix: {rates['rowfix']['ns_per_row']:.5f} ns a row")
 
     # the numbers of the kernels line: fma 16x16, the λ body, rowfix, each at
-    # the larger of its two sizes
+    # the larger of its two sizes; the blocked λ body at the λ body's work
     n_fma, it_fma = fma["threads"], fma["iters"][1]
-    lam = rates["body"]["lambda"]
-    n_lam, it_lam = lam["threads"], lam["iters"][1]
     nb = rates["rowfix"]["blocks"][1]
-    nunroll = ar.BODY_SHAPE["nunroll"]
+    body_flops = n_lam * nunroll * ar.WCOL * it_lam * FLOP_PER_PAIR["lambda"]
+    body_bound = bound(nbytes(rows, strip) + 4 * n_lam, body_flops)
     table = {
         "anchor_issue": (
             fma["ms"][1], lambda: ar.issue_plain(x, "fma", 16, 16, it_fma),
             bound(nbytes(x) + 4 * n_fma, n_fma * 256 * it_fma * ar.FLOP_PER_ROUND["fma"])),
         "anchor_body": (
             lam["ms"][1], lambda: ar.body_plain(rows, strip, "lambda", nunroll, it_lam),
-            bound(nbytes(rows, strip) + 4 * n_lam,
-                  n_lam * nunroll * ar.WCOL * it_lam * FLOP_PER_PAIR["lambda"])),
+            body_bound),
+        # the same pairs: n_lam threads of BLOCKED_ROWS rows, it_lam /
+        # BLOCKED_ROWS iterations; its output is BLOCKED_ROWS x as long
+        "anchor_body_blocked": (
+            blocked_ms, lambda: ar.body_plain(rows, strip, "lambda", nunroll, it_lam),
+            bound(nbytes(rows, strip) + 4 * n_blk * ar.BLOCKED_ROWS, body_flops)),
         # the row kernel reads each row's key and float4 and only the table
         # entries at the ends of its rows' ranges, and writes one λ a thread
         "anchor_rowfix": (
@@ -1142,7 +1178,11 @@ def phase_anchor():
         # no single PyTorch call computes these chains
         report[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"  anchor_body_blocked at the λ body's work ({n_blk} threads x {ar.BLOCKED_ROWS} "
+          f"rows, {it_blk} iterations): {lam['ms'][1] / blocked_ms:.3f}x faster than "
+          f"anchor_body, {body_bound[0] / blocked_ms:.3f} of the bound")
     print(f"  rate-anchor wrapper launches: {launches}")
+    print(f"  3e wall time: {time.perf_counter() - t0:.2f} s")
     return report, launches
 
 
@@ -1842,7 +1882,7 @@ def phase_cells():
                 bound_ms, bound_by = bounds[which]
                 print(f"  {name}: kernel {ms:.4f} ms ({f.pairs / ms / 1e6:.3f} Gpairs/s), "
                       f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
-                      f"anchored {f.pairs / bc.BODY_CEILING[which] * 1e3:.4f} ms")
+                      f"anchored {f.pairs / bc.CELLS_CEILING[which] * 1e3:.4f} ms")
                 # no single PyTorch call computes a cell-list neighbour sum
                 report[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=None)

@@ -1,8 +1,11 @@
-// Rate anchor of the λ/Δp pair math on Hopper (sm_90a): three micro-kernels.
+// Rate anchor of the λ/Δp pair math on Hopper (sm_90a): four micro-kernels.
 //
 // Replaces the three Pallas TPU kernels of tools/anchor_rate.py:
 //   anchor_issue  <- build_issue  (fp32 issue rate of one op, :116)
 //   anchor_body   <- build_body   (the λ or Δp pair chain alone, :204)
+//   anchor_body_blocked <- build_body, redesigned: the same function, R rows
+//                    a thread on one shared-memory read of each candidate,
+//                    with the pair terms of the main path (csrc/pbf_cells.cu)
 //   anchor_rowfix <- build_subfix (a λ row whose every range is empty, :288)
 // Each computes what its Pallas kernel computes; the (8,128) vreg tiles, the
 // 128-lane chunks, the sentinel strip and the static unrolling that Mosaic
@@ -12,13 +15,17 @@
 // What bounds them: by construction, instruction issue (anchor_issue: one
 // op on `nstreams` independent fp32 carries; anchor_body: the pair terms of
 // csrc/pbf_pair.cuh, which pbf_lambda and pbf_delta run, on candidates read
-// from shared memory by broadcast), and for anchor_rowfix the per-row fixed
+// from shared memory by broadcast; anchor_body_blocked: those of
+// csrc/pbf_cells_pair.cuh, which the main path's pbf_lambda_cells and
+// pbf_delta_cells run, with the read and the loop's own instructions shared
+// by R pairs), and for anchor_rowfix the per-row fixed
 // work of pbf_lambda's own row code: the key, the row, 18 cell-table reads
 // and the λ store.  Each kernel is launched over
 // enough CTAs to fill every SM at its occupancy (anchor_fill_threads), each
 // thread computing one element of the JAX output again (thread t takes
-// element t mod 1024 of the tile, row t mod 64 of the body, row t mod nrows
-// of the rows), and writes its own output so that no work is dead.
+// element t mod 1024 of the tile, row t mod 64 of the body, rows t*R .. t*R
+// + R - 1 mod 64 of the blocked body, row t mod nrows of the rows), and
+// writes its own output so that no work is dead.
 //
 // The compiler must not fold the loops the rates are read from: max(c, x)
 // is idempotent, so the max op is inline PTX; sub_mul uses the _rn
@@ -34,11 +41,17 @@
 #include <cuda_runtime.h>
 
 #include "grid_copies.cuh"
+#include "pbf_cells_pair.cuh"
 #include "pbf_pair.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// R, the rows a thread of anchor_body_blocked holds (tools/anchor_rate.py's
+// BLOCKED_ROWS; a CPU test holds the two equal).  Read on the H100 at 2, 3,
+// 4, 6 and 8: 2-6 within 3.2% of each other, 8 slower (PERF.md, row 7b-b);
+// 4 divides the body's iterations and spills nothing.
+constexpr int kBlockedRows = 4;
 constexpr int kTile = 1024;  // elements of the JAX (8, 128) tile
 constexpr int kSub = 64;     // rows of the JAX body tile
 constexpr int kWcol = 128;   // candidates of one strip chunk
@@ -144,6 +157,76 @@ __global__ void __launch_bounds__(kThreads)
   out[t] = LAMBDA ? ((s0 + s1) + s2) + s3 : (s0 + s1) + s2;
 }
 
+// body_kernel's function, redesigned for this card: thread t holds R rows,
+// the rows of output elements t*R .. t*R + R - 1 (element e is row e mod
+// 64's sum, as in body_kernel), and each candidate it reads from shared
+// memory (one LDS.128, a broadcast) feeds R pairs, so the read and the
+// loop's own instructions are paid once for R pairs.  The pair terms are
+// csrc/pbf_cells_pair.cuh's, the code of the main path's λ/Δp; they give
+// csrc/pbf_pair.cuh's bits wherever r2c >= eps^2 is normal, and each row's
+// carries take its pairs in body_kernel's order, so the output is
+// body_kernel's bit for bit.  The candidate loop runs kStep candidates a
+// trip (R * kStep = 16 pairs) and is not unrolled further.
+template <bool LAMBDA>
+__global__ void __launch_bounds__(kThreads)
+    body_blocked_kernel(const float* __restrict__ rows, const float* __restrict__ strip,
+                        int nch, int nunroll, int niter, int stride, float h, float hh,
+                        float eps2, float skf, float xqf, float corr_k, float rho_recip,
+                        float* __restrict__ out) {
+  constexpr int R = kBlockedRows;
+  constexpr int kStep = 4;
+  static_assert(kWcol % kStep == 0, "a chunk is whole trips");
+  extern __shared__ float4 cand[];
+  const int ncols = nch * kWcol;
+  for (int c = threadIdx.x; c < ncols; c += blockDim.x) {
+    cand[c] = make_float4(strip[c], strip[ncols + c], strip[2 * ncols + c],
+                          strip[3 * ncols + c]);
+  }
+  __syncthreads();
+  const int e0 = (blockIdx.x * blockDim.x + threadIdx.x) * R;
+  float ax[R], ay[R], az[R], alam[R];
+  float s0[R], s1[R], s2[R], s3[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int r = (e0 + q) % kSub;
+    ax[q] = rows[r];
+    ay[q] = rows[kSub + r];
+    az[q] = rows[2 * kSub + r];
+    alam[q] = rows[3 * kSub + r];
+    s0[q] = s1[q] = s2[q] = s3[q] = 0.f;
+  }
+  int off = 0;
+  for (int i = 0; i < niter; ++i) {
+    int chunk = off;
+    for (int k = 0; k < nunroll; ++k) {
+      const float4* b0 = cand + chunk * kWcol;
+#pragma unroll 1
+      for (int j = 0; j < kWcol; j += kStep) {
+#pragma unroll
+        for (int u = 0; u < kStep; ++u) {
+          const float4 b = b0[j + u];
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            if constexpr (LAMBDA) {
+              cells_lambda_pair(ax[q], ay[q], az[q], b, h, hh, eps2, s0[q], s1[q], s2[q],
+                                s3[q]);
+            } else {
+              cells_delta_pair(ax[q], ay[q], az[q], alam[q], b, h, hh, eps2, skf, xqf,
+                               corr_k, rho_recip, s0[q], s1[q], s2[q]);
+            }
+          }
+        }
+      }
+      chunk = chunk + 1 == nch ? 0 : chunk + 1;
+    }
+    off = (off + stride) % nch;
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    out[e0 + q] = LAMBDA ? ((s0[q] + s1[q]) + s2[q]) + s3[q] : (s0[q] + s1[q]) + s2[q];
+  }
+}
+
 // pbf_lambda (csrc/pbf_phases.cu) for row t mod nrows (nrows a power of
 // two): the code that pbf_lambda runs, with lambda_member of
 // csrc/pbf_pair.cuh.
@@ -175,6 +258,19 @@ int fill_threads(K kernel, size_t smem) {
 
 size_t body_smem(int nch) { return (size_t)nch * kWcol * sizeof(float4); }
 
+using BodyFn = void (*)(const float*, const float*, int, int, int, int, float, float, float,
+                        float, float, float, float, float*);
+
+BodyFn find_body(int kernel) {
+  switch (kernel) {
+    case 1: return body_kernel<true>;
+    case 2: return body_kernel<false>;
+    case 3: return body_blocked_kernel<true>;
+    case 4: return body_blocked_kernel<false>;
+  }
+  return nullptr;
+}
+
 // Blocks of kThreads threads, or of one warp where nthreads is not a
 // multiple of kThreads (the serial chain runs one warp an SM); 0 where
 // nthreads is neither.
@@ -184,21 +280,41 @@ int block_of(int nthreads) {
   return nthreads % 32 == 0 ? 32 : 0;
 }
 
+// Launch body kernel `kernel` (find_body's numbering) over nthreads threads.
+int launch_body(int kernel, const void* rows, const void* strip, int nch, int nunroll,
+                int niter, int stride, float h, float hh, float eps2, float skf, float xqf,
+                float corr_k, float rho_recip, int nthreads, void* out, void* stream) {
+  const int block = block_of(nthreads);
+  if (block == 0 || nch < 1 || nunroll < 0 || niter < 0 || stride < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = body_smem(nch);
+  BodyFn fn = find_body(kernel);
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fn<<<nthreads / block, block, smem, (cudaStream_t)stream>>>(
+      (const float*)rows, (const float*)strip, nch, nunroll, niter, stride, h, hh, eps2, skf,
+      xqf, corr_k, rho_recip, (float*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// kernel: 0 issue (op, nstreams, unroll), 1 λ body, 2 Δp body (nch); the
-// card-filling thread count, or -1 for a combination with no instantiation.
+// kernel: 0 issue (op, nstreams, unroll), 1 λ body, 2 Δp body, 3 blocked λ
+// body, 4 blocked Δp body (nch); the card-filling thread count, or -1 for a
+// combination with no instantiation.
 int anchor_fill_threads(int kernel, int op, int nstreams, int unroll, int nch) {
   if (kernel == 0) {
     IssueFn fn = find_issue(op, nstreams, unroll);
     return fn ? fill_threads(fn, 0) : -1;
   }
-  if (nch < 1) return -1;
-  if (kernel == 1) return fill_threads(body_kernel<true>, body_smem(nch));
-  if (kernel == 2) return fill_threads(body_kernel<false>, body_smem(nch));
-  return -1;
+  BodyFn fn = find_body(kernel);
+  return fn && nch >= 1 ? fill_threads(fn, body_smem(nch)) : -1;
 }
 
 int anchor_issue(const void* x, int op, int nstreams, int unroll, int niter,
@@ -211,25 +327,23 @@ int anchor_issue(const void* x, int op, int nstreams, int unroll, int niter,
   return (int)cudaGetLastError();
 }
 
+// out: nthreads elements, element e row e mod 64's sum.
 int anchor_body(const void* rows, const void* strip, int lambda, int nch, int nunroll,
                 int niter, int stride, float h, float hh, float eps2, float skf,
                 float xqf, float corr_k, float rho_recip, int nthreads, void* out,
                 void* stream) {
-  const int block = block_of(nthreads);
-  if (block == 0 || nch < 1 || nunroll < 0 || niter < 0 || stride < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = body_smem(nch);
-  auto kernel = lambda ? body_kernel<true> : body_kernel<false>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<nthreads / block, block, smem, (cudaStream_t)stream>>>(
-      (const float*)rows, (const float*)strip, nch, nunroll, niter, stride, h, hh,
-      eps2, skf, xqf, corr_k, rho_recip, (float*)out);
-  return (int)cudaGetLastError();
+  return launch_body(lambda ? 1 : 2, rows, strip, nch, nunroll, niter, stride, h, hh, eps2,
+                     skf, xqf, corr_k, rho_recip, nthreads, out, stream);
+}
+
+// out: nthreads * R elements (R = kBlockedRows), element e row e mod 64's
+// sum.
+int anchor_body_blocked(const void* rows, const void* strip, int lambda, int nch,
+                        int nunroll, int niter, int stride, float h, float hh, float eps2,
+                        float skf, float xqf, float corr_k, float rho_recip, int nthreads,
+                        void* out, void* stream) {
+  return launch_body(lambda ? 3 : 4, rows, strip, nch, nunroll, niter, stride, h, hh, eps2,
+                     skf, xqf, corr_k, rho_recip, nthreads, out, stream);
 }
 
 int anchor_rowfix(const void* cand, const void* key, const void* table, int n,

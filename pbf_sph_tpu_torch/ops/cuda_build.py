@@ -77,7 +77,8 @@ SIGNATURES = {
     # csrc/anchor_rate.cu (anchor_fill_threads returns a thread count)
     "anchor_fill_threads": [_I, _I, _I, _I, _I],
     "anchor_issue": [_P, _I, _I, _I, _I, _I, _P, _P],
-    "anchor_body": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
+    **dict.fromkeys(("anchor_body", "anchor_body_blocked"),
+                    [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P]),
     "anchor_rowfix": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     # csrc/micro_window.cu
     "window_prod": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],

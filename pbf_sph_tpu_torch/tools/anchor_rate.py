@@ -16,6 +16,12 @@ the card, with the three hand-written kernels of `csrc/anchor_rate.cu`:
   `nch` chunks of 128 candidates, `nunroll` chunks an iteration, chunk
   (k + i*stride) mod nch; the output is each row's sum over its pairs of
   its summed carries;
+* `body_blocked` (`build_body`, redesigned for the card): the same function
+  by the pair terms of `csrc/pbf_cells_pair.cuh`, which the main path's
+  `pbf_lambda_cells` and `pbf_delta_cells` run (rows 1b/2b), with
+  BLOCKED_ROWS rows a thread on one shared-memory read of each candidate:
+  the card's ceiling for the pair code the solver runs, bit for bit `body`'s
+  output;
 * `rowfix` (`build_subfix`): λ of 1024 rows by `pbf_lambda`'s own row code
   (`lambda_member` of `csrc/pbf_pair.cuh`), replicated over `nblocks`
   blocks, with a cell table whose every range is empty: the fixed cost of a
@@ -32,14 +38,17 @@ The tool prints the card line; checks the SASS of every kernel (cuobjdump:
 the loop of each issue instantiation holds nstreams*unroll instructions of
 its op, the body loop one MUFU.RSQ and one shared-memory float4 read a pair
 and, opcode by opcode, the fp32 instructions a pair of the phase kernel's
-own loop, the row kernel `pbf_lambda`'s loads and pair loop); settles
-dam_break(1M, 6) as `bench_phases` does and counts its member rows and
-per-row candidate pairs; reads each rate as the marginal between two sizes,
-with CUDA events, while `nvidia-smi` samples the SM clock; and decomposes
-the per-row `pbf_lambda` and `pbf_delta` kernels at that state (launched on
-a (C, 4) pack made beforehand) into rows x fixed cost + pairs / body rate
-and a remainder.  The last line is one JSON object.  Without a CUDA device
-the tool fails.
+own loop, the blocked body's BLOCKED_ROWS pairs a float4 read and the fp32
+instructions a pair of the cells kernels' loop, the row kernel
+`pbf_lambda`'s loads and pair loop); settles dam_break(1M, 6) as
+`bench_phases` does and counts its member rows and per-row candidate pairs;
+reads each rate as the marginal between two sizes, with CUDA events, while
+`nvidia-smi` samples the SM clock; and decomposes the per-row `pbf_lambda`
+and `pbf_delta` kernels at that state (launched on a (C, 4) pack made
+beforehand) into rows x fixed cost + pairs / body rate and a remainder, and
+sets rows 1b/2b (`pbf_lambda_cells`/`pbf_delta_cells` on their (C, 4) packs)
+beside their pairs / the blocked ceiling.  The last line is one JSON
+object.  Without a CUDA device the tool fails.
 """
 
 from __future__ import annotations
@@ -74,7 +83,11 @@ DAM1M_DIMS = (88, 88, 88)  # dam_break(1M)'s grid
 # bound (an FMA is two, as the published peak counts it)
 OPS_PER_ROUND = {"fma": 1, "mul": 1, "max": 1, "sub_mul": 1, "rsqrt": 2}
 FLOP_PER_ROUND = {"fma": 2, "mul": 1, "max": 1, "sub_mul": 1, "rsqrt": 2}
-KERNELS = ("anchor_issue", "anchor_body", "anchor_rowfix")
+KERNELS = ("anchor_issue", "anchor_body", "anchor_body_blocked", "anchor_rowfix")
+# R, the rows a thread of the blocked body holds (csrc/anchor_rate.cu's
+# kBlockedRows); the table line of chip_smoke.py runs the blocked body at
+# 7b's work, which needs R | 128
+BLOCKED_ROWS = 4
 
 # the marginal's two sizes, 4x apart: issue iterations (an rsqrt round
 # takes 4x an fp32 one), the serial chain's, body iterations, row blocks
@@ -238,8 +251,9 @@ def _check_card(**tensors) -> torch.device:
 def fill_threads(device, kernel: str, op: str = "fma", nstreams: int = 0,
                  unroll: int = 0, nch: int = 0) -> int:
     """Threads that fill every SM of the card at the kernel's occupancy:
-    kernel "issue" (op, nstreams, unroll) or "lambda"/"delta" (nch)."""
-    ids = {"issue": 0, "lambda": 1, "delta": 2}
+    kernel "issue" (op, nstreams, unroll), "lambda"/"delta" or
+    "lambda_blocked"/"delta_blocked" (nch)."""
+    ids = {"issue": 0, "lambda": 1, "delta": 2, "lambda_blocked": 3, "delta_blocked": 4}
     lib = cuda_build.library()
     with torch.cuda.device(device):
         n = lib.anchor_fill_threads(ids[kernel], _op_id(op), nstreams, unroll, nch)
@@ -274,25 +288,50 @@ def issue_kernel(x, op: str, nstreams: int, unroll: int, niter: int,
     return out[:ROWS].view(TILE)
 
 
-def body_kernel(rows, strip, which: str, nunroll: int, niter: int, stride: int = 0,
-                nthreads: Optional[int] = None):
-    """(SUB,) from `anchor_body` (replaces `build_body`'s kernel), over
-    `nthreads` threads (default: the card filled); thread t takes row t mod 64."""
+def _launch_body(name: str, per: int, rows, strip, which: str, nunroll: int, niter: int,
+                 stride: int, nthreads: Optional[int]):
+    """(SUB,) from the body kernel `name` ("anchor_body" or
+    "anchor_body_blocked"), `per` rows a thread, over `nthreads` threads
+    (default: the card filled)."""
     nch = _strip_chunks(which, strip)
     dev = _check_card(rows=(rows, torch.float32, (5, SUB)),
                       strip=(strip, torch.float32, (4, nch * WCOL)))
     if nthreads is None:
-        nthreads = fill_threads(dev, which, nch=nch)
-    out = torch.empty(_threads(nthreads, SUB), dtype=rows.dtype, device=dev)
+        nthreads = fill_threads(dev, which if per == 1 else f"{which}_blocked", nch=nch)
+    out = torch.empty(_threads(nthreads, -(-SUB // per)) * per, dtype=rows.dtype, device=dev)
     c = ph.PairConstants.of(H)
-    lib = cuda_build.library()
     with torch.cuda.device(dev):
-        err = lib.anchor_body(rows.data_ptr(), strip.data_ptr(), int(which == "lambda"), nch,
-                              nunroll, niter, stride, c.h, c.hh, c.eps2, c.skf, c.xqf,
-                              c.corr_k, c.rho_recip, nthreads, out.data_ptr(),
-                              ph._stream(dev))
-    cuda_build.check("anchor_body", err)
+        err = getattr(cuda_build.library(), name)(
+            rows.data_ptr(), strip.data_ptr(), int(which == "lambda"), nch, nunroll, niter,
+            stride, c.h, c.hh, c.eps2, c.skf, c.xqf, c.corr_k, c.rho_recip, nthreads,
+            out.data_ptr(), ph._stream(dev))
+    cuda_build.check(name, err)
     return out[:SUB]
+
+
+def body_kernel(rows, strip, which: str, nunroll: int, niter: int, stride: int = 0,
+                nthreads: Optional[int] = None):
+    """(SUB,) from `anchor_body` (replaces `build_body`'s kernel), over
+    `nthreads` threads (default: the card filled); thread t takes row t mod 64."""
+    return _launch_body("anchor_body", 1, rows, strip, which, nunroll, niter, stride, nthreads)
+
+
+def body_blocked_kernel(rows, strip, which: str, nunroll: int, niter: int, stride: int = 0,
+                        nthreads: Optional[int] = None):
+    """(SUB,) from `anchor_body_blocked` (`build_body`'s function,
+    redesigned) over `nthreads` threads (default: the card filled); thread
+    t takes rows t*R .. t*R + R - 1 mod 64, R = BLOCKED_ROWS."""
+    return _launch_body("anchor_body_blocked", BLOCKED_ROWS, rows, strip, which, nunroll, niter,
+                        stride, nthreads)
+
+
+def blocked_shape(nthreads: int, niter: int, rows: int = BLOCKED_ROWS) -> Tuple[int, int]:
+    """(threads, iterations) at which the blocked body does the pairs of
+    `body` over `nthreads` threads and `niter` iterations: the same threads,
+    niter / rows iterations each (rows | niter)."""
+    if niter % rows:
+        raise ValueError(f"{rows} rows a thread do not divide {niter} iterations")
+    return nthreads, niter // rows
 
 
 def rowfix_kernel(rows, index: ph.CellIndex, nblocks: int):
@@ -319,7 +358,7 @@ def rowfix_kernel(rows, index: ph.CellIndex, nblocks: int):
 
 
 class Anchor:
-    """The three wrappers, with a launch counter per kernel: `launches[name]`
+    """The four wrappers, with a launch counter per kernel: `launches[name]`
     starts at 0 and grows by one each time a wrapper launches its CUDA
     kernel, and at no other time.  A CPU tensor takes the plain version,
     where `nthreads` means nothing."""
@@ -341,6 +380,14 @@ class Anchor:
             return body_plain(rows, strip, which, nunroll, niter, stride)
         out = body_kernel(rows, strip, which, nunroll, niter, stride, nthreads)
         self.launches["anchor_body"] += 1
+        return out
+
+    def body_blocked(self, rows, strip, which: str, nunroll: int, niter: int,
+                     stride: int = 0, nthreads: Optional[int] = None):
+        if rows.device.type == "cpu":
+            return body_plain(rows, strip, which, nunroll, niter, stride)
+        out = body_blocked_kernel(rows, strip, which, nunroll, niter, stride, nthreads)
+        self.launches["anchor_body_blocked"] += 1
         return out
 
     def rowfix(self, rows, index: ph.CellIndex, nblocks: int):
@@ -468,6 +515,9 @@ def _ldg32(sass: Sass) -> int:
 
 # the phase kernels of csrc/pbf_phases.cu whose pair loop the anchor measures
 PHASE_KERNELS = {"lambda": "13lambda_kernelEPK6float4", "delta": "12delta_kernelEPK6float4"}
+# the main path's λ/Δp kernels of csrc/pbf_cells.cu, whose pair loop the
+# blocked body measures
+CELLS_KERNELS = {"lambda": "19lambda_cells_kernel", "delta": "18delta_cells_kernel"}
 
 
 def check_sass(lib_path) -> Dict[str, dict]:
@@ -485,8 +535,9 @@ def check_funcs(funcs: Dict[str, Sass]) -> Dict[str, dict]:
     pair loop one MUFU.RSQ and one shared-memory float4 read (LDS.128) a
     pair and, opcode by opcode, the fp32-pipe instructions a pair of its
     phase kernel's loop, so that the anchor cannot drift from the code it
-    measures; the row kernel the 32-bit loads of `pbf_lambda` (the key and
-    the two cell-table reads of the nine-range loop) and its pair loop."""
+    measures; the blocked bodies `check_blocked` against the cells kernels;
+    the row kernel the 32-bit loads of `pbf_lambda` (the key and the two
+    cell-table reads of the nine-range loop) and its pair loop."""
     report = {}
     for op, ns, un in OP_SHAPES:
         kinds = OP_OPCODES[op]
@@ -519,11 +570,45 @@ def check_funcs(funcs: Dict[str, Sass]) -> Dict[str, dict]:
             ok=main["MUFU.RSQ"] > 0 and main["MUFU.RSQ"] == lds and per_pair == phase[which],
             pairs_a_loop=main["MUFU.RSQ"], fp32_per_pair=sum(per_pair.values()),
             insts_per_pair=sum(main.values()) / rsq, same_as_phase=per_pair == phase[which])
+    report.update(check_blocked(funcs, cells_per_pair(funcs)))
     rowfix = _one(funcs, "rowfix_kernel")
     want = _ldg32(_one(funcs, PHASE_KERNELS["lambda"]))
     same = fp32_per_pair(pair_loop(rowfix)) == phase["lambda"]
     report["rowfix"] = dict(ok=want >= 3 and _ldg32(rowfix) == want and same,
                             want=want, ldg32=_ldg32(rowfix), same_as_phase=same)
+    return report
+
+
+def cells_per_pair(funcs: Dict[str, Sass]) -> Dict[str, Dict[str, float]]:
+    """{"lambda"/"delta": fp32-pipe opcode -> instructions a pair} of the
+    cells kernels' pair loops (`CELLS_KERNELS`)."""
+    return {which: fp32_per_pair(pair_loop(_one(funcs, pattern)))
+            for which, pattern in CELLS_KERNELS.items()}
+
+
+def check_blocked(funcs: Dict[str, Sass],
+                  cells: Dict[str, Dict[str, float]]) -> Dict[str, dict]:
+    """name -> dict(ok, counts) for the blocked body of each phase in
+    `cells` (its `cells_per_pair`): its pair loop holds R = BLOCKED_ROWS
+    MUFU.RSQ a shared-memory float4 read (LDS.128), R >= 2, and, opcode by
+    opcode, the fp32-pipe instructions a pair of the cells kernel's loop;
+    the kernel reads and writes no local memory (no spill)."""
+    report = {}
+    for which, want in cells.items():
+        flag = int(which == "lambda")
+        sass = _one(funcs, f"body_blocked_kernelILb{flag}E")
+        main = pair_loop(sass)
+        lds = sum(v for k, v in main.items() if k.startswith("LDS") and "128" in k)
+        per_pair = fp32_per_pair(main)
+        rsq = max(main["MUFU.RSQ"], 1)
+        local = sum(1 for _, op, _ in sass[0] if op.split(".")[0] in ("LDL", "STL"))
+        report[f"body_blocked {which}"] = dict(
+            ok=BLOCKED_ROWS >= 2 and lds > 0 and main["MUFU.RSQ"] == BLOCKED_ROWS * lds
+            and per_pair == want
+            and local == 0,
+            rows=BLOCKED_ROWS, pairs_a_loop=main["MUFU.RSQ"], pairs_a_read=main["MUFU.RSQ"] / max(lds, 1),
+            fp32_per_pair=sum(per_pair.values()), insts_per_pair=sum(main.values()) / rsq,
+            same_as_cells=per_pair == want, local=local)
     return report
 
 
@@ -555,12 +640,52 @@ def random_body_inputs(seed: int, nch: int, device="cpu"):
     return torch.from_numpy(rows).to(device), torch.from_numpy(strip).to(device)
 
 
+def blocked_cases(device) -> List[Tuple[str, tuple, Tuple[int, int, int], float]]:
+    """(tag, (rows, strip), (nunroll, niter, stride), rtol) on which the
+    blocked body is held to `body` (bit for bit) and to the plain version
+    (at rtol, atol 1e-6): the tool's inputs at BODY_SHAPE for 4 iterations,
+    and `random_body_inputs` of seeds 0 and 1 (nch 8) at strides 1 and 2 for
+    4, rtol 1e-5.  On the tool's inputs every pair term of a row is the same
+    positive value t, so every carry of both kernels is a running fp32 sum
+    of n = niter * nunroll * 128 = 4096 terms t that rounds the same way at
+    each step, while the plain version sums each chunk's 128 and multiplies.
+    The running sum's error is at most (n - 1) u n t (u = 2^-24, the unit
+    roundoff); the plain version's sums and the carries' last adds add a few
+    u; so its rtol there is n eps = 2 n u = 4.88e-4 (eps = 2^-23; read on
+    the H100: 1.08e-5 on Δp, the same bits as `body`'s)."""
+    _, rows, strip, _ = tool_inputs(device)
+    nunroll, niter = BODY_SHAPE["nunroll"], 4
+    cases = [("tool", (rows, strip), (nunroll, niter, 0), niter * nunroll * WCOL * 2.0 ** -23)]
+    for seed in (0, 1):
+        cases.append((f"seed {seed} stride {seed + 1}",
+                      random_body_inputs(seed, BODY_SHAPE["nch"], device), (5, 4, seed + 1),
+                      1e-5))
+    return cases
+
+
+def blocked_bits(device) -> Dict[str, Tuple[float, bool]]:
+    """label -> (max abs err, equal): the blocked body against the `body`
+    kernel, λ and Δp on `blocked_cases`; each pair of outputs must be equal
+    bit for bit."""
+    res = {}
+    for which in ("lambda", "delta"):
+        for tag, (rows, strip), (nunroll, niter, stride), _ in blocked_cases(device):
+            got = body_blocked_kernel(rows, strip, which, nunroll, niter, stride)
+            want = body_kernel(rows, strip, which, nunroll, niter, stride)
+            res[f"body_blocked {which} {tag} = anchor_body"] = (
+                float((got - want).abs().max()), bool(torch.equal(got, want)))
+    return res
+
+
 def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     """Each kernel against its plain version on the card, its launches not
     counted; label -> (max abs err, within tolerance).  Every issue
     instantiation at niter 8 on x = 1 + U(0, 1e-3); the λ and Δp bodies on
     random rows and strips at (nunroll, nch, niter) (2, 2, 3) and (8, 8, 4);
-    both rtol 1e-5, atol 1e-6.  rowfix at 1 and 8 blocks, atol 1e-9."""
+    both rtol 1e-5, atol 1e-6.  The blocked bodies on `blocked_cases` at
+    each case's rtol (1e-5, or n u on the tool's inputs), atol 1e-6, and bit
+    for bit the body kernel there (the labels ending "= anchor_body": 0
+    error, equal).  rowfix at 1 and 8 blocks, atol 1e-9."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy((1 + 1e-3 * rng.random(TILE)).astype(np.float32)).to(device)
     res = {}
@@ -577,6 +702,12 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
             close(f"body {which} ({nunroll}, {nch}, {niter})",
                   body_kernel(rows, strip, which, nunroll, niter),
                   body_plain(rows, strip, which, nunroll, niter), rtol=1e-5, atol=1e-6)
+    for which in ("lambda", "delta"):
+        for tag, (rows, strip), (nunroll, niter, stride), rtol in blocked_cases(device):
+            close(f"body_blocked {which} {tag}",
+                  body_blocked_kernel(rows, strip, which, nunroll, niter, stride),
+                  body_plain(rows, strip, which, nunroll, niter, stride), rtol=rtol, atol=1e-6)
+    res.update(blocked_bits(device))
     frows = tool_inputs(device)[3]
     index = rowfix_index(frows)
     for nblocks in (1, 8):
@@ -649,16 +780,18 @@ def marginal(run, sizes: Tuple[int, int], reps: int) -> Tuple[float, float, floa
     return (t_hi - t_lo) * 1e-3, t_lo, t_hi
 
 
-def body_rate(anchor: Anchor, which: str, reps: int, device) -> dict:
-    """The λ or Δp body ceiling through `anchor` at the JAX tool's inputs
-    and BODY_SHAPE, the card filled: dict(threads, iters, ms, rate in
-    pair-slots/s)."""
+def body_rate(anchor: Anchor, which: str, reps: int, device, blocked: bool = False) -> dict:
+    """The λ or Δp body ceiling (`blocked`: the blocked body's) through
+    `anchor` at the JAX tool's inputs and BODY_SHAPE, the card filled:
+    dict(threads, iters, ms, rate in pair-slots/s)."""
     _, rows, strip, _ = tool_inputs(device)
     nunroll, nch = BODY_SHAPE["nunroll"], BODY_SHAPE["nch"]
-    n = fill_threads(device, which, nch=nch)
+    run = anchor.body_blocked if blocked else anchor.body
+    n = fill_threads(device, f"{which}_blocked" if blocked else which, nch=nch)
     dt, t_lo, t_hi = marginal(
-        lambda it: anchor.body(rows, strip, which, nunroll, it, 0, n), BODY_ITERS, reps)
-    pairs = (BODY_ITERS[1] - BODY_ITERS[0]) * n * nunroll * WCOL
+        lambda it: run(rows, strip, which, nunroll, it, 0, n), BODY_ITERS, reps)
+    pairs = (BODY_ITERS[1] - BODY_ITERS[0]) * n * (BLOCKED_ROWS if blocked else 1) \
+        * nunroll * WCOL
     return dict(threads=n, iters=list(BODY_ITERS), ms=[t_lo, t_hi], rate=pairs / dt)
 
 
@@ -666,11 +799,12 @@ def read_rates(anchor: Anchor, dims, reps: int, device) -> dict:
     """Every rate of the tool, through `anchor`'s wrappers (counted), at the
     JAX tool's inputs, with the SM clock sampled beside: the issue rates
     (ops/s; the serial fma chain on one warp per SM, its ns per dependent
-    op: a latency), the body ceilings (pair-slots/s) and the row fixed cost (ns/row)."""
+    op: a latency), the body ceilings and the blocked body's (pair-slots/s)
+    and the row fixed cost (ns/row)."""
     x, _, _, frows = tool_inputs(device)
     index = rowfix_index(frows, dims)
-    sms =torch.cuda.get_device_properties(device).multi_processor_count
-    res = {"issue": {}, "body": {}}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    res = {"issue": {}, "body": {}, "blocked": {}}
     with ClockSampler(device) as clock:
         for op, ns, un in OP_SHAPES:
             serial = ns == 1
@@ -686,6 +820,7 @@ def read_rates(anchor: Anchor, dims, reps: int, device) -> dict:
             res["issue"][f"{op} {ns}x{un}"] = entry
         for which in ("lambda", "delta"):
             res["body"][which] = body_rate(anchor, which, reps, device)
+            res["blocked"][which] = body_rate(anchor, which, reps, device, blocked=True)
         dt, t_lo, t_hi = marginal(lambda nb: anchor.rowfix(frows, index, nb),
                                   ROWFIX_BLOCKS, reps)
         res["rowfix"] = dict(blocks=list(ROWFIX_BLOCKS), ms=[t_lo, t_hi],
@@ -717,14 +852,20 @@ def settled_dam1m(count: int = 1_000_000):
     return spec, advect_and_sort(spec, state, dyn, scn)
 
 
-def decompose(rates: dict, sass: dict, spec, fr, reps: int) -> dict:
+def decompose(rates: dict, sass: dict, spec, fr, reps: int, dyn) -> dict:
     """`pbf_lambda` and `pbf_delta` at the frame (CUDA events: the kernel
     launched on a (C, 4) pack made beforehand, and `ops/phases.py`'s wrapper,
     which makes the pack, beside it) against the model member rows x the row
     fixed cost + per-row pairs / the body ceiling; the rest is the range
     walk, the L1/L2 reads of the candidates and occupancy.  Each kernel's
-    fp32 issue share counts its own pair loop's instructions (the SASS)."""
+    fp32 issue share counts its own pair loop's instructions (the SASS).
+    Then rows 1b/2b, `pbf_lambda_cells` and `pbf_delta_cells` launched on
+    their (C, 4) packs (`bench_cells.Frame`, with `dyn`'s bounds), beside
+    the per-row pairs / the blocked body's ceiling, which runs their pair
+    code; no row fixed cost is added for them (rowfix measures
+    `pbf_lambda`'s row code, not theirs)."""
     from pbf_sph_tpu_torch.core.types import FLUID
+    from pbf_sph_tpu_torch.tools import bench_cells as bc
     from pbf_sph_tpu_torch.tools.bench_kernel_variants import device_ms
 
     st, idx, h = fr.state, fr.index, spec.h
@@ -757,10 +898,23 @@ def decompose(rates: dict, sass: dict, spec, fr, reps: int) -> dict:
             model_ms=fixed_ms + anchored_ms, remainder_ms=ms - fixed_ms - anchored_ms,
             share_of_ceiling=anchored_ms / ms, wrapper_share_of_ceiling=anchored_ms / wrapper_ms,
             kernel_fp32_share=pairs * per_pair / (ms * 1e-3) / fma)
+    f = bc.Frame(spec, dyn, fr)
+    b = f.lambda_cells()
+    b_out, a_out = torch.empty_like(b), f.pack_a.clone()
+    cells_runs = {"lambda": lambda: f.lambda_cells(b_out),
+                  "delta": lambda: f.delta_cells(b, a_out)}
+    for which, run in cells_runs.items():
+        ms = device_ms(run, reps)
+        ceiling = rates["blocked"][which]["rate"]
+        anchored_ms = pairs / ceiling * 1e3
+        out[f"{which}_cells"] = dict(kernel_ms=ms, blocked_rate=ceiling,
+                                     anchored_ms=anchored_ms, share_of_ceiling=anchored_ms / ms)
     return out
 
 
 def main(argv=None) -> int:
+    from pbf_sph_tpu_torch.core.configs import dam_break
+    from pbf_sph_tpu_torch.models.torch_solver import dyn_params_of
     from pbf_sph_tpu_torch.tools.bench_kernel_variants import card_line
 
     argv = sys.argv[1:] if argv is None else argv
@@ -788,6 +942,7 @@ def main(argv=None) -> int:
         raise SystemExit(f"anchor_rate: {wrong} disagree with their plain versions")
 
     spec, fr = settled_dam1m()
+    dyn = dyn_params_of(dam_break(1_000_000)[1], device=device)
     rates = read_rates(Anchor(), spec.grid.dims, reps, device)
     clocks = rates["clocks_sm_mhz"]
     print(f"== SM clock beside the rate runs (nvidia-smi, MHz): {clocks}")
@@ -807,11 +962,21 @@ def main(argv=None) -> int:
               f"{r['ms'][0]:.4f}, {r['ms'][1]:.4f} ms): {r['rate'] / 1e9:.1f} G pair-slots/s; "
               f"{s['fp32_per_pair']:.2f} fp32-pipe and {s['insts_per_pair']:.2f} instructions "
               f"a pair = {r['rate'] * s['fp32_per_pair'] / fma:.3f} of the fma rate")
+    print(f"== B2. blocked bodies (the cells kernels' pair terms, {BLOCKED_ROWS} rows a thread "
+          f"on one shared-memory read)")
+    for which, r in rates["blocked"].items():
+        s = sass[f"body_blocked {which}"]
+        print(f"  {which:6s} ({r['threads']} threads, iterations {r['iters']}: "
+              f"{r['ms'][0]:.4f}, {r['ms'][1]:.4f} ms): {r['rate'] / 1e9:.1f} G pair-slots/s "
+              f"= {r['rate'] / rates['body'][which]['rate']:.3f}x the body; "
+              f"{s['fp32_per_pair']:.2f} fp32-pipe and {s['insts_per_pair']:.2f} instructions "
+              f"a pair = {r['rate'] * s['insts_per_pair'] / fma:.3f} of the fma rate in "
+              f"instructions")
     r = rates["rowfix"]
     print(f"== C. row fixed cost (blocks of {ROWS} rows {r['blocks']}: {r['ms'][0]:.4f}, "
           f"{r['ms'][1]:.4f} ms): {r['ns_per_row']:.5f} ns a row on the whole card")
 
-    dec = decompose(rates, sass, spec, fr, reps)
+    dec = decompose(rates, sass, spec, fr, reps, dyn)
     print(f"== D. dam_break(1M, 6) settled sort-time state: {dec['members']} member rows "
           f"of {dec['capacity']}, {dec['pairs']} per-row candidate pairs")
     for which in ("lambda", "delta"):
@@ -826,6 +991,12 @@ def main(argv=None) -> int:
               f"    the kernel at {d['share_of_ceiling']:.3f} of the body ceiling (the wrapper "
               f"{d['wrapper_share_of_ceiling']:.3f}); its fp32 issue ({d['fp32_per_pair']:.2f} a "
               f"pair in its own loop) {d['kernel_fp32_share']:.3f} of the fma rate")
+    for which in ("lambda", "delta"):
+        d = dec[f"{which}_cells"]
+        print(f"  pbf_{which}_cells (row {'1b' if which == 'lambda' else '2b'}): kernel "
+              f"{d['kernel_ms']:.4f} ms on its (C, 4) packs; pairs / blocked ceiling "
+              f"({d['blocked_rate'] / 1e9:.1f} G pair-slots/s) {d['anchored_ms']:.4f} ms = "
+              f"{d['share_of_ceiling']:.3f} of the kernel")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "reps": reps,
                       "sass": sass, "parity": {k: e for k, (e, _) in parity.items()},
                       "rates": rates, "dam1m": dec}))

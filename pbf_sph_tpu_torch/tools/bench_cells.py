@@ -27,7 +27,8 @@ warmup over 5 frames, then one advect and sort):
   each per-row kernel on a (C, 4) pack made beforehand, its wrapper with the
   pack and the mask or clamp, and both walks on their packs; beside each
   the bound and the anchored ms (the per-row pairs over the body ceilings
-  that `tools/anchor_rate.py` measured);
+  that `tools/anchor_rate.py` measured: for the cells kernels its blocked
+  bodies', which run their pair code);
 * with --sweep, the staged kernels built at each CTA and stage size of
   SWEEP (`-DCELLS_STAGED_ROWS`, `-DCELLS_STAGED_STAGE`), timed and checked
   against the direct walk bit for bit.
@@ -61,13 +62,16 @@ from pbf_sph_tpu_torch.tools.micro_roll import nbytes
 # per-row kernels: the cells kernels compute the same pairs
 FLOP_PER_PAIR = {"lambda": 26, "delta": 34}
 # the λ/Δp body ceilings that tools/anchor_rate.py measured (G pair-slots/s,
-# NVIDIA H100 80GB HBM3 at 700 W): the anchored ms of rows 1-2 in PERF.md
+# NVIDIA H100 80GB HBM3 at 700 W): the anchored ms of rows 1-2 in PERF.md;
+# and its blocked bodies' ceilings, which run the cells kernels' pair code
+# (csrc/pbf_cells_pair.cuh): the anchored ms of rows 1b/2b/1c/2c
 BODY_CEILING = {"lambda": 1224.2e9, "delta": 951.5e9}
+CELLS_CEILING = {"lambda": 1496.6e9, "delta": 1070.5e9}
 # the kernels of csrc/pbf_cells.cu (direct walk) and csrc/cells_staged.cu
 # (staged walk) by name suffix, and the per-row kernels they take the place of
-KERNELS = {"lambda": ({"": "19lambda_cells_kernel", "_staged": "20lambda_staged_kernel"},
+KERNELS = {"lambda": ({"": ar.CELLS_KERNELS["lambda"], "_staged": "20lambda_staged_kernel"},
                       ar.PHASE_KERNELS["lambda"]),
-           "delta": ({"": "18delta_cells_kernel", "_staged": "19delta_staged_kernel"},
+           "delta": ({"": ar.CELLS_KERNELS["delta"], "_staged": "19delta_staged_kernel"},
                      ar.PHASE_KERNELS["delta"])}
 # rsqrtf's denormal guard, which the cells pair terms leave out: an FSETP,
 # an FSEL and two FMULs a pair (the SASS of pbf_lambda and pbf_delta)
@@ -325,7 +329,8 @@ def main(argv=None) -> int:
             b_ms, b_by = bounds[which]
             extra = f"; bound {b_ms:.4f} ms by {b_by}"
         if which:
-            extra += f"; anchored {f.pairs / BODY_CEILING[which] * 1e3:.4f} ms"
+            ceiling = (CELLS_CEILING if "cells" in name else BODY_CEILING)[which]
+            extra += f"; anchored {f.pairs / ceiling * 1e3:.4f} ms"
         print(f"  {name}: {', '.join(f'{v:.4f}' for v in t)}{extra}")
     swept = {}
     if do_sweep:
@@ -338,7 +343,9 @@ def main(argv=None) -> int:
                       "pair_slots": slots, "plan": stats, "sweep": swept,
                       "sass": sass, "parity": par, "ms": ms,
                       "bound_ms": {k: v[0] for k, v in bounds.items()},
-                      "anchored_ms": {k: f.pairs / v * 1e3 for k, v in BODY_CEILING.items()}}))
+                      "anchored_ms": {k: f.pairs / v * 1e3 for k, v in BODY_CEILING.items()},
+                      "cells_anchored_ms": {k: f.pairs / v * 1e3
+                                            for k, v in CELLS_CEILING.items()}}))
     # the times stand with the kernels as they are; the exit code says
     # whether they are as designed
     if not all(r["ok"] for r in sass.values()):

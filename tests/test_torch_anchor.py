@@ -6,7 +6,10 @@ file, and its Pallas kernels run in interpret mode on the CPU
 (`pltpu.force_tpu_interpret_mode`), at small sizes: the issue kernels at 4
 streams x 4 rounds x 8 iterations, the bodies at nunroll 2, nch 2, 3
 iterations, the row kernel at 1 block.  The port's `Anchor` wrappers run
-their plain versions on these CPU tensors and launch nothing.
+their plain versions on these CPU tensors and launch nothing; `body` and
+its redesign `body_blocked` take the same plain version.  The SASS checks
+(the body's, and the blocked body's against the cells kernels) run on
+recorded listings.
 
 Tolerances: the issue tiles and the bodies' per-row sums rtol 1e-5, atol
 1e-6 (fp32 sums in another order); λ of the row kernel atol 1e-9 (every sum
@@ -16,6 +19,7 @@ evaluation of the same pair sums on random rows and strips, rtol 1e-5.
 
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -66,13 +70,23 @@ def test_issue_plain_matches_pallas(op):
     assert anchor.launches == dict.fromkeys(ar.KERNELS, 0)
 
 
-@pytest.mark.parametrize("which", ["lambda", "delta"])
-def test_body_plain_matches_pallas(which):
-    want = interpreted(jax_anchor().build_body(which, nunroll=2, nch=2)(3)).sum(axis=1)
+@functools.lru_cache(maxsize=None)
+def interpreted_body(which):
+    return interpreted(jax_anchor().build_body(which, nunroll=2, nch=2)(3)).sum(axis=1)
+
+
+@pytest.mark.parametrize("wrapper, which", [
+    pytest.param("body", "lambda", id="lambda"),
+    pytest.param("body", "delta", id="delta"),
+    pytest.param("body_blocked", "lambda", id="blocked-lambda"),
+    pytest.param("body_blocked", "delta", id="blocked-delta"),
+])
+def test_body_plain_matches_pallas(wrapper, which):
+    want = interpreted_body(which)
     rows = torch.full((5, ar.SUB), 0.05)
     strip = torch.full((4, 2 * ar.WCOL), 0.055)
     anchor = ar.Anchor()
-    got = anchor.body(rows, strip, which, 2, 3)
+    got = getattr(anchor, wrapper)(rows, strip, which, 2, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
     assert anchor.launches == dict.fromkeys(ar.KERNELS, 0)
 
@@ -180,3 +194,69 @@ def test_sass_pair_loop_counts_fp32_per_pair():
     assert ar.pair_loop(funcs["phase_kernel"])["LDG.E.128.CONSTANT"] == 4
     assert ar.fp32_per_pair(ar.pair_loop(funcs["body_kernel"])) == phase
     assert ar.fp32_per_pair(ar.pair_loop(funcs["drifted_kernel"])) != phase
+
+
+def test_blocked_rows_are_the_sources():
+    """The R that the wrappers and the SASS check take is the .cu's, at
+    least 2, and it divides the λ body's iterations, so that the table line
+    can run the blocked body at the body's work."""
+    src = (REPO / "pbf_sph_tpu_torch" / "csrc" / "anchor_rate.cu").read_text()
+    m = re.search(r"constexpr int kBlockedRows = (\d+);", src)
+    assert m is not None and int(m.group(1)) == ar.BLOCKED_ROWS >= 2
+    assert ar.BODY_ITERS[1] % ar.BLOCKED_ROWS == 0
+
+
+def test_blocked_shape_keeps_the_work():
+    n, it = ar.blocked_shape(270336, 128)
+    assert (n, it) == (270336, 128 // ar.BLOCKED_ROWS)
+    assert n * ar.BLOCKED_ROWS * it == 270336 * 128
+    with pytest.raises(ValueError, match="divide"):
+        ar.blocked_shape(256, 6, rows=4)
+
+
+def test_body_blocked_kernel_refuses_cpu_tensors():
+    rows, strip = ar.random_body_inputs(0, nch=2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ar.body_blocked_kernel(rows, strip, "lambda", 2, 3)
+    anchor = ar.Anchor()
+    torch.testing.assert_close(anchor.body_blocked(rows, strip, "delta", 2, 3, 1),
+                               ar.body_plain(rows, strip, "delta", 2, 3, 1), rtol=0, atol=0)
+    assert anchor.launches == dict.fromkeys(ar.KERNELS, 0)
+
+
+CELLS_PAIR = ["FADD", "FADD", "FADD", "FMUL", "FFMA", "FFMA", "FADD", "FMNMX", "FMUL", "FFMA",
+              "FMNMX", "MUFU.RSQ", "FFMA", "FMNMX", "FMUL", "FMUL", "FFMA", "FFMA", "FFMA"]
+
+
+def blocked_listing(pairs_a_read, reads, extra=()):
+    """A listing with the cells λ kernel (one LDG.128 a pair) and a blocked
+    λ body at R = BLOCKED_ROWS (4) whose loop holds `reads` LDS.128 reads,
+    each followed by `pairs_a_read` copies of the cells pair and `extra`."""
+    cells = sass_listing(f"_Z{ar.CELLS_KERNELS['lambda']}PK6float4", ["LDG.E.128"] + CELLS_PAIR,
+                         4)
+    body = ["LDS.128"] + CELLS_PAIR * pairs_a_read + list(extra)
+    blocked = sass_listing("_ZN12_GLOBAL__N_119body_blocked_kernelILb1EEEvPKf", body, reads)
+    return ar.parse_sass(cells + "\n" + blocked)
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("4 pairs a read", True),
+    ("1 pair a read", False),
+    ("an fp32 op more", False),
+    ("local memory", False),
+])
+def test_sass_blocked_check(case, ok):
+    """The blocked body's SASS case: R MUFU.RSQ a LDS.128 and the cells
+    kernels' fp32 opcodes a pair pass; one read a pair, a drifted pair and a
+    local-memory access (a spill) fail."""
+    funcs = {"4 pairs a read": lambda: blocked_listing(4, 4),
+             "1 pair a read": lambda: blocked_listing(1, 16),
+             "an fp32 op more": lambda: blocked_listing(4, 4, ["FMUL"] * 4),
+             "local memory": lambda: blocked_listing(4, 4, ["STL"])}[case]()
+    cells = ar.fp32_per_pair(ar.pair_loop(ar._one(funcs, ar.CELLS_KERNELS["lambda"])))
+    assert sum(cells.values()) == 18
+    report = ar.check_blocked(funcs, {"lambda": cells})["body_blocked lambda"]
+    assert report["ok"] is ok, report
+    assert report["pairs_a_loop"] == 16
+    assert report["same_as_cells"] is (case != "an fp32 op more")
+    assert (report["local"] > 0) is (case == "local memory")

@@ -20,9 +20,14 @@ lambda and delta, diffuse2 and its cull kernel count exact and sums atol
 1e-6 (the plain version sums column by column in the kernel's order; the
 cull kernel bit for bit the dense one on member rows).  The rate anchor's
 kernels: issue tiles and body sums rtol 1e-5, atol 1e-6 (the kernel fuses
-multiply-adds), rowfix λ atol 1e-9.  The window micro-benchmark's kernels:
-λ rtol 5e-4, atol 1e-12 (λ is ~1e-7 and prod's ci of 0.077 amplifies the
-sums' rounding ~14x; the kernel sums a chunk's pairs in its own order).
+multiply-adds), the blocked body the same (rtol n eps on the tool's
+inputs, whose n = 4096 like terms a row drift one way in a running fp32
+sum) and bit for bit the body kernel (each row's pairs in the same order;
+the two pair headers give the same bits wherever r2c >= eps^2 is normal),
+rowfix λ atol 1e-9.  The window
+micro-benchmark's kernels: λ rtol 5e-4, atol 1e-12 (λ is ~1e-7 and prod's
+ci of 0.077 amplifies the sums' rounding ~14x; the kernel sums a chunk's
+pairs in its own order).
 The MC-field bisection's kernels: noop zero, rows bit for bit (the same
 rounded ops), loops rtol 1e-5 with atol 1e-6 x max|value| (fp32 sums of
 ~1e7 in the kernel's order against a float64 sum).  The pair-chunk
@@ -779,6 +784,29 @@ def test_anchor_body_kernel_matches_plain(card, which):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("which", ["lambda", "delta"])
+def test_anchor_body_blocked_is_the_body_bit_for_bit(card, which):
+    """The redesigned body (the cells kernels' pair terms, BLOCKED_ROWS rows a
+    thread) gives the body kernel's bits on the tool's inputs and on seeded
+    ones at strides 1-2, and agrees with the plain version at each case's
+    rtol (`blocked_cases`)."""
+    for tag, (rows, strip), (nunroll, niter, stride), rtol in ar.blocked_cases(card):
+        got = ar.body_blocked_kernel(rows, strip, which, nunroll, niter, stride)
+        assert torch.equal(got, ar.body_kernel(rows, strip, which, nunroll, niter, stride)), tag
+        torch.testing.assert_close(got, ar.body_plain(rows, strip, which, nunroll, niter, stride),
+                                   rtol=rtol, atol=1e-6)
+
+
+def test_anchor_body_blocked_refuses_a_device_mix(card):
+    rows, strip = ar.random_body_inputs(0, 2, card)
+    anchor = ar.Anchor()
+    with pytest.raises(ValueError, match="strip"):
+        anchor.body_blocked(rows, strip.cpu(), "lambda", 2, 3)
+    with pytest.raises(ValueError, match="nthreads"):
+        anchor.body_blocked(rows, strip, "lambda", 2, 3, 0, 1)
+    assert anchor.launches == dict.fromkeys(ar.KERNELS, 0)
+
+
 def test_anchor_rowfix_kernel_matches_plain(card):
     rows = torch.full((5, ar.ROWS), 0.05, device=card)
     rows[4, ::3] = 0  # some non-member rows
@@ -794,6 +822,7 @@ def test_anchor_wrappers_count_kernel_launches(card):
     x, rows, strip, frows = ar.tool_inputs(card)
     anchor.issue(x, "rsqrt", 16, 16, 2)
     anchor.body(rows, strip, "delta", 2, 2)
+    anchor.body_blocked(rows, strip, "lambda", 2, 2)
     anchor.rowfix(frows, ar.rowfix_index(frows), 2)
     torch.cuda.synchronize()
     assert anchor.launches == dict.fromkeys(ar.KERNELS, 1)
@@ -805,6 +834,9 @@ def test_anchor_sass_is_full(card):
     cuda_build.library()
     report = ar.check_sass(cuda_build.library_path())
     assert {name for name, r in report.items() if not r["ok"]} == set(), report
+    for which in ("lambda", "delta"):
+        blocked = report[f"body_blocked {which}"]
+        assert blocked["rows"] == ar.BLOCKED_ROWS and blocked["same_as_cells"], blocked
 
 
 @pytest.mark.parametrize("width", mw.WIDTHS)

@@ -74,11 +74,16 @@ with a non-zero exit and no result line:
    (cuobjdump: one MUFU.RSQ a pair, pbf_lambda's fp32 instructions a pair
    opcode by opcode, 12 bytes of candidate loads a pair split and 16 fused,
    4 more for the flat list at W 1; the JAX tool's five bodies and prod and
-   guarded with fused loads), each body against its plain version at
-   both widths on the tool's inputs and random ones (rtol 5e-4, atol
-   1e-12), then one scenario-A reading of each through `MicroWindow` (CUDA
-   events, the marginal between nblocks 256 and 1024, the SM clock
-   sampled); its launches are counted over this phase;
+   guarded with fused loads; the blocked prod and guarded, split and fused:
+   BLOCKED_ROWS MUFU.RSQ a LDS.128, no global load in the pair loop, the
+   same fp32 instructions a pair, no local memory), each body against its
+   plain version at both widths on the tool's inputs and random ones (the
+   blocked ones also on long tables of several stage rounds and, at W 1,
+   on every window empty; rtol 5e-4, atol 1e-12), each blocked kernel bit
+   for bit its original on every block of nblocks 3 on all those cases,
+   then one scenario-A reading of each through `MicroWindow` (CUDA events,
+   the marginal between nblocks 256 and 1024, the SM clock sampled); its
+   launches are counted over this phase, and its wall time printed;
 3g. the MC-field bisection kernels (`mc_field_noop`, `mc_field_rows`,
    `mc_field_loops` of `csrc/mc_field.cu`, the variants of
    `tools/micro_mc_field.py`): the SASS (cuobjdump: noop and rows without a
@@ -380,7 +385,8 @@ kernels, whose compaction numbers are the pStar pack's, 3e for the
 rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
 kernel at the larger of their two sizes and the blocked λ body at the λ
 body's work, 3f for the window kernels, whose
-line holds scenario A at nblocks 1024, the flat kernel's split body, 3g for
+line holds scenario A at nblocks 1024, the flat kernel's split body and the
+blocked kernels' split bodies, 3g for
 the MC-field bisection kernels, whose ms is the CUDA-graph reading at
 mc128k, but noop's and zero_fill's ms and library_ms (torch.zeros of the
 (9, L) output) are the medians of their turns, 3h for
@@ -494,6 +500,12 @@ KERNELS = {
     "window_guarded": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:226"),
     "window_flat": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:290"),
     "window_static": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:324"),
+    # build_prod_structure and build_guarded redesigned: a warp on one
+    # sub-block, R rows a thread on one shared-memory read of each candidate
+    "window_prod_blocked": ("pbf_sph_tpu_torch/csrc/micro_window.cu",
+                            "tools/micro_window.py:176"),
+    "window_guarded_blocked": ("pbf_sph_tpu_torch/csrc/micro_window.cu",
+                               "tools/micro_window.py:226"),
     # the MC-field bisection of tools/micro_mc_field.py: make_variant's noop,
     # rows and loops bodies
     "mc_field_noop": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
@@ -1189,14 +1201,16 @@ def phase_anchor():
 def phase_window():
     """3f: the window micro-benchmark kernels (csrc/micro_window.cu): the SASS
     of each body at both widths (cuobjdump), each against its plain version
-    on the card (uncounted), then one scenario-A reading of each through
-    `MicroWindow` (the launches counted for these kernels).  Returns
-    (report, launches)."""
+    on the card and each blocked kernel bit for bit its original (uncounted),
+    then one scenario-A reading of each through `MicroWindow` (the launches
+    counted for these kernels).  Returns (report, launches)."""
     print("== 3f. window micro-benchmark kernels (csrc/micro_window.cu) against their plain "
           "PyTorch versions")
     from pbf_sph_tpu_torch.ops import cuda_build
+    from pbf_sph_tpu_torch.tools import bench_cells as bc
     from pbf_sph_tpu_torch.tools import micro_window as mw
 
+    t0 = time.perf_counter()
     for name, r in mw.check_sass(cuda_build.library_path()).items():
         check(r["ok"], f"SASS {name}: " + ", ".join(
             f"{k} {v}" for k, v in r.items() if k != "ok"))
@@ -1206,6 +1220,12 @@ def phase_window():
         check(ok, f"{label}: max abs err {err:.3e} (rtol {mw.RTOL}, atol {mw.ATOL})")
         name = mw.KERNEL_OF[label.split()[0]]
         errs[name] = max(errs[name], err)
+    bits = mw.blocked_bits(device)
+    for label, (err, same) in bits.items():
+        check(same, f"{label}: max abs err {err:.3e} (bit for bit)")
+    print(f"  blocked kernels bit for bit their originals on every block of nblocks "
+          f"{mw.BITS_BLOCKS}: {len(bits)} cases, max abs err "
+          f"{max(e for e, _ in bits.values()):.3e}")
 
     win = mw.MicroWindow()
     rates = mw.read_scenario_a(win, device, 5)
@@ -1215,11 +1235,10 @@ def phase_window():
     x = mw.tool_inputs(device)
     nb = mw.TOOL_BLOCKS[1]
     report = {}
-    for body in mw.BODIES:
+    for body in mw.ALL_BODIES:
         r = rates[body]
         cand = x.pack if body in mw.FUSED else x.strip
-        tables = {"window_prod": (x.wins,), "window_guarded": (x.wins,),
-                  "window_flat": (x.tbl,), "window_static": ()}[mw.KERNEL_OF[body]]
+        tables = (x.tbl,) if body.startswith("flat") else () if body == "static" else (x.wins,)
         # each input read once (the table, the rows, the candidates), one λ
         # a thread written; the operations of every pair slot the body computes
         bound_ms, bound_by = bound(nbytes(*tables, x.rows, cand) + 4 * nb * mw.ROWS,
@@ -1229,13 +1248,20 @@ def phase_window():
               f"sub-block), {r['pair_slots_per_s'] / 1e9:.1f} G pair-slots/s; kernel "
               f"{r['ms'][1]:.4f} ms at nblocks {nb}, plain {plain_ms:.4f} ms (one block), "
               f"bound {bound_ms:.4f} ms by {bound_by}")
-        if body not in ("prod", "guarded", "flat", "static"):
+        if body in mw.BLOCKED_OF:
+            orig = rates[mw.BLOCKED_OF[body]]["ms"][1]
+            pairs = mw.body_pairs(body, x, nb)
+            print(f"    {body}: {orig / r['ms'][1]:.3f}x {mw.BLOCKED_OF[body]} ({orig:.4f} ms), "
+                  f"{bound_ms / r['ms'][1]:.3f} of the bound; anchored at 7b-b's λ ceiling "
+                  f"{pairs / bc.CELLS_CEILING['lambda'] * 1e3:.4f} ms")
+        if body not in ("prod", "guarded", "flat", "static", "prod_blocked", "guarded_blocked"):
             continue  # the line holds the JAX tool's body of each kernel, flat's split one
         # no single PyTorch call computes this chain
         report[mw.KERNEL_OF[body]] = dict(
             max_abs_err=errs[mw.KERNEL_OF[body]], ms=r["ms"][1], plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     print(f"  window wrapper launches: {launches}")
+    print(f"  3f wall time: {time.perf_counter() - t0:.2f} s")
     return report, launches
 
 

@@ -15,6 +15,10 @@
 //                     candidate loads
 //   window_static  <- build_static_fused   (:324): offsets computed, not
 //                     loaded, fused loads
+// and, redesigned for this card beside the originals (which stay, as the
+// bisection they belong to):
+//   window_prod_blocked    <- build_prod_structure (:176) \  the same function,
+//   window_guarded_blocked <- build_guarded        (:226) /  bit for bit
 // Every kernel computes λ of 1024 rows (16 sub-blocks of 64) in the JAX
 // tool's form: each pair by lambda_pair of csrc/pbf_pair.cuh (the tool's
 // lam_math, and pbf_lambda's own pair terms), then the tool's epilogue, where
@@ -42,6 +46,26 @@
 // pair goes to the total, so the pair loop holds pbf_lambda's fp32
 // instructions a pair, opcode by opcode (the wrapper checks the SASS).
 //
+// The blocked kernels (window_blocked_kernel) take what holds prod and
+// guarded back on this card: a thread is one row, so every pair pays its own
+// candidate load from L1, and every row pays the window bookkeeping (two
+// table reads, a division and a chunk count a window).  Instead a warp works
+// on one sub-block t, whose windows are then warp-uniform, and a thread
+// holds R = kBlockedRows distinct rows of it (R 2: a warp holds the 64 rows;
+// R 4: each half-warp the same 16-lane row sets of another replica block).
+// A CTA's warps all take the same t over several replica blocks, so the CTA
+// stages the chunks t's windows name (at W 1, the columns) once, into shared
+// memory as float4 by cp.async: 16 bytes from the pack (fused), three times
+// 4 from the SoA strip (split; w is not read).  The bookkeeping (lo/hi, c0,
+// the chunk count, the sentinel clip) is done once a CTA, where the chunk
+// list is laid out; each candidate is then one LDS.128 broadcast that feeds
+// R pairs.  Tables longer than a stage buffer are staged in rounds, double-
+// buffered.  Each row keeps its carries in prod's and guarded's order (at W
+// 128 a chunk's partials from 0, then added to the totals; at W 1 each pair
+// into the totals) with the same lambda_pair and epilogue, so the output is
+// theirs bit for bit.  Every one of the nblocks x 1024 outputs runs its own
+// pairs.
+//
 // Every launcher runs on the given stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (cudaErrorInvalidValue for a
 // width it has no instantiation for).  Table offsets must lie in
@@ -50,11 +74,20 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "cull.cuh"
 #include "pbf_pair.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// R, the rows a thread of the blocked kernels holds (tools/micro_window.py's
+// BLOCKED_ROWS; a CPU test holds the two equal).  A divisor of 64 from 2 on.
+constexpr int kBlockedRows = 4;
+constexpr int kBlockedThreads = 128;  // 4 warps, all on one sub-block
+constexpr int kStage = 768;           // float4 slots of a stage buffer: 6 chunks at W 128
+constexpr int kNsub = 16;             // sub-blocks of a block
 constexpr int kRows = 1024;    // rows of one block: 16 sub-blocks of 64
 constexpr int kSubShift = 6;   // 64 rows a sub-block
 constexpr int kWindows = 9;    // the nine (dx, dy) windows of a sub-block
@@ -158,6 +191,168 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = epilogue(rows, w.r, p6s, gx, gy, gz, p6f, c_grad, rho_recip, cfm);
 }
 
+// A 4-byte cp.async: one of a split candidate's x, y, z.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Candidates [0, n) of a staged span against a thread's R rows, each row's
+// pairs in the span's order into its carries: kStep candidates a trip (16
+// pairs), each candidate one LDS.128 broadcast that feeds R pairs.
+template <int R>
+__device__ __forceinline__ void blocked_pairs(const float4* b0, int n, const float (&ax)[R],
+                                              const float (&ay)[R], const float (&az)[R],
+                                              float h, float hh, float eps2, float (&s0)[R],
+                                              float (&s1)[R], float (&s2)[R], float (&s3)[R]) {
+  constexpr int kStep = 16 / R;
+  int j = 0;
+#pragma unroll 1
+  for (; j + kStep <= n; j += kStep) {
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {
+      const float4 b = b0[j + u];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        lambda_pair(ax[q], ay[q], az[q], b, h, hh, eps2, s0[q], s1[q], s2[q], s3[q]);
+      }
+    }
+  }
+#pragma unroll 1
+  for (; j < n; ++j) {
+    const float4 b = b0[j];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      lambda_pair(ax[q], ay[q], az[q], b, h, hh, eps2, s0[q], s1[q], s2[q], s3[q]);
+    }
+  }
+}
+
+// window_prod (GUARDED false) and window_guarded (true) redesigned (see the
+// header).  CTA b takes sub-block t = b mod 16 of replica blocks from
+// (b / 16) * kReps on; its thread i holds rows t*64 + i mod L + q*L (q < R,
+// L = 64 / R) of replica block (b / 16) * kReps + i / L.  The CTA's chunk
+// list is its windows' chunks in order: window s holds list entries
+// [first[s], first[s + 1]), entry k of them the chunk at min((c0 + k -
+// first[s]) * W, smax), prod's first one unconditional.
+template <int W, bool GUARDED, bool FUSED>
+__global__ void __launch_bounds__(kBlockedThreads)
+    window_blocked_kernel(const int* __restrict__ wins, const float* __restrict__ rows,
+                          const float* __restrict__ strip, const float4* __restrict__ pack,
+                          int ncols, int smax, int nblocks, float h, float hh, float eps2,
+                          float p6f, float c_grad, float rho_recip, float cfm,
+                          float* __restrict__ out) {
+  constexpr int R = kBlockedRows;
+  constexpr int L = (1 << kSubShift) / R;
+  constexpr int kReps = kBlockedThreads / L;
+  constexpr int kChunks = kStage / W;  // chunks a stage round
+  static_assert(R >= 2 && (1 << kSubShift) % R == 0 && L <= 32 && 16 % R == 0,
+                "R divides a sub-block and a trip");
+  static_assert(kStage % W == 0, "a stage round is whole chunks");
+  __shared__ __align__(16) float4 stage[2][kStage];
+  __shared__ int win_c0[kWindows];
+  __shared__ int first[kWindows + 1];
+
+  const int t = blockIdx.x % kNsub;
+  // the bookkeeping, once a CTA: lane s < 9 reads window s, then a scan
+  if (threadIdx.x < 32) {
+    const int s = threadIdx.x;
+    int count = 0;
+    if (s < kWindows) {
+      const int lo = wins[t * kWinStride + 2 * s];
+      const int hi = wins[t * kWinStride + 2 * s + 1];
+      const int c0 = lo / W;
+      const int nchunk = hi > lo ? (hi - c0 * W + W - 1) / W : 0;
+      count = GUARDED ? nchunk : max(nchunk, 1);
+      win_c0[s] = c0;
+    }
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, count, d);
+      if (s >= d) count += v;
+    }
+    if (s < kWindows) first[s + 1] = count;
+    if (s == 0) first[0] = 0;
+  }
+  __syncthreads();
+  const int nchunks = first[kWindows];
+
+  // list entries [rd * kChunks, ...) into `buf`, one commit group
+  auto stage_round = [&](int rd, float4* buf) {
+    const int k0 = rd * kChunks;
+    const int nslot = min(kChunks, nchunks - k0) * W;
+    for (int p = threadIdx.x; p < nslot; p += kBlockedThreads) {
+      const int k = k0 + p / W;
+      int s = 0;
+      while (first[s + 1] <= k) ++s;
+      const int col = min((win_c0[s] + k - first[s]) * W, smax) + p % W;
+      if constexpr (FUSED) {
+        cp_async16(buf + p, pack + col);
+      } else {
+        cp_async4(&buf[p].x, strip + col);
+        cp_async4(&buf[p].y, strip + ncols + col);
+        cp_async4(&buf[p].z, strip + 2 * ncols + col);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int lane = threadIdx.x % L;
+  const int rep = (blockIdx.x / kNsub) * kReps + threadIdx.x / L;
+  float ax[R], ay[R], az[R], p6s[R], gx[R], gy[R], gz[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int r = (t << kSubShift) + lane + q * L;
+    ax[q] = rows[r];
+    ay[q] = rows[kRows + r];
+    az[q] = rows[2 * kRows + r];
+    p6s[q] = gx[q] = gy[q] = gz[q] = 0.f;
+  }
+  const int nrounds = (nchunks + kChunks - 1) / kChunks;
+  if (nrounds > 0) stage_round(0, stage[0]);
+#pragma unroll 1
+  for (int rd = 0; rd < nrounds; ++rd) {
+    if (rd + 1 < nrounds) {
+      stage_round(rd + 1, stage[(rd + 1) & 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float4* buf = stage[rd & 1];
+    const int nch = min(kChunks, nchunks - rd * kChunks);
+    if constexpr (W == 1) {
+      blocked_pairs<R>(buf, nch, ax, ay, az, h, hh, eps2, p6s, gx, gy, gz);
+    } else {
+#pragma unroll 1
+      for (int k = 0; k < nch; ++k) {
+        float c0[R], c1[R], c2[R], c3[R];
+#pragma unroll
+        for (int q = 0; q < R; ++q) c0[q] = c1[q] = c2[q] = c3[q] = 0.f;
+        blocked_pairs<R>(buf + k * W, W, ax, ay, az, h, hh, eps2, c0, c1, c2, c3);
+#pragma unroll
+        for (int q = 0; q < R; ++q) {
+          p6s[q] += c0[q];
+          gx[q] += c1[q];
+          gy[q] += c2[q];
+          gz[q] += c3[q];
+        }
+      }
+    }
+    __syncthreads();  // before round rd + 2 is staged into this buffer
+  }
+  if (rep < nblocks) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int r = (t << kSubShift) + lane + q * L;
+      out[rep * kRows + r] =
+          epilogue(rows, r, p6s[q], gx[q], gy[q], gz[q], p6f, c_grad, rho_recip, cfm);
+    }
+  }
+}
+
 // window_flat: tbl[t*stride] = count, then the chunk offsets.
 template <int W, bool FUSED>
 __global__ void __launch_bounds__(kThreads)
@@ -222,6 +417,39 @@ int launch_window(const void* wins, const void* rows, const void* cand, int ncol
   return (int)cudaGetLastError();
 }
 
+// n = nblocks x 1024 outputs, a CTA a sub-block of kReps replica blocks.
+template <bool GUARDED>
+int launch_window_blocked(const void* wins, const void* rows, const void* cand, int ncols,
+                          int smax, int width, int fused, int n, float h, float hh, float eps2,
+                          float p6f, float c_grad, float rho_recip, float cfm, void* out,
+                          void* stream) {
+  using Fn = void (*)(const int*, const float*, const float*, const float4*, int, int, int,
+                      float, float, float, float, float, float, float, float*);
+  Fn kernel = nullptr;
+  if (width == 128) {
+    kernel = fused ? window_blocked_kernel<128, GUARDED, true>
+                   : window_blocked_kernel<128, GUARDED, false>;
+  }
+  if (width == 1) {
+    kernel = fused ? window_blocked_kernel<1, GUARDED, true>
+                   : window_blocked_kernel<1, GUARDED, false>;
+  }
+  if (kernel == nullptr || n < 0 || n % kRows != 0 ||
+      (fused && reinterpret_cast<uintptr_t>(cand) % 16 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int kReps = kBlockedThreads * kBlockedRows / (1 << kSubShift);
+  const int nblocks = n / kRows;
+  if (nblocks > 0) {
+    kernel<<<kNsub * ((nblocks + kReps - 1) / kReps), kBlockedThreads, 0,
+             (cudaStream_t)stream>>>(
+        (const int*)wins, (const float*)rows, fused ? nullptr : (const float*)cand,
+        fused ? (const float4*)cand : nullptr, ncols, smax, nblocks, h, hh, eps2, p6f, c_grad,
+        rho_recip, cfm, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,6 +468,24 @@ int window_guarded(const void* wins, const void* rows, const void* cand, int nco
                    float c_grad, float rho_recip, float cfm, void* out, void* stream) {
   return launch_window<true>(wins, rows, cand, ncols, smax, width, fused, n, h, hh, eps2, p6f,
                              c_grad, rho_recip, cfm, out, stream);
+}
+
+// The blocked kernels take window_prod's / window_guarded's arguments; n must
+// be a multiple of 1024, and the pack (fused) 16-byte aligned.
+int window_prod_blocked(const void* wins, const void* rows, const void* cand, int ncols,
+                        int smax, int width, int fused, int n, float h, float hh, float eps2,
+                        float p6f, float c_grad, float rho_recip, float cfm, void* out,
+                        void* stream) {
+  return launch_window_blocked<false>(wins, rows, cand, ncols, smax, width, fused, n, h, hh,
+                                      eps2, p6f, c_grad, rho_recip, cfm, out, stream);
+}
+
+int window_guarded_blocked(const void* wins, const void* rows, const void* cand, int ncols,
+                           int smax, int width, int fused, int n, float h, float hh,
+                           float eps2, float p6f, float c_grad, float rho_recip, float cfm,
+                           void* out, void* stream) {
+  return launch_window_blocked<true>(wins, rows, cand, ncols, smax, width, fused, n, h, hh,
+                                     eps2, p6f, c_grad, rho_recip, cfm, out, stream);
 }
 
 int window_flat(const void* tbl, int stride, const void* rows, const void* cand, int ncols,

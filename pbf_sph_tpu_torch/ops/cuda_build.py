@@ -81,8 +81,9 @@ SIGNATURES = {
                     [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P]),
     "anchor_rowfix": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     # csrc/micro_window.cu
-    "window_prod": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
-    "window_guarded": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    **dict.fromkeys(("window_prod", "window_guarded", "window_prod_blocked",
+                     "window_guarded_blocked"),
+                    [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P]),
     "window_flat": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "window_static": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     # csrc/micro_chunk.cu (micro_chunk_fill returns a CTA count)

@@ -6,7 +6,7 @@ Port of `tools/micro_window.py`.  The rate anchor (`anchor_rate`) leaves
 ~0.05 ms of `pbf_lambda` at dam1m unattributed: rows x fixed cost + pairs /
 body ceiling falls short of the kernel.  This tool holds the λ pair terms
 and the epilogue fixed and varies only how a kernel finds its candidates,
-with the four hand-written kernels of `csrc/micro_window.cu` (seven bodies):
+with the hand-written kernels of `csrc/micro_window.cu` (eleven bodies):
 
 * `window_prod` (`build_prod_structure`): nine windows from a flat lo/hi
   table `[t*18 + 2s + {lo, hi}]`, chunk 0 unconditional at min(c0*W, smax)
@@ -20,7 +20,13 @@ with the four hand-written kernels of `csrc/micro_window.cu` (seven bodies):
   ncols) strip, or fused: one float4 from an (ncols, 4) pack;
 * `window_static` (`build_static_fused`): nwin windows of nper chunks at the
   computed offsets ((s*7 + t) % 40) * nper * W, fused loads (the JAX tool's
-  scenario: nwin 10, nper 1).
+  scenario: nwin 10, nper 1);
+* `window_prod_blocked` / `window_guarded_blocked` (rows 7.1-b / 7.2-b):
+  prod's and guarded's function redesigned for this card, bit for bit
+  theirs: a warp on one sub-block, BLOCKED_ROWS rows a thread, the chunks
+  of the CTA's sub-block staged once in shared memory (split from the
+  strip, or fused from the pack: `prod_blocked`, `prod_blocked_fused`,
+  `guarded_blocked`, `guarded_blocked_fused`).
 
 Each computes λ (1, 1024) of 16 sub-blocks of 64 rows; the kernel runs
 nblocks x 1024 threads, thread i taking row i mod 1024, and returns the
@@ -34,8 +40,11 @@ version for a CPU tensor and the kernel for a CUDA one, and count launches.
 The tool prints the card line; checks the SASS of every instantiation
 (cuobjdump: one MUFU.RSQ a pair, `pbf_lambda`'s fp32 instructions a pair
 opcode by opcode, and the candidate bytes loaded a pair: 12 split, 16
-fused, 4 more for the flat list's offset at W = 1), and fails with no rate
-if one is short; holds each kernel against its plain version; then reads
+fused, 4 more for the flat list's offset at W = 1; the blocked kernels
+BLOCKED_ROWS pairs a LDS.128, no global load in the pair loop and no local
+memory), and fails with no rate if one is short; holds each kernel against
+its plain version, and each blocked kernel against its original bit for
+bit on every block; then reads
 
 * scenario A, the JAX tool's (W 128, its tables, rows 0.05, strip 0.055,
   smax 8448): the marginal between nblocks 256 and 1024, in ns a chunk, G
@@ -48,7 +57,9 @@ if one is short; holds each kernel against its plain version; then reads
   ms, read in the same run: the ladder anchored -> static -> flat-fused ->
   flat -> guarded -> prod -> pbf_lambda, and the fused one anchored ->
   static -> guarded-fused -> pbf_lambda, which follows `pbf_lambda`'s own
-  loads.
+  loads; and the blocked one anchored -> guarded-blocked-fused ->
+  guarded-fused -> pbf_lambda: what is left of the nine-window walk when
+  it is laid out for this card.
 
 with the SM clock sampled beside.  The last line is one JSON object.
 Without a CUDA device the tool fails.
@@ -87,11 +98,28 @@ WIDTHS = (WCOL, 1)
 # loads, which the JAX tool has not
 JAX_BODIES = ("prod", "guarded", "flat", "flat_fused", "static")
 BODIES = JAX_BODIES + ("prod_fused", "guarded_fused")
-FUSED = ("flat_fused", "static", "prod_fused", "guarded_fused")
+# prod and guarded redesigned (rows 7.1-b, 7.2-b), split and fused
+BLOCKED_BODIES = ("prod_blocked", "guarded_blocked", "prod_blocked_fused",
+                  "guarded_blocked_fused")
+ALL_BODIES = BODIES + BLOCKED_BODIES
+# the bodies that walk the nine windows of the lo/hi table
+WINDOW_BODIES = ("prod", "guarded", "prod_fused", "guarded_fused") + BLOCKED_BODIES
+FUSED = ("flat_fused", "static", "prod_fused", "guarded_fused", "prod_blocked_fused",
+         "guarded_blocked_fused")
 KERNEL_OF = {"prod": "window_prod", "prod_fused": "window_prod",
              "guarded": "window_guarded", "guarded_fused": "window_guarded",
-             "flat": "window_flat", "flat_fused": "window_flat", "static": "window_static"}
-KERNELS = ("window_prod", "window_guarded", "window_flat", "window_static")
+             "flat": "window_flat", "flat_fused": "window_flat", "static": "window_static",
+             "prod_blocked": "window_prod_blocked", "prod_blocked_fused": "window_prod_blocked",
+             "guarded_blocked": "window_guarded_blocked",
+             "guarded_blocked_fused": "window_guarded_blocked"}
+KERNELS = ("window_prod", "window_guarded", "window_flat", "window_static",
+           "window_prod_blocked", "window_guarded_blocked")
+# the blocked kernels' R, rows a thread (csrc/micro_window.cu's kBlockedRows),
+# and their stage buffer in float4 slots (kStage): 6 chunks at W 128
+BLOCKED_ROWS = 4
+BLOCKED_STAGE = 768
+# the window span of `parity_cases`' long tables, in columns: several stage rounds
+LONG_SPAN = {WCOL: 16 * WCOL, 1: 400}
 TOOL_BLOCKS = (256, 1024)     # the JAX tool's marginal
 CENSUS_BLOCKS = (2048, 8192)  # scenario B: a few hundred pairs a row
 PARITY_CENSUS = (7, 19)       # (k, m) of the uniform W = 1 parity case
@@ -204,14 +232,15 @@ def census_inputs(k: int, m: int, device="cpu") -> Inputs:
     return Inputs(1, SMAX, rows, strip, pack, wins, tbl, stride, k, m).to(device)
 
 
-def random_inputs(seed: int, width: int, device="cpu") -> Inputs:
+def random_inputs(seed: int, width: int, device="cpu", span: int = 0) -> Inputs:
     """Random rows, strip and tables from `seed`, distinct per sub-block:
     rows in [0.5, 0.51]^3 and candidates in [0.47, 0.49]^3 (every pair
     within h, dx, dy, dz > 0: no sum cancels), mass in [100, 200] and
     memberf in [0.5, 1] (rho/RHO >= ~1.7 from one pair on: ci stays far from
     0); windows empty at smax, empty elsewhere, ragged, or reaching past smax
-    (clipped to the sentinel); flat lists of 0-16 aligned chunk offsets;
-    static at nwin 4 (W 128) or 7 (W 1), nper 1 or 5."""
+    (clipped to the sentinel), at most `span` columns (0: 3 chunks at W 128,
+    24 at W 1); flat lists of 0-16 aligned chunk offsets; static at nwin 4
+    (W 128) or 7 (W 1), nper 1 or 5."""
     rng = np.random.default_rng(seed)
     smax, ncols = SMAX, SMAX + width
     rows = np.empty((5, ROWS), np.float32)
@@ -221,7 +250,7 @@ def random_inputs(seed: int, width: int, device="cpu") -> Inputs:
     strip = np.empty((4, ncols), np.float32)
     strip[:3] = rng.uniform(0.47, 0.49, (3, ncols))
     strip[3] = rng.uniform(-2.0, -0.5, ncols)
-    span = 3 * width if width > 1 else 24
+    span = span or (3 * width if width > 1 else 24)
     wins = np.zeros((1, 1, (NSUB + 1) * WIN_STRIDE), np.int32)
     for t in range(NSUB):
         for s in range(NWIN):
@@ -294,13 +323,13 @@ def static_chunks(nwin: int, nper: int, width: int = WCOL) -> List[List[int]]:
 
 def body_chunks(body: str, x: Inputs) -> List[List[int]]:
     """The chunks `body` reads at inputs `x`, per sub-block."""
-    if body in ("prod", "guarded", "prod_fused", "guarded_fused"):
+    if body in WINDOW_BODIES:
         return window_chunks(x.wins, body.startswith("guarded"), x.width, x.smax)
     if body in ("flat", "flat_fused"):
         return flat_chunks(x.tbl, x.stride)
     if body == "static":
         return static_chunks(x.nwin, x.nper, x.width)
-    raise ValueError(f"body {body!r} is not one of {BODIES}")
+    raise ValueError(f"body {body!r} is not one of {ALL_BODIES}")
 
 
 def body_pairs(body: str, x: Inputs, nblocks: int = 1) -> int:
@@ -414,17 +443,19 @@ def _consts():
 
 
 def _launch(name: str, dev, nblocks: int, *args):
-    out = torch.empty(nblocks * ROWS, dtype=torch.float32, device=dev)
+    """(nblocks, 1024): every block's λ from launcher `name`."""
+    out = torch.empty((nblocks, ROWS), dtype=torch.float32, device=dev)
     lib = cuda_build.library()
     with torch.cuda.device(dev):
         err = getattr(lib, name)(*args, out.numel(), *_consts(), out.data_ptr(),
                                  ph._stream(dev))
     cuda_build.check(name, err)
-    return out[:ROWS].view(1, ROWS)
+    return out
 
 
 def _window_kernel(name: str, wins, rows, cand, nblocks: int, width: int, smax: int,
                    fused: bool):
+    """`name`'s λ, every block's (nblocks, 1024)."""
     _check_width(width)
     _check_shapes(rows, cand, smax + width, fused, nblocks)
     dev = ar._check_card(wins=(wins, torch.int32, (1, 1, (NSUB + 1) * WIN_STRIDE)),
@@ -438,13 +469,29 @@ def prod_kernel(wins, rows, cand, nblocks: int, width: int = WCOL, smax: int = S
                 fused: bool = False):
     """(1, 1024) λ from `window_prod` (replaces `build_prod_structure`'s
     kernel), over nblocks x 1024 threads."""
-    return _window_kernel("window_prod", wins, rows, cand, nblocks, width, smax, fused)
+    return _window_kernel("window_prod", wins, rows, cand, nblocks, width, smax, fused)[:1]
 
 
 def guarded_kernel(wins, rows, cand, nblocks: int, width: int = WCOL, smax: int = SMAX,
                    fused: bool = False):
     """(1, 1024) λ from `window_guarded` (replaces `build_guarded`'s kernel)."""
-    return _window_kernel("window_guarded", wins, rows, cand, nblocks, width, smax, fused)
+    return _window_kernel("window_guarded", wins, rows, cand, nblocks, width, smax, fused)[:1]
+
+
+def prod_blocked_kernel(wins, rows, cand, nblocks: int, width: int = WCOL, smax: int = SMAX,
+                        fused: bool = False):
+    """(1, 1024) λ from `window_prod_blocked` (replaces `build_prod_structure`'s
+    kernel, redesigned: row 7.1-b), bit for bit `prod_kernel`'s."""
+    return _window_kernel("window_prod_blocked", wins, rows, cand, nblocks, width, smax,
+                          fused)[:1]
+
+
+def guarded_blocked_kernel(wins, rows, cand, nblocks: int, width: int = WCOL,
+                           smax: int = SMAX, fused: bool = False):
+    """(1, 1024) λ from `window_guarded_blocked` (replaces `build_guarded`'s
+    kernel, redesigned: row 7.2-b), bit for bit `guarded_kernel`'s."""
+    return _window_kernel("window_guarded_blocked", wins, rows, cand, nblocks, width, smax,
+                          fused)[:1]
 
 
 def flat_kernel(tbl, rows, cand, nblocks: int, fused: bool, width: int = WCOL,
@@ -457,7 +504,7 @@ def flat_kernel(tbl, rows, cand, nblocks: int, fused: bool, width: int = WCOL,
                          rows=(rows, torch.float32, (5, ROWS)),
                          cand=(cand, torch.float32, tuple(cand.shape)))
     return _launch("window_flat", dev, nblocks, tbl.data_ptr(), stride, rows.data_ptr(),
-                   cand.data_ptr(), ncols, width, int(fused))
+                   cand.data_ptr(), ncols, width, int(fused))[:1]
 
 
 def static_kernel(rows, pack, nblocks: int, nwin: int = REAL_WINS * CH_PER_WIN, nper: int = 1,
@@ -470,16 +517,20 @@ def static_kernel(rows, pack, nblocks: int, nwin: int = REAL_WINS * CH_PER_WIN, 
     dev = ar._check_card(rows=(rows, torch.float32, (5, ROWS)),
                          pack=(pack, torch.float32, tuple(pack.shape)))
     return _launch("window_static", dev, nblocks, rows.data_ptr(), pack.data_ptr(), nwin,
-                   nper, width)
+                   nper, width)[:1]
 
 
 def _call(body: str, x: Inputs, nblocks: int, plain: bool):
     """`body` at inputs `x`: its plain version or its kernel."""
-    if body in ("prod", "guarded", "prod_fused", "guarded_fused"):
+    if body in WINDOW_BODIES:
         fused = body in FUSED
-        fn = {("prod", True): prod_plain, ("prod", False): prod_kernel,
-              ("guarded", True): guarded_plain,
-              ("guarded", False): guarded_kernel}[body.split("_")[0], plain]
+        guarded = body.startswith("guarded")
+        if plain:  # the blocked bodies' plain versions are prod's and guarded's
+            fn = guarded_plain if guarded else prod_plain
+        else:
+            fn = {(False, False): prod_kernel, (True, False): guarded_kernel,
+                  (False, True): prod_blocked_kernel,
+                  (True, True): guarded_blocked_kernel}[guarded, body in BLOCKED_BODIES]
         return fn(x.wins, x.rows, x.pack if fused else x.strip, nblocks, x.width, x.smax, fused)
     if body in ("flat", "flat_fused"):
         fused = body == "flat_fused"
@@ -488,7 +539,7 @@ def _call(body: str, x: Inputs, nblocks: int, plain: bool):
     if body == "static":
         return (static_plain if plain else static_kernel)(
             x.rows, x.pack, nblocks, x.nwin, x.nper, x.width)
-    raise ValueError(f"body {body!r} is not one of {BODIES}")
+    raise ValueError(f"body {body!r} is not one of {ALL_BODIES}")
 
 
 def run_plain(body: str, x: Inputs, nblocks: int = 1):
@@ -499,8 +550,19 @@ def run_kernel(body: str, x: Inputs, nblocks: int):
     return _call(body, x, nblocks, plain=False)
 
 
+def window_blocks(body: str, x: Inputs, nblocks: int):
+    """(nblocks, 1024): every block's λ from the kernel of window body
+    `body`, each block its own replica's outputs."""
+    if body not in WINDOW_BODIES:
+        raise ValueError(f"body {body!r} is not one of {WINDOW_BODIES}")
+    name = KERNEL_OF[body]
+    fused = body in FUSED
+    return _window_kernel(name, x.wins, x.rows, x.pack if fused else x.strip, nblocks, x.width,
+                          x.smax, fused)
+
+
 class MicroWindow:
-    """The four wrappers, with a launch counter per kernel: `launches[name]`
+    """The six wrappers, with a launch counter per kernel: `launches[name]`
     starts at 0 and grows by one each time a wrapper launches its CUDA
     kernel, and at no other time.  A CPU tensor takes the plain version."""
 
@@ -522,6 +584,9 @@ class MicroWindow:
 
 def sass_pattern(body: str, width: int) -> str:
     """A unique part of the mangled name of `body`'s kernel at `width`."""
+    if body in BLOCKED_BODIES:
+        return (f"21window_blocked_kernelILi{width}ELb{int(body.startswith('guarded'))}E"
+                f"Lb{int(body in FUSED)}E")
     if body in ("prod", "guarded", "prod_fused", "guarded_fused"):
         return (f"13window_kernelILi{width}ELb{int(body.startswith('guarded'))}E"
                 f"Lb{int(body in FUSED)}E")
@@ -544,8 +609,9 @@ def want_bytes(body: str, width: int) -> int:
 
 
 def check_sass(lib_path) -> Dict[str, dict]:
-    """`check_funcs` of the built library."""
-    return check_funcs(ar.sass_functions(lib_path))
+    """`check_funcs` and `check_blocked` of the built library."""
+    funcs = ar.sass_functions(lib_path)
+    return {**check_funcs(funcs), **check_blocked(funcs)}
 
 
 def check_funcs(funcs) -> Dict[str, dict]:
@@ -569,29 +635,95 @@ def check_funcs(funcs) -> Dict[str, dict]:
     return report
 
 
+def check_blocked(funcs) -> Dict[str, dict]:
+    """"body W" -> dict(ok, counts) for every blocked instantiation: its pair
+    loop holds R = BLOCKED_ROWS MUFU.RSQ a shared-memory float4 read
+    (LDS.128), R >= 2, no global load, and `pbf_lambda`'s fp32-pipe
+    instructions a pair opcode by opcode; the kernel reads and writes no
+    local memory (no spill)."""
+    phase = ar.fp32_per_pair(ar.pair_loop(ar._one(funcs, ar.PHASE_KERNELS["lambda"])))
+    report = {}
+    for body in BLOCKED_BODIES:
+        for width in WIDTHS:
+            sass = ar._one(funcs, sass_pattern(body, width))
+            loop = ar.pair_loop(sass)
+            rsq = loop["MUFU.RSQ"]
+            lds = sum(v for k, v in loop.items() if k.startswith("LDS") and "128" in k)
+            ldg = sum(v for k, v in loop.items() if k.startswith("LDG"))
+            local = sum(1 for _, op, _ in sass[0] if op.split(".")[0] in ("LDL", "STL"))
+            per_pair = ar.fp32_per_pair(loop)
+            report[f"{body} W{width}"] = dict(
+                ok=BLOCKED_ROWS >= 2 and lds > 0 and rsq == BLOCKED_ROWS * lds and ldg == 0
+                and per_pair == phase and local == 0,
+                rows=BLOCKED_ROWS, pairs_a_loop=rsq, pairs_a_read=rsq / max(lds, 1),
+                ldg_in_loop=ldg, fp32_per_pair=sum(per_pair.values()),
+                same_as_phase=per_pair == phase, local=local,
+                insts_per_pair=sum(loop.values()) / max(rsq, 1))
+    return report
+
+
 # ---------------------------------------------------------------------------
 # Parity and the readings
 # ---------------------------------------------------------------------------
 
 
+# the parity cases that only the blocked bodies take
+BLOCKED_CASES = ("long", "empty")
+
+
+def parity_cases(width: int, device, seed: int = 0) -> Dict[str, Inputs]:
+    """The parity cases at `width`: the tool's uniform inputs (W 128:
+    scenario A; W 1: the census tables at PARITY_CENSUS), random ones
+    (`random_inputs`: empty, ragged and clipped windows), long ones
+    (windows of up to LONG_SPAN columns: several stage rounds of the blocked
+    kernels) and at W 1
+    every window empty (the census at k 0: guarded reads nothing, prod nine
+    sentinels)."""
+    cases = {"tool": tool_inputs(device) if width == WCOL
+             else census_inputs(*PARITY_CENSUS, device=device),
+             "random": random_inputs(seed, width, device),
+             "long": random_inputs(seed, width, device, LONG_SPAN[width])}
+    if width == 1:
+        cases["empty"] = census_inputs(0, 1, device)
+    return cases
+
+
 def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     """Each body's kernel against its plain version on the card, its
-    launches not counted; "body W case" -> (max abs err, within tolerance).
-    At each width: the tool's uniform inputs (W 128: scenario A; W 1: the
-    census tables at PARITY_CENSUS) and random ones (`random_inputs`).
-    rtol 5e-4, atol 1e-12: λ is ~1e-7, prod's ci 0.077 amplifies the sum's
-    rounding ~14x, and the kernel sums each pair in another order."""
+    launches not counted; "body W case" -> (max abs err, within tolerance),
+    on the tool's and random `parity_cases` (the blocked bodies on every
+    case).  rtol 5e-4, atol 1e-12: λ is ~1e-7, prod's ci 0.077
+    amplifies the sum's rounding ~14x, and the kernel sums each pair in
+    another order."""
     res = {}
     for width in WIDTHS:
-        cases = {"tool": tool_inputs(device) if width == WCOL
-                 else census_inputs(*PARITY_CENSUS, device=device),
-                 "random": random_inputs(seed, width, device)}
-        for case, x in cases.items():
-            for body in BODIES:
+        for case, x in parity_cases(width, device, seed).items():
+            for body in BLOCKED_BODIES if case in BLOCKED_CASES else ALL_BODIES:
                 got, want = run_kernel(body, x, 2), run_plain(body, x)
                 res[f"{body} W{width} {case}"] = (
                     float((got - want).abs().max()),
                     torch.allclose(got, want, rtol=RTOL, atol=ATOL))
+    return res
+
+
+# the original body of each blocked one: the kernel it equals bit for bit
+BLOCKED_OF = {body: body.replace("_blocked", "") for body in BLOCKED_BODIES}
+BITS_BLOCKS = 3  # a CTA's replica blocks, some of them past nblocks
+
+
+def blocked_bits(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
+    """Each blocked body's kernel against its original's (`BLOCKED_OF`) on
+    every block of nblocks BITS_BLOCKS, on every `parity_cases` case at both
+    widths, their launches not counted; "body W case = original" -> (max abs
+    err, bit for bit)."""
+    res = {}
+    for width in WIDTHS:
+        for case, x in parity_cases(width, device, seed).items():
+            for body, orig in BLOCKED_OF.items():
+                got = window_blocks(body, x, BITS_BLOCKS)
+                want = window_blocks(orig, x, BITS_BLOCKS)
+                res[f"{body} W{width} {case} = {orig}"] = (
+                    float((got - want).abs().max()), torch.equal(got, want))
     return res
 
 
@@ -602,7 +734,7 @@ def read_scenario_a(mw: MicroWindow, device, reps: int) -> dict:
     x = tool_inputs(device)
     res = {}
     with ar.ClockSampler(device) as clock:
-        for body in BODIES:
+        for body in ALL_BODIES:
             dt, t_lo, t_hi = ar.marginal(lambda nb: mw.run(body, x, nb), TOOL_BLOCKS, reps)
             per_block = sum(len(c) for c in body_chunks(body, x))
             nch = (TOOL_BLOCKS[1] - TOOL_BLOCKS[0]) * per_block
@@ -625,7 +757,8 @@ def census(idx: ph.CellIndex) -> dict:
 
 
 # the ladders, from the anchored ms to pbf_lambda, and what each step adds:
-# the JAX tool's order, and the one that keeps pbf_lambda's fused loads
+# the JAX tool's order, the one that keeps pbf_lambda's fused loads, and the
+# one that starts from the nine-window walk laid out for this card
 LAST_STEP = ("pbf_lambda", "per-row ranges, which diverge within a warp, and real positions")
 LADDERS = {
     "ladder": (("static", "L1/L2 reads in place of shared memory"),
@@ -637,6 +770,10 @@ LADDERS = {
     "fused_ladder": (("static", "L1/L2 reads in place of shared memory"),
                      ("guarded_fused", "nine windows from a lo/hi table, fused loads"),
                      LAST_STEP),
+    "blocked_ladder": (("guarded_blocked_fused", "nine windows from a lo/hi table, staged "
+                        "once a CTA, R rows a thread on one shared-memory read"),
+                       ("guarded_fused", "a row a thread, each pair's candidate from L1"),
+                       LAST_STEP),
 }
 
 
@@ -656,7 +793,7 @@ def read_scenario_b(mw: MicroWindow, device, reps: int, spec, fr) -> dict:
     res = dict(census=cen, k=k, m=m, pairs_per_row=k * m,
                census_pairs_per_row=cen["pairs"] / members, bodies={})
     with ar.ClockSampler(device) as clock:
-        for body in BODIES:
+        for body in ALL_BODIES:
             dt, t_lo, t_hi = ar.marginal(lambda nb: mw.run(body, x, nb), CENSUS_BLOCKS, reps)
             ns_row = dt * 1e9 / ((CENSUS_BLOCKS[1] - CENSUS_BLOCKS[0]) * ROWS)
             res["bodies"][body] = dict(
@@ -707,15 +844,21 @@ def main(argv=None) -> int:
     wrong = [k for k, (_, ok) in parity.items() if not ok]
     if wrong:
         raise SystemExit(f"micro_window: {wrong} disagree with their plain versions")
+    bits = blocked_bits(device)
+    print("== each blocked kernel against its original, every block: " + ", ".join(
+        f"{k} {e:.3e}" for k, (e, _) in bits.items()))
+    wrong = [k for k, (_, same) in bits.items() if not same]
+    if wrong:
+        raise SystemExit(f"micro_window: {wrong} are not their originals bit for bit")
 
     mw = MicroWindow()
     a = read_scenario_a(mw, device, reps)
     print(f"== A. the JAX tool's scenario: W {WCOL}, {REAL_WINS} windows x {CH_PER_WIN} chunks "
           f"+ {NWIN - REAL_WINS} empty a sub-block, marginal between nblocks {TOOL_BLOCKS}; "
           f"SM clock (nvidia-smi, MHz) {a['clocks_sm_mhz']}")
-    for body in BODIES:
+    for body in ALL_BODIES:
         r = a[body]
-        print(f"  {body:13s} ({r['ms'][0]:.4f}, {r['ms'][1]:.4f} ms): {r['ns_per_chunk']:.4f} "
+        print(f"  {body:21s} ({r['ms'][0]:.4f}, {r['ms'][1]:.4f} ms): {r['ns_per_chunk']:.4f} "
               f"ns a chunk ({r['chunks_per_sub']:g} a sub-block), "
               f"{r['pair_slots_per_s'] / 1e9:.1f} G pair-slots/s, {r['ns_per_sub']:.4f} ns a "
               f"sub-block")
@@ -729,9 +872,9 @@ def main(argv=None) -> int:
           f"candidates a sub-block ({b['pairs_per_row']} pairs a row), marginal between "
           f"nblocks {CENSUS_BLOCKS}; SM clock {b['clocks_sm_mhz']}")
     print("  the windows are uniform across a warp: divergence is left to the last step")
-    for body in BODIES:
+    for body in ALL_BODIES:
         r = b["bodies"][body]
-        print(f"  {body:13s} ({r['ms'][0]:.4f}, {r['ms'][1]:.4f} ms): {r['ns_per_row']:.6f} ns "
+        print(f"  {body:21s} ({r['ms'][0]:.4f}, {r['ms'][1]:.4f} ms): {r['ns_per_row']:.6f} ns "
               f"a row ({r['pairs_per_row']:g} pairs) x members = {r['implied_ms']:.4f} ms")
     print(f"  λ body ceiling {b['body_rate'] / 1e9:.1f} G pair-slots/s; pbf_lambda on a "
           f"prebuilt (C, 4) pack {b['pbf_lambda_ms']:.4f} ms")
@@ -739,9 +882,10 @@ def main(argv=None) -> int:
         print(f"  {key.replace('_', ' ')} (ms, step):")
         for r in b[key]:
             adds = f": {r['adds']}" if r["adds"] else ""
-            print(f"    {r['step']:13s} {r['ms']:.4f}  {r['step_ms']:+.4f}{adds}")
+            print(f"    {r['step']:21s} {r['ms']:.4f}  {r['step_ms']:+.4f}{adds}")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "reps": reps,
                       "sass": sass, "parity": {k: e for k, (e, _) in parity.items()},
+                      "bits": {k: e for k, (e, _) in bits.items()},
                       "scenario_a": a, "scenario_b": b, "launches": mw.launches}))
     return 0
 

@@ -27,7 +27,8 @@ the two pair headers give the same bits wherever r2c >= eps^2 is normal),
 rowfix λ atol 1e-9.  The window
 micro-benchmark's kernels: λ rtol 5e-4, atol 1e-12 (λ is ~1e-7 and prod's
 ci of 0.077 amplifies the sums' rounding ~14x; the kernel sums a chunk's
-pairs in its own order).
+pairs in its own order); the blocked ones bit for bit prod's and guarded's
+(each row's pairs in their order, the same pair code and epilogue).
 The MC-field bisection's kernels: noop zero, rows bit for bit (the same
 rounded ops), loops rtol 1e-5 with atol 1e-6 x max|value| (fp32 sums of
 ~1e7 in the kernel's order against a float64 sum).  The pair-chunk
@@ -850,16 +851,36 @@ def test_window_kernels_match_plain(card, body, width):
         torch.testing.assert_close(got, mw.run_plain(body, x), rtol=mw.RTOL, atol=mw.ATOL)
 
 
+@pytest.mark.parametrize("width", mw.WIDTHS)
+def test_window_blocked_kernels_are_the_originals_bit_for_bit(card, width):
+    """The blocked kernels give 7.1's / 7.2's bits on every block of nblocks
+    3 (a CTA's replica blocks, some past nblocks), split and fused, on every
+    `parity_cases` case: the tool's or census inputs, random ones (an empty
+    window, a ragged hi, the sentinel clip at smax), long tables of several
+    stage rounds and at W 1 every window empty; and agree with the plain
+    versions at RTOL/ATOL."""
+    for case, x in mw.parity_cases(width, card).items():
+        for body, orig in mw.BLOCKED_OF.items():
+            got = mw.window_blocks(body, x, mw.BITS_BLOCKS)
+            assert got.shape == (mw.BITS_BLOCKS, mw.ROWS)
+            assert torch.equal(got, mw.window_blocks(orig, x, mw.BITS_BLOCKS)), (body, case)
+            torch.testing.assert_close(got[:1], mw.run_plain(body, x), rtol=mw.RTOL,
+                                       atol=mw.ATOL)
+
+
 def test_window_wrappers_count_kernel_launches(card):
     win = mw.MicroWindow()
     x = mw.tool_inputs(card)
-    for body in mw.BODIES:
+    for body in mw.ALL_BODIES:
         win.run(body, x, 1)
     torch.cuda.synchronize()
     assert win.launches == {"window_prod": 2, "window_guarded": 2, "window_flat": 2,
-                            "window_static": 1}
+                            "window_static": 1, "window_prod_blocked": 2,
+                            "window_guarded_blocked": 2}
     with pytest.raises(ValueError, match="instantiates"):
         mw.prod_kernel(x.wins, x.rows, x.strip, 1, width=64)
+    with pytest.raises(ValueError, match="instantiates"):
+        mw.guarded_blocked_kernel(x.wins, x.rows, x.strip, 1, width=64)
 
 
 def test_window_sass_is_full(card):
@@ -868,6 +889,11 @@ def test_window_sass_is_full(card):
     cuda_build.library()
     report = mw.check_sass(cuda_build.library_path())
     assert {name for name, r in report.items() if not r["ok"]} == set(), report
+    for body in mw.BLOCKED_BODIES:
+        for width in mw.WIDTHS:
+            r = report[f"{body} W{width}"]
+            assert r["rows"] == mw.BLOCKED_ROWS and r["same_as_phase"], r
+            assert r["pairs_a_read"] == mw.BLOCKED_ROWS and r["ldg_in_loop"] == r["local"] == 0
 
 
 @pytest.mark.parametrize("body", mcb.BODIES)

@@ -16,6 +16,7 @@ random rows keep ci far from 0, so nothing amplifies the rounding).
 """
 
 import functools
+import re
 import importlib.util
 from pathlib import Path
 
@@ -217,3 +218,124 @@ def test_sass_check_holds_each_body_to_pbf_lambda():
     assert report["flat W1"]["load_bytes_per_pair"] == 16
     assert report["flat_fused W128"]["load_bytes_per_pair"] == 16
     assert report["prod W128"]["load_bytes_per_pair"] == 12
+
+
+# ---------------------------------------------------------------------------
+# The blocked kernels (rows 7.1-b, 7.2-b): their plain versions, launchers,
+# constants, cases and SASS check
+# ---------------------------------------------------------------------------
+
+
+def cpu_cases(width):
+    """`parity_cases` but the long tables: the tool's or census inputs,
+    random ones, and at W 1 every window empty."""
+    return {k: x for k, x in mw.parity_cases(width, "cpu").items() if k != "long"}
+
+
+@pytest.mark.parametrize("width", mw.WIDTHS)
+@pytest.mark.parametrize("body", mw.BLOCKED_BODIES)
+def test_blocked_bodies_are_the_plain_versions_on_cpu(body, width):
+    """On CPU tensors a blocked body returns `prod_plain` / `guarded_plain`
+    exactly, split or fused, and launches nothing."""
+    plain = mw.guarded_plain if body.startswith("guarded") else mw.prod_plain
+    fused = body in mw.FUSED
+    win = mw.MicroWindow()
+    for case, x in cpu_cases(width).items():
+        got = win.run(body, x, 1)
+        want = plain(x.wins, x.rows, x.pack if fused else x.strip, 1, x.width, x.smax, fused)
+        assert got.shape == (1, mw.ROWS) and torch.equal(got, want), case
+        assert torch.equal(got, mw.run_plain(mw.BLOCKED_OF[body], x)), case
+    assert win.launches == dict.fromkeys(mw.KERNELS, 0)
+
+
+def test_blocked_launchers_refuse_cpu_tensors():
+    for width in mw.WIDTHS:
+        x = mw.random_inputs(0, width)
+        for body in mw.BLOCKED_BODIES:
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                mw.run_kernel(body, x, 1)
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                mw.window_blocks(body, x, 2)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            mw.prod_blocked_kernel(x.wins, x.rows, x.strip, 1, width)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            mw.guarded_blocked_kernel(x.wins, x.rows, x.pack, 1, width, fused=True)
+    with pytest.raises(ValueError, match="is not one of"):
+        mw.window_blocks("flat", mw.tool_inputs(), 1)
+
+
+def test_blocked_constants_are_the_cu_ones():
+    """R (kBlockedRows) and the stage buffer (kStage) that the tool and its
+    checks take are the .cu's: R from 2 on, dividing a sub-block and a trip
+    of 16 pairs; the stage whole chunks at W 128."""
+    src = (REPO / "pbf_sph_tpu_torch" / "csrc" / "micro_window.cu").read_text()
+    rows = re.search(r"constexpr int kBlockedRows = (\d+);", src)
+    stage = re.search(r"constexpr int kStage = (\d+);", src)
+    assert rows is not None and int(rows.group(1)) == mw.BLOCKED_ROWS >= 2
+    assert stage is not None and int(stage.group(1)) == mw.BLOCKED_STAGE
+    assert mw.SUB % mw.BLOCKED_ROWS == 0 and 16 % mw.BLOCKED_ROWS == 0
+    assert mw.BLOCKED_STAGE % mw.WCOL == 0
+
+
+@pytest.mark.parametrize("width", mw.WIDTHS)
+def test_parity_cases_reach_the_blocked_edges(width):
+    """The cases the card holds the blocked kernels to: an empty window, a
+    ragged hi (off a chunk's end), a window clipped at smax, and chunk lists
+    of more than two stage rounds; at W 1 also every window of every
+    sub-block empty."""
+    cases = mw.parity_cases(width, "cpu")
+    wins = np.asarray(cases["random"].wins).reshape(-1)[:mw.NSUB * mw.WIN_STRIDE]
+    lo, hi = wins[0::2], wins[1::2]
+    assert (lo == hi).any() and (hi > mw.SMAX).any()
+    assert ((hi > lo) & (hi % width != 0)).any() if width > 1 else (hi - lo > 1).any()
+    stage_chunks = mw.BLOCKED_STAGE // width
+    for body in ("prod", "guarded"):
+        long_chunks = [len(c) for c in mw.body_chunks(body, cases["long"])]
+        assert max(long_chunks) > 2 * stage_chunks, (body, long_chunks)
+    if width == 1:
+        assert mw.body_pairs("guarded", cases["empty"]) == 0
+        assert mw.body_chunks("prod", cases["empty"]) == [[mw.SMAX] * 9] * mw.NSUB
+
+
+MATH = ["FADD", "FFMA", "FFMA", "FMNMX", "MUFU.RSQ", "FMUL"]
+
+
+def blocked_listing(pairs_a_read, extra=()):
+    """A listing with pbf_lambda's kernel (one LDG.128 a pair) and every
+    blocked instantiation, whose loop holds 16 / pairs_a_read reads
+    (LDS.128), each followed by `pairs_a_read` copies of the pair and
+    `extra`."""
+    listings = [sass_listing("_Z13lambda_kernelEPK6float4ii", MATH + ["LDG.E.128.CONSTANT"], 4)]
+    for body in mw.BLOCKED_BODIES:
+        for width in mw.WIDTHS:
+            listings.append(sass_listing(
+                f"_ZN12_GLOBAL__N_1{mw.sass_pattern(body, width)}PKiPKfS4_PK6float4iiiffffffPf",
+                ["LDS.128"] + MATH * pairs_a_read + list(extra), 16 // pairs_a_read))
+    return ar.parse_sass("\n".join(listings))
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("R pairs a read", True),
+    ("1 pair a read", False),
+    ("an fp32 op more", False),
+    ("a global load in the loop", False),
+    ("local memory", False),
+])
+def test_sass_blocked_check(case, ok):
+    """The blocked kernels' SASS case: R MUFU.RSQ a LDS.128 and pbf_lambda's
+    fp32 opcodes a pair pass; one pair a read, a drifted pair, a global load
+    in the pair loop and a local-memory access (a spill) fail."""
+    r = mw.BLOCKED_ROWS
+    funcs = {"R pairs a read": lambda: blocked_listing(r),
+             "1 pair a read": lambda: blocked_listing(1),
+             "an fp32 op more": lambda: blocked_listing(r, ["FMUL"] * r),
+             "a global load in the loop": lambda: blocked_listing(r, ["LDG.E.CONSTANT"]),
+             "local memory": lambda: blocked_listing(r, ["STL"])}[case]()
+    report = mw.check_blocked(funcs)
+    assert set(report) == {f"{b} W{w}" for b in mw.BLOCKED_BODIES for w in mw.WIDTHS}
+    for name, rep in report.items():
+        assert rep["ok"] is ok, (name, rep)
+        assert rep["pairs_a_loop"] == 16 and rep["rows"] == r
+        assert rep["same_as_phase"] is (case != "an fp32 op more")
+        assert (rep["ldg_in_loop"] > 0) is (case == "a global load in the loop")
+        assert (rep["local"] > 0) is (case == "local memory")

@@ -74,16 +74,18 @@ with a non-zero exit and no result line:
    (cuobjdump: one MUFU.RSQ a pair, pbf_lambda's fp32 instructions a pair
    opcode by opcode, 12 bytes of candidate loads a pair split and 16 fused,
    4 more for the flat list at W 1; the JAX tool's five bodies and prod and
-   guarded with fused loads; the blocked prod and guarded, split and fused:
-   BLOCKED_ROWS MUFU.RSQ a LDS.128, no global load in the pair loop, the
-   same fp32 instructions a pair, no local memory), each body against its
-   plain version at both widths on the tool's inputs and random ones (the
-   blocked ones also on long tables of several stage rounds and, at W 1,
-   on every window empty; rtol 5e-4, atol 1e-12), each blocked kernel bit
-   for bit its original on every block of nblocks 3 on all those cases,
-   then one scenario-A reading of each through `MicroWindow` (CUDA events,
-   the marginal between nblocks 256 and 1024, the SM clock sampled); its
-   launches are counted over this phase, and its wall time printed;
+   guarded with fused loads; the blocked prod, guarded and flat, split and
+   fused, and the blocked static: BLOCKED_ROWS MUFU.RSQ a LDS.128, no global
+   load in the pair loop, the same fp32 instructions a pair, no local
+   memory), each body against its plain version at both widths on the
+   tool's inputs and random ones (the blocked ones also on long windows,
+   flat lists and static offsets of several stage rounds, an empty flat
+   list and, at W 1, on every window empty; rtol 5e-4, atol 1e-12), each
+   blocked kernel bit for bit its original on every block of nblocks 3 on
+   all those cases, then one scenario-A reading of each through
+   `MicroWindow` (CUDA events, the marginal between nblocks 256 and 1024,
+   the SM clock sampled); its launches are counted over this phase, and its
+   wall time printed;
 3g. the MC-field bisection kernels (`mc_field_noop`, `mc_field_rows`,
    `mc_field_loops` of `csrc/mc_field.cu`, the variants of
    `tools/micro_mc_field.py`): the SASS (cuobjdump: noop and rows without a
@@ -386,7 +388,7 @@ rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
 kernel at the larger of their two sizes and the blocked λ body at the λ
 body's work, 3f for the window kernels, whose
 line holds scenario A at nblocks 1024, the flat kernel's split body and the
-blocked kernels' split bodies, 3g for
+blocked kernels' split bodies (static's fused, its only one), 3g for
 the MC-field bisection kernels, whose ms is the CUDA-graph reading at
 mc128k, but noop's and zero_fill's ms and library_ms (torch.zeros of the
 (9, L) output) are the medians of their turns, 3h for
@@ -506,6 +508,11 @@ KERNELS = {
                             "tools/micro_window.py:176"),
     "window_guarded_blocked": ("pbf_sph_tpu_torch/csrc/micro_window.cu",
                                "tools/micro_window.py:226"),
+    # build_flat and build_static_fused redesigned in the same blocked kernel
+    "window_flat_blocked": ("pbf_sph_tpu_torch/csrc/micro_window.cu",
+                            "tools/micro_window.py:290"),
+    "window_static_blocked": ("pbf_sph_tpu_torch/csrc/micro_window.cu",
+                              "tools/micro_window.py:324"),
     # the MC-field bisection of tools/micro_mc_field.py: make_variant's noop,
     # rows and loops bodies
     "mc_field_noop": ("pbf_sph_tpu_torch/csrc/mc_field.cu", "tools/micro_mc_field.py:83"),
@@ -1238,7 +1245,8 @@ def phase_window():
     for body in mw.ALL_BODIES:
         r = rates[body]
         cand = x.pack if body in mw.FUSED else x.strip
-        tables = (x.tbl,) if body.startswith("flat") else () if body == "static" else (x.wins,)
+        tables = ((x.tbl,) if body in mw.FLAT_BODIES else () if body in mw.STATIC_BODIES
+                  else (x.wins,))
         # each input read once (the table, the rows, the candidates), one λ
         # a thread written; the operations of every pair slot the body computes
         bound_ms, bound_by = bound(nbytes(*tables, x.rows, cand) + 4 * nb * mw.ROWS,
@@ -1254,7 +1262,8 @@ def phase_window():
             print(f"    {body}: {orig / r['ms'][1]:.3f}x {mw.BLOCKED_OF[body]} ({orig:.4f} ms), "
                   f"{bound_ms / r['ms'][1]:.3f} of the bound; anchored at 7b-b's λ ceiling "
                   f"{pairs / bc.CELLS_CEILING['lambda'] * 1e3:.4f} ms")
-        if body not in ("prod", "guarded", "flat", "static", "prod_blocked", "guarded_blocked"):
+        if body not in ("prod", "guarded", "flat", "static", "prod_blocked", "guarded_blocked",
+                        "flat_blocked", "static_blocked"):
             continue  # the line holds the JAX tool's body of each kernel, flat's split one
         # no single PyTorch call computes this chain
         report[mw.KERNEL_OF[body]] = dict(

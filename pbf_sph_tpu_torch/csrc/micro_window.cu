@@ -16,9 +16,12 @@
 //   window_static  <- build_static_fused   (:324): offsets computed, not
 //                     loaded, fused loads
 // and, redesigned for this card beside the originals (which stay, as the
-// bisection they belong to):
-//   window_prod_blocked    <- build_prod_structure (:176) \  the same function,
-//   window_guarded_blocked <- build_guarded        (:226) /  bit for bit
+// bisection they belong to), one kernel for the four rungs:
+//   window_prod_blocked    <- build_prod_structure (:176)
+//   window_guarded_blocked <- build_guarded        (:226)
+//   window_flat_blocked    <- build_flat           (:290)
+//   window_static_blocked  <- build_static_fused   (:324)
+// each the same function as its original, bit for bit.
 // Every kernel computes λ of 1024 rows (16 sub-blocks of 64) in the JAX
 // tool's form: each pair by lambda_pair of csrc/pbf_pair.cuh (the tool's
 // lam_math, and pbf_lambda's own pair terms), then the tool's epilogue, where
@@ -46,25 +49,27 @@
 // pair goes to the total, so the pair loop holds pbf_lambda's fp32
 // instructions a pair, opcode by opcode (the wrapper checks the SASS).
 //
-// The blocked kernels (window_blocked_kernel) take what holds prod and
-// guarded back on this card: a thread is one row, so every pair pays its own
-// candidate load from L1, and every row pays the window bookkeeping (two
-// table reads, a division and a chunk count a window).  Instead a warp works
-// on one sub-block t, whose windows are then warp-uniform, and a thread
-// holds R = kBlockedRows distinct rows of it (R 2: a warp holds the 64 rows;
-// R 4: each half-warp the same 16-lane row sets of another replica block).
-// A CTA's warps all take the same t over several replica blocks, so the CTA
-// stages the chunks t's windows name (at W 1, the columns) once, into shared
-// memory as float4 by cp.async: 16 bytes from the pack (fused), three times
-// 4 from the SoA strip (split; w is not read).  The bookkeeping (lo/hi, c0,
-// the chunk count, the sentinel clip) is done once a CTA, where the chunk
-// list is laid out; each candidate is then one LDS.128 broadcast that feeds
-// R pairs.  Tables longer than a stage buffer are staged in rounds, double-
-// buffered.  Each row keeps its carries in prod's and guarded's order (at W
-// 128 a chunk's partials from 0, then added to the totals; at W 1 each pair
-// into the totals) with the same lambda_pair and epilogue, so the output is
-// theirs bit for bit.  Every one of the nblocks x 1024 outputs runs its own
-// pairs.
+// The blocked kernel (window_blocked_kernel) takes what holds the four rungs
+// back on this card: a thread is one row, so every pair pays its own
+// candidate load from L1, and every row pays its list's bookkeeping (prod's
+// and guarded's two table reads, a division and a chunk count a window;
+// flat's count and an offset load a chunk, at W 1 a pair; static's modulo a
+// window).  Instead a warp works on one sub-block t, whose chunk list is
+// then warp-uniform, and a thread holds R = kBlockedRows distinct rows of it
+// (R 2: a warp holds the 64 rows; R 4: each half-warp the same 16-lane row
+// sets of another replica block).  A CTA's warps all take the same t over
+// several replica blocks, so the CTA stages the chunks of t's list (at W 1,
+// the columns) once, into shared memory as float4 by cp.async: 16 bytes
+// from the pack (fused), three times 4 from the SoA strip (split; w is not
+// read).  Only where the list comes from differs between the rungs (the
+// WindowList, FlatList and StaticList sources); its bookkeeping runs once a
+// CTA and in the staging, and each candidate is then one LDS.128 broadcast
+// that feeds R pairs.  Lists longer than a stage buffer are staged in
+// rounds, double-buffered.  Each row keeps its carries in its original's
+// order (at W 128 a chunk's partials from 0, then added to the totals; at W
+// 1 each pair into the totals) with the same lambda_pair and epilogue, so
+// the output is the original's bit for bit.  Every one of the nblocks x
+// 1024 outputs runs its own pairs.
 //
 // Every launcher runs on the given stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() (cudaErrorInvalidValue for a
@@ -230,20 +235,103 @@ __device__ __forceinline__ void blocked_pairs(const float4* b0, int n, const flo
   }
 }
 
-// window_prod (GUARDED false) and window_guarded (true) redesigned (see the
-// header).  CTA b takes sub-block t = b mod 16 of replica blocks from
-// (b / 16) * kReps on; its thread i holds rows t*64 + i mod L + q*L (q < R,
-// L = 64 / R) of replica block (b / 16) * kReps + i / L.  The CTA's chunk
-// list is its windows' chunks in order: window s holds list entries
-// [first[s], first[s + 1]), entry k of them the chunk at min((c0 + k -
-// first[s]) * W, smax), prod's first one unconditional.
-template <int W, bool GUARDED, bool FUSED>
+// Where a blocked CTA's chunk list comes from, the one thing the four
+// blocked rungs do not share.  count<W>(t, meta) lays out the list of
+// sub-block t once a CTA (every thread calls it) and returns its length;
+// col<W>(t, meta, k) is the first column of list entry k, asked by the
+// staging, never by the pair loop.  kSplit: the original has split loads.
+//
+// prod's (GUARDED false) and guarded's nine windows of the lo/hi table:
+// window s holds list entries [first[s], first[s + 1]), entry k of them the
+// chunk at min((c0 + k - first[s]) * W, smax), prod's first one
+// unconditional.
+template <bool GUARDED>
+struct WindowList {
+  static constexpr bool kSplit = true;
+  const int* __restrict__ wins;
+  int smax;
+  struct Shared {
+    int c0[kWindows];
+    int first[kWindows + 1];
+  };
+  template <int W>
+  __device__ __forceinline__ int count(int t, Shared& meta) const {
+    // lane s < 9 reads window s, then a scan
+    if (threadIdx.x < 32) {
+      const int s = threadIdx.x;
+      int n = 0;
+      if (s < kWindows) {
+        const int lo = __ldg(wins + t * kWinStride + 2 * s);
+        const int hi = __ldg(wins + t * kWinStride + 2 * s + 1);
+        const int c0 = lo / W;
+        const int nchunk = hi > lo ? (hi - c0 * W + W - 1) / W : 0;
+        n = GUARDED ? nchunk : max(nchunk, 1);
+        meta.c0[s] = c0;
+      }
+#pragma unroll
+      for (int d = 1; d < 16; d <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, n, d);
+        if (s >= d) n += v;
+      }
+      if (s < kWindows) meta.first[s + 1] = n;
+      if (s == 0) meta.first[0] = 0;
+    }
+    __syncthreads();
+    return meta.first[kWindows];
+  }
+  template <int W>
+  __device__ __forceinline__ int col(int, const Shared& meta, int k) const {
+    int s = 0;
+    while (meta.first[s + 1] <= k) ++s;
+    return min((meta.c0[s] + k - meta.first[s]) * W, smax);
+  }
+};
+
+// flat's per-sub-block list: tbl[t*stride] = count, then the chunk offsets.
+struct FlatList {
+  static constexpr bool kSplit = true;
+  const int* __restrict__ tbl;
+  int stride;
+  struct Shared {};
+  template <int W>
+  __device__ __forceinline__ int count(int t, Shared&) const {
+    return __ldg(tbl + t * stride);
+  }
+  template <int W>
+  __device__ __forceinline__ int col(int t, const Shared&, int k) const {
+    return __ldg(tbl + t * stride + 1 + k);
+  }
+};
+
+// static's computed offsets: entry k is chunk k % nper of window k / nper,
+// at ((s*7 + t) % 40) * nper * W, fused loads only.
+struct StaticList {
+  static constexpr bool kSplit = false;
+  int nwin, nper;
+  struct Shared {};
+  template <int W>
+  __device__ __forceinline__ int count(int, Shared&) const {
+    return nwin * nper;
+  }
+  template <int W>
+  __device__ __forceinline__ int col(int t, const Shared&, int k) const {
+    // unsigned: the signed division's sign fix-ups cost the W 1 instance 7
+    // registers (63 against flat's 56) and a CTA an SM
+    const unsigned n = nper, s = unsigned(k) / n;
+    return int(((s * 7 + t) % kSpan) * n * W + (k - s * n) * W);
+  }
+};
+
+// The four originals redesigned (see the header), one kernel for all, the
+// chunk list from `list`.  CTA b takes sub-block t = b mod 16 of replica
+// blocks from (b / 16) * kReps on; its thread i holds rows t*64 + i mod L +
+// q*L (q < R, L = 64 / R) of replica block (b / 16) * kReps + i / L.
+template <int W, class List, bool FUSED>
 __global__ void __launch_bounds__(kBlockedThreads)
-    window_blocked_kernel(const int* __restrict__ wins, const float* __restrict__ rows,
+    window_blocked_kernel(const List list, const float* __restrict__ rows,
                           const float* __restrict__ strip, const float4* __restrict__ pack,
-                          int ncols, int smax, int nblocks, float h, float hh, float eps2,
-                          float p6f, float c_grad, float rho_recip, float cfm,
-                          float* __restrict__ out) {
+                          int ncols, int nblocks, float h, float hh, float eps2, float p6f,
+                          float c_grad, float rho_recip, float cfm, float* __restrict__ out) {
   constexpr int R = kBlockedRows;
   constexpr int L = (1 << kSubShift) / R;
   constexpr int kReps = kBlockedThreads / L;
@@ -251,43 +339,19 @@ __global__ void __launch_bounds__(kBlockedThreads)
   static_assert(R >= 2 && (1 << kSubShift) % R == 0 && L <= 32 && 16 % R == 0,
                 "R divides a sub-block and a trip");
   static_assert(kStage % W == 0, "a stage round is whole chunks");
+  static_assert(FUSED || List::kSplit, "split loads only where the original has them");
   __shared__ __align__(16) float4 stage[2][kStage];
-  __shared__ int win_c0[kWindows];
-  __shared__ int first[kWindows + 1];
+  __shared__ typename List::Shared meta;
 
   const int t = blockIdx.x % kNsub;
-  // the bookkeeping, once a CTA: lane s < 9 reads window s, then a scan
-  if (threadIdx.x < 32) {
-    const int s = threadIdx.x;
-    int count = 0;
-    if (s < kWindows) {
-      const int lo = wins[t * kWinStride + 2 * s];
-      const int hi = wins[t * kWinStride + 2 * s + 1];
-      const int c0 = lo / W;
-      const int nchunk = hi > lo ? (hi - c0 * W + W - 1) / W : 0;
-      count = GUARDED ? nchunk : max(nchunk, 1);
-      win_c0[s] = c0;
-    }
-#pragma unroll
-    for (int d = 1; d < 16; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, count, d);
-      if (s >= d) count += v;
-    }
-    if (s < kWindows) first[s + 1] = count;
-    if (s == 0) first[0] = 0;
-  }
-  __syncthreads();
-  const int nchunks = first[kWindows];
+  const int nchunks = list.template count<W>(t, meta);  // the bookkeeping, once a CTA
 
   // list entries [rd * kChunks, ...) into `buf`, one commit group
   auto stage_round = [&](int rd, float4* buf) {
     const int k0 = rd * kChunks;
     const int nslot = min(kChunks, nchunks - k0) * W;
     for (int p = threadIdx.x; p < nslot; p += kBlockedThreads) {
-      const int k = k0 + p / W;
-      int s = 0;
-      while (first[s + 1] <= k) ++s;
-      const int col = min((win_c0[s] + k - first[s]) * W, smax) + p % W;
+      const int col = list.template col<W>(t, meta, k0 + p / W) + p % W;
       if constexpr (FUSED) {
         cp_async16(buf + p, pack + col);
       } else {
@@ -417,23 +481,27 @@ int launch_window(const void* wins, const void* rows, const void* cand, int ncol
   return (int)cudaGetLastError();
 }
 
+// The blocked instance of `list` at width W: fused, or split where the
+// original has split loads; nullptr otherwise.
+template <int W, class List>
+auto blocked_instance(int fused) {
+  if constexpr (List::kSplit) {
+    return fused ? window_blocked_kernel<W, List, true> : window_blocked_kernel<W, List, false>;
+  } else {
+    return fused ? window_blocked_kernel<W, List, true> : nullptr;
+  }
+}
+
 // n = nblocks x 1024 outputs, a CTA a sub-block of kReps replica blocks.
-template <bool GUARDED>
-int launch_window_blocked(const void* wins, const void* rows, const void* cand, int ncols,
-                          int smax, int width, int fused, int n, float h, float hh, float eps2,
-                          float p6f, float c_grad, float rho_recip, float cfm, void* out,
-                          void* stream) {
-  using Fn = void (*)(const int*, const float*, const float*, const float4*, int, int, int,
-                      float, float, float, float, float, float, float, float*);
+template <class List>
+int launch_blocked(const List& list, const void* rows, const void* cand, int ncols, int width,
+                   int fused, int n, float h, float hh, float eps2, float p6f, float c_grad,
+                   float rho_recip, float cfm, void* out, void* stream) {
+  using Fn = void (*)(List, const float*, const float*, const float4*, int, int, float, float,
+                      float, float, float, float, float, float*);
   Fn kernel = nullptr;
-  if (width == 128) {
-    kernel = fused ? window_blocked_kernel<128, GUARDED, true>
-                   : window_blocked_kernel<128, GUARDED, false>;
-  }
-  if (width == 1) {
-    kernel = fused ? window_blocked_kernel<1, GUARDED, true>
-                   : window_blocked_kernel<1, GUARDED, false>;
-  }
+  if (width == 128) kernel = blocked_instance<128, List>(fused);
+  if (width == 1) kernel = blocked_instance<1, List>(fused);
   if (kernel == nullptr || n < 0 || n % kRows != 0 ||
       (fused && reinterpret_cast<uintptr_t>(cand) % 16 != 0)) {
     return (int)cudaErrorInvalidValue;
@@ -442,10 +510,10 @@ int launch_window_blocked(const void* wins, const void* rows, const void* cand, 
   const int nblocks = n / kRows;
   if (nblocks > 0) {
     kernel<<<kNsub * ((nblocks + kReps - 1) / kReps), kBlockedThreads, 0,
-             (cudaStream_t)stream>>>(
-        (const int*)wins, (const float*)rows, fused ? nullptr : (const float*)cand,
-        fused ? (const float4*)cand : nullptr, ncols, smax, nblocks, h, hh, eps2, p6f, c_grad,
-        rho_recip, cfm, (float*)out);
+             (cudaStream_t)stream>>>(list, (const float*)rows,
+                                     fused ? nullptr : (const float*)cand,
+                                     fused ? (const float4*)cand : nullptr, ncols, nblocks, h,
+                                     hh, eps2, p6f, c_grad, rho_recip, cfm, (float*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -476,16 +544,16 @@ int window_prod_blocked(const void* wins, const void* rows, const void* cand, in
                         int smax, int width, int fused, int n, float h, float hh, float eps2,
                         float p6f, float c_grad, float rho_recip, float cfm, void* out,
                         void* stream) {
-  return launch_window_blocked<false>(wins, rows, cand, ncols, smax, width, fused, n, h, hh,
-                                      eps2, p6f, c_grad, rho_recip, cfm, out, stream);
+  return launch_blocked(WindowList<false>{(const int*)wins, smax}, rows, cand, ncols, width,
+                        fused, n, h, hh, eps2, p6f, c_grad, rho_recip, cfm, out, stream);
 }
 
 int window_guarded_blocked(const void* wins, const void* rows, const void* cand, int ncols,
                            int smax, int width, int fused, int n, float h, float hh,
                            float eps2, float p6f, float c_grad, float rho_recip, float cfm,
                            void* out, void* stream) {
-  return launch_window_blocked<true>(wins, rows, cand, ncols, smax, width, fused, n, h, hh,
-                                     eps2, p6f, c_grad, rho_recip, cfm, out, stream);
+  return launch_blocked(WindowList<true>{(const int*)wins, smax}, rows, cand, ncols, width,
+                        fused, n, h, hh, eps2, p6f, c_grad, rho_recip, cfm, out, stream);
 }
 
 int window_flat(const void* tbl, int stride, const void* rows, const void* cand, int ncols,
@@ -521,6 +589,25 @@ int window_static(const void* rows, const void* pack, int nwin, int nper, int wi
         rho_recip, cfm, (float*)out);
   }
   return (int)cudaGetLastError();
+}
+
+// The blocked flat and static kernels take window_flat's / window_static's
+// arguments, with the same rules on n and the pack as the other two.
+int window_flat_blocked(const void* tbl, int stride, const void* rows, const void* cand,
+                        int ncols, int width, int fused, int n, float h, float hh, float eps2,
+                        float p6f, float c_grad, float rho_recip, float cfm, void* out,
+                        void* stream) {
+  if (stride < 1) return (int)cudaErrorInvalidValue;
+  return launch_blocked(FlatList{(const int*)tbl, stride}, rows, cand, ncols, width, fused, n,
+                        h, hh, eps2, p6f, c_grad, rho_recip, cfm, out, stream);
+}
+
+int window_static_blocked(const void* rows, const void* pack, int nwin, int nper, int width,
+                          int n, float h, float hh, float eps2, float p6f, float c_grad,
+                          float rho_recip, float cfm, void* out, void* stream) {
+  if (nwin < 0 || nper < 0) return (int)cudaErrorInvalidValue;
+  return launch_blocked(StaticList{nwin, nper}, rows, pack, 0, width, 1, n, h, hh, eps2, p6f,
+                        c_grad, rho_recip, cfm, out, stream);
 }
 
 }  // extern "C"

@@ -84,8 +84,10 @@ SIGNATURES = {
     **dict.fromkeys(("window_prod", "window_guarded", "window_prod_blocked",
                      "window_guarded_blocked"),
                     [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P]),
-    "window_flat": [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
-    "window_static": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    **dict.fromkeys(("window_flat", "window_flat_blocked"),
+                    [_P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P]),
+    **dict.fromkeys(("window_static", "window_static_blocked"),
+                    [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P]),
     # csrc/micro_chunk.cu (micro_chunk_fill returns a CTA count)
     "micro_chunk_fill": [_I, _I, _I],
     "chunk_bench": [_P, _P, _I, _I, _F, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _P, _P],

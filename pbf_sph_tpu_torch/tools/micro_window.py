@@ -6,7 +6,7 @@ Port of `tools/micro_window.py`.  The rate anchor (`anchor_rate`) leaves
 ~0.05 ms of `pbf_lambda` at dam1m unattributed: rows x fixed cost + pairs /
 body ceiling falls short of the kernel.  This tool holds the λ pair terms
 and the epilogue fixed and varies only how a kernel finds its candidates,
-with the hand-written kernels of `csrc/micro_window.cu` (eleven bodies):
+with the hand-written kernels of `csrc/micro_window.cu` (fourteen bodies):
 
 * `window_prod` (`build_prod_structure`): nine windows from a flat lo/hi
   table `[t*18 + 2s + {lo, hi}]`, chunk 0 unconditional at min(c0*W, smax)
@@ -21,12 +21,15 @@ with the hand-written kernels of `csrc/micro_window.cu` (eleven bodies):
 * `window_static` (`build_static_fused`): nwin windows of nper chunks at the
   computed offsets ((s*7 + t) % 40) * nper * W, fused loads (the JAX tool's
   scenario: nwin 10, nper 1);
-* `window_prod_blocked` / `window_guarded_blocked` (rows 7.1-b / 7.2-b):
-  prod's and guarded's function redesigned for this card, bit for bit
-  theirs: a warp on one sub-block, BLOCKED_ROWS rows a thread, the chunks
-  of the CTA's sub-block staged once in shared memory (split from the
-  strip, or fused from the pack: `prod_blocked`, `prod_blocked_fused`,
-  `guarded_blocked`, `guarded_blocked_fused`).
+* `window_prod_blocked`, `window_guarded_blocked`, `window_flat_blocked`
+  and `window_static_blocked` (rows 7.1-b to 7.4-b): the four rungs
+  redesigned for this card in one blocked kernel, each bit for bit its
+  original: a warp on one sub-block, BLOCKED_ROWS rows a thread, the chunks
+  of the CTA's sub-block (its windows, its flat list or its computed
+  offsets) staged once in shared memory, split from the strip or fused from
+  the pack (`prod_blocked`, `prod_blocked_fused`, `guarded_blocked`,
+  `guarded_blocked_fused`, `flat_blocked`, `flat_blocked_fused`;
+  `static_blocked` fused).
 
 Each computes λ (1, 1024) of 16 sub-blocks of 64 rows; the kernel runs
 nblocks x 1024 threads, thread i taking row i mod 1024, and returns the
@@ -57,9 +60,12 @@ bit on every block; then reads
   ms, read in the same run: the ladder anchored -> static -> flat-fused ->
   flat -> guarded -> prod -> pbf_lambda, and the fused one anchored ->
   static -> guarded-fused -> pbf_lambda, which follows `pbf_lambda`'s own
-  loads; and the blocked one anchored -> guarded-blocked-fused ->
+  loads; the blocked one anchored -> guarded-blocked-fused ->
   guarded-fused -> pbf_lambda: what is left of the nine-window walk when
-  it is laid out for this card.
+  it is laid out for this card; and the blocked JAX-order one anchored ->
+  static-blocked -> flat-blocked-fused -> flat-blocked -> guarded-blocked
+  -> prod-blocked -> pbf_lambda: the JAX tool's ladder with every rung in
+  this card's layout.
 
 with the SM clock sampled beside.  The last line is one JSON object.
 Without a CUDA device the tool fails.
@@ -98,28 +104,43 @@ WIDTHS = (WCOL, 1)
 # loads, which the JAX tool has not
 JAX_BODIES = ("prod", "guarded", "flat", "flat_fused", "static")
 BODIES = JAX_BODIES + ("prod_fused", "guarded_fused")
-# prod and guarded redesigned (rows 7.1-b, 7.2-b), split and fused
+# the four rungs redesigned in one blocked kernel (rows 7.1-b to 7.4-b):
+# prod, guarded and flat split and fused, static fused
 BLOCKED_BODIES = ("prod_blocked", "guarded_blocked", "prod_blocked_fused",
-                  "guarded_blocked_fused")
+                  "guarded_blocked_fused", "flat_blocked", "flat_blocked_fused",
+                  "static_blocked")
 ALL_BODIES = BODIES + BLOCKED_BODIES
-# the bodies that walk the nine windows of the lo/hi table
-WINDOW_BODIES = ("prod", "guarded", "prod_fused", "guarded_fused") + BLOCKED_BODIES
+# the original body of each blocked one: the kernel it equals bit for bit
+BLOCKED_OF = {body: body.replace("_blocked", "") for body in BLOCKED_BODIES}
+# the bodies that walk the nine windows of the lo/hi table, that read the
+# flat list, and that compute their offsets
+WINDOW_BODIES = ("prod", "guarded", "prod_fused", "guarded_fused", "prod_blocked",
+                 "guarded_blocked", "prod_blocked_fused", "guarded_blocked_fused")
+FLAT_BODIES = ("flat", "flat_fused", "flat_blocked", "flat_blocked_fused")
+STATIC_BODIES = ("static", "static_blocked")
 FUSED = ("flat_fused", "static", "prod_fused", "guarded_fused", "prod_blocked_fused",
-         "guarded_blocked_fused")
+         "guarded_blocked_fused", "flat_blocked_fused", "static_blocked")
 KERNEL_OF = {"prod": "window_prod", "prod_fused": "window_prod",
              "guarded": "window_guarded", "guarded_fused": "window_guarded",
              "flat": "window_flat", "flat_fused": "window_flat", "static": "window_static",
              "prod_blocked": "window_prod_blocked", "prod_blocked_fused": "window_prod_blocked",
              "guarded_blocked": "window_guarded_blocked",
-             "guarded_blocked_fused": "window_guarded_blocked"}
+             "guarded_blocked_fused": "window_guarded_blocked",
+             "flat_blocked": "window_flat_blocked", "flat_blocked_fused": "window_flat_blocked",
+             "static_blocked": "window_static_blocked"}
 KERNELS = ("window_prod", "window_guarded", "window_flat", "window_static",
-           "window_prod_blocked", "window_guarded_blocked")
+           "window_prod_blocked", "window_guarded_blocked", "window_flat_blocked",
+           "window_static_blocked")
 # the blocked kernels' R, rows a thread (csrc/micro_window.cu's kBlockedRows),
 # and their stage buffer in float4 slots (kStage): 6 chunks at W 128
 BLOCKED_ROWS = 4
 BLOCKED_STAGE = 768
-# the window span of `parity_cases`' long tables, in columns: several stage rounds
+# `parity_cases`' long tables, each several stage rounds of the blocked
+# kernel: the window span in columns, the flat list's capacity in chunks and
+# the static (nwin, nper)
 LONG_SPAN = {WCOL: 16 * WCOL, 1: 400}
+LONG_FLAT = {WCOL: 20, 1: 1600}
+LONG_STATIC = {WCOL: (16, 1), 1: (9, 180)}
 TOOL_BLOCKS = (256, 1024)     # the JAX tool's marginal
 CENSUS_BLOCKS = (2048, 8192)  # scenario B: a few hundred pairs a row
 PARITY_CENSUS = (7, 19)       # (k, m) of the uniform W = 1 parity case
@@ -279,6 +300,27 @@ def random_inputs(seed: int, width: int, device="cpu", span: int = 0) -> Inputs:
                   4 if width > 1 else 7, 1 if width > 1 else 5).to(device)
 
 
+def long_inputs(seed: int, width: int, device="cpu") -> Inputs:
+    """`random_inputs` with windows of up to LONG_SPAN columns, flat lists of
+    0 to LONG_FLAT chunks (sub-block 0's empty, sub-block 1's full) in a
+    table of their own stride, and static at LONG_STATIC: each several stage
+    rounds of the blocked kernel."""
+    x = random_inputs(seed, width, "cpu", LONG_SPAN[width])
+    rng = np.random.default_rng([seed, width])
+    cap = LONG_FLAT[width]
+    stride = cap + 1
+    counts = rng.integers(0, stride, NSUB)
+    counts[:2] = 0, cap
+    tbl = np.zeros((1, 1, NSUB * stride), np.int32)
+    for t, cnt in enumerate(counts):
+        tbl[0, 0, t * stride] = cnt
+        tbl[0, 0, t * stride + 1:t * stride + 1 + cnt] = \
+            width * rng.integers(0, x.smax // width + 1, cnt)
+    nwin, nper = LONG_STATIC[width]
+    return replace(x, tbl=torch.from_numpy(tbl), stride=stride, nwin=nwin,
+                   nper=nper).to(device)
+
+
 # ---------------------------------------------------------------------------
 # The chunks each body reads, and its plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -322,12 +364,13 @@ def static_chunks(nwin: int, nper: int, width: int = WCOL) -> List[List[int]]:
 
 
 def body_chunks(body: str, x: Inputs) -> List[List[int]]:
-    """The chunks `body` reads at inputs `x`, per sub-block."""
+    """The chunks `body` reads at inputs `x`, per sub-block (a blocked
+    body its original's)."""
     if body in WINDOW_BODIES:
         return window_chunks(x.wins, body.startswith("guarded"), x.width, x.smax)
-    if body in ("flat", "flat_fused"):
+    if body in FLAT_BODIES:
         return flat_chunks(x.tbl, x.stride)
-    if body == "static":
+    if body in STATIC_BODIES:
         return static_chunks(x.nwin, x.nper, x.width)
     raise ValueError(f"body {body!r} is not one of {ALL_BODIES}")
 
@@ -494,75 +537,95 @@ def guarded_blocked_kernel(wins, rows, cand, nblocks: int, width: int = WCOL,
                           fused)[:1]
 
 
-def flat_kernel(tbl, rows, cand, nblocks: int, fused: bool, width: int = WCOL,
-                stride: int = MAXC + 1):
-    """(1, 1024) λ from `window_flat` (replaces `build_flat`'s kernel)."""
+def _flat_kernel(name: str, tbl, rows, cand, nblocks: int, fused: bool, width: int,
+                 stride: int):
+    """`name`'s λ, every block's (nblocks, 1024)."""
     _check_width(width)
     ncols = cand.shape[0 if fused else 1]
     _check_shapes(rows, cand, ncols, fused, nblocks)
     dev = ar._check_card(tbl=(tbl, torch.int32, (1, 1, NSUB * stride)),
                          rows=(rows, torch.float32, (5, ROWS)),
                          cand=(cand, torch.float32, tuple(cand.shape)))
-    return _launch("window_flat", dev, nblocks, tbl.data_ptr(), stride, rows.data_ptr(),
-                   cand.data_ptr(), ncols, width, int(fused))[:1]
+    return _launch(name, dev, nblocks, tbl.data_ptr(), stride, rows.data_ptr(),
+                   cand.data_ptr(), ncols, width, int(fused))
+
+
+def flat_kernel(tbl, rows, cand, nblocks: int, fused: bool, width: int = WCOL,
+                stride: int = MAXC + 1):
+    """(1, 1024) λ from `window_flat` (replaces `build_flat`'s kernel)."""
+    return _flat_kernel("window_flat", tbl, rows, cand, nblocks, fused, width, stride)[:1]
+
+
+def flat_blocked_kernel(tbl, rows, cand, nblocks: int, fused: bool, width: int = WCOL,
+                        stride: int = MAXC + 1):
+    """(1, 1024) λ from `window_flat_blocked` (replaces `build_flat`'s
+    kernel, redesigned: row 7.3-b), bit for bit `flat_kernel`'s."""
+    return _flat_kernel("window_flat_blocked", tbl, rows, cand, nblocks, fused, width,
+                        stride)[:1]
+
+
+def _static_kernel(name: str, rows, pack, nblocks: int, nwin: int, nper: int, width: int):
+    """`name`'s λ, every block's (nblocks, 1024)."""
+    _check_width(width)
+    _check_shapes(rows, pack, pack.shape[0], True, nblocks)
+    _check_static(pack, nwin, nper, width)
+    dev = ar._check_card(rows=(rows, torch.float32, (5, ROWS)),
+                         pack=(pack, torch.float32, tuple(pack.shape)))
+    return _launch(name, dev, nblocks, rows.data_ptr(), pack.data_ptr(), nwin, nper, width)
 
 
 def static_kernel(rows, pack, nblocks: int, nwin: int = REAL_WINS * CH_PER_WIN, nper: int = 1,
                   width: int = WCOL):
     """(1, 1024) λ from `window_static` (replaces `build_static_fused`'s
     kernel)."""
-    _check_width(width)
-    _check_shapes(rows, pack, pack.shape[0], True, nblocks)
-    _check_static(pack, nwin, nper, width)
-    dev = ar._check_card(rows=(rows, torch.float32, (5, ROWS)),
-                         pack=(pack, torch.float32, tuple(pack.shape)))
-    return _launch("window_static", dev, nblocks, rows.data_ptr(), pack.data_ptr(), nwin,
-                   nper, width)[:1]
+    return _static_kernel("window_static", rows, pack, nblocks, nwin, nper, width)[:1]
 
 
-def _call(body: str, x: Inputs, nblocks: int, plain: bool):
-    """`body` at inputs `x`: its plain version or its kernel."""
-    if body in WINDOW_BODIES:
-        fused = body in FUSED
-        guarded = body.startswith("guarded")
-        if plain:  # the blocked bodies' plain versions are prod's and guarded's
-            fn = guarded_plain if guarded else prod_plain
-        else:
-            fn = {(False, False): prod_kernel, (True, False): guarded_kernel,
-                  (False, True): prod_blocked_kernel,
-                  (True, True): guarded_blocked_kernel}[guarded, body in BLOCKED_BODIES]
-        return fn(x.wins, x.rows, x.pack if fused else x.strip, nblocks, x.width, x.smax, fused)
-    if body in ("flat", "flat_fused"):
-        fused = body == "flat_fused"
-        return (flat_plain if plain else flat_kernel)(
-            x.tbl, x.rows, x.pack if fused else x.strip, nblocks, fused, x.width, x.stride)
-    if body == "static":
-        return (static_plain if plain else static_kernel)(
-            x.rows, x.pack, nblocks, x.nwin, x.nper, x.width)
-    raise ValueError(f"body {body!r} is not one of {ALL_BODIES}")
+def static_blocked_kernel(rows, pack, nblocks: int, nwin: int = REAL_WINS * CH_PER_WIN,
+                          nper: int = 1, width: int = WCOL):
+    """(1, 1024) λ from `window_static_blocked` (replaces
+    `build_static_fused`'s kernel, redesigned: row 7.4-b), bit for bit
+    `static_kernel`'s."""
+    return _static_kernel("window_static_blocked", rows, pack, nblocks, nwin, nper, width)[:1]
 
 
 def run_plain(body: str, x: Inputs, nblocks: int = 1):
-    return _call(body, x, nblocks, plain=True)
-
-
-def run_kernel(body: str, x: Inputs, nblocks: int):
-    return _call(body, x, nblocks, plain=False)
+    """`body`'s plain version at inputs `x` (a blocked body's is its
+    original's)."""
+    fused = body in FUSED
+    cand = x.pack if fused else x.strip
+    if body in WINDOW_BODIES:
+        fn = guarded_plain if body.startswith("guarded") else prod_plain
+        return fn(x.wins, x.rows, cand, nblocks, x.width, x.smax, fused)
+    if body in FLAT_BODIES:
+        return flat_plain(x.tbl, x.rows, cand, nblocks, fused, x.width, x.stride)
+    if body in STATIC_BODIES:
+        return static_plain(x.rows, x.pack, nblocks, x.nwin, x.nper, x.width)
+    raise ValueError(f"body {body!r} is not one of {ALL_BODIES}")
 
 
 def window_blocks(body: str, x: Inputs, nblocks: int):
-    """(nblocks, 1024): every block's λ from the kernel of window body
-    `body`, each block its own replica's outputs."""
-    if body not in WINDOW_BODIES:
-        raise ValueError(f"body {body!r} is not one of {WINDOW_BODIES}")
-    name = KERNEL_OF[body]
+    """(nblocks, 1024): every block's λ from the kernel of `body` at inputs
+    `x`, each block its own replica's outputs."""
+    name = KERNEL_OF.get(body)
     fused = body in FUSED
-    return _window_kernel(name, x.wins, x.rows, x.pack if fused else x.strip, nblocks, x.width,
-                          x.smax, fused)
+    cand = x.pack if fused else x.strip
+    if body in WINDOW_BODIES:
+        return _window_kernel(name, x.wins, x.rows, cand, nblocks, x.width, x.smax, fused)
+    if body in FLAT_BODIES:
+        return _flat_kernel(name, x.tbl, x.rows, cand, nblocks, fused, x.width, x.stride)
+    if body in STATIC_BODIES:
+        return _static_kernel(name, x.rows, x.pack, nblocks, x.nwin, x.nper, x.width)
+    raise ValueError(f"body {body!r} is not one of {ALL_BODIES}")
+
+
+def run_kernel(body: str, x: Inputs, nblocks: int):
+    """`body`'s kernel at inputs `x`: the first block's (1, 1024) λ."""
+    return window_blocks(body, x, nblocks)[:1]
 
 
 class MicroWindow:
-    """The six wrappers, with a launch counter per kernel: `launches[name]`
+    """The eight kernels' wrappers, with a launch counter per kernel: `launches[name]`
     starts at 0 and grows by one each time a wrapper launches its CUDA
     kernel, and at no other time.  A CPU tensor takes the plain version."""
 
@@ -584,8 +647,10 @@ class MicroWindow:
 
 def sass_pattern(body: str, width: int) -> str:
     """A unique part of the mangled name of `body`'s kernel at `width`."""
-    if body in BLOCKED_BODIES:
-        return (f"21window_blocked_kernelILi{width}ELb{int(body.startswith('guarded'))}E"
+    if body in BLOCKED_BODIES:  # window_blocked_kernel<W, List, FUSED>
+        lists = {"prod": "10WindowListILb0EEE", "guarded": "10WindowListILb1EEE",
+                 "flat": "8FlatListE", "static": "10StaticListE"}
+        return (f"21window_blocked_kernelILi{width}ENS_{lists[body.split('_')[0]]}"
                 f"Lb{int(body in FUSED)}E")
     if body in ("prod", "guarded", "prod_fused", "guarded_fused"):
         return (f"13window_kernelILi{width}ELb{int(body.startswith('guarded'))}E"
@@ -675,14 +740,14 @@ def parity_cases(width: int, device, seed: int = 0) -> Dict[str, Inputs]:
     """The parity cases at `width`: the tool's uniform inputs (W 128:
     scenario A; W 1: the census tables at PARITY_CENSUS), random ones
     (`random_inputs`: empty, ragged and clipped windows), long ones
-    (windows of up to LONG_SPAN columns: several stage rounds of the blocked
-    kernels) and at W 1
-    every window empty (the census at k 0: guarded reads nothing, prod nine
-    sentinels)."""
+    (`long_inputs`: windows, flat lists and static offsets of several stage
+    rounds of the blocked kernel, an empty flat list) and at W 1 every
+    window empty (the census at k 0: guarded, flat and static read nothing,
+    prod nine sentinels)."""
     cases = {"tool": tool_inputs(device) if width == WCOL
              else census_inputs(*PARITY_CENSUS, device=device),
              "random": random_inputs(seed, width, device),
-             "long": random_inputs(seed, width, device, LONG_SPAN[width])}
+             "long": long_inputs(seed, width, device)}
     if width == 1:
         cases["empty"] = census_inputs(0, 1, device)
     return cases
@@ -706,8 +771,6 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     return res
 
 
-# the original body of each blocked one: the kernel it equals bit for bit
-BLOCKED_OF = {body: body.replace("_blocked", "") for body in BLOCKED_BODIES}
 BITS_BLOCKS = 3  # a CTA's replica blocks, some of them past nblocks
 
 
@@ -757,8 +820,9 @@ def census(idx: ph.CellIndex) -> dict:
 
 
 # the ladders, from the anchored ms to pbf_lambda, and what each step adds:
-# the JAX tool's order, the one that keeps pbf_lambda's fused loads, and the
-# one that starts from the nine-window walk laid out for this card
+# the JAX tool's order, the one that keeps pbf_lambda's fused loads, the one
+# that starts from the nine-window walk laid out for this card, and the JAX
+# tool's order again with every rung laid out for this card
 LAST_STEP = ("pbf_lambda", "per-row ranges, which diverge within a warp, and real positions")
 LADDERS = {
     "ladder": (("static", "L1/L2 reads in place of shared memory"),
@@ -774,6 +838,13 @@ LADDERS = {
                         "once a CTA, R rows a thread on one shared-memory read"),
                        ("guarded_fused", "a row a thread, each pair's candidate from L1"),
                        LAST_STEP),
+    "blocked_jax_ladder": (("static_blocked", "computed offsets, staged once a CTA, R rows "
+                            "a thread on one shared-memory read"),
+                           ("flat_blocked_fused", "offsets loaded from a table, once a CTA"),
+                           ("flat_blocked", "split loads, in the staging"),
+                           ("guarded_blocked", "nine windows from a lo/hi table"),
+                           ("prod_blocked", "the unconditional chunk per empty window"),
+                           LAST_STEP),
 }
 
 

@@ -853,12 +853,13 @@ def test_window_kernels_match_plain(card, body, width):
 
 @pytest.mark.parametrize("width", mw.WIDTHS)
 def test_window_blocked_kernels_are_the_originals_bit_for_bit(card, width):
-    """The blocked kernels give 7.1's / 7.2's bits on every block of nblocks
+    """The blocked kernels give 7.1's to 7.4's bits on every block of nblocks
     3 (a CTA's replica blocks, some past nblocks), split and fused, on every
     `parity_cases` case: the tool's or census inputs, random ones (an empty
-    window, a ragged hi, the sentinel clip at smax), long tables of several
-    stage rounds and at W 1 every window empty; and agree with the plain
-    versions at RTOL/ATOL."""
+    window, a ragged hi, the sentinel clip at smax), long windows, flat
+    lists and static offsets of several stage rounds with an empty flat
+    list, and at W 1 every window empty; and agree with the plain versions
+    at RTOL/ATOL."""
     for case, x in mw.parity_cases(width, card).items():
         for body, orig in mw.BLOCKED_OF.items():
             got = mw.window_blocks(body, x, mw.BITS_BLOCKS)
@@ -876,11 +877,16 @@ def test_window_wrappers_count_kernel_launches(card):
     torch.cuda.synchronize()
     assert win.launches == {"window_prod": 2, "window_guarded": 2, "window_flat": 2,
                             "window_static": 1, "window_prod_blocked": 2,
-                            "window_guarded_blocked": 2}
+                            "window_guarded_blocked": 2, "window_flat_blocked": 2,
+                            "window_static_blocked": 1}
     with pytest.raises(ValueError, match="instantiates"):
         mw.prod_kernel(x.wins, x.rows, x.strip, 1, width=64)
     with pytest.raises(ValueError, match="instantiates"):
         mw.guarded_blocked_kernel(x.wins, x.rows, x.strip, 1, width=64)
+    with pytest.raises(ValueError, match="instantiates"):
+        mw.flat_blocked_kernel(x.tbl, x.rows, x.strip, 1, False, width=64)
+    with pytest.raises(ValueError, match="instantiates"):
+        mw.static_blocked_kernel(x.rows, x.pack, 1, width=64)
 
 
 def test_window_sass_is_full(card):

@@ -221,29 +221,43 @@ def test_sass_check_holds_each_body_to_pbf_lambda():
 
 
 # ---------------------------------------------------------------------------
-# The blocked kernels (rows 7.1-b, 7.2-b): their plain versions, launchers,
+# The blocked kernel (rows 7.1-b to 7.4-b): its plain versions, launchers,
 # constants, cases and SASS check
 # ---------------------------------------------------------------------------
 
 
 def cpu_cases(width):
-    """`parity_cases` but the long tables: the tool's or census inputs,
+    """`parity_cases` but the long windows: the tool's or census inputs,
     random ones, and at W 1 every window empty."""
     return {k: x for k, x in mw.parity_cases(width, "cpu").items() if k != "long"}
+
+
+def original_plain(body, x):
+    """The plain version of `body`'s original, called with its own
+    arguments."""
+    fused = body in mw.FUSED
+    cand = x.pack if fused else x.strip
+    if body in mw.WINDOW_BODIES:
+        plain = mw.guarded_plain if body.startswith("guarded") else mw.prod_plain
+        return plain(x.wins, x.rows, cand, 1, x.width, x.smax, fused)
+    if body in mw.FLAT_BODIES:
+        return mw.flat_plain(x.tbl, x.rows, cand, 1, fused, x.width, x.stride)
+    return mw.static_plain(x.rows, x.pack, 1, x.nwin, x.nper, x.width)
 
 
 @pytest.mark.parametrize("width", mw.WIDTHS)
 @pytest.mark.parametrize("body", mw.BLOCKED_BODIES)
 def test_blocked_bodies_are_the_plain_versions_on_cpu(body, width):
-    """On CPU tensors a blocked body returns `prod_plain` / `guarded_plain`
-    exactly, split or fused, and launches nothing."""
-    plain = mw.guarded_plain if body.startswith("guarded") else mw.prod_plain
-    fused = body in mw.FUSED
+    """On CPU tensors a blocked body returns its original's plain version
+    (`prod_plain`, `guarded_plain`, `flat_plain`, `static_plain`) exactly,
+    split or fused, and launches nothing; flat and static also on the long
+    case (their lists of several stage rounds, an empty flat list)."""
     win = mw.MicroWindow()
-    for case, x in cpu_cases(width).items():
+    cases = (cpu_cases(width) if body in mw.WINDOW_BODIES
+             else mw.parity_cases(width, "cpu"))
+    for case, x in cases.items():
         got = win.run(body, x, 1)
-        want = plain(x.wins, x.rows, x.pack if fused else x.strip, 1, x.width, x.smax, fused)
-        assert got.shape == (1, mw.ROWS) and torch.equal(got, want), case
+        assert got.shape == (1, mw.ROWS) and torch.equal(got, original_plain(body, x)), case
         assert torch.equal(got, mw.run_plain(mw.BLOCKED_OF[body], x)), case
     assert win.launches == dict.fromkeys(mw.KERNELS, 0)
 
@@ -260,8 +274,30 @@ def test_blocked_launchers_refuse_cpu_tensors():
             mw.prod_blocked_kernel(x.wins, x.rows, x.strip, 1, width)
         with pytest.raises(ValueError, match="CUDA tensors"):
             mw.guarded_blocked_kernel(x.wins, x.rows, x.pack, 1, width, fused=True)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            mw.flat_blocked_kernel(x.tbl, x.rows, x.strip, 1, False, width, x.stride)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            mw.static_blocked_kernel(x.rows, x.pack, 1, x.nwin, x.nper, width)
     with pytest.raises(ValueError, match="is not one of"):
-        mw.window_blocks("flat", mw.tool_inputs(), 1)
+        mw.window_blocks("pbf_lambda", mw.tool_inputs(), 1)
+
+
+def test_launcher_signatures_are_the_cu_ones():
+    """Every launcher of csrc/micro_window.cu has a ctypes signature in
+    `cuda_build.SIGNATURES` with its own argument types, and every kernel
+    the tool names has a launcher."""
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    src = (REPO / "pbf_sph_tpu_torch" / "csrc" / "micro_window.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    kinds = {"const void*": cuda_build._P, "void*": cuda_build._P, "int": cuda_build._I,
+             "float": cuda_build._F}
+    found = {}
+    for name, args in re.findall(r"^int (\w+)\(([^)]*)\)", block, re.M):
+        found[name] = [kinds[" ".join(a.split()[:-1])] for a in args.split(",")]
+    assert set(found) == set(mw.KERNELS)
+    for name, argtypes in found.items():
+        assert cuda_build.SIGNATURES[name] == argtypes, name
 
 
 def test_blocked_constants_are_the_cu_ones():
@@ -281,36 +317,53 @@ def test_blocked_constants_are_the_cu_ones():
 def test_parity_cases_reach_the_blocked_edges(width):
     """The cases the card holds the blocked kernels to: an empty window, a
     ragged hi (off a chunk's end), a window clipped at smax, and chunk lists
-    of more than two stage rounds; at W 1 also every window of every
-    sub-block empty."""
+    of more than two stage rounds, windows, flat lists (in a table of their
+    own stride) and static offsets, with an empty flat list beside them; at
+    W 1 also every window of every sub-block empty; the tool's, census and
+    random flat and static cases as before."""
     cases = mw.parity_cases(width, "cpu")
     wins = np.asarray(cases["random"].wins).reshape(-1)[:mw.NSUB * mw.WIN_STRIDE]
     lo, hi = wins[0::2], wins[1::2]
     assert (lo == hi).any() and (hi > mw.SMAX).any()
     assert ((hi > lo) & (hi % width != 0)).any() if width > 1 else (hi - lo > 1).any()
     stage_chunks = mw.BLOCKED_STAGE // width
-    for body in ("prod", "guarded"):
+    for body in ("prod", "guarded", "flat", "static"):
         long_chunks = [len(c) for c in mw.body_chunks(body, cases["long"])]
         assert max(long_chunks) > 2 * stage_chunks, (body, long_chunks)
+    long_flat = [len(c) for c in mw.body_chunks("flat", cases["long"])]
+    assert long_flat[:2] == [0, mw.LONG_FLAT[width]]
+    assert cases["long"].stride == mw.LONG_FLAT[width] + 1 != cases["random"].stride
+    assert (cases["long"].nwin, cases["long"].nper) == mw.LONG_STATIC[width]
+    mw.static_plain(cases["long"].rows, cases["long"].pack, 1, *mw.LONG_STATIC[width],
+                    width=width)  # in range: 40 x nper x W within the pack
+    assert (cases["random"].stride, cases["random"].nwin, cases["random"].nper) == (
+        mw.MAXC + 1, *((4, 1) if width > 1 else (7, 5)))
     if width == 1:
         assert mw.body_pairs("guarded", cases["empty"]) == 0
         assert mw.body_chunks("prod", cases["empty"]) == [[mw.SMAX] * 9] * mw.NSUB
+        assert mw.body_pairs("flat", cases["empty"]) == mw.body_pairs("static",
+                                                                      cases["empty"]) == 0
 
 
 MATH = ["FADD", "FFMA", "FFMA", "FMNMX", "MUFU.RSQ", "FMUL"]
 
 
-def blocked_listing(pairs_a_read, extra=()):
+# the flat W 1 instances, whose original loads an offset a pair
+FLAT_W1 = {"flat_blocked W1", "flat_blocked_fused W1"}
+
+
+def blocked_listing(pairs_a_read, extra=(), only=None):
     """A listing with pbf_lambda's kernel (one LDG.128 a pair) and every
     blocked instantiation, whose loop holds 16 / pairs_a_read reads
     (LDS.128), each followed by `pairs_a_read` copies of the pair and
-    `extra`."""
+    `extra` (only in the instances named in `only`, if given)."""
     listings = [sass_listing("_Z13lambda_kernelEPK6float4ii", MATH + ["LDG.E.128.CONSTANT"], 4)]
     for body in mw.BLOCKED_BODIES:
         for width in mw.WIDTHS:
+            more = list(extra) if only is None or f"{body} W{width}" in only else []
             listings.append(sass_listing(
-                f"_ZN12_GLOBAL__N_1{mw.sass_pattern(body, width)}PKiPKfS4_PK6float4iiiffffffPf",
-                ["LDS.128"] + MATH * pairs_a_read + list(extra), 16 // pairs_a_read))
+                f"_ZN12_GLOBAL__N_1{mw.sass_pattern(body, width)}EEvT0_PKfS4_PK6float4"
+                "iifffffffPf", ["LDS.128"] + MATH * pairs_a_read + more, 16 // pairs_a_read))
     return ar.parse_sass("\n".join(listings))
 
 
@@ -320,22 +373,71 @@ def blocked_listing(pairs_a_read, extra=()):
     ("an fp32 op more", False),
     ("a global load in the loop", False),
     ("local memory", False),
+    ("the flat list's load in the loop", False),
 ])
 def test_sass_blocked_check(case, ok):
     """The blocked kernels' SASS case: R MUFU.RSQ a LDS.128 and pbf_lambda's
     fp32 opcodes a pair pass; one pair a read, a drifted pair, a global load
-    in the pair loop and a local-memory access (a spill) fail."""
+    in the pair loop (in every instance, or only flat's offset load at W 1,
+    left in the pair loop) and a local-memory access (a spill) fail."""
     r = mw.BLOCKED_ROWS
+    ldg = ["LDG.E.CONSTANT"]
     funcs = {"R pairs a read": lambda: blocked_listing(r),
              "1 pair a read": lambda: blocked_listing(1),
              "an fp32 op more": lambda: blocked_listing(r, ["FMUL"] * r),
-             "a global load in the loop": lambda: blocked_listing(r, ["LDG.E.CONSTANT"]),
-             "local memory": lambda: blocked_listing(r, ["STL"])}[case]()
+             "a global load in the loop": lambda: blocked_listing(r, ldg),
+             "local memory": lambda: blocked_listing(r, ["STL"]),
+             "the flat list's load in the loop": lambda: blocked_listing(r, ldg, FLAT_W1)}[case]()
     report = mw.check_blocked(funcs)
     assert set(report) == {f"{b} W{w}" for b in mw.BLOCKED_BODIES for w in mw.WIDTHS}
+    hit = FLAT_W1 if case == "the flat list's load in the loop" else set(report)
     for name, rep in report.items():
-        assert rep["ok"] is ok, (name, rep)
+        assert rep["ok"] is (ok if name in hit else True), (name, rep)
         assert rep["pairs_a_loop"] == 16 and rep["rows"] == r
         assert rep["same_as_phase"] is (case != "an fp32 op more")
-        assert (rep["ldg_in_loop"] > 0) is (case == "a global load in the loop")
+        assert (rep["ldg_in_loop"] > 0) is ("load in the loop" in case and name in hit)
         assert (rep["local"] > 0) is (case == "local memory")
+
+
+@pytest.mark.parametrize("ladder", list(mw.LADDERS))
+def test_ladders_step_through_named_bodies(ladder):
+    """Every ladder's steps are bodies the tool runs, then `pbf_lambda`;
+    the blocked JAX-order ladder is the JAX-order one with every rung
+    blocked."""
+    steps = [name for name, _ in mw.LADDERS[ladder]]
+    assert steps[-1] == "pbf_lambda" and set(steps[:-1]) <= set(mw.ALL_BODIES)
+    assert len(set(steps)) == len(steps)
+    if ladder == "blocked_jax_ladder":
+        jax = [name for name, _ in mw.LADDERS["ladder"]][:-1]
+        assert [mw.BLOCKED_OF[b] for b in steps[:-1]] == jax
+        assert set(steps[:-1]) <= set(mw.BLOCKED_BODIES)
+
+
+def test_sass_diff_finds_what_a_refactor_moved():
+    """sass_diff on recorded listings: the same loop under another name and
+    other constant-bank operands is the same loop; an instruction more in
+    the loop or before it shows as unmatched and in the opcode deltas."""
+    from pbf_sph_tpu_torch.tools import sass_diff as sd
+
+    def listing(name, before, loop):
+        lines = [f"\t\tFunction : {name}"]
+        for i, op in enumerate(before + loop):
+            lines.append(f"        /*{0x10 * i:04x}*/                   {op} ;")
+        n = len(before) + len(loop)
+        lines.append(f"        /*{0x10 * n:04x}*/              @!P0 BRA 0x{0x10 * len(before):x} ;")
+        lines.append(f"        /*{0x10 * (n + 1):04x}*/                   EXIT ;")
+        return "\n".join(lines)
+
+    loop = ["LDS.128 R4, [R2]", "FADD R3, R4, -R8", "MUFU.RSQ R5, R3"]
+    a = sd.parse(listing("_Z3oldv", ["MOV R1, c[0x0][0x28]", "S2R R0, SR_TID.X"], loop))
+    b = sd.parse(listing("_Z3newv", ["MOV R1, c[0x0][0x30]", "S2R R0, SR_TID.X"], loop))
+    c = sd.parse(listing("_Z3newv", ["MOV R1, c[0x0][0x30]"], loop + ["FMUL R3, R3, R3"]))
+    same = sd.compare(sd.one(a, "3old"), sd.one(b, "3new"))
+    assert same == dict(insts=[7, 7], same_opcodes=True, loops=[1, 1], same_loops=1,
+                        unmatched=[0, 0], more_in_a={}, more_in_b={})
+    moved = sd.compare(sd.one(a, "3old"), sd.one(c, "3new"))
+    assert moved["loops"] == [1, 1] and moved["same_loops"] == 0
+    # the S2R, the FMUL and the loop's branch, whose target moved
+    assert moved["unmatched"] == [2, 2] and not moved["same_opcodes"]
+    assert moved["more_in_a"] == {"S2R": 1} and moved["more_in_b"] == {"FMUL": 1}
+

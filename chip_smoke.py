@@ -145,16 +145,19 @@ with a non-zero exit and no result line:
    `tools/micro_roll.py` and the roll, unaligned-slice and unaligned-copy
    probes of `tools/micro_vpu.py`): the SASS (cuobjdump: a)/b) 32 SHFL a
    trip, 4 a roll, vpu_rot 32; each part body's loop its parts' float4
-   stores, shuffle 16 SHFL a part, direct 16 32-bit loads; f) 16 pairs a
-   pass with `pbf_lambda`'s fp32 instructions a pair beside its reduction;
-   vpu_unal 32-bit loads, vpu_dma 4 cp.async copies and a barrier wait; no local
-   memory), each kernel against its plain version on the tools' inputs and
-   seeded ones (bit for bit, NaN in place, for a)-e) and the probes, at
-   every seeded shift and offset; f) rtol 1e-5, atol 1e-5 x max|value|),
-   then one reading of each kernel through `MicroRoll` (CUDA events, the
-   marginal between two trip or pass counts, the probes in a CUDA graph of
-   100 launches, the SM clock sampled); its launches are counted over this
-   phase;
+   stores, shuffle 16 SHFL a part, direct 16 32-bit loads; each blocked
+   part body's loop no store, shuffle 4 SHFL and 8 32-bit loads a visit,
+   direct 4 32-bit loads; f) 16 pairs a pass with `pbf_lambda`'s fp32
+   instructions a pair beside its reduction; vpu_unal 32-bit loads,
+   vpu_dma 4 cp.async copies and a barrier wait; no local memory), each
+   kernel against its plain version on the tools' inputs and seeded ones
+   (bit for bit, NaN in place, for a)-e), the blocked c)-e) also against
+   the original's bits, and the probes, at every seeded shift and offset;
+   f) rtol 1e-5, atol 1e-5 x max|value|), then one reading of each kernel
+   through `MicroRoll` (CUDA events, the marginal between two trip or pass
+   counts, the probes in a CUDA graph of 100 launches, the SM clock
+   sampled), each part body reading's output at 512 copies then held bit
+   for bit against `part_plain`; its launches are counted over this phase;
 3k. the op streams, dots and reshape (`csrc/micro_vpu.cu`, the rest of
    `tools/micro_vpu.py`: bench_streams, dot_kernel, dot2_kernel, tr_kernel,
    and the redesigns of dot_kernel, tr_kernel and dot2_kernel,
@@ -400,13 +403,14 @@ ops over the SMs x 16 of the MUFU pipe, whichever is longer, at the sampled
 SM clock), 3i for the dense-λ kernels, whose line holds a), d), g) and k)
 at 64 copies, bound as 3h's, d)/g) also by their DMMA flops over the FP64
 tensor-core peak), 3j for the compaction building blocks, whose line
-holds a) with the card filled, d)'s shuffle and direct bodies at the JAX
-call's 512 copies and f) with the card filled, each at the larger of its
-two sizes, bound by its SHFLs, its 32-bit loads and stores, or its fp32 and
-MUFU issue, and the probes' CUDA-graph readings, bound by their bytes,
-beside torch.roll and x[:, o:o+128].contiguous()), 3k for the op
-streams, dots and reshape, whose line holds fma at 8 streams with the card
-filled, bound by its FFMAs over the issue rate, and the dots and both tr
+holds a) with the card filled, d)'s shuffle and direct bodies, original
+and blocked, at the JAX call's 512 copies and f) with the card filled, each
+at the larger of its two sizes, bound by its SHFLs, its 32-bit loads and
+stores, or its fp32 and MUFU issue, and the probes' CUDA-graph readings,
+bound by their bytes, beside torch.roll and x[:, o:o+128].contiguous()),
+3k for the op streams, dots and reshape, whose line holds fma at 8 streams
+with the card filled, bound by its FFMAs over the issue rate, and the dots
+and both tr
 bodies at one copy, the dots bound by 2MNK + MK + MN flops a trip over the
 fp32 peak beside torch.matmul of the stacked scaled operands and its sum in
 a CUDA graph, tr by its FFMAs over the issue rate beside torch.mv of x[0,
@@ -541,6 +545,12 @@ KERNELS = {
     "roll_lanes": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
     "roll_part_shuffle": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
     "roll_part_direct": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
+    # k_static, k_fori and k_nested redesigned: a warp per copy, field and
+    # chunk, the merge held in registers
+    "roll_part_blocked_shuffle": ("pbf_sph_tpu_torch/csrc/micro_roll.cu",
+                                  "tools/micro_roll.py:41"),
+    "roll_part_blocked_direct": ("pbf_sph_tpu_torch/csrc/micro_roll.cu",
+                                 "tools/micro_roll.py:41"),
     "roll_lam": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_roll.py:41"),
     "vpu_rot": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:121"),
     "vpu_unal": ("pbf_sph_tpu_torch/csrc/micro_roll.cu", "tools/micro_vpu.py:142"),
@@ -1659,6 +1669,7 @@ def phase_roll():
         check(ok, f"{label}: max abs err {err:.3e} ({tol})")
         head = label.split()
         name = ("roll_lanes" if head[0] in mr.LANES else "roll_lam" if head[0] == "f"
+                else f"roll_part_blocked_{head[1]}" if head[0] in mr.PARTS and head[2] == "blocked"
                 else f"roll_part_{head[1]}" if head[0] in mr.PARTS else head[0])
         errs[name] = max(errs[name], err)
 
@@ -1672,6 +1683,8 @@ def phase_roll():
             "roll_lanes": mr.read_lanes(roll, "a", xl, fill_a, 5),
             "roll_part_shuffle": mr.read_part(roll, "d", "shuffle", xp, mr.REP, 5),
             "roll_part_direct": mr.read_part(roll, "d", "direct", xp, mr.REP, 5),
+            "roll_part_blocked_shuffle": mr.read_part(roll, "d", "shuffle", xp, mr.REP, 5, True),
+            "roll_part_blocked_direct": mr.read_part(roll, "d", "direct", xp, mr.REP, 5, True),
             "roll_lam": mr.read_lam(roll, xf, fill_f, 5),
             "vpu_rot": mr.read_launch(lambda: roll.rot(xv.tile, xv.shift)),
             "vpu_unal": mr.read_launch(lambda: roll.unal(xv.wide, o)),
@@ -1679,6 +1692,12 @@ def phase_roll():
         }
     torch.cuda.synchronize()
     launches = dict(roll.launches)
+    for name, r in readings.items():
+        if name.startswith("roll_part_"):
+            check(r["bit_equal"], f"{name} reading's output at {r['copies']} copies x "
+                  f"{mr.PASSES} passes against part_plain: max abs err {r['max_abs_err']:.3e} "
+                  f"(bit for bit, NaN in place)")
+            errs[name] = max(errs[name], r["max_abs_err"])
     mhz = mch.sm_clock_mhz(clock.summary(), device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     print(f"  SM clock beside the readings (nvidia-smi, MHz): {clock.summary()}")
@@ -1692,6 +1711,10 @@ def phase_roll():
                               mr.part_work("d", xp, mr.REP, passes), None),
         "roll_part_direct": (lambda: mr.part_plain("d", xp, mr.REP, passes),
                              mr.part_work("d", xp, mr.REP, passes), None),
+        "roll_part_blocked_shuffle": (lambda: mr.part_plain("d", xp, mr.REP, passes),
+                                      mr.part_work("d", xp, mr.REP, passes), None),
+        "roll_part_blocked_direct": (lambda: mr.part_plain("d", xp, mr.REP, passes),
+                                     mr.part_work("d", xp, mr.REP, passes), None),
         "roll_lam": (lambda: mr.lam_plain(xf, fill_f, mr.REP),
                      mr.lam_work(xf, fill_f, mr.REP), None),
         "vpu_rot": (lambda: mr.rot_plain(xv.tile, xv.shift), mr.rot_work(xv.tile, xv.shift),
@@ -1718,6 +1741,13 @@ def phase_roll():
             what = f"{ms:.4f} ms at {r['copies']} copies ({rate})"
         print(f"  {name}: kernel {what}, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by "
               f"{bound_by}")
+        if name.startswith("roll_part_blocked_"):
+            orig = readings[name.replace("_blocked", "")]["ms"][1]
+            variant = 3 * mr.BODY_ID[name.split("_")[-1]] + mr.LOOP_ID["d"]
+            resident = cuda_build.library().micro_roll_fill(3, variant) * mr.FIELDS // sms
+            print(f"    {orig / ms:.3f}x {name.replace('_blocked', '')} ({orig:.4f} ms), "
+                  f"{bound_ms / ms:.3f} of the bound; {mr.REP * mr.blocked_chunks('d', xp.meta)} "
+                  f"CTAs of 4 warps, {resident} warps an SM resident at most")
         # no single PyTorch call computes a)'s rolls, the part bodies or f)
         report[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)

@@ -8,6 +8,8 @@
 //   roll_part  <- c) k_static (:113), d) k_fori (:122), e) k_nested (:134):
 //                 part_body (:91) run x16 unrolled, in a loop of 16, and
 //                 9 x 2 nested over parts (iv + ci) mod 16
+//   roll_part_blocked <- the same, laid out for Hopper: a warp per (copy,
+//                 field, chunk), the merge held in registers
 //   roll_lam   <- f) k_lam (:154): micro_dense's chunk_math over 4 chunks
 //   vpu_rot    <- rot_kernel (micro_vpu.py:115, call :121): roll(x, s, 1)
 //   vpu_unal   <- unal_kernel (:136, call :142): x[:, o:o+128]
@@ -16,10 +18,10 @@
 // versions and the SASS check of every kernel here.
 //
 // A row of 128 lanes is one warp's: lane l holds columns l, l+32, l+64, l+96
-// (roll_lanes, vpu_rot) or 4l..4l+3 (roll_part).  A roll by s (np.roll:
-// out[j] = in[(j - s) mod 128], any int32 s, as pltpu.roll takes) is 4 warp
-// shuffles from lane (l - s) mod 32 and a rotation of the 4 slots by
-// (s div 32 + [l < s mod 32]) mod 4, two stages of selects; 4 SHFL is the
+// (roll_lanes, vpu_rot, roll_part_blocked) or 4l..4l+3 (roll_part).  A roll
+// by s (np.roll: out[j] = in[(j - s) mod 128], any int32 s, as pltpu.roll
+// takes) is 4 warp shuffles from lane (l - s) mod 32 and a rotation of the 4
+// slots by (s div 32 + [l < s mod 32]) mod 4, two stages of selects; 4 SHFL is the
 // least a roll of 128 values on 32 lanes needs, so a)/b) and vpu_rot are
 // bound by the SM's shuffle rate (one warp SHFL a clock).  a)/b) run the 8
 // rows as 8 independent chains in one warp, as the TPU tool's 8 streams; N
@@ -320,6 +322,132 @@ __global__ void __launch_bounds__(32)
 }
 
 // ---------------------------------------------------------------------------
+// The part body redesigned: a warp per (copy, field, chunk)
+// ---------------------------------------------------------------------------
+
+// roll_part_kernel's warp walks a whole copy, 3.9 warps an SM at the JAX
+// call's 512 copies, and each merge is a float4 load and store of the
+// output that the next part of the chunk loads again: a chain of memory
+// round trips.  But part_body writes field f only from field f of the
+// strip, and part p only into chunk dst >> 7, so a copy's 4 x 4 pieces are
+// independent.  Here warp f of CTA b owns field f of copy b / n and chunk
+// id[b % n] (the chunks some part of the structure writes, n of them, from
+// the launcher; the others are neither loaded nor stored).  It loads its
+// 128 columns once, walks the structure's parts in order, skips (warp-
+// uniformly) those of other chunks, so the last writer still wins, merges
+// each by select in 4 registers a lane, and stores once after the last
+// pass.  The layout is free: lane l holds columns l + 32k, so every load
+// of a window is one run of 32 consecutive floats.  Issue bounds it, not
+// the loads: mostly integer work (the walk over 16 parts, a window's index
+// and address arithmetic, on a pipe of half the issue rate), so that
+// arithmetic is kept short.  4 warps a CTA, fixed.
+constexpr int kChunks = kOutCols / kW;
+constexpr int kBlockedThreads = 32 * kFields;
+
+// The chunks a structure's parts write, in order; by value, in the constant
+// bank.
+struct PartChunks {
+  int id[kChunks];
+  int n;
+};
+
+// rolled[k] = AB[r + l + 32k].  direct: one load a column at ba + ((r + j)
+// & mask): A ++ B is the strip's run from s0 (mask 255, r + j < 255) unless
+// the clamp makes B = A (ba = SM - 128), where the run wraps within A
+// (mask 127).  shuffle: the two aligned windows in 8 loads, lane l holding
+// slots A[l + 32i], B[l + 32i], rolled by r as roll_row rolls a row: output
+// slot k of lane l is slot k + (r >> 5) of lane (l + r) mod 32, or the next
+// slot where that lane index wraps, which the sender tells from its own
+// index (t < r mod 32); it picks slot k + q, q in [0, 4], by selects that
+// shift the 8 slots by q's bits, and each output slot is one shuffle.
+template <int BODY>
+__device__ __forceinline__ void blocked_window(const float* __restrict__ row, int s0,
+                                               float (&rolled)[4]) {
+  const int l = threadIdx.x & 31;
+  const int r = s0 & (kW - 1);
+  const int ba = s0 - r;
+  if constexpr (BODY == kDirect) {
+    const unsigned mask = ba == kSm - kW ? kW - 1 : 2 * kW - 1;
+    const float* a = row + ba;
+    // a in a register: else nvcc folds ba and the pass offset into each
+    // load's index, 4 more integer instructions a load for its 64-bit sum
+    // (the register hides that a is global, so the loads say so: __ldg)
+    asm("" : "+l"(a));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) rolled[k] = __ldg(a + ((unsigned)(r + l + 32 * k) & mask));
+  } else {
+    const float* a = row + ba + l;
+    const float* b = row + min(ba + kW, kSm - kW) + l;
+    float e[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = __ldg(a + 32 * i), e[4 + i] = __ldg(b + 32 * i);
+    const int rr = r & 31;
+    const int q = (r >> 5) + (l < rr ? 1 : 0);
+    float y[6], z[4];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) y[i] = sel(q & 1, e[i + 1], e[i]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) z[i] = sel(q & 2, y[i + 2], y[i]);
+    const int src = (l + rr) & 31;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) rolled[k] = __shfl_sync(kFull, sel(q & 4, e[k + 4], z[k]), src);
+  }
+}
+
+// part_body (:91-109) of part p on chunk c of one field, held in v.
+template <int BODY>
+__device__ __forceinline__ void blocked_visit(const float* __restrict__ row, const PartMeta& meta,
+                                              int p, int c, float (&v)[4]) {
+  const int s0 = meta.v[p][0], dst = meta.v[p][1], len = meta.v[p][2];
+  if ((dst >> 7) != c) return;
+  float rolled[4];
+  blocked_window<BODY>(row, s0, rolled);
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    // col in [dst, dst + len): dst and col < 512, len >= 0
+    const bool valid = (unsigned)(c * kW + l + 32 * k - dst) < (unsigned)len;
+    v[k] = sel(valid, rolled[k], v[k]);
+  }
+}
+
+template <int BODY, int LOOP>
+__global__ void __launch_bounds__(kBlockedThreads)
+    roll_part_blocked_kernel(const float* __restrict__ strips, const PartMeta meta,
+                             const PartChunks chunks, int niv, int nci, int npass,
+                             int pass_stride, float* __restrict__ out) {
+  const int f = threadIdx.x >> 5;
+  const int c = chunks.id[blockIdx.x % chunks.n];
+  float* o = out + ((size_t)(blockIdx.x / chunks.n) * kFields + f) * kOutCols + c * kW;
+  const float* row = strips + f * kSm;
+  const int l = threadIdx.x & 31;
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = o[l + 32 * k];
+#pragma unroll 1
+  for (int pass = 0; pass < npass; ++pass) {
+    const float* s = row + pass * pass_stride;
+    if constexpr (LOOP == kStatic) {
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) blocked_visit<BODY>(s, meta, p, c, v);
+    } else if constexpr (LOOP == kFori) {
+#pragma unroll 1
+      for (int p = 0; p < kParts; ++p) blocked_visit<BODY>(s, meta, p, c, v);
+    } else {
+#pragma unroll 1
+      for (int iv = 0; iv < niv; ++iv) {
+#pragma unroll 1
+        for (int ci = 0; ci < nci; ++ci) {
+          blocked_visit<BODY>(s, meta, (iv + ci) & (kParts - 1), c, v);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[l + 32 * k] = v[k];
+}
+
+// ---------------------------------------------------------------------------
 // f): the 4-chunk dense λ
 // ---------------------------------------------------------------------------
 
@@ -418,8 +546,69 @@ PartFn find_part(int body, int loop) {
   return nullptr;
 }
 
+using BlockedFn = void (*)(const float*, const PartMeta, const PartChunks, int, int, int, int,
+                          float*);
+
+BlockedFn find_blocked(int body, int loop) {
+  switch (body * 3 + loop) {
+    case kShuffle * 3 + kStatic: return roll_part_blocked_kernel<kShuffle, kStatic>;
+    case kShuffle * 3 + kFori: return roll_part_blocked_kernel<kShuffle, kFori>;
+    case kShuffle * 3 + kNested: return roll_part_blocked_kernel<kShuffle, kNested>;
+    case kDirect * 3 + kStatic: return roll_part_blocked_kernel<kDirect, kStatic>;
+    case kDirect * 3 + kFori: return roll_part_blocked_kernel<kDirect, kFori>;
+    case kDirect * 3 + kNested: return roll_part_blocked_kernel<kDirect, kNested>;
+  }
+  return nullptr;
+}
+
 bool bad_part(int body, int loop) {
   return body < kShuffle || body > kDirect || loop < kStatic || loop > kNested;
+}
+
+// The meta read from host memory into m; false unless every s0 is in [0,
+// 4096), dst in [0, 512) and len in [0, 512].
+bool read_meta(const void* meta, PartMeta& m) {
+  const int* host = (const int*)meta;
+  for (int p = 0; p < kParts; ++p) {
+    for (int i = 0; i < 3; ++i) m.v[p][i] = host[p * 3 + i];
+    if (m.v[p][0] < 0 || m.v[p][0] >= kSm || m.v[p][1] < 0 || m.v[p][1] >= kOutCols ||
+        m.v[p][2] < 0 || m.v[p][2] > kOutCols) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// roll_part's checks, and its meta read into m; false on what the part
+// kernels do not take.
+bool part_args(const void* strips, const void* meta, int body, int loop, int niv, int nci,
+               int nrep, int npass, const void* out, PartMeta& m) {
+  if (bad_part(body, loop) || nrep <= 0 || npass <= 0 || niv < 0 || nci < 0 ||
+      ((uintptr_t)strips & 15u) != 0 || ((uintptr_t)out & 15u) != 0) {
+    return false;
+  }
+  return read_meta(meta, m);
+}
+
+// The chunks that some part of the structure writes, in order: one
+// roll_part_blocked CTA a copy for each.
+PartChunks blocked_chunks(const PartMeta& m, int loop, int niv, int nci) {
+  bool written[kChunks] = {};
+  if (loop == kNested) {
+    // (iv + ci) mod 16 takes every part it ever takes by iv, ci < 16
+    for (int iv = 0; iv < min(niv, kParts); ++iv) {
+      for (int ci = 0; ci < min(nci, kParts); ++ci) {
+        written[m.v[(iv + ci) & (kParts - 1)][1] >> 7] = true;
+      }
+    }
+  } else {
+    for (int p = 0; p < kParts; ++p) written[m.v[p][1] >> 7] = true;
+  }
+  PartChunks chunks{};
+  for (int c = 0; c < kChunks; ++c) {
+    if (written[c]) chunks.id[chunks.n++] = c;
+  }
+  return chunks;
 }
 
 }  // namespace
@@ -428,13 +617,17 @@ extern "C" {
 
 // Copies that fill every SM at the kernel's occupancy: kernel 0 roll_lanes
 // (variant: dynamic 1 or 0), 1 roll_part (variant: body * 3 + loop), 2
-// roll_lam; -1 for a kernel it has no instantiation of.
+// roll_lam; for kernel 3 roll_part_blocked (variant as 1) the (copy, chunk)
+// CTAs that do; -1 for a kernel it has no instantiation of.
 int micro_roll_fill(int kernel, int variant) {
   if (kernel == 0 && find_lanes(variant) != nullptr) {
     return fill_ctas(find_lanes(variant), kLaneThreads) * (kLaneThreads / 32);
   }
   if (kernel == 1 && variant >= 0 && !bad_part(variant / 3, variant % 3)) {
     return fill_ctas(find_part(variant / 3, variant % 3), 32);
+  }
+  if (kernel == 3 && variant >= 0 && !bad_part(variant / 3, variant % 3)) {
+    return fill_ctas(find_blocked(variant / 3, variant % 3), kBlockedThreads);
   }
   if (kernel == 2) return fill_ctas(roll_lam_kernel, kLamThreads);
   return -1;
@@ -459,22 +652,40 @@ int roll_lanes(const void* x, const void* shifts, int dynamic, int shift, int nt
 // (c), 1 fori x16 (d), 2 nested niv x nci (e).
 int roll_part(const void* strips, const void* meta, int body, int loop, int niv, int nci,
               int nrep, int npass, int pass_stride, void* out, void* stream) {
-  if (bad_part(body, loop) || nrep <= 0 || npass <= 0 || niv < 0 || nci < 0 ||
-      ((uintptr_t)strips & 15u) != 0 || ((uintptr_t)out & 15u) != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
   PartMeta m;
-  const int* host = (const int*)meta;
-  for (int p = 0; p < kParts; ++p) {
-    for (int i = 0; i < 3; ++i) m.v[p][i] = host[p * 3 + i];
-    if (m.v[p][0] < 0 || m.v[p][0] >= kSm || m.v[p][1] < 0 || m.v[p][1] >= kOutCols ||
-        m.v[p][2] < 0 || m.v[p][2] > kOutCols) {
-      return (int)cudaErrorInvalidValue;
-    }
+  if (!part_args(strips, meta, body, loop, niv, nci, nrep, npass, out, m)) {
+    return (int)cudaErrorInvalidValue;
   }
   PartFn fn = find_part(body, loop);
   fn<<<nrep, 32, 0, (cudaStream_t)stream>>>((const float*)strips, m, niv, nci, npass, pass_stride,
                                             (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// The CTAs a copy of roll_part_blocked runs for this meta (16, 3) int32 in
+// host memory and loop (0-2, as roll_part's), niv and nci: one for each
+// chunk that a part of the structure writes; -1 on what roll_part refuses.
+int roll_part_blocked_chunks(const void* meta, int loop, int niv, int nci) {
+  PartMeta m;
+  if (bad_part(kShuffle, loop) || niv < 0 || nci < 0 || !read_meta(meta, m)) return -1;
+  return blocked_chunks(m, loop, niv, nci).n;
+}
+
+// roll_part's function and arguments: CTAs of 4 warps (field f on warp f),
+// one for each copy and each chunk that a part of the structure writes;
+// refused where no part runs (e with niv or nci 0), which launches nothing.
+int roll_part_blocked(const void* strips, const void* meta, int body, int loop, int niv,
+                      int nci, int nrep, int npass, int pass_stride, void* out, void* stream) {
+  PartMeta m;
+  if (!part_args(strips, meta, body, loop, niv, nci, nrep, npass, out, m) ||
+      nrep > INT32_MAX / kChunks) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PartChunks chunks = blocked_chunks(m, loop, niv, nci);
+  if (chunks.n == 0) return (int)cudaErrorInvalidValue;
+  BlockedFn fn = find_blocked(body, loop);
+  fn<<<nrep * chunks.n, kBlockedThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)strips, m, chunks, niv, nci, npass, pass_stride, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -99,10 +99,13 @@ SIGNATURES = {
     "dense_loop": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "dense_mxu": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "dense_scr": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
-    # csrc/micro_roll.cu (micro_roll_fill returns a copy count)
+    # csrc/micro_roll.cu (micro_roll_fill returns a copy count, or for
+    # roll_part_blocked a CTA count; roll_part_blocked_chunks its CTAs a copy)
     "micro_roll_fill": [_I, _I],
+    "roll_part_blocked_chunks": [_P, _I, _I, _I],
     "roll_lanes": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "roll_part": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    **dict.fromkeys(("roll_part", "roll_part_blocked"),
+                    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "roll_lam": [_P, _P, _I, _I, _I, _F, _F, _F, _P, _P],
     "vpu_rot": [_P, _P, _P, _P],
     **dict.fromkeys(("vpu_unal", "vpu_dma"), [_P, _I, _P, _P]),

@@ -16,6 +16,10 @@ Port of `tools/micro_roll.py` (its `run`, row 7.19) and of three probes of
   (iv + ci) mod 16, in two bodies: `shuffle` (two aligned float4 windows,
   realigned by warp shuffles: what the TPU tool measures) and `direct`
   (unaligned 32-bit loads);
+* `roll_part_blocked`: the same six, laid out for Hopper: a warp per copy,
+  field and chunk that some part writes, the chunk held in registers from
+  one load to one store, lane l on columns l + 32k (shuffle: the two aligned
+  windows in 8 loads rolled by 4 shuffles; direct: 4 loads of AB[r + j]);
 * `roll_lam` (f `k_lam`): micro_dense's chunk_math over 4 chunks of 128 for
   32 rows, v = Σp6 + Σgx + Σgy + Σgz a row, added REP times;
 * `vpu_rot` (`rot_kernel`): roll(x, s, 1) on (8, 128), s read from memory;
@@ -31,7 +35,8 @@ leaves NaN there), so kernel, plain version and interpreted Pallas kernel
 agree bit for bit, NaN included.  The meta table is a CPU tensor, as the
 TPU's SMEM table is scalar memory: the launcher checks it and passes it by
 value.  The TPU kernels' REP loop rewrites one output (c-e) or adds one pure
-value (f); on the card REP copies are the grid (c-e, CTA r owns copy r) and
+value (f); on the card REP copies are the grid (c-e, CTA r owns copy r, or
+for the blocked kernel one CTA a copy and written chunk) and
 passes of one CTA (c-f, read at a run-time stride of 0, so none can be
 hoisted; f's acc adds each pass's v in the tool's order).
 
@@ -43,16 +48,19 @@ refuses the rest.
 The tool prints the card line; checks the SASS (cuobjdump: a)/b) 32 SHFL a
 trip, 4 a roll, and whether the 32 + 0.0 adds survive; vpu_rot 32 SHFL; each
 part body's loop its parts' float4 stores, shuffle 16 SHFL a part, direct 16
-32-bit loads a part, no local memory; f) 16 pairs a pass with `pbf_lambda`'s
-fp32 instructions a pair, opcode by opcode, beside the pass's reduction;
-vpu_unal 32-bit loads, vpu_dma cp.async copies and a barrier wait); holds each
-kernel against its plain version on the tool's inputs and on seeded ones
-(bit for bit, but f at rtol 1e-5); then reads a)/b) and the part bodies as
-the marginal between two trip or pass counts (CUDA events) for one copy (the
-TPU's sequence) and with the card filled, f) beside micro_dense's c) in the
-same run, and rows 7.13-7.15 by CUDA events and a CUDA graph of 100
-launches, beside torch.roll and x[:, o:o+128].contiguous(), while
-`nvidia-smi` samples the SM clock.  The last line is one JSON object.
+32-bit loads a part; each blocked body's loop no store, shuffle 4 SHFL and 8
+32-bit loads a visit, direct 4 32-bit loads; no local memory; f) 16 pairs a
+pass with `pbf_lambda`'s fp32 instructions a pair, opcode by opcode, beside
+the pass's reduction; vpu_unal 32-bit loads, vpu_dma cp.async copies and a
+barrier wait); holds each kernel against its plain version on the tool's
+inputs and on seeded ones (bit for bit, but f at rtol 1e-5; the blocked part
+kernels also against roll_part); then reads a)/b) and the part bodies as the
+marginal between two trip or pass counts (CUDA events) for one copy (the
+TPU's sequence), at the JAX call's 512 copies (the part bodies) and with the
+card filled, f) beside micro_dense's c) in the same run, and rows
+7.13-7.15 by CUDA events and a CUDA graph of 100 launches, beside
+torch.roll and x[:, o:o+128].contiguous(), while `nvidia-smi` samples the
+SM clock.  The last line is one JSON object.
 Without a CUDA device the tool fails.
 """
 
@@ -104,8 +112,8 @@ LOOP_ID = {"c": 0, "d": 1, "e": 2}
 BODY_ID = {"shuffle": 0, "direct": 1}
 NAMES = {"a": "dynamic roll x8", "b": "static roll x8", "c": "static x16 parts",
          "d": "fori x16 parts", "e": "nested fori 9x2", "f": "dense lambda 4 chunks"}
-KERNELS = ("roll_lanes", "roll_part_shuffle", "roll_part_direct", "roll_lam", "vpu_rot",
-           "vpu_unal", "vpu_dma")
+KERNELS = ("roll_lanes", "roll_part_shuffle", "roll_part_direct", "roll_part_blocked_shuffle",
+           "roll_part_blocked_direct", "roll_lam", "vpu_rot", "vpu_unal", "vpu_dma")
 VPU = ("vpu_rot", "vpu_unal", "vpu_dma")
 
 # the readings: the marginal's two sizes (trips of a/b, passes of c-f)
@@ -349,6 +357,14 @@ def valid_columns(dst: int, ln: int) -> Tuple[int, np.ndarray]:
     return c, (cols >= dst) & (cols < dst + ln)
 
 
+def part_chunks(label: str, meta) -> List[int]:
+    """The chunks that some part of the structure writes, in order: the
+    tests' mirror of the choice that `roll_part_blocked`'s launcher makes
+    (`blocked_chunks` asks the launcher itself)."""
+    m = check_meta(meta)
+    return sorted({int(m[p, 1]) // W for p in part_order(label)})
+
+
 def part_plain(label: str, x: PartInputs, nrep: int = 1, npass: int = 1):
     """(nrep, 4, 512) of c)/d)/e) on an output that starts as NaN: each pass
     runs the structure's parts in order, each merging its rolled window
@@ -460,11 +476,7 @@ def lanes_kernel(label: str, x: LanesInputs, ntrips: int = N, ncopies: int = 1):
     return out
 
 
-def part_kernel(label: str, body: str, x: PartInputs, nrep: int = 1, npass: int = 1,
-                out=None):
-    """(nrep, 4, 512) from `roll_part` (body `shuffle` or `direct`), one
-    warp a copy, on `out` (NaN-filled here when None; the kernel writes only
-    the parts' columns, and passes again give the same)."""
+def _part_launch(name: str, label: str, body: str, x: PartInputs, nrep: int, npass: int, out):
     if body not in PART_BODIES:
         raise ValueError(f"part body {body!r} is not one of {PART_BODIES}")
     meta = _check_part(label, x, nrep, npass)
@@ -474,9 +486,35 @@ def part_kernel(label: str, body: str, x: PartInputs, nrep: int = 1, npass: int 
                          out=(out, torch.float32, (nrep, FIELDS, OUT_COLS)))
     _aligned("strips", x.strips)
     _aligned("out", out)
-    _launch("roll_part", dev, x.strips.data_ptr(), meta.ctypes.data, BODY_ID[body],
-            LOOP_ID[label], NIV, NCI, nrep, npass, PASS_STRIDE, out.data_ptr())
+    _launch(name, dev, x.strips.data_ptr(), meta.ctypes.data, BODY_ID[body], LOOP_ID[label],
+            NIV, NCI, nrep, npass, PASS_STRIDE, out.data_ptr())
     return out
+
+
+def part_kernel(label: str, body: str, x: PartInputs, nrep: int = 1, npass: int = 1,
+                out=None):
+    """(nrep, 4, 512) from `roll_part` (body `shuffle` or `direct`), one
+    warp a copy, on `out` (NaN-filled here when None; the kernel writes only
+    the parts' columns, and passes again give the same)."""
+    return _part_launch("roll_part", label, body, x, nrep, npass, out)
+
+
+def part_blocked_kernel(label: str, body: str, x: PartInputs, nrep: int = 1, npass: int = 1,
+                        out=None):
+    """`part_kernel`'s output from `roll_part_blocked`: one warp a copy,
+    field and chunk that a part of the structure writes (`blocked_chunks`),
+    the merge in registers from one load of the chunk to one store."""
+    return _part_launch("roll_part_blocked", label, body, x, nrep, npass, out)
+
+
+def blocked_chunks(label: str, meta) -> int:
+    """The CTAs a copy of `roll_part_blocked` runs on this meta, as its
+    launcher counts them: one for each chunk that a part writes."""
+    m = check_meta(meta)
+    n = cuda_build.library().roll_part_blocked_chunks(m.ctypes.data, LOOP_ID[label], NIV, NCI)
+    if n <= 0:
+        raise ValueError(f"roll_part_blocked runs no chunk of {label} on this meta")
+    return n
 
 
 def lam_kernel(x: LamInputs, nrep: int = 1, npass: int = REP):
@@ -548,6 +586,14 @@ class MicroRoll:
                          lambda: part_plain(label, x, nrep, npass),
                          lambda: part_kernel(label, body, x, nrep, npass, out))
 
+    def part_blocked(self, label: str, body: str, x: PartInputs, nrep: int = 1, npass: int = 1,
+                     out=None):
+        if body not in PART_BODIES:
+            raise ValueError(f"part body {body!r} is not one of {PART_BODIES}")
+        return self._run(f"roll_part_blocked_{body}", x.strips.device.type == "cpu",
+                         lambda: part_plain(label, x, nrep, npass),
+                         lambda: part_blocked_kernel(label, body, x, nrep, npass, out))
+
     def lam(self, x: LamInputs, nrep: int = 1, npass: int = REP):
         return self._run("roll_lam", x.rows.device.type == "cpu",
                          lambda: lam_plain(x, nrep, npass), lambda: lam_kernel(x, nrep, npass))
@@ -572,7 +618,8 @@ class MicroRoll:
 
 def pattern(name: str) -> str:
     """The mangled-name piece of a kernel: "a", "b", "f", a VPU name, or
-    "<structure> <body>" of a part kernel."""
+    "<structure> <body>" of a part kernel ("<structure> <body> blocked" of
+    the redesign)."""
     if name in LANES:
         return f"17roll_lanes_kernelILi{int(name == 'a')}E"
     if name == "f":
@@ -580,8 +627,9 @@ def pattern(name: str) -> str:
     if name in VPU:
         return {"vpu_rot": "14vpu_rot_kernel", "vpu_unal": "15vpu_unal_kernel",
                 "vpu_dma": "14vpu_dma_kernel"}[name]
-    label, body = name.split()
-    return f"16roll_part_kernelILi{BODY_ID[body]}ELi{LOOP_ID[label]}E"
+    label, body, *blocked = name.split()
+    kernel = "24roll_part_blocked_kernel" if blocked else "16roll_part_kernel"
+    return f"{kernel}ILi{BODY_ID[body]}ELi{LOOP_ID[label]}E"
 
 
 def _ops(sass: ar.Sass, span=None) -> List[str]:
@@ -627,7 +675,11 @@ def check_funcs(funcs) -> Dict[str, dict]:
     `plus_zero_kept` whether its 32 + 0.0 FADDs survive.  vpu_rot: 32 SHFL.
     Each part kernel: the loop of its structure holds its parts' float4
     stores (c: 16 parts a pass, d/e: one), shuffle 16 SHFL and 12 float4
-    loads a part, direct 16 32-bit loads, 4 float4 loads and no SHFL.  f):
+    loads a part, direct 16 32-bit loads, 4 float4 loads and no SHFL.  Each
+    blocked one: the loop of its structure holds its visits (a part on one
+    field; c: 16 a pass, d/e: one), shuffle 4 SHFL and 8 32-bit loads a
+    visit, direct 4 32-bit loads and no SHFL, and no store: the output is
+    loaded before the pass loop and stored after it.  f):
     the pass loop holds 16 MUFU.RSQ and, beside its reduction (LAM_REDUCE),
     `pbf_lambda`'s fp32 instructions a pair, opcode by opcode.  vpu_unal: 4
     32-bit loads and stores, no asynchronous copy; vpu_dma: 4 cp.async copies
@@ -660,6 +712,21 @@ def check_funcs(funcs) -> Dict[str, dict]:
             r = {f"{k}_a_part": v for k, v in r.items()}
             r["ok"] = all(r[f"{k}_a_part"] == v for k, v in want.items()) and _no_local(sass)
             report[f"{label} {body}"] = r
+    for label in PARTS:
+        visits = NPART if label == "c" else 1
+        for body in PART_BODIES:
+            sass = ar._one(funcs, pattern(f"{label} {body} blocked"))
+            span, c = _loop_with(sass, "SHFL" if body == "shuffle" else "LDG.32")
+            r = {k: c.get(k, 0) / visits for k in ("SHFL", "LDG.128", "LDG.32", "STG.128",
+                                                    "STG.32")}
+            r["insts"] = len(_ops(sass, span)) / visits if span else 0
+            want = ({"SHFL": 4, "LDG.128": 0, "LDG.32": 8} if body == "shuffle"
+                    else {"SHFL": 0, "LDG.128": 0, "LDG.32": 4})
+            want.update({"STG.128": 0, "STG.32": 0})
+            r = {f"{k}_a_visit": v for k, v in r.items()}
+            r["ok"] = (span is not None and _no_local(sass)
+                       and all(r[f"{k}_a_visit"] == v for k, v in want.items()))
+            report[f"{label} {body} blocked"] = r
     sass = ar._one(funcs, pattern("f"))
     span, c = _loop_with(sass, "MUFU.RSQ")
     phase = ar.fp32_per_pair(ar.pair_loop(ar._one(funcs, ar.PHASE_KERNELS["lambda"])))
@@ -723,7 +790,8 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     ones (the shift table with SEEDED_SHIFTS and WRAPPED_SHIFTS, meta that
     reaches the bb clamp, chunk crossings and overlaps, every shift and
     offset of SEEDED_SHIFTS, WRAPPED_SHIFTS and SEEDED_OFFSETS); a)-e) and
-    rows 7.13-7.15 bit for bit, NaN in the same places, and a)/b) also on an
+    rows 7.13-7.15 bit for bit, NaN in the same places (the blocked part
+    kernels against both part_plain and roll_part), and a)/b) also on an
     x of -0.0, whose sum the trips' + 0.0 makes +0.0; f) rtol 1e-5, atol
     1e-5 x max|value| (fp32 sums of mixed-sign terms in the kernel's order,
     a lane's columns then a warp-shuffle tree, against Pallas's per-column
@@ -739,8 +807,11 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
         for label in PARTS:
             want = part_plain(label, xp, PARITY_REPS, 2)
             for body in PART_BODIES:
-                res[f"{label} {body} {case}"] = bit_equal(
-                    part_kernel(label, body, xp, PARITY_REPS, 2), want)
+                orig = part_kernel(label, body, xp, PARITY_REPS, 2)
+                res[f"{label} {body} {case}"] = bit_equal(orig, want)
+                got = part_blocked_kernel(label, body, xp, PARITY_REPS, 2)
+                err, ok = bit_equal(got, want)
+                res[f"{label} {body} blocked {case}"] = (err, ok and bit_equal(got, orig)[1])
         res[f"f {case}"] = close(lam_kernel(xf, PARITY_REPS), lam_plain(xf))
     zeros = LanesInputs(torch.full((ROWS, W), -0.0, device=device), lanes_inputs(device).shifts)
     for label in LANES:
@@ -786,13 +857,17 @@ def rot_work(x, s) -> dict:
 
 
 def part_work(label: str, x: PartInputs, nrep: int = 1, npass: int = 1) -> dict:
-    """What c)/d)/e) need: each part reads the window's valid columns from
-    the strip and writes them, 4 fields, as 32-bit lane accesses; the strip
-    and meta read once, the copies written once."""
+    """What c)/d)/e) need: each part of each pass reads the window's valid
+    columns from the strip, and a copy writes the columns that some part
+    writes once, 4 fields, as 32-bit lane accesses; the strip and meta read
+    once, the copies written once."""
     meta = check_meta(x.meta)
-    cols = sum(int(valid_columns(int(meta[p, 1]), int(meta[p, 2]))[1].sum())
-               for p in part_order(label))
-    return dict(lsu=nrep * npass * 2 * FIELDS * cols,
+    masks = [valid_columns(int(meta[p, 1]), int(meta[p, 2])) for p in part_order(label)]
+    cols = sum(int(valid.sum()) for _, valid in masks)
+    written = np.zeros(OUT_COLS, bool)
+    for c, valid in masks:
+        written[c * W:(c + 1) * W] |= valid
+    return dict(lsu=nrep * FIELDS * (npass * cols + int(written.sum())),
                 bytes=nbytes(x.strips, x.meta) + nrep * FIELDS * OUT_COLS * 4)
 
 
@@ -826,14 +901,17 @@ def bound_ms(w: dict, mhz: float, sms: int) -> Tuple[float, str]:
 
 def fill_copies(device, kernel: str, label: str = "a", body: str = "shuffle") -> int:
     """Copies that fill every SM at the kernel's occupancy: kernel "lanes"
-    (label a/b), "part" (label c/d/e, body) or "lam"."""
-    kid, variant = {"lanes": (0, int(label == "a")),
-                    "part": (1, 3 * BODY_ID.get(body, -1) + LOOP_ID.get(label, 0)),
+    (label a/b), "part" or "part_blocked" (label c/d/e, body; a blocked
+    copy is a CTA for each chunk the tool's parts write) or "lam"."""
+    part = 3 * BODY_ID.get(body, -1) + LOOP_ID.get(label, 0)
+    kid, variant = {"lanes": (0, int(label == "a")), "part": (1, part), "part_blocked": (3, part),
                     "lam": (2, 0)}[kernel]
     with torch.cuda.device(device):
         n = cuda_build.library().micro_roll_fill(kid, variant)
     if n <= 0:
         raise ValueError(f"csrc/micro_roll.cu has no {kernel} kernel {label} {body}")
+    if kernel == "part_blocked":
+        return -(-n // blocked_chunks(label, torch.from_numpy(tool_meta())))
     return n
 
 
@@ -849,16 +927,20 @@ def read_lanes(mr: MicroRoll, label: str, x: LanesInputs, ncopies: int, reps: in
 
 
 def read_part(mr: MicroRoll, label: str, body: str, x: PartInputs, ncopies: int,
-              reps: int) -> dict:
-    """A part body through `mr`: the marginal over PASSES at `ncopies`
-    copies, on one NaN-filled output; ns a part of one copy, parts/s of the
-    card."""
+              reps: int, blocked: bool = False) -> dict:
+    """A part body (`blocked`: the blocked kernel's) through `mr`: the
+    marginal over PASSES at `ncopies` copies, on one NaN-filled output; ns a
+    part of one copy, parts/s of the card, and that output at the end
+    against `part_plain` (passes again give the same): max abs err and bit
+    for bit, NaN in place."""
     out = torch.full((ncopies, FIELDS, OUT_COLS), float("nan"), device=x.strips.device)
-    dt, t_lo, t_hi = ar.marginal(lambda n: mr.part(label, body, x, ncopies, n, out),
-                                 PASSES, reps)
+    run = mr.part_blocked if blocked else mr.part
+    dt, t_lo, t_hi = ar.marginal(lambda n: run(label, body, x, ncopies, n, out), PASSES, reps)
     parts = (PASSES[1] - PASSES[0]) * len(part_order(label))
+    err, same = bit_equal(out, part_plain(label, x, ncopies))
     return dict(copies=ncopies, passes=list(PASSES), ms=[t_lo, t_hi],
-                ns_per_part=dt * 1e9 / parts, parts_per_s=ncopies * parts / dt)
+                ns_per_part=dt * 1e9 / parts, parts_per_s=ncopies * parts / dt,
+                max_abs_err=err, bit_equal=same)
 
 
 def read_lam(mr: MicroRoll, x: LamInputs, ncopies: int, reps: int) -> dict:
@@ -884,8 +966,9 @@ def read_launch(fn, reps: int = 100) -> dict:
 
 def read_all(mr: MicroRoll, device, reps: int) -> dict:
     """Every reading through `mr` (counted) at the tools' inputs, with the
-    SM clock sampled: a)/b) and each part body and structure for one copy and
-    with the card filled (c-e also at the JAX call's REP copies), f) beside
+    SM clock sampled: a)/b) and each part body and structure, original and
+    blocked, for one copy and with the card filled (c-e also at the JAX
+    call's REP copies), f) beside
     micro_dense's c) in the same run, and rows 7.13-7.15 beside their
     library calls."""
     xl, xp, xf, xv = (lanes_inputs(device), part_inputs(device), lam_inputs(device),
@@ -898,10 +981,11 @@ def read_all(mr: MicroRoll, device, reps: int) -> dict:
                 for geo, n in (("copy", 1), ("fill", fill_copies(device, "lanes", label)))}
         for label in PARTS:
             for body in PART_BODIES:
-                res["parts"][f"{label} {body}"] = {
-                    geo: read_part(mr, label, body, xp, n, reps)
-                    for geo, n in (("copy", 1), ("jax", REP),
-                                   ("fill", fill_copies(device, "part", label, body)))}
+                for kernel, blocked in (("part", False), ("part_blocked", True)):
+                    res["parts"][f"{label} {body}" + " blocked" * blocked] = {
+                        geo: read_part(mr, label, body, xp, n, reps, blocked)
+                        for geo, n in (("copy", 1), ("jax", REP),
+                                       ("fill", fill_copies(device, kernel, label, body)))}
         res["lam"] = {geo: read_lam(mr, xf, n, reps)
                       for geo, n in (("copy", 1), ("fill", fill_copies(device, "lam")))}
         res["dense_c"] = md.read_body(md.MicroDense(), "c", md.tool_inputs(device=device), "jax",
@@ -946,6 +1030,11 @@ def main(argv=None) -> int:
 
     mr = MicroRoll()
     res = read_all(mr, device, reps)
+    wrong = [f"{name} {geo}" for name, r in res["parts"].items() for geo, g in r.items()
+             if not g["bit_equal"]]
+    if wrong:
+        raise SystemExit(f"micro_roll: the outputs of the readings {wrong} are not part_plain's")
+    print("== every part body reading's output is part_plain's, bit for bit, NaN in place")
     mhz = mch.sm_clock_mhz(res["clocks_sm_mhz"], device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     xl, xp, xf = lanes_inputs(device), part_inputs(device), lam_inputs(device)
@@ -962,16 +1051,21 @@ def main(argv=None) -> int:
               f"{full['rolls_per_s'] / 1e9:.2f} G rolls/s, {shfl / dt / (sms * mhz * 1e6):.3f} "
               f"SHFL a clock an SM; bound {bms:.4f} ms by {by} at {N} trips")
     print(f"== c)/d)/e) part bodies (marginal over passes {PASSES}; copy = one warp walking "
-          f"the parts in order, jax = {REP} copies, fill = the card at occupancy)")
+          f"the parts in order, blocked = 4 warps a chunk; jax = {REP} copies, fill = the card "
+          f"at occupancy)")
     for name, geo in res["parts"].items():
         label = name.split()[0]
-        full = geo["fill"]
+        full, jax = geo["fill"], geo["jax"]
         bms, by = bound_ms(part_work(label, xp, full["copies"], PASSES[1]), mhz, sms)
-        print(f"  {name:11s} ({NAMES[label]}): copy {geo['copy']['ns_per_part']:7.2f} ns/part; "
-              f"jax {geo['jax']['ns_per_part']:.4f} ns/part ({geo['jax']['parts_per_s'] / 1e9:.2f} "
-              f"G parts/s); fill {full['parts_per_s'] / 1e9:.2f} G parts/s; bound {bms:.4f} ms "
-              f"by {by} at {full['copies']} copies x {PASSES[1]} passes (kernel "
-              f"{full['ms'][1]:.4f} ms)")
+        jax_bms, _ = bound_ms(part_work(label, xp, REP, PASSES[1]), mhz, sms)
+        orig = res["parts"].get(name.removesuffix(" blocked")) if name.endswith("blocked") \
+            else None
+        gain = f", {orig['jax']['ms'][1] / jax['ms'][1]:.3f}x the original" if orig else ""
+        print(f"  {name:19s} ({NAMES[label]}): copy {geo['copy']['ns_per_part']:7.2f} ns/part; "
+              f"jax {jax['ns_per_part']:.4f} ns/part ({jax['parts_per_s'] / 1e9:.2f} G parts/s, "
+              f"{jax['ms'][1]:.4f} ms, {jax_bms / jax['ms'][1]:.3f} of its bound{gain}); fill "
+              f"{full['parts_per_s'] / 1e9:.2f} G parts/s; bound {bms:.4f} ms by {by} at "
+              f"{full['copies']} copies x {PASSES[1]} passes (kernel {full['ms'][1]:.4f} ms)")
     lam, dc = res["lam"], res["dense_c"]
     bms, by = bound_ms(lam_work(xf, lam["fill"]["copies"], LAM_PASSES[1]), mhz, sms)
     print(f"== f) {NAMES['f']}: copy {lam['copy']['ns_per_subblock']:.1f} ns/subblock "

@@ -1092,6 +1092,41 @@ def test_roll_part_kernel_matches_plain(card, label, body):
         assert torch.isnan(got).any() and not torch.isnan(got).all()
 
 
+@pytest.mark.parametrize("body", mr.PART_BODIES)
+@pytest.mark.parametrize("label", mr.PARTS)
+def test_roll_part_blocked_matches_roll_part(card, label, body):
+    """The blocked kernel gives roll_part's bits and part_plain's, NaN in
+    place, on the tool's inputs and three seeds, at 1, 3 and 513 copies and
+    1 and 2 passes."""
+    for x in (mr.part_inputs(card), *(mr.random_part_inputs(s, card) for s in range(3))):
+        for nrep in (1, 3, 513):
+            for npass in (1, 2):
+                got = mr.part_blocked_kernel(label, body, x, nrep, npass)
+                want = mr.part_kernel(label, body, x, nrep, npass)
+                assert mr.bit_equal(got, want)[1], (nrep, npass)
+                assert mr.bit_equal(got, mr.part_plain(label, x, nrep, npass))[1], (nrep, npass)
+
+
+def test_roll_part_blocked_chunks_is_the_launchers(card):
+    """The launcher's own count of CTAs a copy is part_chunks', the tests'
+    mirror, on the tool's meta and five seeds; where no part runs (e) with
+    niv or nci 0) it launches nothing and refuses."""
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    for meta in (torch.from_numpy(mr.tool_meta()),
+                 *(mr.random_part_inputs(s).meta for s in range(5))):
+        for label in mr.PARTS:
+            assert mr.blocked_chunks(label, meta) == len(mr.part_chunks(label, meta))
+    lib, x = cuda_build.library(), mr.part_inputs(card)
+    m = mr.check_meta(x.meta)
+    assert lib.roll_part_blocked_chunks(m.ctypes.data, mr.LOOP_ID["e"], 0, mr.NCI) == 0
+    out = torch.full((1, mr.FIELDS, mr.OUT_COLS), float("nan"), device=card)
+    err = lib.roll_part_blocked(x.strips.data_ptr(), m.ctypes.data, mr.BODY_ID["direct"],
+                                mr.LOOP_ID["e"], 0, mr.NCI, 1, 1, 0, out.data_ptr(),
+                                torch.cuda.current_stream(card).cuda_stream)
+    assert err != 0 and torch.isnan(out).all()
+
+
 def test_roll_lam_kernel_matches_plain(card):
     for x in (mr.lam_inputs(card), mr.random_lam_inputs(3, card)):
         for npass in (0, 1, 7):
@@ -1121,12 +1156,14 @@ def test_roll_wrappers_count_kernel_launches(card):
     for label in mr.PARTS:
         for body in mr.PART_BODIES:
             roll.part(label, body, xp)
+            roll.part_blocked(label, body, xp)
     roll.lam(xf, 1, 2)
     roll.rot(xv.tile, xv.shift)
     roll.unal(xv.wide, xv.offset)
     roll.dma(xv.wide, xv.offset)
     torch.cuda.synchronize()
     assert roll.launches == {"roll_lanes": 2, "roll_part_shuffle": 3, "roll_part_direct": 3,
+                             "roll_part_blocked_shuffle": 3, "roll_part_blocked_direct": 3,
                              "roll_lam": 1, "vpu_rot": 1, "vpu_unal": 1, "vpu_dma": 1}
     for o in (-1, 385):
         with pytest.raises(ValueError, match="offset"):
@@ -1135,7 +1172,10 @@ def test_roll_wrappers_count_kernel_launches(card):
     meta[4, 0] = mr.SM
     with pytest.raises(ValueError, match="part 4: s0"):
         roll.part("c", "shuffle", mr.PartInputs(xp.strips, meta))
+    with pytest.raises(ValueError, match="part 4: s0"):
+        roll.part_blocked("c", "direct", mr.PartInputs(xp.strips, meta))
     assert roll.launches["vpu_dma"] == 1 and roll.launches["roll_part_shuffle"] == 3
+    assert roll.launches["roll_part_blocked_direct"] == 3
 
 
 def test_micro_roll_sass_is_full(card):
@@ -1143,7 +1183,7 @@ def test_micro_roll_sass_is_full(card):
 
     cuda_build.library()
     report = mr.check_sass(cuda_build.library_path())
-    assert len(report) == 2 + 1 + 6 + 1 + 2
+    assert len(report) == 2 + 1 + 6 + 6 + 1 + 2
     assert mr.short(report) == [], report
 
 

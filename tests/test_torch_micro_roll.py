@@ -189,15 +189,104 @@ def test_lanes_make_minus_zero_plus_zero():
 @pytest.mark.parametrize("case", ["tool", "seeded"])
 @pytest.mark.parametrize("label", mr.PARTS)
 def test_parts_match_pallas(label, case):
+    """Both part wrappers, the original's and the blocked one's, take
+    part_plain on CPU tensors and launch nothing."""
     _, on_tool, on_seeded, _ = roll_outputs()[label]
     x = mr.part_inputs() if case == "tool" else mr.random_part_inputs(SEED)
     wrappers = mr.MicroRoll()
-    for body in mr.PART_BODIES:
-        got = wrappers.part(label, body, x, nrep=2, npass=2)
-        assert got.shape == (2, mr.FIELDS, mr.OUT_COLS)
-        for copy in got:
-            assert_bits(copy, on_tool if case == "tool" else on_seeded)
+    for run in (wrappers.part, wrappers.part_blocked):
+        for body in mr.PART_BODIES:
+            got = run(label, body, x, nrep=2, npass=2)
+            assert got.shape == (2, mr.FIELDS, mr.OUT_COLS)
+            for copy in got:
+                assert_bits(copy, on_tool if case == "tool" else on_seeded)
     assert wrappers.launches == dict.fromkeys(mr.KERNELS, 0)
+
+
+def blocked_mirror(label, x, npass):
+    """(4, 512) as the blocked kernel decomposes it, and the chunks some
+    part writes: each (field, chunk) alone, its 128 columns taken once
+    from the NaN-filled output, the structure's parts walked in order, those
+    of other chunks skipped, each merged by a select of the unaligned window
+    AB[r .. r + 128), and put back once after the last pass."""
+    strips, meta = x.strips.numpy(), x.meta.numpy()
+    w = mr.W
+    out = np.full((mr.FIELDS, mr.OUT_COLS), np.nan, np.float32)
+    written = set()
+    for f in range(mr.FIELDS):
+        for c in range(mr.OUT_COLS // w):
+            v = out[f, c * w:(c + 1) * w].copy()
+            cols = c * w + np.arange(w)
+            for _ in range(npass):
+                for p in mr.part_order(label):
+                    s0, dst, ln = (int(a) for a in meta[p])
+                    if dst // w != c:
+                        continue
+                    written.add(c)
+                    r = s0 % w
+                    ba = s0 - r
+                    bb = min(ba + w, mr.SM - w)
+                    ab = np.concatenate([strips[f, ba:ba + w], strips[f, bb:bb + w]])
+                    v = np.where((cols >= dst) & (cols < dst + ln), ab[r:r + w], v)
+            out[f, c * w:(c + 1) * w] = v
+    return out, sorted(written)
+
+
+@pytest.mark.parametrize("case", ["tool", 0, 1, 2, 3, 4])
+@pytest.mark.parametrize("label", mr.PARTS)
+def test_blocked_decomposition_is_part_plain(label, case):
+    """The (field, chunk) pieces of a copy are independent: walked alone,
+    each skipping the other chunks' parts, they give part_plain bit for bit,
+    NaN in place, on the tool's meta and on random_meta's seeds (the bb
+    clamp, chunk crossings, overlaps in both orders, an empty part, chunk
+    3's last writer); the chunks written are `part_chunks`, the blocked
+    kernel's CTAs."""
+    x = mr.part_inputs() if case == "tool" else mr.random_part_inputs(case)
+    got, written = blocked_mirror(label, x, 2)
+    assert_bits(got, mr.part_plain(label, x, 1, 2)[0])
+    assert written == mr.part_chunks(label, x.meta)
+    assert np.isnan(got).any() and not np.isnan(got).all()
+
+
+def test_blocked_window_index_arithmetic():
+    """The blocked kernel's two window reads, in numpy on every s0 of the
+    strip, lane l holding columns j = l + 32k, give `rolled_window`'s
+    AB[r .. r + 128): direct's one index ba + ((r + j) & mask), mask 127
+    where the clamp makes B = A, else 255; shuffle's roll of the 8 aligned
+    slots (A[t + 32i], B[t + 32i] on lane t), sender t = (l + r) mod 32
+    sending slot k + (r >> 5) + [t < r mod 32]."""
+    w = mr.W
+    strip = torch.arange(mr.SM, dtype=torch.float32).expand(mr.FIELDS, -1)
+    s0 = np.arange(mr.SM)[:, None, None]
+    lane, k = np.arange(32)[None, :, None], np.arange(4)[None, None, :]
+    r = s0 % w
+    ba = s0 - r
+    bb = np.minimum(ba + w, mr.SM - w)
+    want = np.stack([mr.rolled_window(strip, int(s))[0].numpy() for s in s0.ravel()])
+    want = want.reshape(mr.SM, 4, 32).transpose(0, 2, 1)      # [s0, l, k] = column l + 32k
+    mask = np.where(ba == mr.SM - w, w - 1, 2 * w - 1)
+    np.testing.assert_array_equal(ba + ((r + lane + 32 * k) & mask), want)
+    rq, rr = r >> 5, r & 31
+    t = (lane + rr) & 31
+    slot = k + rq + (t < rr)
+    assert slot.max() == 7
+    np.testing.assert_array_equal(np.where(slot < 4, ba + t + 32 * slot, bb + t + 32 * (slot - 4)),
+                                  want)
+
+
+def test_tool_meta_writes_three_chunks():
+    """dst = 97p mod 384: parts 0, 1, 4, 5, 8, 9, 12, 13 in chunk 0, 2, 6,
+    10, 14 in chunk 1, 3, 7, 11, 15 in chunk 2, none in chunk 3, so the
+    blocked kernel runs 3 CTAs of 4 warps a copy; e)'s parts 0-9 reach the
+    same three."""
+    meta = mr.tool_meta()
+    chunks = {c: [p for p in range(mr.NPART) if meta[p, 1] // mr.W == c] for c in range(4)}
+    assert chunks == {0: [0, 1, 4, 5, 8, 9, 12, 13], 1: [2, 6, 10, 14], 2: [3, 7, 11, 15], 3: []}
+    for label in mr.PARTS:
+        assert mr.part_chunks(label, torch.from_numpy(meta)) == [0, 1, 2]
+    one = meta.copy()
+    one[:, 1] = 3 * mr.W + 5
+    assert mr.part_chunks("e", torch.from_numpy(one)) == [3]
 
 
 def test_e_differs_from_c_and_c_equals_d():
@@ -383,15 +472,21 @@ def test_parts_refuse_meta_outside_the_buffers():
         meta = x.meta.clone()
         meta[p, col] = value
         bad = mr.PartInputs(x.strips, meta)
-        for fn in (lambda: mr.part_plain("c", bad), lambda: mr.part_kernel("d", "shuffle", bad)):
+        for fn in (lambda: mr.part_plain("c", bad), lambda: mr.part_kernel("d", "shuffle", bad),
+                   lambda: mr.part_blocked_kernel("e", "direct", bad),
+                   lambda: mr.part_chunks("c", bad.meta)):
             with pytest.raises(ValueError, match=f"part {p}: {what}"):
                 fn()
     with pytest.raises(ValueError, match="CPU tensor"):
         mr.part_plain("c", mr.PartInputs(x.strips, x.meta.long()))
     with pytest.raises(ValueError, match="not one of"):
         mr.part_plain("x", x)
-    with pytest.raises(ValueError, match="not one of"):
-        mr.MicroRoll().part("c", "gather", x)
+    for run in (mr.MicroRoll().part, mr.MicroRoll().part_blocked, mr.part_blocked_kernel):
+        with pytest.raises(ValueError, match="not one of"):
+            run("c", "gather", x)
+    for kernel in (mr.part_kernel, mr.part_blocked_kernel):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernel("c", "shuffle", x)
 
 
 def test_rot_takes_every_int32_shift():
@@ -434,9 +529,10 @@ def test_lanes_compose_their_shifts():
 
 def test_bound_counts_the_functions_work():
     """a) at the tool's shifts moves lanes on 62 of each 64 trips (32 and 64
-    move whole slots); b)'s 37 on every trip; a part reads and writes its
-    valid columns (the tool's 16 parts: 90 columns each but the chunk
-    crossings); f) 19 fp32 + 1 MUFU a pair; at 1980 MHz on 132 SMs b) at
+    move whole slots); b)'s 37 on every trip; a part reads its valid
+    columns each pass (the tool's 16 parts: 90 columns each but
+    the chunk crossings) and a copy writes the columns some part writes
+    once; f) 19 fp32 + 1 MUFU a pair; at 1980 MHz on 132 SMs b) at
     8192 trips and 1 copy needs 262,144 SHFL, 1.003 us."""
     xl = mr.lanes_inputs()
     a, b = mr.lanes_work("a", xl, 128), mr.lanes_work("b", xl, 128)
@@ -446,10 +542,19 @@ def test_bound_counts_the_functions_work():
     xp = mr.part_inputs()
     cols = sum(int(mr.valid_columns(int(d), 90)[1].sum()) for d in xp.meta[:, 1])
     assert cols < 16 * 90
-    assert mr.part_work("d", xp, 2, 3)["lsu"] == 2 * 3 * 2 * 4 * cols
-    e_cols = sum(int(mr.valid_columns(int(xp.meta[p, 1]), 90)[1].sum())
-                 for p in mr.part_order("e"))
-    assert mr.part_work("e", xp)["lsu"] == 2 * 4 * e_cols
+    written = np.zeros(mr.OUT_COLS, bool)
+    for d in xp.meta[:, 1]:
+        c, valid = mr.valid_columns(int(d), 90)
+        written[c * mr.W:(c + 1) * mr.W] |= valid
+    assert 0 < written.sum() <= 3 * mr.W
+    assert mr.part_work("d", xp, 2, 3)["lsu"] == 2 * 4 * (3 * cols + written.sum())
+    e_parts = mr.part_order("e")
+    e_cols = sum(int(mr.valid_columns(int(xp.meta[p, 1]), 90)[1].sum()) for p in e_parts)
+    e_written = np.zeros(mr.OUT_COLS, bool)
+    for p in e_parts:
+        c, valid = mr.valid_columns(int(xp.meta[p, 1]), 90)
+        e_written[c * mr.W:(c + 1) * mr.W] |= valid
+    assert mr.part_work("e", xp)["lsu"] == 4 * (e_cols + e_written.sum())
     w = mr.lam_work(mr.lam_inputs(), 4, 512)
     pairs = 4 * 512 * 32 * 512
     assert w["mufu"] == pairs and w["fp32"] == 19 * pairs + 4 * 512 * 32 * 4
@@ -507,6 +612,22 @@ def part(body):
                      "STG.E.128 [R10.64], R8"]) * 4
 
 
+def visit(body):
+    """A blocked kernel's visit: one part on one field, merged by select."""
+    if body == "shuffle":
+        loads = ["LDG.E.CONSTANT R4, [R2.64]"] * 8 + ["FSEL R1, R2, R3, P0"] * 14 \
+            + ["SHFL.IDX PT, R4, R5, R6, 0x1f"] * 4
+    else:
+        loads = ["LDG.E.CONSTANT R4, [R2.64]"] * 4
+    return ["LDC R7, c[0x0][R6+0x210]", "ISETP.NE.AND P0, PT, R7, R8, PT", "@P0 BRA 0x9990"] \
+        + loads + ["FSEL R1, R2, R3, P0"] * 4
+
+
+# the blocked kernels' one load of the output before the pass loop and one
+# store after it
+BLOCKED_EDGES = (["LDG.E R8, [R10.64]"] * 4, ["STG.E [R10.64], R8"] * 4)
+
+
 def listing(**override):
     """`pbf_lambda`'s pair loop and each kernel of csrc/micro_roll.cu as the
     built library holds it, with `override` names' bodies replaced (a list
@@ -518,12 +639,16 @@ def listing(**override):
               "f": [(["LDS.128 R4, [R5]"] + FP32_PAIR + ["MUFU.RSQ R6, R7"]) * 16
                     + ["SHFL.BFLY PT, R1, R2, R3, 0x1f", "FADD R1, R1, R2"] * 20
                     + ["FADD R1, R1, R2"] * 4]}
+    edges = {}
     for label in mr.PARTS:
         for body in mr.PART_BODIES:
             bodies[f"{label} {body}"] = [part(body) * (16 if label == "c" else 1)]
+            bodies[f"{label} {body} blocked"] = [visit(body) * (16 if label == "c" else 1)]
+            edges[f"{label} {body} blocked"] = BLOCKED_EDGES
     for name, loops in bodies.items():
-        funcs.append(sass_function(f"{prefix}{mr.pattern(name)}EvPKf",
-                                   override.get(name, loops), ["MOV R1, c[0x0][0x28]"]))
+        before, after = edges.get(name, ((), ()))
+        funcs.append(sass_function(f"{prefix}{mr.pattern(name)}EvPKf", override.get(name, loops),
+                                   ["MOV R1, c[0x0][0x28]", *before], after))
     vpu = {"vpu_rot": ["LDG.E R4, [R2.64]"] * 32 + ["SHFL.IDX PT, R4, R5, R6, 0x1f"] * 32
            + ["STG.E [R2.64], R4"] * 32,
            "vpu_unal": ["LDG.E.CONSTANT R4, [R2.64]"] * 4 + ["STG.E [R2.64], R4"] * 4,
@@ -541,6 +666,12 @@ def test_sass_check_on_a_recorded_listing():
     assert mr.short(report) == [], report
     assert report["a"]["shfl_a_trip"] == 32 and report["a"]["plus_zero_kept"]
     assert report["c shuffle"]["SHFL_a_part"] == 16 and report["d direct"]["LDG.32_a_part"] == 16
+    assert report["c shuffle blocked"]["SHFL_a_visit"] == 4
+    assert report["c shuffle blocked"]["LDG.32_a_visit"] == 8
+    assert report["d direct blocked"]["LDG.32_a_visit"] == 4
+    assert all(report[f"{label} {body} blocked"]["STG.128_a_visit"] == 0
+               for label in mr.PARTS for body in mr.PART_BODIES)
+    assert len(report) == 18
     assert report["f"]["pairs_a_pass"] == 16 and report["f"]["fp32_per_pair"] == 22
     assert report["f"]["same_as_pbf_lambda"]
 
@@ -561,6 +692,12 @@ def test_sass_check_reports_a_dropped_plus_zero():
     ("d direct", [part("shuffle")]),                            # direct compiled to shuffles
     ("e shuffle", [part("shuffle") * 2]),                       # the nested loop unrolled
     ("d shuffle", [part("shuffle") + ["LDL R1, [R1]"]]),        # a spill
+    ("d shuffle blocked", [visit("shuffle") + ["STG.E [R10.64], R8"]]),  # the store back
+    ("e direct blocked", [visit("direct") + ["LDG.E R8, [R10.64]"]]),  # the output's load back
+    ("c direct blocked", [visit("direct") * 16 + ["LDL R1, [R1]"]]),  # a spill
+    ("e shuffle blocked", [visit("shuffle") * 2]),              # the nested loop unrolled
+    ("d direct blocked", [visit("shuffle")]),                   # direct compiled to shuffles
+    ("c shuffle blocked", [visit("shuffle") * 15]),             # a part folded away
     ("f", [(["LDS.128 R4, [R5]"] + FP32_PAIR + ["MUFU.RSQ R6, R7"]) * 16
            + ["SHFL.BFLY PT, R1, R2, R3, 0x1f", "FADD R1, R1, R2"] * 20]),  # v's adds gone
     ("f", [(["LDS.128 R4, [R5]"] + FP32_PAIR[1:] + ["FFMA R1, R2, R3, R4", "MUFU.RSQ R6, R7"])

@@ -59,16 +59,21 @@ with a non-zero exit and no result line:
    pair of pbf_lambda's / pbf_delta's own loop, the blocked body's loop
    BLOCKED_ROWS MUFU.RSQ a LDS.128, the fp32 instructions a pair of
    pbf_lambda_cells' / pbf_delta_cells' loop and no local memory, the row
-   kernel pbf_lambda's 32-bit loads and pair loop), each against its plain
+   kernel pbf_lambda's 32-bit loads and pair loop, the blocked row kernel
+   the cells λ kernel's pair loop, its table loads and shuffles and no
+   local memory), each against its plain
    version (every issue instantiation and the λ/Δp bodies rtol 1e-5 / atol
    1e-6, the blocked bodies the same on seeds 0-1 at strides 1-2 and rtol
    n eps = 4.88e-4 on the tool's inputs, whose 4096 like terms a row drift
    one way in a running fp32 sum, and on each bit for bit the body kernel,
-   the row kernel atol 1e-9), then one rate reading of each through the
-   `Anchor` wrappers at the tool's sizes (CUDA events, the marginal between
-   two sizes, the SM clock sampled), and the blocked λ body at 7b's work
-   (the same threads, iterations / BLOCKED_ROWS) for its line; its launches
-   are counted over this phase, and its wall time printed;
+   the row kernels atol 1e-9 and on a seeded index with pairs rtol 1e-5 /
+   atol 1e-6, and the blocked row kernel bit for bit the row kernel and
+   the plain version on every element at 16,384 and 65,536 blocks and the
+   row kernel on the seeded index), then one rate reading of each through
+   the `Anchor` wrappers at the tool's sizes (CUDA events, the marginal
+   between two sizes, the SM clock sampled), and the blocked λ body at 7b's work (the same threads,
+   iterations / BLOCKED_ROWS) for its line; its launches are counted over
+   this phase, and its wall time printed;
 3f. the window micro-benchmark kernels (`csrc/micro_window.cu`, the kernels
    of `tools/micro_window.py`): the SASS of each body at W 128 and W 1
    (cuobjdump: one MUFU.RSQ a pair, pbf_lambda's fp32 instructions a pair
@@ -131,12 +136,14 @@ with a non-zero exit and no result line:
    instructions a pair, opcode by opcode, and one MUFU.RSQ a pair-slot in
    a, b, c, e, f, h, i, j and k, each loop its pairs a trip, b)'s bound an
    immediate, l)'s sqrt and divide with their slow-path guards, d)/g) 8/32
-   DMMAs a chunk a warp, k)'s bulk copy and barrier wait), each of the
-   twelve bodies against its plain version over 2 copies on the tool's
-   inputs and on seeded ones with fewer chunks (rtol 1e-5, atol 1e-5 x
-   max|value|), d) and g) also inside the range a float64 evaluation of
-   the TPU tool's r2 takes under the rounding of its fp32 operands and
-   sums (`mxu_f64`), then one
+   DMMAs a chunk a warp, k)'s bulk copy and barrier wait, g)'s redesign gb
+   (`dense_wmxu_blocked`) 8 DMMAs a chunk a warp and no barrier,
+   shared-memory store or local memory in its chunk loop),
+   each of the twelve bodies and gb against its plain version (gb: g)'s)
+   over 2 copies on the tool's inputs and on seeded ones with fewer chunks
+   (rtol 1e-5, atol 1e-5 x max|value|), d), g) and gb also inside the
+   range a float64 evaluation of the TPU tool's r2 takes under the rounding
+   of its fp32 operands and sums (`mxu_f64`), then one
    reading of each kernel through `MicroDense` at the JAX call's size (64
    copies, CUDA events, the marginal over 16 and 64 copies, the SM clock
    sampled), its bound from the work the function needs (PAIR_WORK); its
@@ -387,9 +394,10 @@ times at the 1M state as the direct walk's does, phase 6 for the MC field
 as `phase_launches`), 3c for the tiled
 kernels, dense and cull, whose line holds sub 64 with the tensor-core r2, 3d for the v2
 kernels, whose compaction numbers are the pStar pack's, 3e for the
-rate-anchor kernels, whose line holds fma 16x16, the λ body and the row
-kernel at the larger of their two sizes and the blocked λ body at the λ
-body's work, 3f for the window kernels, whose
+rate-anchor kernels, whose line holds fma 16x16, the λ body, the row
+kernel and the blocked row kernel at the larger of their
+two sizes and the blocked λ body at the λ body's work, 3f for the window
+kernels, whose
 line holds scenario A at nblocks 1024, the flat kernel's split body and the
 blocked kernels' split bodies (static's fused, its only one), 3g for
 the MC-field bisection kernels, whose ms is the CUDA-graph reading at
@@ -400,8 +408,8 @@ and new bodies at interleave 1, the fma ceiling at 8 streams, the loop
 bodies b) 16 streams, c) the chain of 16 and e) rsqrt, each bound by its
 fp32 and MUFU instructions over the SMs x 128 lanes of issue or its MUFU
 ops over the SMs x 16 of the MUFU pipe, whichever is longer, at the sampled
-SM clock), 3i for the dense-λ kernels, whose line holds a), d), g) and k)
-at 64 copies, bound as 3h's, d)/g) also by their DMMA flops over the FP64
+SM clock), 3i for the dense-λ kernels, whose line holds a), d), g), k)
+and gb at 64 copies, bound as 3h's, d)/g) also by their DMMA flops over the FP64
 tensor-core peak), 3j for the compaction building blocks, whose line
 holds a) with the card filled, d)'s shuffle and direct bodies, original
 and blocked, at the JAX call's 512 copies and f) with the card filled, each
@@ -500,6 +508,10 @@ KERNELS = {
     "anchor_body_blocked": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu",
                             "tools/anchor_rate.py:204"),
     "anchor_rowfix": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu", "tools/anchor_rate.py:288"),
+    # build_subfix redesigned: the main path's row code over a grid that
+    # fills the card, the range ends read once a warp
+    "anchor_rowfix_blocked": ("pbf_sph_tpu_torch/csrc/anchor_rate.cu",
+                              "tools/anchor_rate.py:288"),
     # the window micro-benchmark of tools/micro_window.py: build_prod_structure,
     # build_guarded, build_flat (split and fused), build_static_fused
     "window_prod": ("pbf_sph_tpu_torch/csrc/micro_window.cu", "tools/micro_window.py:176"),
@@ -539,6 +551,9 @@ KERNELS = {
     "dense_mxu": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:219"),
     "dense_wmxu": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:326"),
     "dense_scr": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:445"),
+    # k_wmxu redesigned: sg kept in registers as the reduce's operand, no
+    # barrier in the chunk loop
+    "dense_wmxu_blocked": ("pbf_sph_tpu_torch/csrc/micro_dense.cu", "tools/micro_dense.py:326"),
     # the compaction building blocks: tools/micro_roll.py's run (k_dyn and
     # k_sta; k_static, k_fori and k_nested in two bodies; k_lam), and
     # tools/micro_vpu.py's rot_kernel, unal_kernel and dma_kernel
@@ -1119,11 +1134,12 @@ def phase_v2(spec, dyn, fr, pairs: int, reps, report: dict) -> None:
 
 def phase_anchor():
     """3e: the rate-anchor kernels (csrc/anchor_rate.cu): the SASS of each
-    (cuobjdump), each against its plain version on the card (uncounted; the
-    blocked body also bit for bit the body kernel), then one rate reading of
-    each through `Anchor`'s wrappers at the tool's sizes and the blocked λ
-    body at the λ body's work (the launches counted for these kernels).
-    Returns (report, launches)."""
+    (cuobjdump), each against
+    its plain version on the card (uncounted; the blocked body also bit for
+    bit the body kernel, the blocked row kernel the row kernel and the plain
+    version), then one rate reading of each through `Anchor`'s wrappers at
+    the tool's sizes and the blocked λ body at the λ body's work (the
+    launches counted for these kernels).  Returns (report, launches)."""
     print("== 3e. rate-anchor kernels (csrc/anchor_rate.cu) against their plain PyTorch "
           "versions")
     from pbf_sph_tpu_torch.ops import cuda_build
@@ -1139,10 +1155,11 @@ def phase_anchor():
     rtols = {f"body_blocked {which} {tag}": rtol for which in ("lambda", "delta")
              for tag, _, _, rtol in ar.blocked_cases(device)}
     for label, (err, ok) in ar.card_parity(device).items():
-        if label.endswith("= anchor_body"):
+        if " = " in label:
             check(ok and err == 0, f"{label}: max abs err {err:.3e} (bit for bit)")
             continue
-        tol = ("atol 1e-9" if label.startswith("rowfix")
+        tol = ("rtol 1e-5, atol 1e-6" if label.endswith("seeded")
+               else "atol 1e-9" if label.startswith("rowfix")
                else f"rtol {rtols.get(label, 1e-5):.3g}, atol 1e-6")
         check(ok, f"{label}: max abs err {err:.3e} ({tol})")
         name = "anchor_" + label.split()[0]
@@ -1173,13 +1190,19 @@ def phase_anchor():
               f"({ar.BLOCKED_ROWS} rows a thread, {blk['threads']} threads) "
               f"{blk['rate'] / 1e9:.1f}, {blk['rate'] / r['rate']:.3f}x")
     print(f"  rowfix: {rates['rowfix']['ns_per_row']:.5f} ns a row")
+    r = rates["rowfix_blocked"]
+    print(f"  rowfix_blocked: {r['ns_per_row']:.5f} ns a row ({r['ms'][0]:.4f}, "
+          f"{r['ms'][1]:.4f} ms), {rates['rowfix']['ns_per_row'] / r['ns_per_row']:.3f}x faster")
 
-    # the numbers of the kernels line: fma 16x16, the λ body, rowfix, each at
-    # the larger of its two sizes; the blocked λ body at the λ body's work
+    # the numbers of the kernels line: fma 16x16, the λ body, rowfix and
+    # rowfix_blocked, each at the larger of its two sizes; the blocked λ body
+    # at the λ body's work
     n_fma, it_fma = fma["threads"], fma["iters"][1]
     nb = rates["rowfix"]["blocks"][1]
     body_flops = n_lam * nunroll * ar.WCOL * it_lam * FLOP_PER_PAIR["lambda"]
     body_bound = bound(nbytes(rows, strip) + 4 * n_lam, body_flops)
+    rowfix_bound = bound(20 * ar.ROWS + 4 * ar.rowfix_table_entries(index) + 4 * nb * ar.ROWS,
+                         nb * ar.ROWS * ROWFIX_FLOP)
     table = {
         "anchor_issue": (
             fma["ms"][1], lambda: ar.issue_plain(x, "fma", 16, 16, it_fma),
@@ -1195,9 +1218,11 @@ def phase_anchor():
         # the row kernel reads each row's key and float4 and only the table
         # entries at the ends of its rows' ranges, and writes one λ a thread
         "anchor_rowfix": (
-            rates["rowfix"]["ms"][1], lambda: ar.rowfix_plain(frows, index, nb),
-            bound(20 * ar.ROWS + 4 * ar.rowfix_table_entries(index) + 4 * nb * ar.ROWS,
-                  nb * ar.ROWS * ROWFIX_FLOP)),
+            rates["rowfix"]["ms"][1], lambda: ar.rowfix_plain(frows, index, nb), rowfix_bound),
+        # the same function
+        "anchor_rowfix_blocked": (
+            rates["rowfix_blocked"]["ms"][1],
+            lambda: ar.rowfix_plain(frows, index, nb), rowfix_bound),
     }
     report = {}
     for name, (ms, plain, (bound_ms, bound_by)) in table.items():
@@ -1591,11 +1616,12 @@ def phase_micro():
 
 def phase_dense():
     """3i: the dense-λ micro-benchmark kernels (csrc/micro_dense.cu): the SASS
-    of every body (cuobjdump), each body against its plain version on the
-    card on the tool's inputs and seeded ones, d)/g) also against float64
-    (uncounted), then one reading
-    of each kernel through `MicroDense` at the JAX call's size (the launches
-    counted for these kernels).  Returns (report, launches)."""
+    of every body and of gb (cuobjdump; dense_mxu's opcodes the parent
+    build's), each body and gb against its plain version on the card on the
+    tool's inputs and seeded ones, d)/g)/gb also against float64
+    (uncounted), then one reading of each kernel through `MicroDense` at
+    the JAX call's size, gb after g (the launches counted for these
+    kernels).  Returns (report, launches)."""
     print("== 3i. dense-λ micro-benchmark kernels (csrc/micro_dense.cu) against their plain "
           "PyTorch versions")
     from pbf_sph_tpu_torch.ops import cuda_build
@@ -1612,7 +1638,7 @@ def phase_dense():
     for label, (err, ok) in md.card_parity(device).items():
         check(ok, f"{label}: max abs err {err:.3e} (rtol {md.RTOL}, atol {md.ATOL_SHARE} x "
                   f"max|value|)")
-        name = md.BODIES[label.split()[0]].kernel
+        name = md.kernel_of(label.split()[0])
         errs[name] = max(errs[name], err)
     for label, (err, ok) in md.card_float64(device).items():
         check(ok, f"{label}: {err:.3e} from float64, inside the range its fp32 operands and "
@@ -1621,7 +1647,8 @@ def phase_dense():
     dense = md.MicroDense()
     x = md.tool_inputs(device=device)
     # the body that stands in the kernels line for each kernel
-    line_body = {"dense_loop": "a", "dense_mxu": "d", "dense_wmxu": "g", "dense_scr": "k"}
+    line_body = {"dense_loop": "a", "dense_mxu": "d", "dense_wmxu": "g", "dense_scr": "k",
+                 "dense_wmxu_blocked": "gb"}
     with ar.ClockSampler(device) as clock:
         readings = {name: md.read_body(dense, label, x, "jax", 5)
                     for name, label in line_body.items()}
@@ -1641,6 +1668,9 @@ def phase_dense():
         # no single PyTorch call computes these sums
         report[name] = dict(max_abs_err=errs[name], ms=r["ms"][1], plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    gb = report["dense_wmxu_blocked"]
+    print(f"  dense_wmxu_blocked (gb): {report['dense_wmxu']['ms'] / gb['ms']:.3f}x dense_wmxu "
+          f"(g), {gb['bound_ms'] / gb['ms']:.3f} of the bound")
     print(f"  dense wrapper launches: {launches}")
     return report, launches
 

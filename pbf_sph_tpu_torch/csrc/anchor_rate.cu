@@ -7,6 +7,9 @@
 //                    a thread on one shared-memory read of each candidate,
 //                    with the pair terms of the main path (csrc/pbf_cells.cu)
 //   anchor_rowfix <- build_subfix (a λ row whose every range is empty, :288)
+//   anchor_rowfix_blocked <- build_subfix, redesigned: the same function by
+//                    the main path's row code (csrc/pbf_cells.cu), a grid that
+//                    fills the card, each (dx, dy)'s range ends read once a warp
 // Each computes what its Pallas kernel computes; the (8,128) vreg tiles, the
 // 128-lane chunks, the sentinel strip and the static unrolling that Mosaic
 // needs are not carried over.  pbf_sph_tpu_torch/tools/anchor_rate.py holds
@@ -20,7 +23,8 @@
 // pbf_delta_cells run, with the read and the loop's own instructions shared
 // by R pairs), and for anchor_rowfix the per-row fixed
 // work of pbf_lambda's own row code: the key, the row, 18 cell-table reads
-// and the λ store.  Each kernel is launched over
+// and the λ store (anchor_rowfix_blocked: the same work of the main path's
+// row code, in this card's layout).  Each kernel is launched over
 // enough CTAs to fill every SM at its occupancy (anchor_fill_threads), each
 // thread computing one element of the JAX output again (thread t takes
 // element t mod 1024 of the tile, row t mod 64 of the body, rows t*R .. t*R
@@ -250,6 +254,103 @@ __global__ void __launch_bounds__(kThreads)
                          rho_recip, cfm);
 }
 
+// anchor_rowfix's function, redesigned for this card, on the row code of
+// the main path's pbf_lambda_cells (csrc/pbf_cells.cu): the key, the row's
+// float4, the nine (dx, dy) ranges [table[clip(base - 1)], table[clip(base +
+// 2)]) as walk_direct builds them, cells_lambda_pair over each range and
+// cells_lambda_end (fluid).  rowfix_kernel runs one short thread a row over
+// (n + 255) / 256 CTAs and 18 dependent table reads and some 25
+// instructions a range a row; here a grid that fills the card walks the
+// output in turns of 32 R elements a warp, and a warp reads each (dx, dy)'s
+// range ends once: where its member rows' cells lie within kSharedSpan of
+// each other, lane l loads table[clip(lmin + off - 1 + l)] (one coalesced
+// load) and each row takes its lo and hi from lanes lin - lmin and lin -
+// lmin + 3 by __shfl_sync, so the ends a row reads are the entries
+// walk_direct reads (a non-member row takes both from lane 0: an empty
+// range); where every lane's entry of every range lies inside the table, the
+// warp skips the clip.  A warp whose span is wider loads each row's ends
+// directly, warp-uniform.  The nine ranges' loads are all issued before the
+// first range loop, and the range loop is walk_direct's.  A thread takes
+// elements w0 + 32q + lane, q < R (rows 32 apart: a warp's 32 rows of a
+// step span 16 cells of the tool's index, two rows a cell, and each λ is a
+// coalesced 4-byte store).  Element e is the λ of row e mod nrows.  The
+// pair terms are the cells kernels', so the output is rowfix_kernel's bit
+// for bit wherever every r2c is normal.
+constexpr int kRowfixRows = 4;  // R: tools/anchor_rate.py's ROWFIX_ROWS
+constexpr int kSharedSpan = 28;  // ends lin - 1 .. lin + 2 of 29 cells: 32 lanes
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float rowfix_blocked_row(
+    const float4* __restrict__ cand, const int* __restrict__ key,
+    const int* __restrict__ table, int row, int lane, int ny, int nz, int ncells, float h,
+    float hh, float eps2, float p6f, float c_grad, float rho_recip, float cfm) {
+  const int lin = key[row];
+  const float4 a = cand[row];
+  const bool member = lin < ncells;
+  const int lmin = __reduce_min_sync(kFull, member ? lin : 0x7fffffff);
+  const int lmax = __reduce_max_sync(kFull, member ? lin : -1);
+  float p6s = 0.f, gx = 0.f, gy = 0.f, gz = 0.f;
+  if (lmax >= 0) {  // a member row in the warp
+    const int nynz = ny * nz;
+    const int dhi = member ? 3 : 0;  // a non-member's hi is its lo: no pair
+    int lo[9], hi[9];
+    if (lmax - lmin <= kSharedSpan) {
+      const int d = member ? lin - lmin : 0;
+      const int first = lmin - 1 + lane;  // lane's entry of the (0, 0) range
+      int v[9];
+      if (first - lane - nynz - nz >= 0 && first - lane + 31 + nynz + nz <= ncells) {
+        // every lane's entry of every range inside the table: no clip
+#pragma unroll
+        for (int k = 0; k < 9; ++k) v[k] = table[first + (k / 3 - 1) * nynz + (k % 3 - 1) * nz];
+      } else {
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+          v[k] = table[clip_cell(first + (k / 3 - 1) * nynz + (k % 3 - 1) * nz, ncells)];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        lo[k] = __shfl_sync(kFull, v[k], d);
+        hi[k] = __shfl_sync(kFull, v[k], d + dhi);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const int base = lin + (k / 3 - 1) * nynz + (k % 3 - 1) * nz;
+        lo[k] = table[clip_cell(base - 1, ncells)];
+        hi[k] = table[clip_cell(base - 1 + dhi, ncells)];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      for (int j = lo[k]; j < hi[k]; ++j) {
+        cells_lambda_pair(a.x, a.y, a.z, cand[j], h, hh, eps2, p6s, gx, gy, gz);
+      }
+    }
+  }
+  return cells_lambda_end(member, a.w, p6s, gx, gy, gz, p6f, c_grad, rho_recip, cfm, true);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    rowfix_blocked_kernel(const float4* __restrict__ cand, const int* __restrict__ key,
+                          const int* __restrict__ table, int n, int nrows, int ny, int nz,
+                          int ncells, float h, float hh, float eps2, float p6f, float c_grad,
+                          float rho_recip, float cfm, float* __restrict__ lam) {
+  constexpr int R = kRowfixRows;
+  constexpr int kTurn = 32 * R;  // elements a warp takes a turn
+  const int lane = threadIdx.x & 31;
+  const int step = gridDim.x * (kThreads / 32) * kTurn;
+  for (int w0 = (blockIdx.x * kThreads + threadIdx.x) / 32 * kTurn; w0 < n; w0 += step) {
+#pragma unroll 1
+    for (int q = 0; q < R; ++q) {
+      const int e = w0 + 32 * q + lane;
+      const float l = rowfix_blocked_row(cand, key, table, e & (nrows - 1), lane, ny, nz,
+                                         ncells, h, hh, eps2, p6f, c_grad, rho_recip, cfm);
+      if (e < n) lam[e] = l;
+    }
+  }
+}
+
 // Threads that fill every SM at the kernel's occupancy, 0 if it has none.
 template <typename K>
 int fill_threads(K kernel, size_t smem) {
@@ -344,6 +445,26 @@ int anchor_body_blocked(const void* rows, const void* strip, int lambda, int nch
                         void* out, void* stream) {
   return launch_body(lambda ? 3 : 4, rows, strip, nch, nunroll, niter, stride, h, hh, eps2,
                      skf, xqf, corr_k, rho_recip, nthreads, out, stream);
+}
+
+// λ (n elements, element e row e mod nrows) by rowfix_blocked_kernel over
+// the CTAs that fill the card (fewer where n needs fewer).
+int anchor_rowfix_blocked(const void* cand, const void* key, const void* table, int n,
+                          int nrows, int ny, int nz, int ncells, float h, float hh, float eps2,
+                          float p6f, float c_grad, float rho_recip, float cfm, void* lam,
+                          void* stream) {
+  if (nrows < 1 || (nrows & (nrows - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const int per_cta = kThreads * kRowfixRows;
+    const int need = (n + per_cta - 1) / per_cta;
+    const int fill = fill_ctas(rowfix_blocked_kernel, kThreads);
+    const int ctas = fill < need ? fill : need;
+    if (ctas <= 0) return (int)cudaErrorInvalidValue;
+    rowfix_blocked_kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float4*)cand, (const int*)key, (const int*)table, n, nrows, ny, nz, ncells, h,
+        hh, eps2, p6f, c_grad, rho_recip, cfm, (float*)lam);
+  }
+  return (int)cudaGetLastError();
 }
 
 int anchor_rowfix(const void* cand, const void* key, const void* table, int n,

@@ -1,8 +1,9 @@
 // Copies as the grid (sm_90a), shared by the micro-benchmarks that repeat
 // one tile's work over CTAs to fill the card (csrc/anchor_rate.cu,
 // csrc/micro_chunk.cu, csrc/micro_loop.cu, csrc/micro_roll.cu and
-// csrc/micro_vpu.cu; csrc/mc_field.cu's zero fill takes fill_ctas): the
-// CTA count that fills every SM at a kernel's occupancy, and the element a
+// csrc/micro_vpu.cu; csrc/mc_field.cu's zero fill and csrc/micro_dense.cu's
+// dense_wmxu_blocked take fill_ctas): the CTA count that fills every SM at a
+// kernel's occupancy, and the element a
 // CTA of a repeated tile computes.  One definition, inlined into each.
 //
 // Nothing here is a kernel.

@@ -9,6 +9,9 @@
 //   dense_mxu  <- k_mxu (:219, d): r2 = A2 (32, 5) @ B2 (5, 128) a chunk,
 //                 then sg (32, WCAP) @ [1; bx; by; bz]^T
 //   dense_mxu  <- k_wmxu (:326, g): the same at 512-wide chunks
+//   dense_wmxu_blocked <- k_wmxu (g), redesigned: sg kept in registers as
+//                 the reduce's operand, no shared-memory round trip or
+//                 barrier in the chunk loop, one r2 mma a block
 //   dense_scr  <- k_scr (:445, k): c)'s body, the candidates staged by DMA
 // pbf_sph_tpu_torch/tools/micro_dense.py holds the wrappers, the plain
 // versions and the SASS check of every kernel here.
@@ -53,7 +56,9 @@
 #include <stdint.h>
 
 #include "dmma.cuh"
+#include "grid_copies.cuh"
 #include "mbarrier.cuh"
+#include "pbf_cells_pair.cuh"
 #include "pbf_pair.cuh"
 
 namespace {
@@ -65,6 +70,9 @@ constexpr int kNch = 20;              // chunks of a sub-block
 constexpr int kWcap = kNch * kW;      // 2560 candidates of a sub-block
 constexpr int kWide = 512;            // columns of f)'s and g)'s chunks
 constexpr int kRowW = 8;              // floats of a row: rows (nsub, 32, 8)
+// fp64 row stride of dense_mxu_blocked_kernel's staged b2: the 4 rows an
+// r2 mma reads 8 banks apart, so a half-warp's 8-byte reads meet no conflict
+constexpr int kBlockedLd = kWcap + 4;
 
 // the bodies of dense_loop (Body.code in tools/micro_dense.py)
 enum Body { kDyn = 0, kStatic = 1, kUnrolled = 2, kDyn2 = 3, kWideDyn = 4, kSlab = 5,
@@ -398,6 +406,159 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// g)'s function redesigned for this card.  dense_mxu_kernel writes each
+// chunk's sg to shared memory and reads it back in the reduce's layout, with
+// a barrier on each side; it takes 4 m8n8k4 DMMA a 8 x 8 block (the card
+// runs that shape at about half its FP64 tensor rate), and converts every
+// operand it reads to fp64 as it reads it: 8 conversions a block, which the
+// card runs at 16 a clock an SM.  Here:
+// * a warp takes 16 rows (row block rb = warp % 2) and the 16 x 8 blocks cb
+//   = grp + 16i of a chunk (grp = warp / 2), on the sm_90 shapes: r2 by one
+//   m16n8k4 (A2 = [ax, ay, az, a2] of the 16 rows, B2 rows 0-3 of the 8
+//   columns), the reduce by one m16n8k8;
+// * the r2 accumulator already holds what the reduce needs: lane (g, t)
+//   holds D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1]
+//   (csrc/dmma.cuh), and A[g (+ 8)][t (+ 4)] of an m16n8k8 is lane (g, t)'s
+//   operand, so with k = t the block's column 2t and k = t + 4 its column
+//   2t + 1, the lane's four sg are the reduce's A, and B[t (+ 4)][n] = [1,
+//   bx, by, bz][n] at the same column.  A warp reduces the blocks it
+//   computed: the chunk loop has no shared-memory store and no barrier;
+// * A2's constant column (1) times B2 row 4 is the r2 accumulator's
+//   starting value, so r2 takes K = 4: 2 DMMA a 16 x 8 block where
+//   dense_mxu_kernel takes 8 m8n8k4;
+// * b2 is staged once a CTA as fp64, with a row of zeros for the reduce's
+//   B columns 4-7 (180 KB: one CTA an SM), so a block converts only what
+//   it computes, r2 to fp32 and sg to fp64.  With one CTA an SM nothing
+//   overlaps the staging, so a CTA is persistent over the copies of its
+//   sub-block (copy r of CTA (t, y) for r = y, y + gridDim.y, ...; the
+//   launcher fills the SMs), and stages by float4 reads, all in flight;
+// * alternate blocks sum into two reduce accumulators, added at the end.
+// The fp64 sums run in another order than dense_mxu_kernel's: not its bits,
+// within rounding of them.  rsqrt is rsqrt.approx.ftz (r2 >= eps2 is normal:
+// rsqrtf's bits).  pass_stride must be even (the 16-byte reads of a column
+// pair).
+template <int WC>
+__global__ void __launch_bounds__(kThreads)
+    dense_mxu_blocked_kernel(const float* __restrict__ rows, const float* __restrict__ b2,
+                             DenseConsts k, int nsub, int nrep, int npass, int pass_stride,
+                             float* __restrict__ out) {
+  constexpr int kChunks = kWcap / WC;
+  constexpr int kGroups = kThreads / 32 / 2;     // column groups: 16
+  constexpr int kBlocks = WC / 8 / kGroups;      // 16 x 8 blocks of a warp a chunk: 4
+  constexpr int kQuads = 8 * kWcap / 4;          // b2's float4s of a sub-block
+  static_assert(kQuads % kThreads == 0 && kWcap % 4 == 0, "whole float4 rounds");
+  static_assert(kBlocks % 2 == 0, "two accumulators take alternate blocks");
+  extern __shared__ __align__(16) double dsmem[];
+  double* bs = dsmem;                      // b2's 8 rows of the sub-block, fp64, and 0s
+  __shared__ float p6red[kGroups][kSub];
+  __shared__ double redsm[kGroups][kSub][4];
+
+  const int t = blockIdx.x;
+  const int ncols = nsub * kWcap;
+#pragma unroll
+  for (int j = 0; j < kQuads / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int f = i / (kWcap / 4), q = i - f * (kWcap / 4);
+    const float4 v = reinterpret_cast<const float4*>(b2 + f * ncols + t * kWcap)[q];
+    double2* d = reinterpret_cast<double2*>(bs + f * kBlockedLd + 4 * q);
+    d[0] = make_double2(v.x, v.y);
+    d[1] = make_double2(v.z, v.w);
+  }
+  for (int i = threadIdx.x; i < kWcap / 2; i += kThreads) {
+    reinterpret_cast<double2*>(bs + 8 * kBlockedLd)[i] = make_double2(0.0, 0.0);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int rb = warp & 1, grp = warp >> 1;
+  const int row0 = rb * 16 + g, row1 = row0 + 8;  // the lane's two rows
+  double afrag[2];  // A2[row][tq]: ax, ay, az, a2 (a2 rounded once, as in dense_mxu_kernel)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* rp = rows + (t * kSub + (h ? row1 : row0)) * kRowW;
+    const float ax = rp[0], ay = rp[1], az = rp[2];
+    const float a2 = __double2float_rn((double)ax * ax + (double)ay * ay + (double)az * az);
+    afrag[h] = tq == 0 ? ax : (tq == 1 ? ay : (tq == 2 ? az : a2));
+  }
+  const double* bk = bs + tq * kBlockedLd + g;                   // B2[tq][col + g]
+  const double* c4 = bs + 4 * kBlockedLd + 2 * tq;               // B2 row 4
+  // [1, bx, by, bz][g] for g < 4, the zero row for the B columns past them
+  const double* b4 = bs + (g < 4 ? 4 + g : 8) * kBlockedLd + 2 * tq;
+
+#pragma unroll 1
+  for (int copy = blockIdx.y; copy < nrep; copy += gridDim.y) {
+    float p6s[2] = {0.0f, 0.0f};  // rows row0, row1
+    double red[2][4] = {{0.0, 0.0, 0.0, 0.0}, {0.0, 0.0, 0.0, 0.0}};
+#pragma unroll 1
+    for (int p = 0; p < npass; ++p) {
+#pragma unroll 1
+      for (int ch = 0; ch < kChunks; ++ch) {
+        const int col0 = ch * WC + p * pass_stride;
+#pragma unroll
+        for (int i = 0; i < kBlocks; ++i) {
+          const int cn = col0 + (grp + kGroups * i) * 8;  // the block's first column
+          const double2 c = *reinterpret_cast<const double2*>(c4 + cn);
+          double d[4] = {c.x, c.y, c.x, c.y};
+          dmma_m16n8k4_acc(afrag[0], afrag[1], bk[cn], d[0], d[1], d[2], d[3]);
+          double sg[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float r2 = fmaxf(__double2float_rn(d[e]), k.eps2);
+            const float u = rsqrt_ftz(r2);
+            const float tt = fmaxf(k.hh - r2, 0.0f);
+            p6s[e >> 1] += tt * tt * tt;
+            const float t2 = fmaxf(fmaf(-r2, u, k.hf), 0.0f);
+            sg[e] = t2 * t2 * u;
+          }
+          const double2 bv = *reinterpret_cast<const double2*>(b4 + cn);
+          double* r = red[i & 1];
+          // A = sg: k = tq column 2tq (sg[0], sg[2]), k = tq + 4 column 2tq + 1
+          dmma_m16n8k8_acc(sg[0], sg[2], sg[1], sg[3], bv.x, bv.y, r[0], r[1], r[2], r[3]);
+        }
+      }
+    }
+
+    // the p6 sums of each row's four lanes, then of the column groups; red
+    // of lanes tq 0, 1 a row: (sum sg, sum bx*sg), (sum by*sg, sum bz*sg)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = p6s[h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int row = h ? row1 : row0;
+      if (tq == 0) p6red[grp][row] = v;
+      if (tq < 2) {
+        redsm[grp][row][2 * tq] = red[0][2 * h] + red[1][2 * h];
+        redsm[grp][row][2 * tq + 1] = red[0][2 * h + 1] + red[1][2 * h + 1];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < kSub) {
+      const int a = threadIdx.x;
+      float p6 = 0.0f;
+      double sum[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int s = 0; s < kGroups; ++s) {
+        p6 += p6red[s][a];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) sum[m] += redsm[s][a][m];
+      }
+      // as dense_mxu_kernel: red rounded to fp32, a * sum sg - red rounded once
+      const float* ra = rows + (t * kSub + a) * kRowW;
+      const double gsum = __double2float_rn(sum[0]);
+      float gr[3];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        gr[m] = __double2float_rn((double)ra[m] * gsum - (double)__double2float_rn(sum[m + 1]));
+      }
+      reinterpret_cast<float4*>(out)[(copy * nsub + t) * kSub + a] =
+          make_float4(p6, gr[0], gr[1], gr[2]);
+    }
+    __syncthreads();  // p6red and redsm read before the next copy writes them
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Dispatch
 // ---------------------------------------------------------------------------
@@ -476,6 +637,29 @@ int dense_mxu(const void* rows, const void* b2, int width, int nsub, int nrep, i
   const DenseConsts k{hh, hf, eps2, 0.0f};
   fn<<<dim3(nsub, nrep), kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)rows, (const float*)b2, k, nsub, npass, pass_stride, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// g) redesigned (dense_mxu_blocked_kernel at 512): as dense_mxu at width
+// 512, over (nsub, y) CTAs, y the copies' share of the CTAs that fill the
+// card (at least 1, at most nrep); b2 16-byte aligned, pass_stride even.
+int dense_wmxu_blocked(const void* rows, const void* b2, int nsub, int nrep, int npass,
+                       int pass_stride, float hh, float hf, float eps2, void* out,
+                       void* stream) {
+  if (bad_geometry(nsub, 1, nrep, npass) || pass_stride % 2 != 0 ||
+      ((uintptr_t)b2 & 15u) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto fn = dense_mxu_blocked_kernel<kWide>;
+  const size_t smem = (size_t)9 * kBlockedLd * sizeof(double);
+  cudaError_t err = launch_smem(fn, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int fill = fill_ctas(fn, kThreads, smem);
+  if (fill <= 0) return (int)cudaErrorInvalidValue;
+  const int ny = fill / nsub < 1 ? 1 : (fill / nsub < nrep ? fill / nsub : nrep);
+  const DenseConsts k{hh, hf, eps2, 0.0f};
+  fn<<<dim3(nsub, ny), kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)rows, (const float*)b2, k, nsub, nrep, npass, pass_stride, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -79,7 +79,8 @@ SIGNATURES = {
     "anchor_issue": [_P, _I, _I, _I, _I, _I, _P, _P],
     **dict.fromkeys(("anchor_body", "anchor_body_blocked"),
                     [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P]),
-    "anchor_rowfix": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P],
+    **dict.fromkeys(("anchor_rowfix", "anchor_rowfix_blocked"),
+                    [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P, _P]),
     # csrc/micro_window.cu
     **dict.fromkeys(("window_prod", "window_guarded", "window_prod_blocked",
                      "window_guarded_blocked"),
@@ -98,6 +99,7 @@ SIGNATURES = {
     # csrc/micro_dense.cu
     "dense_loop": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P],
     "dense_mxu": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P, _P],
+    "dense_wmxu_blocked": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     "dense_scr": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _P, _P],
     # csrc/micro_roll.cu (micro_roll_fill returns a copy count, or for
     # roll_part_blocked a CTA count; roll_part_blocked_chunks its CTAs a copy)

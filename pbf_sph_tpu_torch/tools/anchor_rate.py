@@ -25,7 +25,16 @@ the card, with the three hand-written kernels of `csrc/anchor_rate.cu`:
 * `rowfix` (`build_subfix`): λ of 1024 rows by `pbf_lambda`'s own row code
   (`lambda_member` of `csrc/pbf_pair.cuh`), replicated over `nblocks`
   blocks, with a cell table whose every range is empty: the fixed cost of a
-  row; λ = 1/CFM_EPSILON.
+  row; λ = 1/CFM_EPSILON;
+* `rowfix_blocked` (`build_subfix`, redesigned for the card): the same λ by
+  the row code of the main path's `pbf_lambda_cells` (the cells kernels'
+  ranges, pair terms and end), over a grid that fills the card, ROWFIX_ROWS
+  rows a thread 32 apart, each (dx, dy)'s range ends read once a warp where
+  its rows' cells lie within ROWFIX_SHARED_SPAN (`rowfix_warp_ends` mirrors
+  which lane loads which entry): the row cost of a card-tuned layout of the
+  cells row code, bit for bit `rowfix`'s output.  Rows 1b/2b run one thread
+  a row and share no range end across a warp, so their own row cost lies
+  between this one and `rowfix`'s, unmeasured.
 
 Each has a plain PyTorch version of the same signature; `Anchor` holds the
 wrappers, which take the plain version for a CPU tensor and the kernel for a
@@ -40,15 +49,18 @@ its op, the body loop one MUFU.RSQ and one shared-memory float4 read a pair
 and, opcode by opcode, the fp32 instructions a pair of the phase kernel's
 own loop, the blocked body's BLOCKED_ROWS pairs a float4 read and the fp32
 instructions a pair of the cells kernels' loop, the row kernel
-`pbf_lambda`'s loads and pair loop); settles dam_break(1M, 6) as
+`pbf_lambda`'s loads and pair loop, the blocked row kernel the cells
+kernels' pair loop, its table loads and shuffles); settles dam_break(1M, 6) as
 `bench_phases` does and counts its member rows and per-row candidate pairs;
 reads each rate as the marginal between two sizes, with CUDA events, while
 `nvidia-smi` samples the SM clock; and decomposes the per-row `pbf_lambda`
 and `pbf_delta` kernels at that state (launched on a (C, 4) pack made
 beforehand) into rows x fixed cost + pairs / body rate and a remainder, and
-sets rows 1b/2b (`pbf_lambda_cells`/`pbf_delta_cells` on their (C, 4) packs)
-beside their pairs / the blocked ceiling.  The last line is one JSON
-object.  Without a CUDA device the tool fails.
+rows 1b/2b (`pbf_lambda_cells`/`pbf_delta_cells` on their (C, 4) packs) the
+same way on their own code: member rows x the blocked row kernel's row cost
+(a card-tuned layout of their row code, a lower bound on their own) + pairs
+/ the blocked ceiling and a remainder.  The last line is one
+JSON object.  Without a CUDA device the tool fails.
 """
 
 from __future__ import annotations
@@ -67,7 +79,7 @@ import torch
 
 from pbf_sph_tpu_torch.ops import cuda_build
 from pbf_sph_tpu_torch.ops import phases as ph
-from pbf_sph_tpu_torch.ops.grid import GridSpec
+from pbf_sph_tpu_torch.ops.grid import GridSpec, build_cell_table
 
 OPS = ("fma", "mul", "max", "sub_mul", "rsqrt")
 # (op, nstreams, unroll) that csrc/anchor_rate.cu instantiates: the JAX
@@ -83,7 +95,8 @@ DAM1M_DIMS = (88, 88, 88)  # dam_break(1M)'s grid
 # bound (an FMA is two, as the published peak counts it)
 OPS_PER_ROUND = {"fma": 1, "mul": 1, "max": 1, "sub_mul": 1, "rsqrt": 2}
 FLOP_PER_ROUND = {"fma": 2, "mul": 1, "max": 1, "sub_mul": 1, "rsqrt": 2}
-KERNELS = ("anchor_issue", "anchor_body", "anchor_body_blocked", "anchor_rowfix")
+KERNELS = ("anchor_issue", "anchor_body", "anchor_body_blocked", "anchor_rowfix",
+           "anchor_rowfix_blocked")
 # R, the rows a thread of the blocked body holds (csrc/anchor_rate.cu's
 # kBlockedRows); the table line of chip_smoke.py runs the blocked body at
 # 7b's work, which needs R | 128
@@ -97,6 +110,11 @@ SERIAL_ITERS = (16384, 65536)
 BODY_SHAPE = dict(nunroll=8, nch=8)   # the JAX tool's
 BODY_ITERS = (32, 128)
 ROWFIX_BLOCKS = (16384, 65536)        # 8x the JAX tool's: the host call costs ~80 us
+# the blocked row kernel (csrc/anchor_rate.cu's kRowfixRows, kSharedSpan):
+# R rows a thread a turn; the widest span of a warp's member cells whose
+# range ends one 32-lane load holds (ends lin - 1 .. lin + 2: span + 4 <= 32)
+ROWFIX_ROWS = 4
+ROWFIX_SHARED_SPAN = 28
 
 
 # ---------------------------------------------------------------------------
@@ -201,16 +219,21 @@ def rowfix_index(rows, dims=DAM1M_DIMS) -> ph.CellIndex:
     return ph.CellIndex(GridSpec(extent=(nx - 1, ny - 1, nz - 1), maxz=0), key, table)
 
 
+def _ranges_offsets(index: ph.CellIndex) -> List[int]:
+    """The offsets from a row's cell to the base cell of each of its nine
+    (dx, dy) ranges, in the kernels' order (dx outer, dy inner)."""
+    _, ny, nz = index.grid.dims
+    return [ox * ny * nz + oy * nz for ox in (-1, 0, 1) for oy in (-1, 0, 1)]
+
+
 def rowfix_table_entries(index: ph.CellIndex) -> int:
     """The distinct cell-table entries the row kernel reads: both ends,
     clip(base - 1) and clip(base + 2), of the nine (dx, dy) ranges of every
     member row."""
-    _, ny, nz = index.grid.dims
     ncells = index.grid.ncells
     lin = index.key.long()
     lin = lin[lin < ncells]
-    off = torch.tensor([ox * ny * nz + oy * nz for ox in (-1, 0, 1) for oy in (-1, 0, 1)],
-                       device=lin.device)
+    off = torch.tensor(_ranges_offsets(index), device=lin.device)
     base = lin[:, None] + off
     return int(torch.unique(torch.cat([base - 1, base + 2]).clamp(0, ncells)).numel())
 
@@ -221,6 +244,91 @@ def rowfix_plain(rows, index: ph.CellIndex, nblocks: int):
     the member rows, as the port's key does; it scales nothing."""
     _check_rows(rows)
     return ph.lambda_plain(index, H, rows[:3], rows[3]).reshape(1, ROWS)
+
+
+def rowfix_warp_rows(nrows: int) -> torch.Tensor:
+    """(groups, 32) int64: the rows a warp's 32 lanes take together in one
+    step of the blocked row kernel's turn (one q), over one pass of the
+    output's first nrows elements (a multiple of 32 ROWFIX_ROWS): element w0
+    + 32q + lane, row e mod nrows."""
+    turn = 32 * ROWFIX_ROWS
+    if nrows % turn:
+        raise ValueError(f"nrows {nrows} is not a multiple of {turn}")
+    w0 = torch.arange(0, nrows, turn)[:, None, None]
+    q = torch.arange(ROWFIX_ROWS)[None, :, None]
+    lane = torch.arange(32)[None, None, :]
+    e = w0 + 32 * q + lane
+    return e.reshape(-1, 32) % nrows
+
+
+def rowfix_warp_ends(index: ph.CellIndex):
+    """The blocked row kernel's range ends, as its warps read them:
+    (lo (9, C), hi (9, C) int64 of each row's nine ranges, empty (hi = lo)
+    for a non-member; shared (groups,) bool, whether the warp of each group
+    of `rowfix_warp_rows` read its ends by one load a range; entries
+    (groups, 9, 32) int64, the table entry lane l loaded for range k, -1
+    where the warp loaded each row's ends directly).  A warp with a member
+    row whose member cells lie within ROWFIX_SHARED_SPAN of each other has
+    lane l load table[clip(lmin + off - 1 + l)], and row lin take lo from
+    lane lin - lmin and hi from lane lin - lmin + 3; any other warp loads
+    table[clip(lin + off - 1)] and table[clip(lin + off + 2)] a row."""
+    ncells = index.grid.ncells
+    groups = rowfix_warp_rows(index.key.numel()).to(index.key.device)
+    table = index.table.long()
+    lin = index.key.long()[groups]                                    # (G, 32)
+    member = lin < ncells
+    big = torch.iinfo(torch.int64).max
+    lmin = torch.where(member, lin, big).min(1, keepdim=True).values
+    lmax = torch.where(member, lin, -1).max(1, keepdim=True).values
+    shared = (lmax >= 0) & (lmax - lmin <= ROWFIX_SHARED_SPAN)        # (G, 1)
+    off = torch.tensor(_ranges_offsets(index), device=lin.device)[None, :, None]
+    lanes = torch.arange(32, device=lin.device)
+    lbase = torch.where(shared, lmin, 0)[:, :, None]
+    entries = torch.clamp(lbase + off - 1 + lanes, 0, ncells)        # (G, 9, 32)
+    d = torch.where(member & shared, lin - lmin, 0)[:, None, :]
+    src = table[entries]
+    lo_s = torch.gather(src, 2, d.expand(-1, 9, -1))
+    hi_s = torch.gather(src, 2, (d + 3).expand(-1, 9, -1))
+    base = lin[:, None, :] + off
+    lo_d = table[torch.clamp(base - 1, 0, ncells)]
+    hi_d = table[torch.clamp(base + 2, 0, ncells)]
+    sh = shared[:, :, None]
+    lo_g = torch.where(sh, lo_s, lo_d)
+    hi_g = torch.where(member[:, None, :], torch.where(sh, hi_s, hi_d), lo_g)
+    n = index.key.numel()
+    lo = torch.empty((9, n), dtype=torch.int64, device=lin.device)
+    hi = torch.empty_like(lo)
+    lo[:, groups.reshape(-1)] = lo_g.permute(1, 0, 2).reshape(9, -1)
+    hi[:, groups.reshape(-1)] = hi_g.permute(1, 0, 2).reshape(9, -1)
+    return lo, hi, shared[:, 0], torch.where(sh, entries, -1)
+
+
+def seeded_rowfix(seed: int, dims=(6, 5, 7), device="cpu") -> Tuple[torch.Tensor, ph.CellIndex]:
+    """(rows (5, 1024), index) from `seed` where the ranges are not empty:
+    positions in [0.5, 0.56]^3 (most pairs within h), mass in [0.5, 1.5];
+    a sorted key over `dims` with 0-12 rows a cell, a run of 32 empty cells
+    (a warp whose rows straddle it reads its ends directly) and the last
+    ~10% of the rows non-members (memberf 0; key ncells or ncells + 1)."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = dims
+    ncells = nx * ny * nz
+    counts = rng.integers(0, 13, ncells)
+    gap = ncells // 3
+    counts[gap:gap + 32] = 0
+    nmember = ROWS - ROWS // 10
+    lin = np.repeat(np.arange(ncells), counts)[:nmember]
+    if lin.size < nmember:
+        raise ValueError(f"grid {dims} holds {lin.size} rows, want {nmember}")
+    tail = np.sort(rng.integers(ncells, ncells + 2, ROWS - nmember))
+    key = np.concatenate([lin, tail]).astype(np.int32)
+    rows = np.empty((5, ROWS), np.float32)
+    rows[:3] = rng.uniform(0.5, 0.56, (3, ROWS))
+    rows[3] = rng.uniform(0.5, 1.5, ROWS)
+    rows[4] = (key < ncells).astype(np.float32)
+    grid = GridSpec(extent=(nx - 1, ny - 1, nz - 1), maxz=0)
+    key = torch.from_numpy(key).to(device)
+    return (torch.from_numpy(rows).to(device),
+            ph.CellIndex(grid, key, build_cell_table(key, grid)))
 
 
 def _check_rows(rows) -> None:
@@ -334,9 +442,9 @@ def blocked_shape(nthreads: int, niter: int, rows: int = BLOCKED_ROWS) -> Tuple[
     return nthreads, niter // rows
 
 
-def rowfix_kernel(rows, index: ph.CellIndex, nblocks: int):
-    """(1, 1024) λ from `anchor_rowfix` (replaces `build_subfix`'s kernel):
-    `nblocks` x 1024 threads, thread t computing row t mod 1024."""
+def _launch_rowfix(name: str, rows, index: ph.CellIndex, nblocks: int, whole: bool):
+    """λ from the row kernel `name` over `nblocks` x 1024 elements, element
+    e the λ of row e mod 1024: (1, 1024), or (nblocks, 1024) if `whole`."""
     _check_rows(rows)
     if nblocks < 1:
         raise ValueError(f"nblocks {nblocks} < 1")
@@ -348,17 +456,31 @@ def rowfix_kernel(rows, index: ph.CellIndex, nblocks: int):
     lam = torch.empty(nblocks * ROWS, dtype=rows.dtype, device=dev)
     _, ny, nz = index.grid.dims
     c = ph.PairConstants.of(H)
-    lib = cuda_build.library()
     with torch.cuda.device(dev):
-        err = lib.anchor_rowfix(cand.data_ptr(), index.key.data_ptr(), index.table.data_ptr(),
-                                lam.numel(), ROWS, ny, nz, ncells, c.h, c.hh, c.eps2, c.p6f,
-                                c.c_grad, c.rho_recip, c.cfm, lam.data_ptr(), ph._stream(dev))
-    cuda_build.check("anchor_rowfix", err)
-    return lam[:ROWS].view(1, ROWS)
+        err = getattr(cuda_build.library(), name)(
+            cand.data_ptr(), index.key.data_ptr(), index.table.data_ptr(), lam.numel(), ROWS,
+            ny, nz, ncells, c.h, c.hh, c.eps2, c.p6f, c.c_grad, c.rho_recip, c.cfm,
+            lam.data_ptr(), ph._stream(dev))
+    cuda_build.check(name, err)
+    return lam.view(nblocks, ROWS) if whole else lam[:ROWS].view(1, ROWS)
+
+
+def rowfix_kernel(rows, index: ph.CellIndex, nblocks: int, whole: bool = False):
+    """(1, 1024) λ from `anchor_rowfix` (replaces `build_subfix`'s kernel):
+    `nblocks` x 1024 threads, thread t computing row t mod 1024; `whole`:
+    all (nblocks, 1024)."""
+    return _launch_rowfix("anchor_rowfix", rows, index, nblocks, whole)
+
+
+def rowfix_blocked_kernel(rows, index: ph.CellIndex, nblocks: int, whole: bool = False):
+    """(1, 1024) λ from `anchor_rowfix_blocked` (`build_subfix`'s function,
+    redesigned) over the CTAs that fill the card, element e the λ of row e
+    mod 1024; `whole`: all (nblocks, 1024)."""
+    return _launch_rowfix("anchor_rowfix_blocked", rows, index, nblocks, whole)
 
 
 class Anchor:
-    """The four wrappers, with a launch counter per kernel: `launches[name]`
+    """The five wrappers, with a launch counter per kernel: `launches[name]`
     starts at 0 and grows by one each time a wrapper launches its CUDA
     kernel, and at no other time.  A CPU tensor takes the plain version,
     where `nthreads` means nothing."""
@@ -395,6 +517,13 @@ class Anchor:
             return rowfix_plain(rows, index, nblocks)
         out = rowfix_kernel(rows, index, nblocks)
         self.launches["anchor_rowfix"] += 1
+        return out
+
+    def rowfix_blocked(self, rows, index: ph.CellIndex, nblocks: int):
+        if rows.device.type == "cpu":
+            return rowfix_plain(rows, index, nblocks)
+        out = rowfix_blocked_kernel(rows, index, nblocks)
+        self.launches["anchor_rowfix_blocked"] += 1
         return out
 
 
@@ -518,6 +647,13 @@ PHASE_KERNELS = {"lambda": "13lambda_kernelEPK6float4", "delta": "12delta_kernel
 # the main path's λ/Δp kernels of csrc/pbf_cells.cu, whose pair loop the
 # blocked body measures
 CELLS_KERNELS = {"lambda": "19lambda_cells_kernel", "delta": "18delta_cells_kernel"}
+# the blocked row kernel
+ROWFIX_BLOCKED_KERNEL = "rowfix_blocked_kernel"
+# the 32-bit loads its row code needs: the key, one load a range of the
+# warp-shared ends and two a range of the direct ends; and a shuffle for
+# each shared end
+ROWFIX_LOADS = 1 + 9 + 2 * 9
+ROWFIX_SHUFFLES = 2 * 9
 
 
 def check_sass(lib_path) -> Dict[str, dict]:
@@ -537,7 +673,8 @@ def check_funcs(funcs: Dict[str, Sass]) -> Dict[str, dict]:
     phase kernel's loop, so that the anchor cannot drift from the code it
     measures; the blocked bodies `check_blocked` against the cells kernels;
     the row kernel the 32-bit loads of `pbf_lambda` (the key and the two
-    cell-table reads of the nine-range loop) and its pair loop."""
+    cell-table reads of the nine-range loop) and its pair loop; the blocked
+    row kernel `check_rowfix_blocked`."""
     report = {}
     for op, ns, un in OP_SHAPES:
         kinds = OP_OPCODES[op]
@@ -576,7 +713,35 @@ def check_funcs(funcs: Dict[str, Sass]) -> Dict[str, dict]:
     same = fp32_per_pair(pair_loop(rowfix)) == phase["lambda"]
     report["rowfix"] = dict(ok=want >= 3 and _ldg32(rowfix) == want and same,
                             want=want, ldg32=_ldg32(rowfix), same_as_phase=same)
+    report.update(check_rowfix_blocked(funcs, cells_per_pair(funcs)["lambda"]))
     return report
+
+
+def _local(sass: Sass) -> int:
+    return sum(1 for _, op, _ in sass[0] if op.split(".")[0] in ("LDL", "STL"))
+
+
+def check_rowfix_blocked(funcs: Dict[str, Sass], cells: Dict[str, float]) -> Dict[str, dict]:
+    """"rowfix_blocked" -> dict(ok, counts) for the blocked row kernel: its
+    range loop is there with, opcode by opcode, the fp32-pipe
+    instructions a pair of the cells λ kernel's loop (`cells`), one MUFU.RSQ
+    a pair; it holds ROWFIX_LOADS 32-bit loads (the key, the shared ends'
+    one load a range and the direct ends' two) and ROWFIX_SHUFFLES shuffles
+    (the shared ends), or more; and no local memory.  Every output of the
+    tool's inputs is 1/CFM and every range is empty, so the table is what
+    the compiler cannot see through: the loads and the loop show that the
+    work was not folded."""
+    sass = _one(funcs, ROWFIX_BLOCKED_KERNEL)
+    main = pair_loop(sass)
+    per_pair = fp32_per_pair(main)
+    shfl = sum(1 for _, op, _ in sass[0] if op.startswith("SHFL"))
+    local = _local(sass)
+    return {"rowfix_blocked": dict(
+        ok=main["MUFU.RSQ"] > 0 and per_pair == cells and _ldg32(sass) >= ROWFIX_LOADS
+        and shfl >= ROWFIX_SHUFFLES and local == 0,
+        pairs_a_loop=main["MUFU.RSQ"], fp32_per_pair=sum(per_pair.values()),
+        same_as_cells=per_pair == cells, ldg32=_ldg32(sass), want_ldg32=ROWFIX_LOADS,
+        shfl=shfl, local=local)}
 
 
 def cells_per_pair(funcs: Dict[str, Sass]) -> Dict[str, Dict[str, float]]:
@@ -601,7 +766,7 @@ def check_blocked(funcs: Dict[str, Sass],
         lds = sum(v for k, v in main.items() if k.startswith("LDS") and "128" in k)
         per_pair = fp32_per_pair(main)
         rsq = max(main["MUFU.RSQ"], 1)
-        local = sum(1 for _, op, _ in sass[0] if op.split(".")[0] in ("LDL", "STL"))
+        local = _local(sass)
         report[f"body_blocked {which}"] = dict(
             ok=BLOCKED_ROWS >= 2 and lds > 0 and main["MUFU.RSQ"] == BLOCKED_ROWS * lds
             and per_pair == want
@@ -685,7 +850,9 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     both rtol 1e-5, atol 1e-6.  The blocked bodies on `blocked_cases` at
     each case's rtol (1e-5, or n u on the tool's inputs), atol 1e-6, and bit
     for bit the body kernel there (the labels ending "= anchor_body": 0
-    error, equal).  rowfix at 1 and 8 blocks, atol 1e-9."""
+    error, equal).  rowfix and rowfix_blocked at 1 and 8 blocks, atol 1e-9, and on `seeded_rowfix(seed)` at 8 blocks (every
+    element), rtol 1e-5, atol 1e-6 (pair sums in another order); and
+    `rowfix_bits`."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy((1 + 1e-3 * rng.random(TILE)).astype(np.float32)).to(device)
     res = {}
@@ -711,8 +878,43 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     frows = tool_inputs(device)[3]
     index = rowfix_index(frows)
     for nblocks in (1, 8):
-        close(f"rowfix {nblocks} blocks", rowfix_kernel(frows, index, nblocks),
-              rowfix_plain(frows, index, nblocks), rtol=0, atol=1e-9)
+        want = rowfix_plain(frows, index, nblocks)
+        close(f"rowfix {nblocks} blocks", rowfix_kernel(frows, index, nblocks), want,
+              rtol=0, atol=1e-9)
+        close(f"rowfix_blocked {nblocks} blocks", rowfix_blocked_kernel(frows, index, nblocks),
+              want, rtol=0, atol=1e-9)
+    srows, sindex = seeded_rowfix(seed, device=device)
+    want = rowfix_plain(srows, sindex, 8)
+    close("rowfix seeded", rowfix_kernel(srows, sindex, 8, whole=True), want,
+          rtol=1e-5, atol=1e-6)
+    close("rowfix_blocked seeded", rowfix_blocked_kernel(srows, sindex, 8, whole=True), want,
+          rtol=1e-5, atol=1e-6)
+    res.update(rowfix_bits(device, seed))
+    return res
+
+
+def rowfix_bits(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
+    """label -> (max abs err, equal): the blocked row kernel against `anchor_rowfix` and `rowfix_plain` (its one block repeated) on
+    every element, on the tool's inputs at both ROWFIX_BLOCKS sizes and on
+    `seeded_rowfix(seed)` at 8 blocks against `anchor_rowfix`; each pair of
+    outputs must be equal bit for bit (the labels end "= anchor_rowfix" or
+    "= rowfix_plain")."""
+    frows = tool_inputs(device)[3]
+    srows, sindex = seeded_rowfix(seed, device=device)
+    cases = [(f"{nb} blocks", frows, rowfix_index(frows), nb) for nb in ROWFIX_BLOCKS]
+    cases.append(("seeded 8 blocks", srows, sindex, 8))
+    res = {}
+    for tag, rows, index, nb in cases:
+        want = rowfix_kernel(rows, index, nb, whole=True)
+        plain = rowfix_plain(rows, index, nb) if tag != "seeded 8 blocks" else None
+        got = rowfix_blocked_kernel(rows, index, nb, whole=True)
+        res[f"rowfix_blocked {tag} = anchor_rowfix"] = (
+            float((got - want).abs().max()), bool(torch.equal(got, want)))
+        if plain is not None:
+            full = plain.expand(nb, -1)
+            res[f"rowfix_blocked {tag} = rowfix_plain"] = (
+                float((got - full).abs().max()), bool(torch.equal(got, full)))
+        del got, want
     return res
 
 
@@ -800,7 +1002,8 @@ def read_rates(anchor: Anchor, dims, reps: int, device) -> dict:
     JAX tool's inputs, with the SM clock sampled beside: the issue rates
     (ops/s; the serial fma chain on one warp per SM, its ns per dependent
     op: a latency), the body ceilings and the blocked body's (pair-slots/s)
-    and the row fixed cost (ns/row)."""
+    and the row fixed cost (ns/row) of the row kernel and of the blocked row
+    kernel, read in turn."""
     x, _, _, frows = tool_inputs(device)
     index = rowfix_index(frows, dims)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -825,6 +1028,11 @@ def read_rates(anchor: Anchor, dims, reps: int, device) -> dict:
                                   ROWFIX_BLOCKS, reps)
         res["rowfix"] = dict(blocks=list(ROWFIX_BLOCKS), ms=[t_lo, t_hi],
                              ns_per_row=dt * 1e9 / ((ROWFIX_BLOCKS[1] - ROWFIX_BLOCKS[0]) * ROWS))
+        dt, t_lo, t_hi = marginal(lambda nb: anchor.rowfix_blocked(frows, index, nb),
+                                  ROWFIX_BLOCKS, reps)
+        res["rowfix_blocked"] = dict(
+            blocks=list(ROWFIX_BLOCKS), ms=[t_lo, t_hi],
+            ns_per_row=dt * 1e9 / ((ROWFIX_BLOCKS[1] - ROWFIX_BLOCKS[0]) * ROWS))
     res["clocks_sm_mhz"] = clock.summary()
     return res
 
@@ -860,10 +1068,13 @@ def decompose(rates: dict, sass: dict, spec, fr, reps: int, dyn) -> dict:
     walk, the L1/L2 reads of the candidates and occupancy.  Each kernel's
     fp32 issue share counts its own pair loop's instructions (the SASS).
     Then rows 1b/2b, `pbf_lambda_cells` and `pbf_delta_cells` launched on
-    their (C, 4) packs (`bench_cells.Frame`, with `dyn`'s bounds), beside
+    their (C, 4) packs (`bench_cells.Frame`, with `dyn`'s bounds), against
+    the same model on their own code: member rows x the blocked row
+    kernel's row cost (a card-tuned layout of their row code, read with
+    every range empty, two rows a cell; they share no range end across a
+    warp, so their own row cost lies between it and rowfix's, unmeasured) +
     the per-row pairs / the blocked body's ceiling, which runs their pair
-    code; no row fixed cost is added for them (rowfix measures
-    `pbf_lambda`'s row code, not theirs)."""
+    code, and the remainder."""
     from pbf_sph_tpu_torch.core.types import FLUID
     from pbf_sph_tpu_torch.tools import bench_cells as bc
     from pbf_sph_tpu_torch.tools.bench_kernel_variants import device_ms
@@ -903,12 +1114,16 @@ def decompose(rates: dict, sass: dict, spec, fr, reps: int, dyn) -> dict:
     b_out, a_out = torch.empty_like(b), f.pack_a.clone()
     cells_runs = {"lambda": lambda: f.lambda_cells(b_out),
                   "delta": lambda: f.delta_cells(b, a_out)}
+    cells_fixed_ms = members * rates["rowfix_blocked"]["ns_per_row"] * 1e-6
     for which, run in cells_runs.items():
         ms = device_ms(run, reps)
         ceiling = rates["blocked"][which]["rate"]
         anchored_ms = pairs / ceiling * 1e3
-        out[f"{which}_cells"] = dict(kernel_ms=ms, blocked_rate=ceiling,
-                                     anchored_ms=anchored_ms, share_of_ceiling=anchored_ms / ms)
+        out[f"{which}_cells"] = dict(
+            kernel_ms=ms, blocked_rate=ceiling, fixed_ms=cells_fixed_ms,
+            anchored_ms=anchored_ms, model_ms=cells_fixed_ms + anchored_ms,
+            remainder_ms=ms - cells_fixed_ms - anchored_ms, share_of_ceiling=anchored_ms / ms,
+            share_of_model=(cells_fixed_ms + anchored_ms) / ms)
     return out
 
 
@@ -975,6 +1190,10 @@ def main(argv=None) -> int:
     r = rates["rowfix"]
     print(f"== C. row fixed cost (blocks of {ROWS} rows {r['blocks']}: {r['ms'][0]:.4f}, "
           f"{r['ms'][1]:.4f} ms): {r['ns_per_row']:.5f} ns a row on the whole card")
+    b = rates["rowfix_blocked"]
+    print(f"  blocked row kernel ({b['ms'][0]:.4f}, {b['ms'][1]:.4f} ms): {b['ns_per_row']:.5f} "
+          f"ns a row = {r['ns_per_row'] / b['ns_per_row']:.3f}x faster; a card-tuned layout of "
+          f"the cells row code, every range empty, two rows a cell")
 
     dec = decompose(rates, sass, spec, fr, reps, dyn)
     print(f"== D. dam_break(1M, 6) settled sort-time state: {dec['members']} member rows "
@@ -994,9 +1213,14 @@ def main(argv=None) -> int:
     for which in ("lambda", "delta"):
         d = dec[f"{which}_cells"]
         print(f"  pbf_{which}_cells (row {'1b' if which == 'lambda' else '2b'}): kernel "
-              f"{d['kernel_ms']:.4f} ms on its (C, 4) packs; pairs / blocked ceiling "
-              f"({d['blocked_rate'] / 1e9:.1f} G pair-slots/s) {d['anchored_ms']:.4f} ms = "
-              f"{d['share_of_ceiling']:.3f} of the kernel")
+              f"{d['kernel_ms']:.4f} ms on its (C, 4) packs\n"
+              f"    model {d['model_ms']:.4f} ms = member rows x the blocked row kernel's row "
+              f"cost {d['fixed_ms']:.4f} (a card-tuned layout of the cells row code, a lower "
+              f"bound on theirs; read with every range empty, two rows a cell) + pairs "
+              f"/ blocked ceiling ({d['blocked_rate'] / 1e9:.1f} G pair-slots/s) "
+              f"{d['anchored_ms']:.4f}; remainder {d['remainder_ms']:.4f} ms\n"
+              f"    the model {d['share_of_model']:.3f} of the kernel, the pairs term "
+              f"{d['share_of_ceiling']:.3f}")
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0), "reps": reps,
                       "sass": sass, "parity": {k: e for k, (e, _) in parity.items()},
                       "rates": rates, "dam1m": dec}))

@@ -20,7 +20,16 @@ forms of the TPU tool, with the four hand-written kernels of
   their "r2" is a2*b2 + 1 - 2 a.b, not |a - b|^2 (a fault of the TPU tool
   that the port keeps, so that both compute the same);
 * `dense_scr` (`k_scr`, k): c)'s body on candidates staged by TMA bulk
-  copies (`cp.async.bulk` on an mbarrier) in place of thread loads.
+  copies (`cp.async.bulk` on an mbarrier) in place of thread loads;
+* `dense_wmxu_blocked` (gb, `k_wmxu` redesigned for the card): g)'s
+  function on the sm_90 FP64 shapes, a warp on 16 rows: r2 of a 16 x 8 block
+  by one m16n8k4 with A2's constant column folded into the accumulator's
+  starting value, and the block's sg kept in registers as the A operand of
+  one m16n8k8 reduce (k = t its column 2t, k = t + 4 its column 2t + 1), so
+  the chunk loop has no shared-memory round trip and no barrier; b2 staged
+  once a CTA in fp64, the CTA persistent over its sub-block's copies.  Its
+  fp64 sums run in another order: held to g)'s plain version and float64
+  range as g) is (the CPU tests mirror its column pairing in float64).
 
 Each output is (nrep, nsub, 32, 4): per row [sum p6, sum dx*sg, sum dy*sg,
 sum dz*sg].  The TPU kernels' REP loop recomputes the same values, so REP is
@@ -32,7 +41,7 @@ tensor cores give them, and their a2, hf - r2*u and a*sum(sg) - sum(b*sg)
 each rounded once from its exact value, in the kernel too: their r2
 cancels, so a contraction choice on either side would show); `MicroDense`
 holds the wrappers, which take the plain version for a CPU tensor and the
-kernel for a CUDA one, and count launches.
+kernel for a CUDA one, and count launches (gb takes g)'s plain version).
 
 The FPU bodies inline `lambda_pair` of `csrc/pbf_pair.cuh`, the λ phase
 kernels' own pair code.  The tool prints the card line; checks the SASS
@@ -40,9 +49,10 @@ kernels' own pair code.  The tool prints the card line; checks the SASS
 one MUFU.RSQ a pair in a, b, c, e, f, h, i, j and k; the pairs a trip of
 each loop; b)'s loop bound an immediate; l)'s sqrt and divide with their
 slow-path guards; d)/g)'s DMMAs a chunk; k)'s bulk copy and barrier wait,
-which no other body has); holds each body against its plain version on the
-tool's inputs and on seeded ones, and d)/g) inside the range of a float64
-evaluation (`mxu_f64`); then
+which no other body has; gb's 2 DMMA a 16 x 8 block and no barrier,
+shared-memory store or local memory in its chunk loop); holds each body
+and gb against its plain version on the tool's inputs and on seeded ones,
+and d)/g)/gb inside the range of a float64 evaluation (`mxu_f64`); then
 reads each body as the marginal between two sizes with CUDA events, at the
 JAX call's size (64 reps = 2048 CTAs, the card filled) and at one grid step
 (32 CTAs, `npass` passes a CTA over the same candidates, which nvcc cannot
@@ -127,10 +137,15 @@ BODIES = {b.label: b for b in (
     Body("k", "scratch cands unrl", "dense_scr", 0, NCH * 4),
     Body("l", "v1-mask math unrl", "dense_loop", 8, NCH * 4),
 )}
-KERNELS = ("dense_loop", "dense_mxu", "dense_wmxu", "dense_scr")
+KERNELS = ("dense_loop", "dense_mxu", "dense_wmxu", "dense_scr", "dense_wmxu_blocked")
+# the redesigns: label -> (the body whose function and plain version it
+# takes, its kernel, its name)
+REDESIGNS = {"gb": ("g", "dense_wmxu_blocked", "wide-512 MXU blocked")}
 PAIRED = ("i", "j")          # a CTA takes sub-blocks t and t + 1
 MXU = ("d", "g")
-DMMA_A_TRIP = {"d": 8, "g": 32}   # mma a warp a chunk: 2 x width / 32 warps
+# mma a warp a chunk: d/g 2 x width / 32 warps (m8n8k4); gb 2 a 16 x 8 block,
+# 4 blocks (an m16n8k4 and an m16n8k8)
+DMMA_A_TRIP = {"d": 8, "g": 32, "gb": 8}
 # the readings: reps of the grid at the JAX call's size, passes at one step
 SIZES = {"jax": (16, REP), "step": (16, 64)}
 PARITY_REPS = 2
@@ -211,8 +226,19 @@ def random_inputs(seed: int, nsub: int = NSUB, nch: int = NCH, device="cpu") -> 
 # ---------------------------------------------------------------------------
 
 
+def base(label: str) -> str:
+    """The body whose function `label` computes: itself, or a redesign's."""
+    return REDESIGNS[label][0] if label in REDESIGNS else label
+
+
+def kernel_of(label: str) -> str:
+    """The kernel that runs `label` (a key of the launch counts)."""
+    return REDESIGNS[label][1] if label in REDESIGNS else BODIES[label].kernel
+
+
 def _check_inputs(label: str, x: DenseInputs) -> Tuple[int, int]:
     """(nsub, wcap) of the inputs; raises on shapes that do not fit."""
+    label = base(label)
     if label not in BODIES:
         raise ValueError(f"body {label!r} is not one of {tuple(BODIES)}")
     nsub = x.rows.shape[0]
@@ -415,7 +441,8 @@ def mxu_f64(label: str, x: DenseInputs) -> Tuple[torch.Tensor, torch.Tensor, tor
 
 def run_plain(label: str, x: DenseInputs, nrep: int = 1, npass: int = 1):
     """The plain version of body `label` (k: c)'s; its staging is all it
-    changes)."""
+    changes; gb: g)'s)."""
+    label = base(label)
     if label in MXU:
         return mxu_plain(label, x, nrep, npass)
     return loop_plain("c" if label == "k" else label, x, nrep, npass)
@@ -446,34 +473,41 @@ def _card(label: str, x: DenseInputs, nrep: int, npass: int) -> Tuple[torch.devi
 
 def run_kernel(label: str, x: DenseInputs, nrep: int = 1, npass: int = 1):
     """(nrep, nsub, 32, 4) from the kernel of body `label`: `dense_loop`,
-    `dense_mxu` (d at 128, g at 512) or `dense_scr` (k), over a grid of
-    (nsub, nrep) CTAs (nsub / 2 for i, j), `npass` passes a CTA."""
+    `dense_mxu` (d at 128, g at 512), `dense_scr` (k) or
+    `dense_wmxu_blocked` (gb), over a grid of (nsub, nrep) CTAs (nsub / 2
+    for i, j; gb: (nsub, y), y filling the card, each CTA persistent over
+    its copies), `npass` passes a CTA."""
     dev, nsub = _card(label, x, nrep, npass)
-    body = BODIES[label]
+    kernel = kernel_of(label)
+    body = BODIES[base(label)]
     out = torch.empty((nrep, nsub, SUB, 4), dtype=torch.float32, device=dev)
     lib = cuda_build.library()
     geo = (nsub, nrep, npass, PASS_STRIDE)
     with torch.cuda.device(dev):
         stream = ph._stream(dev)
-        if body.kernel == "dense_loop":
+        if kernel == "dense_wmxu_blocked":
+            err = lib.dense_wmxu_blocked(x.rows.data_ptr(), x.b2.data_ptr(), *geo, HH, HF, EPS2,
+                                         out.data_ptr(), stream)
+        elif kernel == "dense_loop":
             rows = x.acl_rows if label == "l" else x.rows
             err = lib.dense_loop(rows.data_ptr(), x.cands.data_ptr(), x.nch.data_ptr(),
                                  body.code, *geo, HH, HF, EPS2, EPS, out.data_ptr(), stream)
-        elif body.kernel == "dense_scr":
+        elif kernel == "dense_scr":
             err = lib.dense_scr(x.rows.data_ptr(), x.cands.data_ptr(), *geo, HH, HF, EPS2,
                                 out.data_ptr(), stream)
         else:
             err = lib.dense_mxu(x.rows.data_ptr(), x.b2.data_ptr(), body.code, *geo, HH, HF,
                                 EPS2, out.data_ptr(), stream)
-    cuda_build.check(body.kernel, err)
+    cuda_build.check(kernel, err)
     return out
 
 
 class MicroDense:
-    """The wrappers of the four kernels, with a launch counter per kernel
+    """The wrappers of the five kernels, with a launch counter per kernel
     name (`KERNELS`): it starts at 0 and grows by one each time `run`
     launches a CUDA kernel, and at no other time.  A CPU tensor takes the
-    plain version, where nrep only repeats the copy."""
+    plain version, where nrep only repeats the copy; a label is a body's or
+    a redesign's (`REDESIGNS`)."""
 
     def __init__(self):
         self.launches = dict.fromkeys(KERNELS, 0)
@@ -482,7 +516,7 @@ class MicroDense:
         if x.rows.device.type == "cpu":
             return run_plain(label, x, nrep, npass)
         out = run_kernel(label, x, nrep, npass)
-        self.launches[BODIES[label].kernel] += 1
+        self.launches[kernel_of(label)] += 1
         return out
 
 
@@ -492,6 +526,8 @@ class MicroDense:
 
 
 def pattern(label: str) -> str:
+    if label == "gb":
+        return "24dense_mxu_blocked_kernelILi512E"
     body = BODIES[label]
     if body.kernel == "dense_loop":
         return f"17dense_loop_kernelILi{body.code}E"
@@ -549,6 +585,19 @@ def mxu_loop(sass: ar.Sass) -> dict:
                 mufu_a_trip=mch._mufu(c), insts_a_trip=sum(c.values()))
 
 
+def blocked_loop(sass: ar.Sass) -> dict:
+    """gb's chunk loop, `mxu_loop`'s counts and, in the loop, the barriers
+    and shared-memory stores; in the whole kernel, the local-memory
+    accesses."""
+    r = mxu_loop(sass)
+    spans = [sp for sp in ar.innermost_spans(sass) if _span_counts(sass, sp)["DMMA"]]
+    c = _span_counts(sass, spans[0]) if len(spans) == 1 else collections.Counter()
+    r.update(bar_a_trip=sum(v for k, v in c.items() if k.startswith("BAR")),
+             sts_a_trip=sum(v for k, v in c.items() if k.startswith("STS")),
+             local=ar._local(sass))
+    return r
+
+
 def _bulk_ops(sass: ar.Sass) -> Dict[str, int]:
     ops = collections.Counter(op.split(".")[0] for _, op, _ in sass[0])
     return {"bulk_copy": sum(v for k, v in ops.items() if "BLKCP" in k),
@@ -573,7 +622,10 @@ def check_funcs(funcs) -> Dict[str, dict]:
     divide's RCP) and two slow-path guards a pair-slot; d)/g)'s chunk loop
     DMMA_A_TRIP DMMAs and `trip` MUFU.RSQ; k) a bulk copy and a barrier wait
     that no other body has.  h) notes whether it compiled to c)'s
-    instructions."""
+    instructions.  gb (`blocked_loop`): its chunk loop DMMA_A_TRIP["gb"]
+    DMMAs (an r2 mma and a reduce mma a 16 x 8 block) and g)'s MUFU.RSQ, no
+    barrier and no shared-memory store (sg stays in registers), no local
+    memory and no bulk copy."""
     report = {}
     phase = ar.fp32_per_pair(ar.pair_loop(ar._one(funcs, ar.PHASE_KERNELS["lambda"])))
     for label, body in BODIES.items():
@@ -601,6 +653,13 @@ def check_funcs(funcs) -> Dict[str, dict]:
         report[label] = r
     report["h"]["same_as_c"] = (_opcodes(ar._one(funcs, pattern("h")))
                                 == _opcodes(ar._one(funcs, pattern("c"))))
+    sass = ar._one(funcs, pattern("gb"))
+    r = blocked_loop(sass)
+    r.update(_bulk_ops(sass))
+    r["ok"] = (r["dmma_a_trip"] == DMMA_A_TRIP["gb"] and r["rsq_a_trip"] == BODIES["g"].trip
+               and r["bar_a_trip"] == 0 and r["sts_a_trip"] == 0 and r["local"] == 0
+               and r["bulk_copy"] + r["barrier_wait"] == 0)
+    report["gb"] = r
     return report
 
 
@@ -632,7 +691,7 @@ def card_parity(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
     res = {}
     for case, x in (("tool", tool_inputs(device=device)),
                     ("random", random_inputs(seed, device=device))):
-        for label in BODIES:
+        for label in (*BODIES, *REDESIGNS):
             got = run_kernel(label, x, PARITY_REPS)
             res[f"{label} {case}"] = close(got, run_plain(label, x))
     return res
@@ -647,20 +706,22 @@ def within_f64(got, f64) -> Tuple[float, bool]:
 
 
 def card_float64(device, seed: int = 0) -> Dict[str, Tuple[float, bool]]:
-    """d)'s and g)'s kernels against `mxu_f64` on the card, on the tool's
-    inputs and `random_inputs`, their launches not counted; label -> (max
-    abs err against the float64 value, inside its rounding range)."""
+    """d)'s, g)'s and gb's kernels against `mxu_f64` (gb: g)'s) on the
+    card, on the tool's inputs and `random_inputs`, their launches not
+    counted; label -> (max abs err against the float64 value, inside its
+    rounding range)."""
     res = {}
     for case, x in (("tool", tool_inputs(device=device)),
                     ("random", random_inputs(seed, device=device))):
-        for label in MXU:
+        for label in (*MXU, *REDESIGNS):
             got = run_kernel(label, x, PARITY_REPS)
-            res[f"{label} {case} f64"] = within_f64(got, mxu_f64(label, x))
+            res[f"{label} {case} f64"] = within_f64(got, mxu_f64(base(label), x))
     return res
 
 
 def pairs_a_rep(x: DenseInputs, label: str) -> int:
     """Pair-slots one copy of body `label` computes on `x`."""
+    label = base(label)
     nsub, wcap = _check_inputs(label, x)
     counts = x.nch.tolist()
     total = 0
@@ -683,20 +744,20 @@ def read_body(md: MicroDense, label: str, x: DenseInputs, geo: str, reps: int) -
     nsub = x.rows.shape[0]
     pairs = (hi - lo) * pairs_a_rep(x, label)
     chunks = (hi - lo) * nsub * NCH
-    ctas = nsub // 2 if label in PAIRED else nsub
+    ctas = nsub // 2 if base(label) in PAIRED else nsub
     return dict(sizes=[lo, hi], ctas=ctas * (hi if geo == "jax" else 1), ms=[t_lo, t_hi],
                 ms_per_gridstep=dt * 1e3 / (hi - lo), ns_per_chunk=dt * 1e9 / chunks,
                 pairs_per_s=pairs / dt)
 
 
 def read_all(md: MicroDense, device, reps: int) -> dict:
-    """Every body at both sizes through `md` (counted) at the tool's inputs,
+    """Every body and redesign at both sizes through `md` (counted) at the tool's inputs,
     beside the rate anchor's λ body rate and chunk_new's pair-slot rate with
     the card filled, with the SM clock sampled."""
     x = tool_inputs(device=device)
     res = {"bodies": {}}
     with ar.ClockSampler(device) as clock:
-        for label in BODIES:
+        for label in (*BODIES, *REDESIGNS):
             res["bodies"][label] = {geo: read_body(md, label, x, geo, reps) for geo in SIZES}
         res["anchor_lambda_body"] = ar.body_rate(ar.Anchor(), "lambda", reps, device)
         fill = mch.fill_blocks(device, "bench", "new", 1)
@@ -711,6 +772,7 @@ def work(label: str, x: DenseInputs, nrep: int) -> dict:
     the kernel computes it: the pair-slots this run's trip counts give,
     times PAIR_WORK's fp32 and MUFU operations and tensor-core flops a
     pair; and the bytes read and written once."""
+    label = base(label)
     pairs = nrep * pairs_a_rep(x, label)
     nsub = x.rows.shape[0]
     fp32, mufu, flops = PAIR_WORK["mxu" if label in MXU else "l" if label == "l" else "fpu"]
@@ -786,7 +848,10 @@ def main(argv=None) -> int:
         j, s = geo["jax"], geo["step"]
         bms, by = bound_ms(work(label, x, REP), mhz, sms)
         fp32 = sass[label].get("fp32_per_pair")
-        print(f"  {label}) {BODIES[label].name:20s}: jax {j['ms_per_gridstep']:7.4f} "
+        name = REDESIGNS[label][2] if label in REDESIGNS else BODIES[label].name
+        if label in REDESIGNS:
+            name += f" ({res['bodies'][base(label)]['jax']['ms'][1] / j['ms'][1]:.3f}x)"
+        print(f"  {label}) {name:20s}: jax {j['ms_per_gridstep']:7.4f} "
               f"ms/gridstep-eq {j['ns_per_chunk']:7.3f} ns/chunk "
               f"[{j['pairs_per_s'] / 1e9:7.1f} Gpair/s = {j['pairs_per_s'] / body_rate:.3f} of "
               f"the λ body, {j['pairs_per_s'] / LAMBDA2_SLAB_PAIRS_PER_S:.3f} of λ2]; step "

@@ -7,9 +7,12 @@ file, and its Pallas kernels run in interpret mode on the CPU
 streams x 4 rounds x 8 iterations, the bodies at nunroll 2, nch 2, 3
 iterations, the row kernel at 1 block.  The port's `Anchor` wrappers run
 their plain versions on these CPU tensors and launch nothing; `body` and
-its redesign `body_blocked` take the same plain version.  The SASS checks
-(the body's, and the blocked body's against the cells kernels) run on
-recorded listings.
+its redesign `body_blocked` take the same plain version, and so do `rowfix`
+and its redesign `rowfix_blocked`.  The SASS checks (the body's, the blocked
+body's against the cells kernels, the blocked row kernel's) run on recorded
+listings; the blocked row kernel's warp logic (which lane loads which range
+end, when a warp loads each row's ends directly) runs in its Python mirror,
+`rowfix_warp_ends`, against direct clipped reads.
 
 Tolerances: the issue tiles and the bodies' per-row sums rtol 1e-5, atol
 1e-6 (fp32 sums in another order); λ of the row kernel atol 1e-9 (every sum
@@ -17,6 +20,7 @@ is 0, λ = 1/CFM_EPSILON).  The bodies are also held against a float64 numpy
 evaluation of the same pair sums on random rows and strips, rtol 1e-5.
 """
 
+import collections
 import functools
 import importlib.util
 import re
@@ -133,9 +137,16 @@ def test_chunk_reads_count_every_read():
     assert reads.tolist() == [7, 7, 6] and int(reads.sum()) == 5 * 4
 
 
-def test_rowfix_plain_matches_pallas():
+@functools.lru_cache(maxsize=None)
+def interpreted_subfix():
+    """(output of the interpreted build_subfix kernel at 1 block, its sub-blocks
+    an iteration); ~9 s, run once for the row kernel and its redesign."""
     build, per_iter = jax_anchor().build_subfix()
-    want = interpreted(build(1))
+    return interpreted(build(1)), per_iter
+
+
+def test_rowfix_plain_matches_pallas():
+    want, per_iter = interpreted_subfix()
     rows = torch.full((5, ar.ROWS), 0.05)
     index = ar.rowfix_index(rows)
     anchor = ar.Anchor()
@@ -260,3 +271,206 @@ def test_sass_blocked_check(case, ok):
     assert report["pairs_a_loop"] == 16
     assert report["same_as_cells"] is (case != "an fp32 op more")
     assert (report["local"] > 0) is (case == "local memory")
+
+
+def test_rowfix_blocked_plain_matches_pallas():
+    """The redesign's wrapper on CPU tensors: `rowfix_plain`, bit for bit the
+    interpreted build_subfix, at 1 and 3 blocks; no launch."""
+    want, _ = interpreted_subfix()
+    rows = torch.full((5, ar.ROWS), 0.05)
+    index = ar.rowfix_index(rows)
+    anchor = ar.Anchor()
+    for nblocks in (1, 3):
+        got = anchor.rowfix_blocked(rows, index, nblocks)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert anchor.launches == dict.fromkeys(ar.KERNELS, 0)
+
+
+def test_rowfix_kernels_refuse_cpu_tensors():
+    rows = torch.full((5, ar.ROWS), 0.05)
+    index = ar.rowfix_index(rows)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ar.rowfix_blocked_kernel(rows, index, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ar.rowfix_kernel(rows, index, 2, whole=True)
+
+
+def direct_ends(index, ncells):
+    """Each row's nine [lo, hi) read directly, clipped (`walk_direct`); a
+    non-member's range empty."""
+    lo, hi = ar.ph.neighbour_ranges(index)
+    member = index.key < ncells
+    return lo, hi, member
+
+
+def assert_warp_ends_are_direct(index):
+    ncells = index.grid.ncells
+    lo, hi, shared, entries = ar.rowfix_warp_ends(index)
+    want_lo, want_hi, member = direct_ends(index, ncells)
+    assert torch.equal(lo[:, member], want_lo[:, member])
+    assert torch.equal(hi[:, member], want_hi[:, member])
+    assert torch.equal(hi[:, ~member], lo[:, ~member])
+    # which lane loads which entry: lane l of a shared warp, range k, loads
+    # table[clip(lmin + off_k - 1 + l)]; a direct warp loads no shared entry
+    groups = ar.rowfix_warp_rows(ar.ROWS)
+    off = ar._ranges_offsets(index)
+    for g in range(groups.shape[0]):
+        lin = index.key[groups[g]].long()
+        lin = lin[lin < ncells]
+        if not shared[g]:
+            assert (entries[g] == -1).all()
+            assert lin.numel() == 0 or int(lin.max() - lin.min()) > ar.ROWFIX_SHARED_SPAN
+            continue
+        assert int(lin.max() - lin.min()) <= ar.ROWFIX_SHARED_SPAN
+        for k in range(9):
+            want = [min(max(int(lin.min()) + off[k] - 1 + l, 0), ncells) for l in range(32)]
+            assert entries[g, k].tolist() == want
+    return shared
+
+
+def test_rowfix_warp_rows_cover_each_row_once():
+    """A pass of the blocked row kernel's warps takes every row once, 32
+    consecutive rows a step of a warp (rows 32 apart a thread)."""
+    groups = ar.rowfix_warp_rows(ar.ROWS)
+    assert tuple(groups.shape) == (ar.ROWS // 32, 32)
+    assert torch.equal(groups.reshape(-1).sort().values, torch.arange(ar.ROWS))
+    assert bool((groups[:, 1:] - groups[:, :-1] == 1).all())
+    with pytest.raises(ValueError, match="not a multiple"):
+        ar.rowfix_warp_rows(32 * ar.ROWFIX_ROWS + 32)
+
+
+@pytest.mark.parametrize("dims", [ar.DAM1M_DIMS, (40, 30, 20)])
+def test_rowfix_warp_ends_on_the_tools_index(dims):
+    """On the tool's index (two rows a cell): every warp reads its ends by
+    one load a range (16 cells a warp), and they are the direct ends."""
+    rows = torch.full((5, ar.ROWS), 0.05)
+    shared = assert_warp_ends_are_direct(ar.rowfix_index(rows, dims))
+    assert bool(shared.all())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_rowfix_warp_ends_on_a_sorted_index(seed):
+    """On a sorted index with 0-12 rows a cell, a run of 32 empty cells and
+    non-member rows: some warps share their ends, some load them directly
+    (the run of empty cells, the members beside non-members at the end),
+    and every member row's ends are the direct ones."""
+    _, index = ar.seeded_rowfix(seed)
+    assert not bool((index.key < index.grid.ncells).all())
+    shared = assert_warp_ends_are_direct(index)
+    assert bool(shared.any()) and not bool(shared.all())
+
+
+def test_rowfix_warp_ends_clip_at_the_table_ends():
+    """Near the grid's ends a shared warp's lanes read clipped entries (0 and
+    ncells), and the ends are still the direct ones."""
+    rows = torch.full((5, ar.ROWS), 0.05)
+    index = ar.rowfix_index(rows, (14, 10, 9))
+    lo, hi, shared, entries = ar.rowfix_warp_ends(index)
+    ncells = index.grid.ncells
+    assert bool(shared.all())
+    assert int(entries.max()) == ncells
+    assert_warp_ends_are_direct(index)
+
+
+def test_seeded_rowfix_has_pairs():
+    """The seeded index has non-empty ranges (pairs to sum), members sorted,
+    memberf matching the key, and its plain λ differs from 1/CFM."""
+    rows, index = ar.seeded_rowfix(0)
+    ncells = index.grid.ncells
+    key = index.key.long()
+    assert bool((key[1:] >= key[:-1]).all())
+    assert torch.equal(rows[4] != 0, key < ncells)
+    lo, hi = ar.ph.neighbour_ranges(index)
+    assert int((hi - lo).sum()) > 50 * ar.ROWS
+    lam = ar.rowfix_plain(rows, index, 1)
+    assert bool(torch.isfinite(lam).all())
+    assert float((lam - 1.0 / np.float32(K.CFM_EPSILON)).abs().max()) > 1e-4
+
+
+def test_rowfix_constants_are_the_sources():
+    """R and the shared span that the mirror takes are the .cu's; 32 lanes
+    hold the ends lin - 1 .. lin + 2 of a span's cells."""
+    src = (REPO / "pbf_sph_tpu_torch" / "csrc" / "anchor_rate.cu").read_text()
+    rows = re.search(r"constexpr int kRowfixRows = (\d+);", src)
+    span = re.search(r"constexpr int kSharedSpan = (\d+);", src)
+    assert rows is not None and int(rows.group(1)) == ar.ROWFIX_ROWS
+    assert span is not None and int(span.group(1)) == ar.ROWFIX_SHARED_SPAN
+    assert ar.ROWFIX_SHARED_SPAN + 3 == 31
+    assert ar.ROWS % (32 * ar.ROWFIX_ROWS) == 0
+
+
+def test_anchor_launcher_signatures_are_the_cu_ones():
+    """Every launcher of csrc/anchor_rate.cu has a ctypes signature in
+    `cuda_build.SIGNATURES` with its own argument types."""
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    src = (REPO / "pbf_sph_tpu_torch" / "csrc" / "anchor_rate.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    kinds = {"const void*": cuda_build._P, "void*": cuda_build._P, "int": cuda_build._I,
+             "float": cuda_build._F}
+    found = {}
+    for name, args in re.findall(r"^int (\w+)\(([^)]*)\)", block, re.M):
+        found[name] = [kinds[" ".join(a.split()[:-1])] for a in args.split(",")]
+    assert set(ar.KERNELS) <= set(found)
+    for name, argtypes in found.items():
+        assert cuda_build.SIGNATURES[name] == argtypes, name
+
+
+ROWFIX_HEAD = ["LDG.E.CONSTANT R3, desc[UR6][R4.64]", "LDG.E.128.CONSTANT R8, desc[UR6][R8.64]",
+               "REDUX.MIN.S32 UR4, R12", "REDUX.MAX.S32 UR5, R4"]
+
+
+def rowfix_listing(name, shared_loads=9, direct_loads=18, shuffles=18, pair=CELLS_PAIR,
+                   extra=()):
+    """A listing of one blocked row kernel: the head, the shared ends' loads
+    and shuffles, the direct ends' loads, then a range loop of `pair`."""
+    before = ROWFIX_HEAD + ["LDG.E.CONSTANT R5, desc[UR6][R12.64]"] * shared_loads \
+        + ["SHFL.IDX PT, R17, R5, R27, 0x1f"] * shuffles \
+        + ["LDG.E.CONSTANT R6, desc[UR6][R14.64]"] * direct_loads + list(extra)
+    lines = [f"\t\tFunction : {name}"]
+    addr = 0
+    for op in before:
+        lines.append(f"        /*{addr:04x}*/                   {op} ;")
+        addr += 0x10
+    top = addr
+    for op in ["LDG.E.128.CONSTANT R12, desc[UR6][R26.64]"] + list(pair):
+        lines.append(f"        /*{addr:04x}*/                   {op} R3, R4, R5 ;")
+        addr += 0x10
+    lines.append(f"        /*{addr:04x}*/              @!P0 BRA 0x{top:x} ;")
+    lines.append(f"        /*{addr + 0x10:04x}*/                   EXIT ;")
+    return "\n".join(lines)
+
+
+def rowfix_funcs(**kw):
+    return ar.parse_sass(rowfix_listing(
+        "_ZN12_GLOBAL__N_121rowfix_blocked_kernelEPK6float4PKiS4_iiiiifffffffPf", **kw))
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("as built", True),
+    ("range loop folded", False),
+    ("a drifted pair", False),
+    ("shared loads missing", False),
+    ("direct loads missing", False),
+    ("shuffles missing", False),
+    ("local memory", False),
+])
+def test_sass_rowfix_blocked_check(case, ok):
+    """The blocked row kernel's SASS check passes the kernel as it was built
+    (28 32-bit loads, 18 SHFL, the cells λ pair loop) and catches a
+    folded range loop, a pair that drifted from the cells kernels', missing
+    table loads or shuffles, and a spill."""
+    kw = {"as built": {},
+          "range loop folded": {"pair": [op for op in CELLS_PAIR if op != "MUFU.RSQ"]},
+          "a drifted pair": {"pair": CELLS_PAIR + ["FMUL"]},
+          "shared loads missing": {"shared_loads": 0},
+          "direct loads missing": {"direct_loads": 0},
+          "shuffles missing": {"shuffles": 2},
+          "local memory": {"extra": ["STL [R1], R3"]}}[case]
+    cells = ar.fp32_per_pair(collections.Counter(CELLS_PAIR))
+    assert sum(cells.values()) == 18
+    report = ar.check_rowfix_blocked(rowfix_funcs(**kw), cells)
+    r = report["rowfix_blocked"]
+    assert r["ok"] is ok, (case, r)
+    if case == "as built":
+        assert (r["ldg32"], r["shfl"], r["local"]) == (ar.ROWFIX_LOADS, ar.ROWFIX_SHUFFLES, 0)

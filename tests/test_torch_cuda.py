@@ -818,6 +818,31 @@ def test_anchor_rowfix_kernel_matches_plain(card):
                                    atol=1e-9)
 
 
+@pytest.mark.parametrize("seed", [1, 2])
+def test_anchor_rowfix_blocked_is_the_row_kernel_bit_for_bit(card, seed):
+    """The redesigned row kernel gives the row kernel's bits on every
+    element: the tool's index with some non-member rows at 1, 3 and 8
+    blocks, and the seeded index (pairs, empty cells, warps that load their
+    ends directly) at 8; and the plain version's within 1e-9 / rtol 1e-5."""
+    rows = torch.full((5, ar.ROWS), 0.05, device=card)
+    rows[4, ::3] = 0
+    cases = [(rows, ar.rowfix_index(rows), nb, 0.0) for nb in (1, 3, 8)]
+    srows, sindex = ar.seeded_rowfix(seed, device=card)
+    cases.append((srows, sindex, 8, 1e-5))
+    for rows, index, nb, rtol in cases:
+        got = ar.rowfix_blocked_kernel(rows, index, nb, whole=True)
+        assert torch.equal(got, ar.rowfix_kernel(rows, index, nb, whole=True)), nb
+        torch.testing.assert_close(got, ar.rowfix_plain(rows, index, nb).expand(nb, -1),
+                                   rtol=rtol, atol=1e-9 if rtol == 0 else 1e-6)
+
+
+def test_anchor_rowfix_bits(card):
+    """`rowfix_bits`, the labels chip_smoke.py holds bit for bit."""
+    bits = ar.rowfix_bits(card)
+    assert len(bits) == 2 * len(ar.ROWFIX_BLOCKS) + 1
+    assert all(ok and err == 0 for err, ok in bits.values()), bits
+
+
 def test_anchor_wrappers_count_kernel_launches(card):
     anchor = ar.Anchor()
     x, rows, strip, frows = ar.tool_inputs(card)
@@ -825,6 +850,7 @@ def test_anchor_wrappers_count_kernel_launches(card):
     anchor.body(rows, strip, "delta", 2, 2)
     anchor.body_blocked(rows, strip, "lambda", 2, 2)
     anchor.rowfix(frows, ar.rowfix_index(frows), 2)
+    anchor.rowfix_blocked(frows, ar.rowfix_index(frows), 2)
     torch.cuda.synchronize()
     assert anchor.launches == dict.fromkeys(ar.KERNELS, 1)
 
@@ -1029,7 +1055,7 @@ def test_micro_chunk_and_loop_sass_are_full(card):
         assert mch.short(report) == [], report
 
 
-@pytest.mark.parametrize("label", list(md.BODIES))
+@pytest.mark.parametrize("label", list(md.BODIES) + list(md.REDESIGNS))
 def test_dense_kernels_match_plain(card, label):
     for x in (md.tool_inputs(device=card), md.random_inputs(2, device=card)):
         got = md.run_kernel(label, x, 3)
@@ -1042,22 +1068,23 @@ def test_dense_kernels_match_plain(card, label):
                                atol=md.ATOL_SHARE * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("label", md.MXU)
+@pytest.mark.parametrize("label", md.MXU + tuple(md.REDESIGNS))
 def test_dense_mxu_within_float64(card, label):
-    """d)/g) on the card inside the range a float64 evaluation of the TPU
-    tool's function takes under the rounding of its fp32 operands and sums,
-    which shares none of the kernel's rounding choices."""
+    """d)/g) and gb on the card inside the range a float64 evaluation of the
+    TPU tool's function takes under the rounding of its fp32 operands and
+    sums, which shares none of the kernel's rounding choices."""
     for x in (md.tool_inputs(device=card), md.random_inputs(2, device=card)):
-        assert md.within_f64(md.run_kernel(label, x, 2), md.mxu_f64(label, x))[1]
+        assert md.within_f64(md.run_kernel(label, x, 2), md.mxu_f64(md.base(label), x))[1]
 
 
 def test_dense_wrappers_count_kernel_launches(card):
     dense = md.MicroDense()
     x = md.tool_inputs(device=card)
-    for label in md.BODIES:
+    for label in (*md.BODIES, *md.REDESIGNS):
         dense.run(label, x)
     torch.cuda.synchronize()
-    assert dense.launches == {"dense_loop": 9, "dense_mxu": 1, "dense_wmxu": 1, "dense_scr": 1}
+    assert dense.launches == {"dense_loop": 9, "dense_mxu": 1, "dense_wmxu": 1, "dense_scr": 1,
+                              "dense_wmxu_blocked": 1}
     with pytest.raises(ValueError, match="instantiates wcap"):
         md.run_kernel("a", md.tool_inputs(2, 4, device=card))
     with pytest.raises(ValueError, match="odd"):
@@ -1069,7 +1096,7 @@ def test_micro_dense_sass_is_full(card):
 
     cuda_build.library()
     report = md.check_sass(cuda_build.library_path())
-    assert set(report) == set(md.BODIES)
+    assert set(report) == set(md.BODIES) | set(md.REDESIGNS)
     assert md.short(report) == [], report
 
 

@@ -9,7 +9,11 @@ inputs and also runs the same jitted kernel on seeded inputs of the same
 shapes.  `main()` runs once, its twelve Pallas kernels in interpret mode on
 the CPU (`pltpu.force_tpu_interpret_mode`), ~13 s; the outputs are cached.
 The port's `MicroDense` wrappers run their plain versions on these CPU
-tensors and launch nothing.
+tensors and launch nothing; g)'s redesign gb (`dense_wmxu_blocked`) takes
+g)'s plain version, and its column pairing (each 16 x 8 block's sg as the
+A operand of one m16n8k8 reduce, A2's constant column as the r2
+accumulator's starting value) is mirrored in float64 here (`gb_mirror`)
+and held inside `mxu_f64`'s range.
 
 Tolerances, plain version against the interpreted kernels:
 * the FPU bodies (a, b, c, e, f, h, i, j, k, l): rtol 1e-5 and atol 1e-7 x
@@ -358,6 +362,14 @@ def v1_pair():
          "CALL.REL.NOINC 0x980"]
 
 
+# gb's chunk loop as the built library should hold it: per 16 x 8 block an
+# r2 DMMA and a reduce DMMA, the epilogue of four values, the block's three
+# shared-memory reads; no store, no barrier
+GB_LOOP = (["LDS.64 R8, [R2]", "LDS.128 R10, [R3]", "LDS.128 R12, [R4]",
+            "DMMA.16x8x4 R14, R8, R10, R14"] + ["MUFU.RSQ R6, R7"] * 4 + FP32_PAIR * 2
+           + ["DMMA.16x8x8 R16, R8, R12, R16"]) * 4
+
+
 def listing(**override):
     """`pbf_lambda`'s pair loop and one function a body, each as the built
     library holds it (22 fp32 and one MUFU.RSQ a pair, the trips of
@@ -380,6 +392,8 @@ def listing(**override):
             loop = fpu_pair() * body.trip + ["ISETP.NE.AND P0, PT, R2, " +
                                              ("0x14" if label == "b" else "R3") + ", PT"]
         funcs.append(sass_function(name, override.get(label, loop), before))
+    funcs.append(sass_function(f"_ZN12_GLOBAL__N_1{md.pattern('gb')}EvPKfS1_", override.get(
+        "gb", GB_LOOP), ["BAR.SYNC.DEFER_BLOCKING 0x0"], ["STS [R2], R3", "BAR.SYNC 0x0"]))
     return "\n".join(funcs)
 
 
@@ -410,3 +424,148 @@ def test_sass_check_catches_what_nvcc_may_do():
     for label, loop in cases.items():
         report = md.check_funcs(ar.parse_sass(listing(**{label: loop})))
         assert md.short(report) == [label], (label, report[label])
+
+
+# ---------------------------------------------------------------------------
+# gb: g) redesigned (dense_wmxu_blocked)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["tool", "seeded"])
+def test_blocked_plain_matches_pallas(case):
+    """gb's wrapper on CPU tensors: g)'s plain version, within g)'s
+    tolerances of the interpreted k_wmxu; no launch."""
+    _, on_tool, on_seeded = jax_outputs()["g"]
+    x = md.tool_inputs(NSUB, NCH) if case == "tool" else seeded()
+    wrappers = md.MicroDense()
+    got = wrappers.run("gb", x, nrep=2)
+    assert torch.equal(got, md.run_plain("g", x, 2))
+    for copy in got.numpy():
+        assert_matches_pallas("g", copy, on_tool if case == "tool" else on_seeded, case)
+    assert wrappers.launches == dict.fromkeys(md.KERNELS, 0)
+    assert (md.base("gb"), md.kernel_of("gb"), md.kernel_of("g")) == (
+        "g", "dense_wmxu_blocked", "dense_wmxu")
+
+
+def gb_mirror(x, pairing=lambda k: 2 * k if k < 4 else 2 * (k - 4) + 1):
+    """(nsub, 32, 4) of gb on x, in float64 as the kernel pairs its columns:
+    warp (rb, grp) takes rows 16rb .. 16rb + 15 and the 16 x 8 blocks cb =
+    grp + 16i of each 512-column chunk; a block's r2 = B2 row 4 (A2's
+    constant column folded into the accumulator) + A2[:, :4] . B2[:4], then
+    rounded to fp32 and the epilogue in fp32; the reduce's A[r][k] and
+    B[k][n] are the lane fragments of csrc/dmma.cuh (a_i = A[g + 8 (i & 1)][t
+    + 4 (i >> 1)] = the sg lane (g, t) holds at row g + 8 (i & 1), column 2t
+    + (i >> 1); b_i = B[t + 4i][g] = [1, bx, by, bz][g] at column 2t + i), so
+    k pairs with column `pairing(k)`; alternate blocks sum into two fp64
+    accumulators; p6 a lane in fp32, then the lanes' butterfly and the 16
+    groups in order; the end as dense_mxu_kernel's."""
+    nsub, wcap = md._check_inputs("g", x)
+    rows = x.rows[:, :, :3].double()
+    b2 = x.b2.double()
+    out = torch.empty((nsub, md.SUB, 4), dtype=torch.float32)
+    cols = torch.tensor([pairing(k) for k in range(8)])
+    for t in range(nsub):
+        a = rows[t]                                               # (32, 3)
+        a2 = (a * a).sum(1).float().double()
+        amat = torch.cat([a, a2[:, None]], 1)                     # A2[:, :4]
+        bt = b2[:, t * wcap:(t + 1) * wcap]
+        p6 = torch.zeros((16, md.SUB, 4), dtype=torch.float32)    # (grp, row, lane t)
+        red = torch.zeros((2, 16, md.SUB, 4), dtype=torch.float64)
+        for ch in range(wcap // md.WIDE):
+            for i in range(md.WIDE // 8 // 16):
+                for grp in range(16):
+                    cn = ch * md.WIDE + (grp + 16 * i) * 8
+                    blk = bt[:, cn:cn + 8]
+                    r2 = (blk[4][None, :] + amat @ blk[:4]).float().clamp_min(md.EPS2)
+                    u = torch.rsqrt(r2)
+                    tt = (md.HH - r2).clamp_min(0.0)
+                    lane_p6 = (tt * tt * tt).reshape(md.SUB, 4, 2)   # column 2t + e
+                    p6[grp] += lane_p6[:, :, 0]
+                    p6[grp] += lane_p6[:, :, 1]
+                    t2 = md._fused_hf_minus(r2, u).clamp_min(0.0)
+                    sg = (t2 * t2 * u).double()                     # (32, 8)
+                    a_red = sg[:, cols]                             # A[r][k]
+                    b_red = blk[4:8, cols].T                        # B[k][n], n < 4
+                    red[i % 2, grp] += a_red @ b_red
+        lanes = (p6[..., 0] + p6[..., 1]) + (p6[..., 2] + p6[..., 3])   # (grp, row)
+        p6s = torch.zeros(md.SUB, dtype=torch.float32)
+        tot = torch.zeros((md.SUB, 4), dtype=torch.float64)
+        for grp in range(16):
+            p6s = p6s + lanes[grp]
+            tot = tot + (red[0, grp] + red[1, grp])
+        tot = tot.float().double()
+        grad = a * tot[:, :1] - tot[:, 1:]
+        out[t] = torch.cat([p6s[:, None], grad.float()], 1)
+    return out
+
+
+@pytest.mark.parametrize("case", ["tool", "seeded"])
+def test_blocked_mirror_inside_float64_range(case):
+    """gb's column pairing in float64 lies inside `mxu_f64`'s range and
+    within g)'s tolerances of g)'s plain version, on the tool's and the
+    seeded inputs."""
+    x = md.tool_inputs(NSUB, NCH) if case == "tool" else md.random_inputs(SEED, NSUB, NCH)
+    got = gb_mirror(x)[None]
+    assert md.within_f64(got, md.mxu_f64("g", x))[1]
+    assert md.close(got, md.run_plain("g", x))[1]
+
+
+def test_blocked_mirror_catches_a_wrong_pairing():
+    """Had the reduce paired k = t + 4 with column 2t (not 2t + 1), the sums
+    would leave the float64 range: the pairing is what the range holds."""
+    x = md.random_inputs(SEED, NSUB, NCH)
+    wrong = gb_mirror(x, pairing=lambda k: 2 * (k % 4))[None]
+    assert not md.within_f64(wrong, md.mxu_f64("g", x))[1]
+    assert not md.close(wrong, md.run_plain("g", x))[1]
+
+
+def test_blocked_kernel_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        md.run_kernel("gb", md.tool_inputs(NSUB))
+    with pytest.raises(ValueError, match="multiple of 512"):
+        md.run_plain("gb", md.tool_inputs(2, 3))
+
+
+@pytest.mark.parametrize("case, ok", [
+    ("as built", True),
+    ("a barrier in the chunk loop", False),
+    ("sg stored to shared memory", False),
+    ("local memory", False),
+    ("g)'s m8n8k4 count", False),
+])
+def test_sass_blocked_check(case, ok):
+    """gb's SASS check passes its chunk loop as built (2 DMMA a 16 x 8 block,
+    16 MUFU.RSQ, no store, no barrier) and catches a barrier or a
+    shared-memory store of sg in the loop, a spill anywhere, and g)'s DMMA
+    count."""
+    loop = {"as built": GB_LOOP,
+            "a barrier in the chunk loop": GB_LOOP + ["BAR.SYNC.DEFER_BLOCKING 0x0"],
+            "sg stored to shared memory": GB_LOOP + ["STS.64 [R5], R6"],
+            "local memory": GB_LOOP + ["LDL R7, [R1]"],
+            "g)'s m8n8k4 count": GB_LOOP + ["DMMA.8x8x4 R8, R10, R12, R8"] * 24}[case]
+    report = md.check_funcs(ar.parse_sass(listing(gb=loop)))
+    assert report["gb"]["ok"] is ok, report["gb"]
+    assert md.short(report) == ([] if ok else ["gb"])
+    if ok:
+        assert (report["gb"]["dmma_a_trip"], report["gb"]["rsq_a_trip"]) == (8, 16)
+
+
+def test_dense_launcher_signatures_are_the_cu_ones():
+    """Every launcher of csrc/micro_dense.cu has a ctypes signature in
+    `cuda_build.SIGNATURES` with its own argument types, one for each kernel
+    the tool counts."""
+    import re
+
+    from pbf_sph_tpu_torch.ops import cuda_build
+
+    src = (REPO / "pbf_sph_tpu_torch" / "csrc" / "micro_dense.cu").read_text()
+    block = src[src.index('extern "C" {'):]
+    kinds = {"const void*": cuda_build._P, "void*": cuda_build._P, "int": cuda_build._I,
+             "float": cuda_build._F}
+    found = {}
+    for name, args in re.findall(r"^int (\w+)\(([^)]*)\)", block, re.M):
+        found[name] = [kinds[" ".join(a.split()[:-1])] for a in args.split(",")]
+    assert set(found) == {"dense_loop", "dense_mxu", "dense_scr", "dense_wmxu_blocked"}
+    assert {md.kernel_of(label) for label in (*md.BODIES, *md.REDESIGNS)} == set(md.KERNELS)
+    for name, argtypes in found.items():
+        assert cuda_build.SIGNATURES[name] == argtypes, name
